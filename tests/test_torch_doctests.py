@@ -1,0 +1,42 @@
+"""Doctest every module of the torch port (on the CPU: examples run the
+plain twins)."""
+
+import doctest
+import importlib
+import pkgutil
+
+import pytest
+import torch
+
+import torchpme_tpu_torch
+
+torch.set_num_threads(1)
+
+
+def _walk_modules():
+    names = ["torchpme_tpu_torch"]
+    for info in pkgutil.walk_packages(
+        torchpme_tpu_torch.__path__, prefix="torchpme_tpu_torch."
+    ):
+        names.append(info.name)
+    return sorted(names)
+
+
+ALL_MODULES = _walk_modules()
+
+MUST_HAVE_EXAMPLES = [
+    "torchpme_tpu_torch.md",
+    "torchpme_tpu_torch.ops.kvectors",
+    "torchpme_tpu_torch.ops.math",
+    "torchpme_tpu_torch.potentials.coulomb",
+    "torchpme_tpu_torch.prefactors",
+]
+
+
+@pytest.mark.parametrize("name", ALL_MODULES)
+def test_port_module_doctests(name):
+    module = importlib.import_module(name)
+    results = doctest.testmod(module, verbose=False)
+    assert results.failed == 0
+    if name in MUST_HAVE_EXAMPLES:
+        assert results.attempted > 0, f"no doctests collected in {name}"

@@ -1,0 +1,122 @@
+"""Shared fixtures of the torch-port parity tests (tests/test_torch_*.py).
+
+The same seeded numpy inputs go through the JAX package and the port;
+state built by the JAX package reaches the port as numpy through
+:mod:`torchpme_tpu_torch.convert`.
+"""
+
+import numpy as np
+import torch
+
+from torchpme_tpu.md import _row_mapping as jax_row_mapping
+from torchpme_tpu_torch.convert import md_from_state
+from torchpme_tpu_torch.ops.rspace_cells import CellList
+
+CLIST_FIELDS = (
+    "atom_index",
+    "slot_mask",
+    "atom_wrap",
+    "extra_index",
+    "extra_mask",
+    "extra_cell",
+    "extra_wrap",
+)
+
+
+def random_box(n, box, seed, lo=0.0, hi=None, charges="normal"):
+    """``(positions, charges, cell)`` as float64 numpy, neutral charges."""
+    rng = np.random.default_rng(seed)
+    hi = box if hi is None else hi
+    positions = rng.uniform(lo, hi, (n, 3))
+    if charges == "water":
+        q = np.tile([-0.84, 0.42, 0.42], n // 3 + 1)[:n]
+    else:
+        q = rng.normal(size=n)
+    q = (q - q.mean()).reshape(-1, 1)
+    return positions, q, np.eye(3) * box
+
+
+def clustered_box(n, box, seed, n_cluster=40):
+    """A box with a dense cluster, so tight cell lists spill."""
+    positions, q, cell = random_box(n, box, seed)
+    rng = np.random.default_rng(seed + 100)
+    cluster = 0.5 + 0.3 * rng.uniform(size=(n_cluster, 3)) * box / 8.0
+    positions = np.concatenate([positions, cluster])
+    q = np.concatenate([q, np.ones((n_cluster, 1))])
+    return positions, q - q.mean(), cell
+
+
+def clist_arrays(clist) -> dict:
+    """The array fields of a JAX or port cell list as numpy (None kept)."""
+    out = {}
+    for name in CLIST_FIELDS:
+        value = getattr(clist, name)
+        if value is None:
+            out[name] = None
+        elif isinstance(value, torch.Tensor):
+            out[name] = value.numpy()
+        else:
+            out[name] = np.asarray(value)
+    return out
+
+
+def port_clist(clist_j) -> CellList:
+    """The port's CellList holding a JAX cell list's arrays (CPU)."""
+    arrays = {
+        k: None if v is None else torch.from_numpy(v.copy())
+        for k, v in clist_arrays(clist_j).items()
+    }
+    return CellList(
+        arrays["atom_index"],
+        arrays["slot_mask"],
+        arrays["atom_wrap"],
+        tuple(clist_j.n_axis),
+        float(clist_j.cutoff),
+        tuple(clist_j.slack),
+        arrays["extra_index"],
+        arrays["extra_mask"],
+        arrays["extra_cell"],
+        arrays["extra_wrap"],
+    )
+
+
+def rows_of(clist_j, positions):
+    """Bucket-row positions (numpy) of a JAX cell list."""
+    row_of_atom, n_rows = jax_row_mapping(clist_j, positions.shape[0])
+    rows = np.zeros((n_rows, 3), positions.dtype)
+    rows[row_of_atom] = positions
+    return rows
+
+
+def jax_md_state(fp_j) -> dict:
+    """The numpy state dict of a JAX aligned MDFastPath (convert's keys)."""
+    calc = fp_j.calc
+    state = {
+        "smearing": float(calc.potential.smearing),
+        "prefactor": float(calc.potential.prefactor),
+        "interpolation_nodes": int(calc.interpolation_nodes),
+        "method": calc._method,
+        "mesh_spacing": float(calc.mesh_spacing),
+        "n_axis": tuple(fp_j.clist.n_axis),
+        "cutoff": float(fp_j.clist.cutoff),
+        "slack": tuple(fp_j.clist.slack),
+        "row_of_atom": np.asarray(fp_j.row_of_atom),
+        "n_rows": fp_j.n_rows,
+        "n_atoms": fp_j.n_atoms,
+        "ns_mesh": fp_j.ns_mesh,
+        "cell_grid": fp_j.cell_grid,
+        "aligned_pad": fp_j.aligned_pad,
+    }
+    state.update(clist_arrays(fp_j.clist))
+    return state
+
+
+def port_from_jax(fp_j):
+    """The port's MDFastPath on the JAX MDFastPath's exact state (CPU)."""
+    return md_from_state(jax_md_state(fp_j), device="cpu")
+
+
+def rel(a, b) -> float:
+    """max |a - b| / max |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())

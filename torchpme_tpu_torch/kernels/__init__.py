@@ -1,0 +1,220 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The kernels live in ``torchpme_tpu_torch/csrc/*.cu`` with a plain C
+interface.  :func:`load_library` compiles them with ``nvcc`` for ``sm_90a``
+into one shared library at first use (cached under ``_build/`` by a hash of
+the sources and flags) and binds it with ``ctypes``.  Nothing here touches
+CUDA at import time: the CPU tests import every module.
+
+Each kernel has a :class:`LaunchCounter` that its wrapper (beside the
+kernel's plain PyTorch twin, in ``ops/``) bumps by one per launch and
+nowhere else, so a run can show that the main path went through it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+__all__ = [
+    "COUNTERS",
+    "LaunchCounter",
+    "SpreadParams",
+    "WindowParams",
+    "check_cuda_tensor",
+    "check_status",
+    "launch_counts",
+    "load_library",
+    "reset_launch_counts",
+    "stream_handle",
+]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (
+    *ARCH_FLAGS,
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",
+)
+
+MAX_NODES = 8  # csrc/spread.cu: coefficient table rows/cols
+N_OFFSETS = 14  # csrc/window.cu: half-window offsets + the self cell
+MAX_CHANNELS = 4  # csrc/window.cu: per-thread charge-channel registers
+
+
+@dataclass
+class LaunchCounter:
+    """Number of launches of one kernel since the last reset."""
+
+    name: str
+    launches: int = 0
+
+
+SPREAD_FWD = LaunchCounter("spread_fwd")
+SPREAD_BWD = LaunchCounter("spread_bwd")
+WINDOW = LaunchCounter("window")
+COUNTERS = (SPREAD_FWD, SPREAD_BWD, WINDOW)
+
+
+def reset_launch_counts() -> None:
+    for counter in COUNTERS:
+        counter.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {counter.name: counter.launches for counter in COUNTERS}
+
+
+class SpreadParams(ctypes.Structure):
+    """Mirror of ``struct SpreadParams`` in ``csrc/spread.cu``."""
+
+    _fields_ = [
+        ("nx", ctypes.c_int),
+        ("ny", ctypes.c_int),
+        ("nz", ctypes.c_int),
+        ("nodes", ctypes.c_int),
+        ("extent", ctypes.c_int),
+        ("lpad", ctypes.c_int),
+        ("ty_count", ctypes.c_int),
+        ("n_tiles", ctypes.c_int),
+        ("kp", ctypes.c_int),
+        ("n_ch", ctypes.c_int),
+        ("coeff", ctypes.c_float * (MAX_NODES * MAX_NODES)),
+        ("deriv", ctypes.c_float * (MAX_NODES * MAX_NODES)),
+    ]
+
+
+class WindowParams(ctypes.Structure):
+    """Mirror of ``struct WindowParams`` in ``csrc/window.cu``."""
+
+    _fields_ = [
+        ("nx", ctypes.c_int),
+        ("ny", ctypes.c_int),
+        ("nz", ctypes.c_int),
+        ("cap", ctypes.c_int),
+        ("n_ch", ctypes.c_int),
+        ("self_k", ctypes.c_int),
+        ("cutoff_sq", ctypes.c_float),
+        ("alpha", ctypes.c_float),
+        ("alpha_sq", ctypes.c_float),
+        ("prefactor", ctypes.c_float),
+        ("c_gauss", ctypes.c_float),
+        ("offsets", ctypes.c_int * (3 * N_OFFSETS)),
+    ]
+
+
+@dataclass(frozen=True)
+class KernelLibrary:
+    """The loaded kernel library and how it was obtained."""
+
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float  # 0.0 when the cached library was reused
+    build_log: str
+
+
+def _nvcc() -> str:
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for path in candidates:
+        if os.path.isfile(path) and os.access(path, os.X_OK):
+            return path
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, $PATH and /usr/local/cuda/bin); "
+        "the CUDA kernels are built from torchpme_tpu_torch/csrc at first use"
+    )
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    lib.tpme_error_string.argtypes = [ctypes.c_int]
+    lib.tpme_error_string.restype = ctypes.c_char_p
+    lib.tpme_max_smem_optin.argtypes = [ctypes.c_int]
+    lib.tpme_max_smem_optin.restype = ctypes.c_int
+    lib.tpme_spread_fwd.argtypes = [p, p, p, ctypes.POINTER(SpreadParams), p]
+    lib.tpme_spread_fwd.restype = ctypes.c_int
+    lib.tpme_spread_bwd.argtypes = [p, p, p, p, p, ctypes.POINTER(SpreadParams), p]
+    lib.tpme_spread_bwd.restype = ctypes.c_int
+    lib.tpme_window.argtypes = [
+        p, p, p, p, p, p, p, p, ctypes.POINTER(WindowParams), p,
+    ]
+    lib.tpme_window.restype = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> KernelLibrary:
+    """Compile ``csrc/*.cu`` (once per source hash) and load the library."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    path = BUILD_DIR / f"libtpme_kernels_{digest.hexdigest()[:16]}.so"
+    build_seconds, log = 0.0, ""
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        start = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        build_seconds = time.perf_counter() - start
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}"
+            )
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    _declare(lib)
+    return KernelLibrary(lib, path, build_seconds, log)
+
+
+def check_status(status: int, name: str) -> None:
+    """Raise when a C entry returned a CUDA error code."""
+    if status != 0:
+        msg = load_library().lib.tpme_error_string(status).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed: error {status} ({msg})")
+
+
+def check_cuda_tensor(t: torch.Tensor, name: str, shape, dtype=torch.float32):
+    """Validate a kernel operand: on a CUDA device, of ``dtype``, of
+    ``shape``, contiguous.  Raises on anything the kernel does not take."""
+    if t.dtype != dtype:
+        raise TypeError(
+            f"{name} is {t.dtype}; the CUDA kernels take {dtype} only"
+        )
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def stream_handle(device: torch.device) -> int:
+    """Raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream

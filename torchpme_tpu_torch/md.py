@@ -1,0 +1,288 @@
+"""Bucket-order MD state: the PME energy + force step without per-step gathers.
+
+Counterpart of :class:`torchpme_tpu.md.MDFastPath` in its **aligned**
+mode.  Positions live in cell-bucket rows across steps (converted once, at
+build or rebucket time, like a neighbor-list build); the cell list's x/y
+grid is pinned to the 8×8 mesh-tile grid, so the same rows are the slots of
+the spread kernels, and the step pays no gather in either direction.
+
+One step: the real-space window (kernel C) + the aligned spread (kernel A;
+its VJP is kernel B) + the k-space quadratic form on cuFFT.  Autograd of
+:meth:`MDFastPath.energy` with respect to the rows gives minus the forces
+in row layout.  Once an atom drifts out of its cell the energy and every
+gradient are NaN: rebuild with :meth:`MDFastPath.rebucket`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from .ops.math import inv3
+from .ops.mesh_tiled import TILE, supports_tiling
+from .ops.rspace_cells import CellList, cell_list_rspace_energy_rows, compute_cell_list
+from .ops.spread_fused import aligned_geometry, aligned_tiled_density
+
+__all__ = ["MDFastPath"]
+
+_LATER_MODES = (
+    "the 'tiled'/'fused' mesh modes are not ported yet (ROADMAP.md, "
+    "section 1, row 9)"
+)
+
+
+def _row_mapping(clist: CellList, n_atoms: int) -> tuple[np.ndarray, int]:
+    """Bucket-row id of every atom (spill extras appended after the cell
+    rows), host-side."""
+    n_cells, cap = clist.slot_mask.shape
+    row_of_atom = np.zeros(n_atoms, dtype=np.int32)
+    idx = clist.atom_index.cpu().numpy()
+    msk = clist.slot_mask.cpu().numpy()
+    rows = np.arange(n_cells * cap, dtype=np.int32).reshape(n_cells, cap)
+    row_of_atom[idx[msk]] = rows[msk]
+    n_rows = n_cells * cap
+    if clist.extra_index is not None:
+        e_idx = clist.extra_index.cpu().numpy()
+        e_msk = clist.extra_mask.cpu().numpy()
+        row_of_atom[e_idx[e_msk]] = n_rows + np.nonzero(e_msk)[0].astype(np.int32)
+        n_rows += e_idx.shape[0]
+    return row_of_atom, n_rows
+
+
+def _to_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+class MDFastPath(nn.Module):
+    """A PME calculator bound to a reusable aligned bucketing.
+
+    Build with :meth:`create` (host-side, like a neighbor-list build).
+
+    Example
+    -------
+    >>> import numpy as np, torch
+    >>> import torchpme_tpu_torch as tpt
+    >>> rng = np.random.default_rng(0)
+    >>> positions = torch.tensor(rng.uniform(0, 14.0, (240, 3)))
+    >>> charges = torch.tensor(np.tile([1.0, -1.0], 120).reshape(-1, 1))
+    >>> cell = torch.eye(3, dtype=torch.float64) * 14.0
+    >>> calc = tpt.PMECalculator(tpt.CoulombPotential(smearing=1.0),
+    ...                          interpolation_nodes=4)
+    >>> fp = tpt.MDFastPath.create(calc, positions, cell, 3.0, (32, 32, 32))
+    >>> rows = fp.bucket(positions).requires_grad_()
+    >>> e = fp.energy(charges, cell, rows)
+    >>> forces = -fp.unbucket(torch.autograd.grad(e, rows)[0])
+    >>> print(forces.shape)
+    torch.Size([240, 3])
+    """
+
+    def __init__(
+        self,
+        calc,
+        clist: CellList,
+        row_of_atom: torch.Tensor,
+        ns_mesh: tuple[int, int, int],
+        n_rows: int,
+        n_atoms: int,
+        cell_grid: tuple[int, int, int, int],
+        aligned_pad: int,
+    ):
+        super().__init__()
+        self.calc = calc
+        self.clist = clist
+        self.row_of_atom = row_of_atom
+        self.ns_mesh = tuple(int(n) for n in ns_mesh)
+        self.n_rows = int(n_rows)
+        self.n_atoms = int(n_atoms)
+        self.mesh_impl = "aligned"
+        self.cell_grid = tuple(int(n) for n in cell_grid)
+        self.aligned_pad = int(aligned_pad)
+
+    @classmethod
+    def create(
+        cls,
+        calc,
+        positions,
+        cell,
+        cutoff: float,
+        ns_mesh=None,
+        cell_capacity: int | None = None,
+        mesh_impl: str = "auto",
+        extras_impl: str = "auto",
+        balance: str | bool = "auto",
+        _spill: bool | None = None,
+        device=None,
+    ) -> "MDFastPath":
+        """Bucket ``positions`` for ``calc`` (host-side, numpy).
+
+        :param calc: a :class:`~torchpme_tpu_torch.PMECalculator`.
+        :param cutoff: real-space cutoff of the cell list.
+        :param ns_mesh: static mesh shape (``calc.get_ns_mesh(cell)`` when
+            omitted).
+        :param mesh_impl: ``"aligned"`` or ``"auto"`` (the same: aligned
+            where :meth:`_aligned_supported` allows it, an error otherwise).
+        :param extras_impl: ``"auto"`` or ``"scatter"``: spill atoms spread
+            through the generic scatter.
+        :param balance: overflow-balance the cell list (``"auto"``: when the
+            widened spread window fits the 2-tile fold).
+        :param device: device of the state (default: that of ``positions``
+            when it is a tensor, else the CPU).
+        """
+        if device is None:
+            device = positions.device if isinstance(positions, torch.Tensor) else "cpu"
+        pos_np = _to_numpy(positions)
+        cell_np = np.asarray(_to_numpy(cell), np.float64)
+        if ns_mesh is None:
+            ns_mesh = calc.get_ns_mesh(cell_np)
+        ns_mesh = tuple(int(n) for n in ns_mesh)
+        if not supports_tiling(ns_mesh, calc.interpolation_nodes):
+            raise ValueError(
+                f"MDFastPath needs the tiled mesh backend: mesh {ns_mesh} / "
+                f"{calc.interpolation_nodes} nodes does not tile (nx, ny must "
+                "be multiples of 16)"
+            )
+        if mesh_impl in ("tiled", "fused"):
+            raise NotImplementedError(f"mesh_impl={mesh_impl!r}: {_LATER_MODES}")
+        if mesh_impl not in ("auto", "aligned"):
+            raise ValueError(
+                f"`mesh_impl` is {mesh_impl!r} but must be 'auto' or 'aligned'"
+            )
+        if not cls._aligned_supported(cell_np, cutoff, ns_mesh):
+            raise ValueError(
+                "aligned MD state needs one mesh tile (8 mesh cells) per x/y "
+                "cell-list cell with edge >= cutoff; this cell/mesh/cutoff "
+                f"combination does not allow it, and {_LATER_MODES}"
+            )
+        if extras_impl == "tiled":
+            raise NotImplementedError(
+                "extras_impl='tiled' (the extras tile table) is not ported; spill "
+                "atoms spread through the scatter (ROADMAP.md, section 1, row 9)"
+            )
+        if extras_impl not in ("auto", "scatter"):
+            raise ValueError(
+                f"`extras_impl` is {extras_impl!r} but must be 'auto' or 'scatter'"
+            )
+        if balance not in ("auto", True, False):
+            raise ValueError(
+                f"`balance` is {balance!r} but must be 'auto', True or False"
+            )
+        # overflow balance: x/y slack capped so the widened spread window
+        # still fits the 2-tile fold; z slack is unconstrained on the mesh side
+        base_extent, _ = aligned_geometry(calc.interpolation_nodes)
+        pad_budget = (2 * TILE - base_extent) // 2
+        plane = 1.0 / np.linalg.norm(np.linalg.inv(cell_np), axis=0)
+        h_mesh = plane[:2] / np.asarray(ns_mesh[:2], np.float64)
+        use_balance = balance is True or (balance == "auto" and pad_budget >= 1)
+        bal_arg = (
+            (pad_budget * float(h_mesh[0]), pad_budget * float(h_mesh[1]), np.inf)
+            if use_balance
+            else False
+        )
+        clist = compute_cell_list(
+            pos_np, cell_np, cutoff, capacity=cell_capacity, spill=_spill,
+            xy_cells=(ns_mesh[0] // TILE, ns_mesh[1] // TILE),
+            balance=bal_arg, device=device,
+        )
+        # slack is in cell-edge units and one x/y cell is TILE mesh cells
+        aligned_pad = int(np.ceil(max(clist.slack[:2]) * TILE - 1e-9))
+        assert aligned_pad <= pad_budget, "balance slack exceeds the spread window"
+        _, cap = clist.slot_mask.shape
+        row_of_atom, n_rows = _row_mapping(clist, pos_np.shape[0])
+        return cls(
+            calc,
+            clist,
+            torch.from_numpy(row_of_atom).to(device),
+            ns_mesh,
+            n_rows,
+            pos_np.shape[0],
+            (*clist.n_axis, cap),
+            aligned_pad,
+        )
+
+    @staticmethod
+    def _aligned_supported(cell, cutoff: float, ns_mesh) -> bool:
+        """One mesh tile (8 mesh cells) per x/y cell must keep the cell-plane
+        distance ≥ cutoff, and the cutoff must fit the cell at all."""
+        cell_np = np.asarray(_to_numpy(cell), np.float64)
+        plane = 1.0 / np.linalg.norm(np.linalg.inv(cell_np), axis=0)
+        max_cells = np.floor(plane / cutoff)
+        want = (ns_mesh[0] // TILE, ns_mesh[1] // TILE)
+        return bool(
+            np.all(plane >= cutoff)
+            and max_cells[0] >= want[0]
+            and max_cells[1] >= want[1]
+        )
+
+    # -- layout conversion (at build/rebucket boundaries) -------------------
+
+    def bucket(self, positions: torch.Tensor) -> torch.Tensor:
+        """Atom-order ``(N, 3)`` → bucket rows ``(n_rows, 3)`` (padding 0)."""
+        positions = torch.as_tensor(positions, device=self.row_of_atom.device)
+        rows = positions.new_zeros((self.n_rows, 3))
+        return rows.index_copy(0, self.row_of_atom.long(), positions)
+
+    def unbucket(self, pos_rows: torch.Tensor) -> torch.Tensor:
+        """Bucket rows back to atom order."""
+        return pos_rows[self.row_of_atom.long()]
+
+    def rebucket(self, pos_rows, cell, cutoff=None) -> "MDFastPath":
+        """Rebuild the bucketing from drifted rows (like a neighbor-list
+        refresh), keeping the cell capacity and the spill side list so the
+        row shapes stay stable."""
+        return type(self).create(
+            self.calc,
+            self.unbucket(pos_rows),
+            cell,
+            cutoff if cutoff is not None else self.clist.cutoff,
+            ns_mesh=self.ns_mesh,
+            cell_capacity=self.clist.slot_mask.shape[1],
+            mesh_impl=self.mesh_impl,
+            balance=max(self.clist.slack) > 0.0,
+            _spill=self.clist.extra_index is not None,
+            device=self.row_of_atom.device,
+        )
+
+    # -- the step ------------------------------------------------------------
+
+    def energy(
+        self,
+        charges: torch.Tensor,
+        cell: torch.Tensor,
+        pos_rows: torch.Tensor,
+        plain: bool = False,
+    ) -> torch.Tensor:
+        r"""Total energy :math:`\sum_i q_i V_i` from bucket rows.
+
+        Autograd with respect to ``pos_rows`` gives minus the forces in row
+        layout (padded rows get zero).  NaN when the bucketing is stale.
+
+        :param plain: run the kernels' plain twins on any device (the
+            reference path of the comparisons).  By default CPU tensors take
+            the twins and CUDA tensors the kernels.
+        """
+        e_sr = cell_list_rspace_energy_rows(
+            self.calc.potential, charges, pos_rows, cell, self.clist, plain=plain
+        )
+        dtype = pos_rows.dtype
+        q_rows = charges.new_zeros((self.n_rows, charges.shape[-1]), dtype=dtype)
+        q_rows = q_rows.index_copy(0, self.row_of_atom.long(), charges.to(dtype))
+        rho = aligned_tiled_density(
+            pos_rows,
+            q_rows,
+            inv3(cell),
+            self.ns_mesh,
+            self.calc.interpolation_nodes,
+            self.calc._method,
+            self.cell_grid,
+            pad_cells=self.aligned_pad,
+            plain=plain,
+        )
+        # mesh staleness is implied by cell-list staleness (an atom inside
+        # its cell keeps its stencil in the tile window), which poisons e_sr
+        e_k = self.calc._kspace_energy_from_rho(
+            rho, cell, charges, pos_rows, None, self.ns_mesh
+        )
+        return e_sr + e_k

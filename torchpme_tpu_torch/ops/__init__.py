@@ -1,0 +1,28 @@
+"""Tensor operations of the port (counterpart of :mod:`torchpme_tpu.ops`)."""
+
+from .kspace import compute_kspace_filter, kspace_filter_quadratic
+from .kvectors import generate_kvectors_for_mesh, get_ns_mesh
+from .math import det3, inv3
+from .mesh import compute_1d_weights, compute_interpolation, points_to_mesh
+from .mesh_tiled import TILE, supports_tiling
+from .rspace_cells import CellList, cell_list_rspace_energy_rows, compute_cell_list
+from .spread_fused import aligned_geometry, aligned_tiled_density
+
+__all__ = [
+    "CellList",
+    "TILE",
+    "aligned_geometry",
+    "aligned_tiled_density",
+    "cell_list_rspace_energy_rows",
+    "compute_1d_weights",
+    "compute_cell_list",
+    "compute_interpolation",
+    "compute_kspace_filter",
+    "det3",
+    "generate_kvectors_for_mesh",
+    "get_ns_mesh",
+    "inv3",
+    "kspace_filter_quadratic",
+    "points_to_mesh",
+    "supports_tiling",
+]

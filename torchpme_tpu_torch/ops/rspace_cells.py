@@ -1,0 +1,664 @@
+"""Cell-list real-space sum of the MD step.
+
+Counterpart of :mod:`torchpme_tpu.ops.rspace_cells` (the bucket-row energy
+path).  Atoms are bucketed on the host, in numpy, into cells of edge ≥
+cutoff (:func:`compute_cell_list`, with overflow balance and a spill side
+list); every pair within the cutoff then lies in the 27-cell torus window
+of its home cell.  The energy :math:`\\sum_{i<j} q_iq_jV_{SR}(d_{ij})` is
+summed over the 13 half-window neighbor offsets plus the self cell, and one
+pass returns the energy together with its whole gradient
+(:func:`window_value_and_grad`, kernel C in ``csrc/window.cu``, beside its
+plain twin :func:`_we_value_and_grad`).  The gradient then flows through
+the window inputs (positions, charges, cell) by autograd.
+
+Staleness keeps the JAX package's contract: once an atom leaves its cell
+the energy, and every gradient, is NaN.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import kernels as _k
+from .math import inv3
+
+__all__ = [
+    "CellList",
+    "cell_list_rspace_energy_rows",
+    "compute_cell_list",
+    "window_value_and_grad",
+]
+
+
+@dataclass(frozen=True)
+class CellList:
+    """Host-computed cell bucketing, as tensors on one device.
+
+    ``atom_index``/``slot_mask`` hold the atoms of each cell (padded to the
+    capacity, row-major ``(nx, ny, nz)`` cell order); ``atom_wrap`` is the
+    periodic image each atom was wrapped by.  ``slack`` is the per-axis
+    assignment slack of overflow-balanced lists, in cell-edge units.  The
+    ``extra_*`` side list holds atoms beyond a cell's capacity (``None``
+    when nothing spilled).  Integer dtypes match the JAX package's.
+    """
+
+    atom_index: torch.Tensor  # (n_cells, capacity) int32
+    slot_mask: torch.Tensor  # (n_cells, capacity) bool
+    atom_wrap: torch.Tensor  # (n_cells, capacity, 3) int8
+    n_axis: tuple[int, int, int]
+    cutoff: float
+    slack: tuple[float, float, float] = (0.0, 0.0, 0.0)
+    extra_index: torch.Tensor | None = None  # (E,) int32
+    extra_mask: torch.Tensor | None = None  # (E,) bool
+    extra_cell: torch.Tensor | None = None  # (E, 3) int32
+    extra_wrap: torch.Tensor | None = None  # (E, 3) int8
+
+
+# -- host-side bucketing -------------------------------------------------------
+
+
+def _spill_cost(n_cells: int, cap: int, extras: int) -> float:
+    """Cost model of a capacity: window work ``n_cells·14·cap²`` plus the
+    spill pass ``≈2·27·cap·E + 8·E²`` for ``E`` spilled atoms."""
+    return n_cells * 14 * cap * cap + 54 * cap * extras + 8.0 * extras**2
+
+
+def _cap_max(counts) -> int:
+    """Smallest multiple-of-8 capacity (≥ 8) holding the fullest cell."""
+    return max(8, int(-(-int(counts.max()) // 8) * 8))
+
+
+def _choose_capacity(counts, n_cells: int) -> int:
+    """The multiple-of-8 capacity minimizing :func:`_spill_cost`."""
+    best, best_cost = None, None
+    for cap in range(8, _cap_max(counts) + 8, 8):
+        cost = _spill_cost(n_cells, cap, int(np.maximum(0, counts - cap).sum()))
+        if best_cost is None or cost < best_cost:
+            best, best_cost = cap, cost
+    return best
+
+
+def _balance_overflow(ids3, wrap, u, counts, capacity, slack_cell, n_axis):
+    """Greedy overflow diffusion (host, in-place on ``ids3``/``wrap``/``counts``).
+
+    Cells holding more than ``capacity`` atoms shed their excess into
+    adjacent cells with room, moving only atoms within ``slack_cell`` (cell
+    units) of the shared face.  Most-overfull cells go first; within a cell,
+    atoms closest to a face move first.  Returns the number of atoms moved.
+    """
+    nx, ny, nz = (int(n) for n in n_axis)
+    n_cells = nx * ny * nz
+    dirs = [
+        (ax, sign)
+        for ax in range(3)
+        if slack_cell[ax] > 1e-9
+        for sign in (-1, +1)
+    ]
+    if not dirs:
+        return 0
+    ids_flat = (ids3[:, 0] * ny + ids3[:, 1]) * nz + ids3[:, 2]
+    order = np.argsort(ids_flat, kind="stable")
+    cell_counts = np.bincount(ids_flat, minlength=n_cells)
+    starts = np.concatenate([[0], np.cumsum(cell_counts)])
+    over = np.nonzero(counts > capacity)[0]
+    over = over[np.argsort(-counts[over])]
+    nvec = np.asarray([nx, ny, nz])
+    moved = 0
+    for c in over:
+        excess = int(counts[c] - capacity)
+        if excess <= 0:
+            continue
+        atoms = order[starts[c] : starts[c + 1]]
+        cx, cy, cz = c // (ny * nz), (c // nz) % ny, c % nz
+        cands = []
+        for ax, sign in dirs:
+            d = u[atoms, ax] if sign < 0 else 1.0 - u[atoms, ax]
+            elig = d < slack_cell[ax]
+            for a, da in zip(atoms[elig], d[elig]):
+                cands.append((float(da), int(a), ax, sign))
+        cands.sort()
+        seen = set()
+        for _da, a, ax, sign in cands:
+            if excess <= 0:
+                break
+            if a in seen:
+                continue  # each atom moves at most once
+            tgt3 = [cx, cy, cz]
+            tgt3[ax] += sign
+            wdelta = 0
+            if tgt3[ax] < 0:
+                tgt3[ax] += int(nvec[ax])
+                wdelta = -1
+            elif tgt3[ax] >= nvec[ax]:
+                tgt3[ax] -= int(nvec[ax])
+                wdelta = +1
+            t = (tgt3[0] * ny + tgt3[1]) * nz + tgt3[2]
+            if counts[t] >= capacity:
+                continue
+            ids3[a] = tgt3
+            wrap[a, ax] += wdelta
+            counts[c] -= 1
+            counts[t] += 1
+            excess -= 1
+            moved += 1
+            seen.add(a)
+    return moved
+
+
+def _choose_capacity_balanced(ids3, wrap, u, counts, n_axis, slack_cell):
+    """Capacity choice for overflow-balanced spilling lists: balance at each
+    candidate, score the leftover overflow with :func:`_spill_cost`, apply
+    the winning assignment in place and return its capacity."""
+    n_cells = counts.shape[0]
+    best = None
+    for cap in range(8, _cap_max(counts) + 8, 8):
+        ids3_c, wrap_c, counts_c = ids3.copy(), wrap.copy(), counts.copy()
+        _balance_overflow(ids3_c, wrap_c, u, counts_c, cap, slack_cell, n_axis)
+        cost = _spill_cost(n_cells, cap, int(np.maximum(0, counts_c - cap).sum()))
+        if best is None or cost < best[0]:
+            best = (cost, cap, ids3_c, wrap_c)
+    _, cap, ids3_b, wrap_b = best
+    ids3[:] = ids3_b
+    wrap[:] = wrap_b
+    return cap
+
+
+def _check_balance(balance):
+    """``balance`` is ``True``, ``False`` or three per-axis slack caps."""
+    if isinstance(balance, (bool, np.bool_)):
+        return bool(balance)
+    if (
+        isinstance(balance, (tuple, list, np.ndarray))
+        and len(balance) == 3
+        and all(isinstance(b, (int, float, np.integer, np.floating)) for b in balance)
+    ):
+        return tuple(float(b) for b in balance)
+    raise ValueError(
+        f"`balance` is {balance!r} but must be True, False or a 3-tuple of "
+        "per-axis absolute slack caps"
+    )
+
+
+def compute_cell_list(
+    positions,
+    cell,
+    cutoff: float,
+    capacity: int | None = None,
+    spill: bool | None = None,
+    xy_cells: tuple[int, int] | None = None,
+    balance: bool | tuple[float, float, float] = False,
+    device=None,
+) -> CellList:
+    """Bucket atoms into cells of edge ≥ ``cutoff`` (host-side, numpy).
+
+    Same contract, and bit for bit the same arrays, as
+    :func:`torchpme_tpu.ops.rspace_cells.compute_cell_list`:
+
+    :param capacity: atoms per cell; default from a cost model (a tight
+        capacity with an overflow side list).
+    :param spill: allow the overflow side list (default: when
+        ``capacity`` is ``None``); needs every cell-plane distance ≥
+        2·cutoff.
+    :param xy_cells: force the cell counts along x and y (the tile-aligned
+        MD state pins them to the mesh-tile grid).
+    :param balance: overflow-balance the bucketing within the per-axis
+        slack ``(edge − cutoff)/2``; a 3-tuple caps the absolute slack.
+    :param device: device of the returned tensors (default CPU).
+    """
+    balance = _check_balance(balance)
+    if isinstance(positions, torch.Tensor):
+        positions = positions.detach().cpu().numpy()
+    if isinstance(cell, torch.Tensor):
+        cell = cell.detach().cpu().numpy()
+    pos = np.asarray(positions, dtype=np.float64)
+    cell_np = np.asarray(cell, dtype=np.float64)
+    inv = np.linalg.inv(cell_np)
+    plane_dist = 1.0 / np.linalg.norm(inv, axis=0)
+    n_axis = np.maximum(1, np.floor(plane_dist / cutoff).astype(np.int64))
+    if np.any(plane_dist < cutoff):
+        raise ValueError(
+            f"cutoff {cutoff} exceeds a cell plane distance {plane_dist}; "
+            "the 27-cell window cannot cover the cutoff sphere"
+        )
+    if xy_cells is not None:
+        req = np.asarray(xy_cells, dtype=np.int64)
+        if np.any(req > n_axis[:2]):
+            raise ValueError(
+                f"xy_cells {tuple(xy_cells)} would make a cell edge smaller "
+                f"than the cutoff {cutoff} (at most {tuple(n_axis[:2])} cells "
+                "fit)"
+            )
+        n_axis[:2] = req
+    nx, ny, nz = (int(n) for n in n_axis)
+    n_cells = nx * ny * nz
+
+    frac = pos @ inv
+    wrap = np.floor(frac).astype(np.int64)  # periodic image of each atom
+    frac -= wrap
+    ids3 = np.minimum((frac * n_axis).astype(np.int64), n_axis - 1)
+    ids = (ids3[:, 0] * ny + ids3[:, 1]) * nz + ids3[:, 2]
+
+    counts = np.bincount(ids, minlength=n_cells)
+    # spilling needs min-image validity for the extra↔extra pass
+    spill_ok = bool(np.all(plane_dist >= 2 * cutoff))
+    if spill is None:
+        spill = capacity is None and spill_ok
+    elif spill and not spill_ok:
+        raise ValueError(
+            f"spill requires every cell-plane distance ≥ 2·cutoff; got "
+            f"{plane_dist} at cutoff {cutoff}"
+        )
+    slack_cell = (0.0, 0.0, 0.0)
+    if balance is not False:
+        edge = plane_dist / n_axis
+        slack_abs = np.maximum(0.0, (edge - cutoff) * 0.5 * (1.0 - 1e-6))
+        if balance is not True:  # per-axis absolute slack caps
+            slack_abs = np.minimum(slack_abs, np.asarray(balance, np.float64))
+        slack_cell = tuple(float(s) for s in slack_abs / edge)
+        balance = max(slack_cell) > 1e-9  # no room: cell edges == cutoff
+        if not balance:
+            slack_cell = (0.0, 0.0, 0.0)
+    if balance:
+        u = frac * n_axis - ids3  # position within the cell, [0, 1) per axis
+        if capacity is None and spill:
+            capacity = _choose_capacity_balanced(
+                ids3, wrap, u, counts, n_axis, slack_cell
+            )
+        elif capacity is None:
+            # smallest multiple-of-8 capacity fully absorbed by balancing; at
+            # the fullest cell's capacity nothing overflows, so the loop
+            # always settles
+            for cap in range(8, _cap_max(counts) + 8, 8):
+                ids3_c, wrap_c, counts_c = ids3.copy(), wrap.copy(), counts.copy()
+                _balance_overflow(
+                    ids3_c, wrap_c, u, counts_c, cap, slack_cell, n_axis
+                )
+                if counts_c.max() <= cap:
+                    capacity = cap
+                    ids3, wrap = ids3_c, wrap_c
+                    break
+            assert capacity is not None, "balancing overflowed at the max capacity"
+        else:
+            counts_b = counts.copy()
+            _balance_overflow(ids3, wrap, u, counts_b, capacity, slack_cell, n_axis)
+        ids = (ids3[:, 0] * ny + ids3[:, 1]) * nz + ids3[:, 2]
+        counts = np.bincount(ids, minlength=n_cells)
+    if capacity is None:
+        capacity = _choose_capacity(counts, n_cells) if spill else _cap_max(counts)
+    if counts.max() > capacity and not spill:
+        raise ValueError(
+            f"capacity {capacity} below the fullest cell ({counts.max()} atoms)"
+        )
+
+    order = np.argsort(ids, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rank = np.arange(pos.shape[0]) - starts[ids[order]]
+    in_cell = rank < capacity
+    atom_index = np.zeros((n_cells, capacity), dtype=np.int32)
+    slot_mask = np.zeros((n_cells, capacity), dtype=bool)
+    atom_wrap = np.zeros((n_cells, capacity, 3), dtype=np.int8)
+    sel, rsel = ids[order][in_cell], rank[in_cell]
+    atom_index[sel, rsel] = order[in_cell]
+    slot_mask[sel, rsel] = True
+    atom_wrap[sel, rsel] = wrap[order][in_cell]
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    extras = (None,) * 4
+    n_extra = int((~in_cell).sum())
+    if n_extra > 0:
+        # padded generously (multiples of 128 with headroom) so rebuilds with
+        # slightly different overflow counts keep the shapes
+        e_pad = max(128, int(-(-int(n_extra * 1.25) // 128) * 128))
+        e_idx = np.zeros(e_pad, dtype=np.int32)
+        e_mask = np.zeros(e_pad, dtype=bool)
+        e_cell = np.zeros((e_pad, 3), dtype=np.int32)
+        e_wrap = np.zeros((e_pad, 3), dtype=np.int8)
+        out = order[~in_cell]
+        e_idx[:n_extra] = out
+        e_mask[:n_extra] = True
+        e_cell[:n_extra] = ids3[out]
+        e_wrap[:n_extra] = wrap[out]
+        extras = (dev(e_idx), dev(e_mask), dev(e_cell), dev(e_wrap))
+
+    return CellList(
+        dev(atom_index),
+        dev(slot_mask),
+        dev(atom_wrap),
+        (nx, ny, nz),
+        float(cutoff),
+        slack_cell,
+        *extras,
+    )
+
+
+# -- window inputs ---------------------------------------------------------------
+
+
+def _half_window_chunks(cap: int):
+    """Lexicographic half-window offsets (+ the self cell, last), grouped as
+    the JAX package groups them (its chunks are ≥128 lanes wide on the TPU);
+    flattened, they fix the order of ``offs`` and ``d_offs``."""
+    half = [
+        (dx, dy, dz)
+        for dx in (-1, 0, 1)
+        for dy in (-1, 0, 1)
+        for dz in (-1, 0, 1)
+        if (dx, dy, dz) > (0, 0, 0)
+    ]
+    offsets = half + [(0, 0, 0)]
+    per_chunk = max(1, 128 // cap)
+    return tuple(
+        tuple(offsets[i : i + per_chunk]) for i in range(0, len(offsets), per_chunk)
+    )
+
+
+def _window_offsets(cap: int) -> list[tuple[int, int, int]]:
+    return [o for chunk in _half_window_chunks(cap) for o in chunk]
+
+
+def _prepare_bucketed(q_raw, pos_raw, cell, clist: CellList):
+    """Window inputs from positions/charges already in bucket order.
+
+    Returns ``(pc_t, q_g, mf_g, offs, valid)``: cell-center-relative
+    coordinates ``(nx, ny, nz, 3, cap)``, masked charges ``(nx, ny, nz, cap,
+    C)``, the occupancy mask ``(nx, ny, nz, cap)``, the ``(14, 3)``
+    center-to-center offset vectors (the cell gradient flows through them),
+    and the staleness flag as a 0-d bool tensor (no host sync).
+    """
+    dtype, device = pos_raw.dtype, pos_raw.device
+    n_channels = q_raw.shape[-1]
+    nx, ny, nz = clist.n_axis
+    n_axis = torch.tensor([nx, ny, nz], dtype=dtype, device=device)
+    n_cells, cap = clist.slot_mask.shape
+    mask = clist.slot_mask[..., None].to(dtype)
+
+    # canonicalize into the cell image the bucketing assigned
+    pos_b = pos_raw - torch.matmul(clist.atom_wrap.to(dtype), cell)
+    q_b = q_raw * mask
+    home = torch.arange(n_cells, device=device)
+    home3 = torch.stack([home // (ny * nz), (home // nz) % ny, home % nz], dim=-1)
+    centers = torch.matmul((home3.to(dtype) + 0.5) / n_axis, cell)
+    pc = (pos_b - centers[:, None, :]) * mask  # park padded slots at center
+    pc_t = pc.reshape(nx, ny, nz, cap, 3).transpose(-1, -2).contiguous()
+    q_g = q_b.reshape(nx, ny, nz, cap, n_channels).contiguous()
+    mf_g = clist.slot_mask.reshape(nx, ny, nz, cap).to(dtype)
+
+    # staleness: |(pc @ cell⁻¹)·n| ≤ 0.5 + slack (+tol) per axis; balanced
+    # lists assign atoms up to the slack outside their cell on purpose
+    with torch.no_grad():
+        inv_cell = inv3(cell.detach())
+        frac_t = torch.einsum("fe,xyzfa->xyzea", inv_cell * n_axis[None, :], pc_t)
+        bound = 0.5 + torch.tensor(clist.slack, dtype=dtype, device=device) + 1e-4
+        valid = torch.all(torch.abs(frac_t) < bound[:, None])
+
+    flat = torch.tensor(_window_offsets(cap), dtype=dtype, device=device)
+    offs = torch.matmul(flat / n_axis, cell)  # (14, 3)
+    return pc_t, q_g, mf_g, offs, valid
+
+
+# -- kernel C and its plain twin ----------------------------------------------
+
+
+def _we_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs):
+    """Plain twin of kernel C: the window energy and its gradient in one pass.
+
+    Per offset, with ``s_ij = q_i·q_j·V'(d_ij)/d_ij``:
+    ``∂E/∂pc_i = Σ_j s_ij (pc_i − pj_j)`` and ``∂E/∂pj_j = Σ_i s_ij (pj_j −
+    pc_i)``; the ``pj`` side rolls back onto its home cell, and its per-offset
+    total is the ``offs`` gradient.  The self cell's j-side charges are
+    ½-weighted so each unordered pair counts once.  float32 takes the
+    potential's fused ``sr_window_math`` (one transcendental pass); float64
+    the exact ``sr_from_dist`` + ``sr_pair_force`` path.
+
+    :return: ``(e, (d_pc, d_q, d_offs))``.
+    """
+    dtype = pc_t.dtype
+    cap = pc_t.shape[-1]
+    cutoff_sq = torch.tensor(cutoff, dtype=dtype, device=pc_t.device) ** 2
+    fused = dtype == torch.float32
+    eye = torch.eye(cap, dtype=torch.bool, device=pc_t.device)
+
+    # the energy is a sum of terms far larger than their total: accumulate it
+    # in float64, as kernel C does
+    e = torch.zeros((), dtype=torch.float64, device=pc_t.device)
+    d_pc = torch.zeros_like(pc_t)
+    d_q = torch.zeros_like(q_g)
+    d_offs = torch.zeros_like(offs)
+    for k, (dx, dy, dz) in enumerate(_window_offsets(cap)):
+        self_cell = (dx, dy, dz) == (0, 0, 0)
+        w = 0.5 if self_cell else 1.0
+        shift = (-dx, -dy, -dz)
+        pj = torch.roll(pc_t, shift, dims=(0, 1, 2)) + offs[k][:, None]
+        qj = torch.roll(q_g, shift, dims=(0, 1, 2)) * w
+        mj = torch.roll(mf_g, shift, dims=(0, 1, 2))
+        d_sq = sum(
+            (pc_t[..., c, :, None] - pj[..., c, None, :]) ** 2 for c in range(3)
+        )  # (x, y, z, cap, cap)
+        pair_ok = (d_sq > 0.0) & (d_sq < cutoff_sq) & (mj[..., None, :] > 0.5)
+        if self_cell:
+            pair_ok = pair_ok & ~eye  # self-pair excluded by identity
+        d_sq_safe = torch.where(pair_ok, d_sq, 1.0)
+        okf = pair_ok.to(dtype)
+        vq = okf * torch.einsum("...ic,...jc->...ij", q_g, qj)
+        if fused:
+            v_raw, w_raw = potential.sr_window_math(d_sq_safe)
+            e = e + torch.sum(vq * v_raw, dtype=torch.float64)
+            s = vq * w_raw
+        else:
+            d = torch.sqrt(d_sq_safe)
+            v_raw = potential.sr_from_dist(d)
+            pair_e = vq * v_raw
+            e = e + torch.sum(pair_e, dtype=torch.float64)
+            s = potential.sr_pair_force(d, vq, pair_e) / d
+        v = okf * v_raw
+        d_q = d_q + torch.matmul(v, qj)
+        d_qj = torch.einsum("...ij,...ic->...jc", v, q_g)
+        cross_i = torch.einsum("...ij,...dj->...di", s, pj)
+        cross_j = torch.einsum("...ij,...di->...dj", s, pc_t)
+        d_pc = d_pc + pc_t * s.sum(-1)[..., None, :] - cross_i
+        d_pj = pj * s.sum(-2)[..., None, :] - cross_j  # (x, y, z, 3, cap)
+        back = (dx, dy, dz)
+        d_pc = d_pc + torch.roll(d_pj, back, dims=(0, 1, 2))
+        d_q = d_q + torch.roll(d_qj, back, dims=(0, 1, 2)) * w
+        d_offs[k] = d_pj.sum(dim=(0, 1, 2, 4))
+    return e.to(dtype), (d_pc, d_q, d_offs)
+
+
+def _window_params(potential, cutoff: float, pc_t, q_g) -> _k.WindowParams:
+    nx, ny, nz, _, cap = pc_t.shape
+    alpha = 1.0 / (potential.smearing * 2.0**0.5)
+    p = _k.WindowParams()
+    p.nx, p.ny, p.nz, p.cap, p.n_ch = nx, ny, nz, cap, q_g.shape[-1]
+    offsets = _window_offsets(cap)
+    p.self_k = offsets.index((0, 0, 0))
+    # float32 constants rounded exactly as the plain twin's python scalars
+    p.cutoff_sq = float(torch.tensor(cutoff, dtype=torch.float32) ** 2)
+    p.alpha = alpha
+    p.alpha_sq = alpha * alpha
+    p.prefactor = potential.prefactor
+    p.c_gauss = potential.prefactor * (2.0 * alpha / np.pi**0.5)
+    for k, o in enumerate(offsets):
+        p.offsets[3 * k : 3 * k + 3] = o
+    return p
+
+
+def window_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs):
+    """Kernel C: window energy and ``(d_pc, d_q, d_offs)`` in one launch.
+
+    CPU tensors take :func:`_we_value_and_grad`; CUDA tensors launch the
+    kernel (float32, :class:`CoulombPotential`, at most
+    ``kernels.MAX_CHANNELS`` charge channels) or raise.
+    """
+    if pc_t.device.type == "cpu":
+        return _we_value_and_grad(potential, cutoff, pc_t, q_g, mf_g, offs)
+    from ..potentials.coulomb import CoulombPotential  # potentials import ops
+
+    if not isinstance(potential, CoulombPotential):
+        raise TypeError(
+            f"the window kernel evaluates the Coulomb pair math; got "
+            f"{type(potential).__name__}"
+        )
+    if pc_t.ndim != 5 or pc_t.shape[3] != 3:
+        raise ValueError(f"pc_t must be (nx, ny, nz, 3, cap), got {tuple(pc_t.shape)}")
+    nx, ny, nz, _, cap = pc_t.shape
+    n_ch = q_g.shape[-1]
+    if n_ch > _k.MAX_CHANNELS:
+        raise ValueError(f"the window kernel takes at most {_k.MAX_CHANNELS} channels")
+    _k.check_cuda_tensor(pc_t, "pc_t", (nx, ny, nz, 3, cap))
+    _k.check_cuda_tensor(q_g, "q_g", (nx, ny, nz, cap, n_ch))
+    _k.check_cuda_tensor(mf_g, "mf_g", (nx, ny, nz, cap))
+    _k.check_cuda_tensor(offs, "offs", (_k.N_OFFSETS, 3))
+    e = torch.zeros((), dtype=torch.float64, device=pc_t.device)
+    d_pc = torch.zeros_like(pc_t)
+    d_q = torch.zeros_like(q_g)
+    d_offs = torch.zeros_like(offs)
+    p = _window_params(potential, cutoff, pc_t, q_g)
+    status = _k.load_library().lib.tpme_window(
+        pc_t.data_ptr(), q_g.data_ptr(), mf_g.data_ptr(), offs.data_ptr(),
+        e.data_ptr(), d_pc.data_ptr(), d_q.data_ptr(), d_offs.data_ptr(),
+        ctypes.byref(p), _k.stream_handle(pc_t.device),
+    )
+    _k.check_status(status, "window")
+    _k.WINDOW.launches += 1
+    return e.to(torch.float32), (d_pc, d_q, d_offs)
+
+
+class _WindowEnergy(torch.autograd.Function):
+    """Window energy whose forward already holds the whole gradient: the
+    energy is a scalar, so every cotangent is ``ē ×`` a fixed array and the
+    backward only scales."""
+
+    @staticmethod
+    def forward(ctx, pc_t, q_g, mf_g, offs, potential, cutoff, plain):
+        fn = _we_value_and_grad if plain else window_value_and_grad
+        e, grads = fn(potential, cutoff, pc_t, q_g, mf_g, offs)
+        ctx.save_for_backward(*grads)
+        return e
+
+    @staticmethod
+    def backward(ctx, e_bar):
+        d_pc, d_q, d_offs = ctx.saved_tensors
+        return e_bar * d_pc, e_bar * d_q, None, e_bar * d_offs, None, None, None
+
+
+# -- spill side list -------------------------------------------------------------
+
+_D27 = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)]
+
+
+def _prepare_extras_bucketed(qe_raw, pe_raw, cell, clist: CellList):
+    """Spill atoms in the buckets' center-relative frame: ``(pe, pe_abs,
+    qe, valid)`` (an extra must stay inside its recorded home cell)."""
+    dtype, device = pe_raw.dtype, pe_raw.device
+    nx, ny, nz = clist.n_axis
+    n_axis = torch.tensor([nx, ny, nz], dtype=dtype, device=device)
+    mask = clist.extra_mask[:, None].to(dtype)
+    pe_abs = pe_raw - torch.matmul(clist.extra_wrap.to(dtype), cell)
+    qe = qe_raw * mask
+    centers = torch.matmul((clist.extra_cell.to(dtype) + 0.5) / n_axis, cell)
+    pe = (pe_abs - centers) * mask  # park padded at 0
+    with torch.no_grad():
+        frac = torch.matmul(pe, inv3(cell.detach())) * n_axis
+        bound = 0.5 + torch.tensor(clist.slack, dtype=dtype, device=device) + 1e-4
+        valid = torch.all(torch.abs(frac) < bound[None, :])
+    return pe, pe_abs, qe, valid
+
+
+def _extras_energy(potential, pc_t, q_g, mf_g, pe, pe_abs, qe, clist, cell):
+    """Energy of the spill pairs, by plain autograd: extra ↔ bucketed over
+    the 27-cell window of each extra's home cell (each unordered pair once),
+    extra ↔ extra as dense minimum-image pairs (both directions, hence ½)."""
+    dtype, device = pc_t.dtype, pc_t.device
+    nx, ny, nz, _, cap = pc_t.shape
+    n_cells = nx * ny * nz
+    n_axis = torch.tensor([nx, ny, nz], dtype=dtype, device=device)
+    cut2 = torch.tensor(clist.cutoff, dtype=dtype, device=device) ** 2
+    e_pad = pe.shape[0]
+    w27 = 27 * cap
+
+    d27 = torch.tensor(_D27, device=device)  # (27, 3)
+    nb3 = torch.remainder(
+        clist.extra_cell.long()[:, None, :] + d27[None],
+        torch.tensor([nx, ny, nz], device=device),
+    )
+    ids = (nb3[..., 0] * ny + nb3[..., 1]) * nz + nb3[..., 2]  # (E, 27)
+    rows_p = (
+        pc_t.reshape(n_cells, 3, cap)[ids].transpose(1, 2).reshape(e_pad, 3, w27)
+    )
+    rows_q = q_g.reshape(n_cells, cap, -1)[ids]  # (E, 27, cap, C)
+    rows_m = mf_g.reshape(n_cells, cap)[ids].reshape(e_pad, w27)
+    offv = torch.matmul(d27.to(dtype) / n_axis, cell)
+    off_flat = offv.T.repeat_interleave(cap, dim=1)  # (3, 27·cap)
+    d2 = sum(
+        (pe[:, c, None] - rows_p[:, c, :] - off_flat[c][None, :]) ** 2
+        for c in range(3)
+    )
+    ok_em = (d2 < cut2) & (rows_m > 0.5) & clist.extra_mask[:, None]
+    d_em = torch.sqrt(torch.where(ok_em, d2, 1.0))
+    v_em = torch.where(ok_em, potential.sr_from_dist(d_em), 0.0).reshape(
+        e_pad, 27, cap
+    )
+
+    f = torch.matmul(pe_abs, inv3(cell))  # (E, 3)
+    g = []
+    for c in range(3):
+        df = f[:, c][:, None] - f[:, c][None, :]
+        g.append(df - torch.round(df))
+    d2e = sum(
+        (g[0] * cell[0, d] + g[1] * cell[1, d] + g[2] * cell[2, d]) ** 2
+        for d in range(3)
+    )
+    m_ee = clist.extra_mask[:, None] & clist.extra_mask[None, :]
+    eye = torch.eye(e_pad, dtype=torch.bool, device=device)
+    ok_ee = (d2e < cut2) & m_ee & ~eye
+    d_ee = torch.sqrt(torch.where(ok_ee, d2e, 1.0))
+    v_ee = torch.where(ok_ee, potential.sr_from_dist(d_ee), 0.0)
+
+    e_em = torch.sum(v_em[..., None] * rows_q * qe[:, None, None, :])
+    e_ee = 0.5 * torch.sum(v_ee * (qe @ qe.T))
+    return e_em + e_ee
+
+
+def cell_list_rspace_energy_rows(
+    potential,
+    charges: torch.Tensor,
+    pos_rows: torch.Tensor,
+    cell: torch.Tensor,
+    clist: CellList,
+    plain: bool = False,
+) -> torch.Tensor:
+    r"""Short-range energy :math:`\sum_{i<j} q_iq_jV_{SR}(d_{ij})` from
+    positions in bucket-row order (``(n_cells·cap [+ E_pad], 3)``, the
+    :meth:`~torchpme_tpu_torch.md.MDFastPath.bucket` layout).
+
+    Differentiable with respect to ``charges`` (atom order), ``pos_rows``
+    and ``cell``.  NaN (value and gradients) when the bucketing is stale.
+
+    :param plain: run the window's plain twin on any device (the reference
+        path of the comparisons); by default CPU tensors take the twin and
+        CUDA tensors kernel C.
+    """
+    n_cells, cap = clist.slot_mask.shape
+    nb = n_cells * cap
+    dtype = pos_rows.dtype
+    q = charges.to(dtype)
+    pc_t, q_g, mf_g, offs, valid = _prepare_bucketed(
+        q[clist.atom_index.long()], pos_rows[:nb].reshape(n_cells, cap, 3), cell, clist
+    )
+    e0 = _WindowEnergy.apply(pc_t, q_g, mf_g, offs, potential, clist.cutoff, plain)
+    if clist.extra_index is not None:
+        pe, pe_abs, qe, valid_e = _prepare_extras_bucketed(
+            q[clist.extra_index.long()], pos_rows[nb:].reshape(-1, 3), cell, clist
+        )
+        e0 = e0 + _extras_energy(
+            potential, pc_t, q_g, mf_g, pe, pe_abs, qe, clist, cell
+        )
+        valid = valid & valid_e
+    # NaN-poison through a multiply so gradients are poisoned too
+    return e0 * torch.where(valid, 1.0, float("nan")).to(e0.dtype)

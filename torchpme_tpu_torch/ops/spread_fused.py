@@ -1,0 +1,372 @@
+r"""Aligned charge spreading: bucket rows → density mesh, and its VJP.
+
+Counterpart of :mod:`torchpme_tpu.ops.pallas.spread_fused` for the aligned
+MD state.  The cell-list x/y grid is pinned to the 8×8 mesh-tile grid, so
+the ``nz_c·cap`` bucket rows of the z-column of cells at ``(tx, ty)`` are
+exactly the slots of mesh tile ``(tx, ty)``: a reshape, no gather.
+
+Two kernels carry the step (``csrc/spread.cu``):
+
+* **A** (:func:`fused_spread`): scaled fractional coordinates
+  ``rel = (pos @ cell⁻¹)·ns`` and charges in, the ``(C, nx, ny, nz)``
+  density out.  Per tile, the stencil weights are evaluated from the
+  coefficient tables, accumulated into a shared-memory tile field and added
+  into the periodic mesh with atomics (the TPU's tile output + parity-class
+  fold exists because TPU scatters serialize; on Hopper the fold and the
+  ``roll(-lpad)`` fuse into the atomic add).
+* **B** (:func:`fused_spread_bwd`): ``(rel, q, ∂E/∂ρ)`` in,
+  ``(∂E/∂rel, ∂E/∂q)`` out, one thread per slot against the derivative
+  stencils (``d w / d rel``); ``d base / d rel = 0``, as autodiff through
+  ``round``/``floor`` gives.  The cell cotangent flows through ``rel``,
+  which is plain PyTorch.
+
+Beside each kernel sits its plain PyTorch twin (:func:`spread_plain`,
+:func:`spread_plain_bwd`), the batched form of the JAX package's
+``_fwd_math``/``_bwd_math``: the dense per-tile weight factors, one batched
+matmul per tile, and the fold.  A wrapper takes the twin only for a tensor
+that lies on the CPU; for a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import kernels as _k
+from .mesh import (
+    _axis_offsets,
+    _weight_coefficients,
+    compute_interpolation,
+    points_to_mesh,
+)
+from .mesh_tiled import TILE, _fold_tiles_to_mesh
+
+__all__ = [
+    "SpreadGeometry",
+    "aligned_geometry",
+    "aligned_tiled_density",
+    "fused_spread",
+    "fused_spread_bwd",
+    "spread_plain",
+    "spread_plain_bwd",
+]
+
+
+def aligned_geometry(nodes: int, pad_cells: int = 0) -> tuple[int, int]:
+    """(extent, lpad) of the position-bucketed local window: atoms anywhere
+    in the tile, so the stencil reaches ``lpad`` cells left of the tile
+    origin and ``TILE - 1 + nodes//2`` (+1 for the odd-round overshoot)
+    right; ``pad_cells`` widens both sides for overflow-balanced lists."""
+    lpad = (nodes - 1) // 2 + pad_cells
+    extent = TILE + nodes - (1 if nodes % 2 == 0 else 0) + 2 * pad_cells
+    return extent, lpad
+
+
+def _tables(method: str, nodes: int) -> tuple[np.ndarray, np.ndarray]:
+    """Weight polynomials ``(nodes, nodes)`` and their derivatives
+    ``(nodes, max(nodes - 1, 1))``, rows = stencil node, cols = powers."""
+    coeffs = np.asarray(_weight_coefficients(method, nodes), np.float64)
+    deriv = coeffs[:, 1:] * np.arange(1, nodes)[None, :]
+    if deriv.shape[1] == 0:  # nodes == 1: constant weight
+        deriv = np.zeros((coeffs.shape[0], 1))
+    return coeffs, deriv
+
+
+@dataclass(frozen=True)
+class SpreadGeometry:
+    """Static shape of one aligned spread: mesh, stencil, tiles, slots."""
+
+    ns: tuple[int, int, int]
+    nodes: int
+    method: str
+    extent: int
+    lpad: int
+    n_tiles: int
+    slots_per_tile: int  # nz_c · cap
+
+    @property
+    def ty_count(self) -> int:
+        return self.ns[1] // TILE
+
+
+# -- plain twin ---------------------------------------------------------------
+
+
+def _poly(coeffs_row, off: torch.Tensor) -> torch.Tensor:
+    """Horner evaluation of one stencil node's weight polynomial."""
+    acc = torch.full_like(off, float(coeffs_row[-1]))
+    for c in coeffs_row[-2::-1]:
+        acc = acc * off + float(c)
+    return acc
+
+
+def _node_weights(off: torch.Tensor, coeffs: np.ndarray) -> torch.Tensor:
+    """``(..., nodes)`` per-node weights of the offsets ``off``."""
+    return torch.stack([_poly(row, off) for row in coeffs], dim=-1)
+
+
+def _dense(local: torch.Tensor, w: torch.Tensor, size: int, wrap: int | None):
+    """``(T, size, K)`` dense weights: node ``o`` of slot ``k`` lands on
+    local index ``local + o`` (mod ``wrap`` when given; dropped beyond
+    ``size`` otherwise, as the JAX iota-select does)."""
+    iota = torch.arange(size, device=local.device)[None, :, None]
+    dense = torch.zeros(
+        (local.shape[0], size, local.shape[1]), dtype=w.dtype, device=w.device
+    )
+    for o in range(w.shape[-1]):
+        target = local + o if wrap is None else torch.remainder(local + o, wrap)
+        dense = dense + torch.where(iota == target[:, None, :], w[:, None, :, o], 0.0)
+    return dense
+
+
+def _geometry(rel: torch.Tensor, geom: SpreadGeometry, with_deriv: bool):
+    """Dense x/y ``(T, E, K)`` and z ``(T, nz, K)`` weight factors of the
+    ``(T, K, 3)`` slots (and their rel-derivatives)."""
+    nx, ny, nz = geom.ns
+    nodes = geom.nodes
+    shift0 = 1 - (nodes + 1) // 2
+    tile = torch.arange(rel.shape[0], device=rel.device)[:, None]
+    ox = tile // geom.ty_count * TILE
+    oy = tile % geom.ty_count * TILE
+    bx, offx = _axis_offsets(rel[..., 0], nodes)
+    by, offy = _axis_offsets(rel[..., 1], nodes)
+    bz, offz = _axis_offsets(rel[..., 2], nodes)
+    # floor-mod (the sign of the divisor), as the JAX package's _fmod
+    lx = torch.remainder(torch.remainder(bx + shift0, nx) + geom.lpad - ox, nx)
+    ly = torch.remainder(torch.remainder(by + shift0, ny) + geom.lpad - oy, ny)
+    sz = torch.remainder(bz + shift0, nz)
+    coeffs, deriv = _tables(geom.method, nodes)
+    e = geom.extent
+    out = []
+    for table in (coeffs, deriv) if with_deriv else (coeffs,):
+        out.append(
+            (
+                _dense(lx, _node_weights(offx, table), e, None),
+                _dense(ly, _node_weights(offy, table), e, None),
+                _dense(sz, _node_weights(offz, table), nz, nz),
+            )
+        )
+    return out
+
+
+def _charge_z(wz: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``(T, K, C·nz)`` channel-major charge-weighted z factors."""
+    wz_k = wz.transpose(1, 2)  # (T, K, nz)
+    return torch.cat([wz_k * q[:, :, c : c + 1] for c in range(q.shape[-1])], dim=2)
+
+
+def _tile_window_index(geom: SpreadGeometry, device):
+    """Mesh x / y index of every local window cell, ``(T, E)`` each."""
+    nx, ny, _ = geom.ns
+    tile = torch.arange(geom.n_tiles, device=device)[:, None]
+    e = torch.arange(geom.extent, device=device)[None, :]
+    xi = torch.remainder(tile // geom.ty_count * TILE - geom.lpad + e, nx)
+    yi = torch.remainder(tile % geom.ty_count * TILE - geom.lpad + e, ny)
+    return xi, yi
+
+
+def spread_plain(rel: torch.Tensor, q: torch.Tensor, geom: SpreadGeometry):
+    """Plain twin of kernel A: ``(nb, 3)`` rel and ``(nb, C)`` charges in
+    slot order → ``(C, nx, ny, nz)`` density."""
+    n_ch = q.shape[-1]
+    t, k, e = geom.n_tiles, geom.slots_per_tile, geom.extent
+    nz = geom.ns[2]
+    ((wx, wy, wz),) = _geometry(rel.reshape(t, k, 3), geom, with_deriv=False)
+    wxy = (wx[:, :, None, :] * wy[:, None, :, :]).reshape(t, e * e, k)
+    tiles = torch.bmm(wxy, _charge_z(wz, q.reshape(t, k, n_ch)))  # (T, E², C·nz)
+    tiles = tiles.reshape(t, e, e, n_ch, nz).permute(0, 1, 2, 4, 3)
+    rho = _fold_tiles_to_mesh(tiles, geom.ns, e)
+    if geom.lpad:
+        rho = torch.roll(rho, (-geom.lpad, -geom.lpad), dims=(1, 2))
+    return rho
+
+
+def spread_plain_bwd(rel, q, ct_rho, geom: SpreadGeometry):
+    """Plain twin of kernel B: ``(rel, q, ∂E/∂ρ)`` → ``(∂E/∂rel (nb, 3),
+    ∂E/∂q (nb, C))``."""
+    n_ch = q.shape[-1]
+    t, k, e = geom.n_tiles, geom.slots_per_tile, geom.extent
+    nz = geom.ns[2]
+    (wx, wy, wz), (dwx, dwy, dwz) = _geometry(
+        rel.reshape(t, k, 3), geom, with_deriv=True
+    )
+    q_t = q.reshape(t, k, n_ch)
+    # the tile-field cotangent is the mesh cotangent on each local window
+    xi, yi = _tile_window_index(geom, rel.device)
+    ct = ct_rho.permute(1, 2, 0, 3)  # (nx, ny, C, nz)
+    field = ct[xi[:, :, None], yi[:, None, :]].reshape(t, e * e, n_ch * nz)
+
+    wxy = (wx[:, :, None, :] * wy[:, None, :, :]).reshape(t, e * e, k)
+    h = torch.bmm(wxy.transpose(1, 2), field)  # (T, K, C·nz)
+    wz_k = wz.transpose(1, 2)  # (T, K, nz)
+    ct_q = torch.stack(
+        [(h[..., c * nz : (c + 1) * nz] * wz_k).sum(-1) for c in range(n_ch)], dim=-1
+    )
+    fz = torch.bmm(field, _charge_z(wz, q_t).transpose(1, 2)).reshape(t, e, e, k)
+    a_x = (fz * wy[:, None, :, :]).sum(2)  # (T, E, K)
+    b_y = (fz * wx[:, :, None, :]).sum(1)  # (T, E, K)
+    hq = sum(q_t[:, :, c : c + 1] * h[..., c * nz : (c + 1) * nz] for c in range(n_ch))
+    ct_x = (dwx * a_x).sum(1)
+    ct_y = (dwy * b_y).sum(1)
+    ct_z = (dwz.transpose(1, 2) * hq).sum(-1)
+    ct_rel = torch.stack([ct_x, ct_y, ct_z], dim=-1)
+    return ct_rel.reshape(-1, 3), ct_q.reshape(-1, n_ch)
+
+
+# -- kernels A and B ---------------------------------------------------------
+
+
+def _params(geom: SpreadGeometry, n_ch: int) -> _k.SpreadParams:
+    if geom.nodes > _k.MAX_NODES:
+        raise ValueError(f"the spread kernels take at most {_k.MAX_NODES} nodes")
+    coeffs, deriv = _tables(geom.method, geom.nodes)
+    p = _k.SpreadParams()
+    p.nx, p.ny, p.nz = geom.ns
+    p.nodes, p.extent, p.lpad = geom.nodes, geom.extent, geom.lpad
+    p.ty_count, p.n_tiles, p.kp, p.n_ch = (
+        geom.ty_count, geom.n_tiles, geom.slots_per_tile, n_ch,
+    )
+    for o in range(geom.nodes):
+        for m in range(coeffs.shape[1]):
+            p.coeff[o * _k.MAX_NODES + m] = float(coeffs[o, m])
+        for m in range(deriv.shape[1]):
+            p.deriv[o * _k.MAX_NODES + m] = float(deriv[o, m])
+    return p
+
+
+def _check_slots(rel, q, geom: SpreadGeometry) -> int:
+    nb = geom.n_tiles * geom.slots_per_tile
+    _k.check_cuda_tensor(rel, "rel", (nb, 3))
+    if q.ndim != 2:
+        raise ValueError(f"q must be (slots, channels), got {tuple(q.shape)}")
+    _k.check_cuda_tensor(q, "q", (nb, q.shape[1]))
+    if q.device != rel.device:
+        raise ValueError("rel and q must be on the same device")
+    return q.shape[1]
+
+
+def fused_spread(rel: torch.Tensor, q: torch.Tensor, geom: SpreadGeometry):
+    """Kernel A: ``(nb, 3)`` rel, ``(nb, C)`` charges → ``(C, nx, ny, nz)``.
+
+    CPU tensors take :func:`spread_plain`; CUDA tensors launch the kernel
+    (float32 only) or raise.
+    """
+    if rel.device.type == "cpu":
+        return spread_plain(rel, q, geom)
+    n_ch = _check_slots(rel, q, geom)
+    nx, ny, nz = geom.ns
+    lib = _k.load_library().lib
+    smem = geom.extent * geom.extent * nz * 4
+    # the kernel's static shared memory (coefficient table) comes off the top
+    limit = lib.tpme_max_smem_optin(rel.device.index) - 4 * _k.MAX_NODES**2
+    if smem > limit:
+        raise ValueError(
+            f"spread tile field ({geom.extent}x{geom.extent}x{nz} floats = "
+            f"{smem} B) exceeds the {limit} B of shared memory a block can use"
+        )
+    rho = torch.zeros((n_ch, nx, ny, nz), dtype=torch.float32, device=rel.device)
+    p = _params(geom, n_ch)
+    status = lib.tpme_spread_fwd(
+        rel.data_ptr(), q.data_ptr(), rho.data_ptr(), ctypes.byref(p),
+        _k.stream_handle(rel.device),
+    )
+    _k.check_status(status, "spread_fwd")
+    _k.SPREAD_FWD.launches += 1
+    return rho
+
+
+def fused_spread_bwd(rel, q, ct_rho: torch.Tensor, geom: SpreadGeometry):
+    """Kernel B: ``(rel, q, ∂E/∂ρ)`` → ``(∂E/∂rel, ∂E/∂q)``.
+
+    CPU tensors take :func:`spread_plain_bwd`; CUDA tensors launch the
+    kernel (float32 only) or raise.
+    """
+    if rel.device.type == "cpu":
+        return spread_plain_bwd(rel, q, ct_rho, geom)
+    n_ch = _check_slots(rel, q, geom)
+    _k.check_cuda_tensor(ct_rho, "ct_rho", (n_ch, *geom.ns))
+    ct_rel = torch.empty_like(rel)
+    ct_q = torch.empty_like(q)
+    p = _params(geom, n_ch)
+    status = _k.load_library().lib.tpme_spread_bwd(
+        rel.data_ptr(), q.data_ptr(), ct_rho.data_ptr(), ct_rel.data_ptr(),
+        ct_q.data_ptr(), ctypes.byref(p), _k.stream_handle(rel.device),
+    )
+    _k.check_status(status, "spread_bwd")
+    _k.SPREAD_BWD.launches += 1
+    return ct_rel, ct_q
+
+
+class _AlignedSpread(torch.autograd.Function):
+    """``(rel, q) → ρ`` with the kernel pair (or, with ``plain``, the twin
+    pair on any device) as forward and backward."""
+
+    @staticmethod
+    def forward(ctx, rel, q, geom, plain):
+        ctx.save_for_backward(rel, q)
+        ctx.geom, ctx.plain = geom, plain
+        return (spread_plain if plain else fused_spread)(rel, q, geom)
+
+    @staticmethod
+    def backward(ctx, ct_rho):
+        rel, q = ctx.saved_tensors
+        bwd = spread_plain_bwd if ctx.plain else fused_spread_bwd
+        ct_rel, ct_q = bwd(rel, q, ct_rho.contiguous(), ctx.geom)
+        return ct_rel, ct_q, None, None
+
+
+def aligned_tiled_density(
+    pos_rows: torch.Tensor,
+    q_rows: torch.Tensor,
+    inverse_cell: torch.Tensor,
+    ns,
+    nodes: int,
+    method: str,
+    cell_grid: tuple[int, int, int, int],
+    pad_cells: int = 0,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Charge density mesh straight from tile-aligned bucket rows.
+
+    :param pos_rows: ``(n_rows, 3)`` bucket-row positions
+        (:meth:`torchpme_tpu_torch.md.MDFastPath.bucket` layout:
+        ``n_cells·cap`` cell rows, then the spill side list).
+    :param q_rows: ``(n_rows, C)`` charges in the same layout (0 in padding).
+    :param cell_grid: ``(nx_c, ny_c, nz_c, cap)`` of the aligned cell list.
+    :param pad_cells: window widening for overflow-balanced cell lists.
+    :param plain: run the plain twins on any device (the reference path of
+        the comparisons); by default CPU tensors take the twins and CUDA
+        tensors the kernels.
+    :return: ``(C, nx, ny, nz)`` density; the spill rows spread through the
+        generic scatter (:func:`~torchpme_tpu_torch.ops.mesh.points_to_mesh`).
+    """
+    ns = tuple(int(n) for n in ns)
+    nx_c, ny_c, nz_c, cap = cell_grid
+    if nx_c != ns[0] // TILE or ny_c != ns[1] // TILE:
+        raise ValueError(
+            f"cell grid {(nx_c, ny_c)} is not aligned with the "
+            f"{(ns[0] // TILE, ns[1] // TILE)} mesh-tile grid"
+        )
+    extent, lpad = aligned_geometry(nodes, pad_cells)
+    if extent > 2 * TILE:
+        raise ValueError(
+            f"aligned window extent {extent} (nodes={nodes}, "
+            f"pad_cells={pad_cells}) exceeds the 2-tile fold window {2 * TILE}"
+        )
+    geom = SpreadGeometry(
+        ns, int(nodes), method, extent, lpad, nx_c * ny_c, nz_c * cap
+    )
+    nb = geom.n_tiles * geom.slots_per_tile
+    ns_t = torch.tensor(ns, dtype=pos_rows.dtype, device=pos_rows.device)
+    # (pos @ cell⁻¹) · ns in this order keeps the floor/round stencil starts
+    # in lockstep with the JAX package
+    rel = torch.matmul(pos_rows, inverse_cell) * ns_t
+    rho = _AlignedSpread.apply(rel[:nb], q_rows[:nb].contiguous(), geom, plain)
+    if pos_rows.shape[0] > nb:
+        # spill side list: a handful of atoms, generic scatter spread
+        interp_e = compute_interpolation(pos_rows[nb:], inverse_cell, ns, nodes, method)
+        rho = rho + points_to_mesh(interp_e, q_rows[nb:])
+    return rho

@@ -1,22 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port on one CUDA card: python3 chip_smoke.py
 
-Drives the port's main path, the 102k-atom PME MD step (energy + forces of
-``torchpme_tpu_torch.MDFastPath`` in aligned mode), through its hand-written
-CUDA kernels, and fails (non-zero exit, no result line) if any phase fails:
+Drives the port's two main paths at the 102k-atom water-density box through
+its hand-written CUDA kernels, and fails (non-zero exit, no result line) if
+any phase fails:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles ``torchpme_tpu_torch/csrc/*.cu`` with nvcc (sm_90a);
-3. kernels: each kernel against its plain PyTorch twin, float32, on the
-   102k step's own inputs, with CUDA-event times of both;
-4. the slice: the float32 kernel step vs the port's plain float64 step on
-   the card (energy, forces, cell gradient), the launch count of every
-   kernel during the step, and ms/step of the kernel and plain paths;
-5. accuracy: the 1536-atom system of tools/validate_accuracy.py in float32
-   against the JAX package's value and tools/ground_truth.npz;
-6. the last line: ``{"ok": true, "device": {...}}``.
+3. kernels: each of the six kernels against its plain PyTorch version,
+   float32, at the 102k shapes (the tile kernels D, E, F also at three
+   channels), with CUDA-event times of both and the least time the card
+   could take (bytes over memory rate, operations over the float32 rate);
+4. the MD step (``MDFastPath`` in aligned mode: kernels A, B, C): float32
+   kernels vs the plain float64 step (energy, forces, cell gradient), the
+   launch counts and ms/step of both paths;
+5. the per-atom call (``PMECalculator(...)(charges, cell, positions,
+   neighbor_indices, neighbor_distances)`` on the tiled mesh: kernels D, E,
+   F forward and backward): potentials, forces, charge and cell gradients
+   vs the plain float64 call, ``energy`` ≡ ``sum(pot·q)`` ≡ the MD step's
+   energy, the launch counts, and ms per forward and forward+backward;
+6. accuracy: the 1536-atom system of tools/validate_accuracy.py in float32,
+   aligned mode (32³ mesh) and tiled mode (64³ mesh), against the JAX
+   package's values and tools/ground_truth.npz (tiled: the 1e-4 bar);
+7. the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
-Imports torch, numpy and the port; nothing of JAX.
+With ``--profile`` it also traces the MD step and the per-atom call with
+``torch.profiler`` and prints, for each, the device time and the number of
+device events per call and the kernels that take most of it.
+
+Imports torch, numpy, scipy (through the port's neighbor list) and the
+port; nothing of JAX.
 """
 
 from __future__ import annotations
@@ -38,13 +51,24 @@ CUTOFF = 5.0
 ACCURACY = 1e-4
 NODES = 5
 NS_MESH = (128, 128, 128)
-CHAIN = 20  # steps per timed chain, one sync per chain
-KERNEL_TOL = 1e-5  # kernel vs plain twin, max abs error over max |plain|
+CHAIN = 20  # MD steps per timed chain, one sync per chain
+CALL_REPEATS = 5  # per-atom calls per timed chain
+KERNEL_TOL = 1e-5  # kernel vs plain version, max abs error over max |plain|
 
-# tools/validate_accuracy.py system; the JAX package's aligned float32 step on
-# CPU at these settings gives this energy (tests/test_torch_md.py pins it)
+# published peaks of the H100 SXM (NVIDIA's data sheet): the yardstick of
+# every bound below, whatever power limit this card runs at
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+# tools/validate_accuracy.py system.  The JAX package's float32 steps on the
+# CPU give these energies (tests/test_torch_md.py pins both): aligned mode at
+# the 32³ mesh (the finest it allows in this box), tiled mode at the 64³ mesh
+# of mesh_spacing=1.2
 GT_N, GT_SMEARING, GT_NS = 1536, 1.2836, (32, 32, 32)
 GT_JAX_ENERGY = -32.388634
+GT_TILED_NS, GT_MESH_SPACING = (64, 64, 64), 1.2
+GT_TILED_JAX_ENERGY = -32.237873
+GT_FORCE_BAR = 1e-4  # ROADMAP's force accuracy, tools/validate_accuracy.py:113
 
 
 def emit(obj) -> None:
@@ -69,24 +93,113 @@ def smearing_for(charges, cell, n_atoms: int) -> float:
     return CUTOFF / ratio
 
 
-def cuda_ms(fn, repeats: int = 10) -> float:
-    """Mean ms per call from CUDA events, after two warm-up calls."""
-    for _ in range(2):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def sync() -> None:
     torch.cuda.synchronize()
+
+
+def timed_ms(fn, repeats: int) -> float:
+    """ms per call of ``repeats`` calls between two CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sync()
     start.record()
     for _ in range(repeats):
         fn()
     end.record()
-    torch.cuda.synchronize()
+    sync()
     return start.elapsed_time(end) / repeats
+
+
+def cuda_ms(fn, repeats: int = 10) -> float:
+    """Mean ms per call from CUDA events, after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    return timed_ms(fn, repeats)
 
 
 def rel_err(got, ref) -> tuple[float, float]:
     """(max abs error, max abs error over max |ref|)."""
     err = float((got.double() - ref.double()).abs().max())
     return err, err / max(float(ref.double().abs().max()), 1e-30)
+
+
+def rel_rms(got, ref) -> float:
+    got, ref = got.double(), ref.double()
+    return float(torch.sqrt(torch.mean((got - ref) ** 2)) / torch.sqrt(torch.mean(ref**2)))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, n_flop: float) -> dict:
+    """The least time the card could take: every input read once and every
+    output written once at the memory rate, or the float32 operations at the
+    peak rate, whichever is longer."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flop / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(n_bytes), "flop": int(n_flop)}
+
+
+def check_kernel(name, source, replaces, run_kernel, run_plain, cost, report) -> None:
+    """One kernel against its plain version (same inputs), timed, with its
+    bound; appends the entry of the ``kernels`` line to ``report``."""
+    got, ref = run_kernel(), run_plain()
+    sync()
+    errs = [rel_err(a, b) for a, b in zip(got, ref)]
+    worst = max(r for _, r in errs)
+    entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "max_abs_err": max(a for a, _ in errs), "max_rel_err": worst,
+             "ms": cuda_ms(run_kernel), "plain_ms": cuda_ms(run_plain),
+             "bound_ms": cost["bound_ms"], "bound_by": cost["bound_by"],
+             "library_ms": None}
+    emit({"phase": "kernel", **entry, "bytes": cost["bytes"], "flop": cost["flop"],
+          "per_output_rel_err": [r for _, r in errs]})
+    if not worst <= KERNEL_TOL:
+        raise AssertionError(f"{name}: kernel vs plain {worst:.3e} > {KERNEL_TOL}")
+    if name in report:
+        return  # a second shape of a kernel is checked, not listed twice
+    report[name] = entry
+
+
+def alternate_ms(run, repeats: int) -> tuple[float, float]:
+    """(kernel ms, plain ms) per call of ``run(plain)``: medians over turns
+    taken in the order kernel, plain, plain, kernel, after one warm-up each."""
+    run(False), run(True)
+    times = {False: [], True: []}
+    for plain in (False, True, True, False, False, True, True, False):
+        times[plain].append(timed_ms(lambda p=plain: run(p), repeats))
+    return float(np.median(times[False])), float(np.median(times[True]))
+
+
+def profile_path(name: str, fn, calls: int = 5) -> None:
+    """Device time, device events and wall time per call of ``fn``, and the
+    eight kernels that take most of the device time (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    wall_ms = timed_ms(fn, calls)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    on_device.sort(key=lambda e: -e.self_device_time_total)
+    emit({"phase": "profile", "path": name, "wall_ms_per_call": wall_ms,
+          "device_ms_per_call": sum(e.self_device_time_total for e in on_device) / 1e3 / calls,
+          "device_events_per_call": sum(e.count for e in on_device) / calls,
+          "top": [{"name": e.key[:60], "ms_per_call": e.self_device_time_total / 1e3 / calls,
+                   "per_call": e.count / calls} for e in on_device[:8]]})
 
 
 def main() -> int:
@@ -97,10 +210,13 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     import torchpme_tpu_torch as tpt
     from torchpme_tpu_torch import kernels
+    from torchpme_tpu_torch.ops import mesh_kernels as mk
     from torchpme_tpu_torch.ops.math import inv3
+    from torchpme_tpu_torch.ops.mesh_tiled import _slot_values, compute_tiled_interpolation
     from torchpme_tpu_torch.ops.rspace_cells import (
         _prepare_bucketed,
         _we_value_and_grad,
+        _window_offsets,
         window_value_and_grad,
     )
     from torchpme_tpu_torch.ops.spread_fused import (
@@ -111,18 +227,17 @@ def main() -> int:
         spread_plain,
         spread_plain_bwd,
     )
+    from torchpme_tpu_torch.utils.neighbors import compute_distances, neighbor_list
 
     # float32 products in full float32, stated rather than assumed
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    dev = tpt.default_device()
+    smi = card_line()
     print(smi, flush=True)
+    kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0)})
+          "cuda": torch.version.cuda, "kind": kind})
 
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -131,7 +246,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": built.build_seconds, "ptxas": ptxas})
 
-    # -- the 102k system (host build) -------------------------------------------
+    # -- the 102k system (host build; the state lands on the card by default) ---
     positions, charges, cell = water_box(N_ATOMS)
     smearing = smearing_for(charges, cell, N_ATOMS)
     calc = tpt.PMECalculator(tpt.CoulombPotential(smearing=smearing), interpolation_nodes=NODES)
@@ -140,15 +255,32 @@ def main() -> int:
     q32 = torch.tensor(charges, **f32)
     cell32 = torch.tensor(cell, **f32)
     t0 = time.perf_counter()
-    fp = tpt.MDFastPath.create(calc, pos32, cell32, CUTOFF, NS_MESH)
+    fp = tpt.MDFastPath.create(calc, positions.astype(np.float32), cell.astype(np.float32),
+                               CUTOFF, NS_MESH)
     create_s = time.perf_counter() - t0
+    if fp.row_of_atom.device.type != dev.type or fp.mesh_impl != "aligned":
+        raise AssertionError("MDFastPath.create: the state is not on the card, or not aligned")
     n_extra = 0 if fp.clist.extra_mask is None else int(fp.clist.extra_mask.sum())
     emit({"phase": "create", "seconds": create_s, "smearing": smearing,
           "cell_grid": fp.cell_grid, "aligned_pad": fp.aligned_pad,
           "n_rows": fp.n_rows, "spill_atoms": n_extra})
     rows32 = fp.bucket(pos32)
 
-    # -- 3. kernels vs plain twins at the step's own shapes ----------------------
+    t0 = time.perf_counter()
+    nl_idx, _, nl_shifts = neighbor_list(positions.astype(np.float32), cell, CUTOFF)
+    nl_s = time.perf_counter() - t0
+    idx_t = torch.as_tensor(nl_idx, device=dev)
+    shifts_t = torch.as_tensor(nl_shifts, device=dev)
+    t0 = time.perf_counter()
+    interp = compute_tiled_interpolation(pos32, inv3(cell32), NS_MESH, NODES, "Lagrange")
+    sync()
+    interp_s = time.perf_counter() - t0
+    n_tiles, tile_cap = interp.local_x.shape
+    emit({"phase": "host_build", "neighbor_list_seconds": nl_s, "pairs": int(nl_idx.shape[0]),
+          "tiled_interpolation_seconds": interp_s, "tiles": n_tiles, "tile_capacity": tile_cap,
+          "dropped": int(interp.dropped)})
+
+    # -- 3. kernels vs plain versions at the paths' own shapes --------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     nx_c, ny_c, nz_c, cap = fp.cell_grid
     extent, lpad = aligned_geometry(NODES, fp.aligned_pad)
@@ -164,52 +296,92 @@ def main() -> int:
             rows32[: nx_c * ny_c * nz_c * cap].reshape(-1, cap, 3), cell32, fp.clist,
         )
     pot = calc.potential
-    cases = {
-        "spread_fwd": (
-            "torchpme_tpu_torch/csrc/spread.cu",
-            "torchpme_tpu/ops/pallas/spread_fused.py:169",
-            lambda: (fused_spread(rel, q_main, geom),),
-            lambda: (spread_plain(rel, q_main, geom),),
-        ),
-        "spread_bwd": (
-            "torchpme_tpu_torch/csrc/spread.cu",
-            "torchpme_tpu/ops/pallas/spread_fused.py:216",
-            lambda: fused_spread_bwd(rel, q_main, ct_rho, geom),
-            lambda: spread_plain_bwd(rel, q_main, ct_rho, geom),
-        ),
-        "window": (
-            "torchpme_tpu_torch/csrc/window.cu",
-            "torchpme_tpu/ops/rspace_cells.py:813",
-            lambda: (lambda e, g: (e, *g))(
-                *window_value_and_grad(pot, CUTOFF, pc_t, q_g, mf_g, offs)),
-            lambda: (lambda e, g: (e, *g))(
-                *_we_value_and_grad(pot, CUTOFF, pc_t, q_g, mf_g, offs)),
-        ),
-    }
-    report = {}
-    for name, (source, replaces, run_kernel, run_plain) in cases.items():
-        got, ref = run_kernel(), run_plain()
-        torch.cuda.synchronize()
-        errs = [rel_err(a, b) for a, b in zip(got, ref)]
-        worst = max(r for _, r in errs)
-        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "max_abs_err": max(a for a, _ in errs), "max_rel_err": worst,
-                 "ms": cuda_ms(run_kernel), "plain_ms": cuda_ms(run_plain)}
-        emit({"phase": "kernel", **entry, "per_output_rel_err": [r for _, r in errs]})
-        if not worst <= KERNEL_TOL:
-            raise AssertionError(f"{name}: kernel vs plain {worst:.3e} > {KERNEL_TOL}")
-        report[name] = entry
+    n3 = NODES**3
+    stencil = 6 * NODES * NODES  # the three 1D weight polynomials of one atom
+    n_main = N_ATOMS - n_extra
+    mesh1 = ct_rho
+    # candidate pairs of the window: occupied slots of each home cell against
+    # those of its 13 half-window neighbours and itself
+    occ = mf_g.sum(-1).double()
+    candidates = sum(
+        float((occ * torch.roll(occ, (-dx, -dy, -dz), dims=(0, 1, 2))).sum())
+        for dx, dy, dz in _window_offsets(cap)
+    )
+    n_pairs = int(nl_idx.shape[0])
+    report: dict[str, dict] = {}
+    spread_src = "torchpme_tpu_torch/csrc/spread.cu"
+    check_kernel(
+        "spread_fwd", spread_src, "torchpme_tpu/ops/pallas/spread_fused.py:169",
+        lambda: (fused_spread(rel, q_main, geom),),
+        lambda: (spread_plain(rel, q_main, geom),),
+        bound(nbytes(rel, q_main, mesh1), n_main * (2 * n3 + stencil)), report,
+    )
+    check_kernel(
+        "spread_bwd", spread_src, "torchpme_tpu/ops/pallas/spread_fused.py:216",
+        lambda: fused_spread_bwd(rel, q_main, ct_rho, geom),
+        lambda: spread_plain_bwd(rel, q_main, ct_rho, geom),
+        bound(nbytes(rel, q_main, mesh1, rel, q_main), n_main * (8 * n3 + 2 * stencil)), report,
+    )
+    check_kernel(
+        "window", "torchpme_tpu_torch/csrc/window.cu", "torchpme_tpu/ops/rspace_cells.py:813",
+        lambda: (lambda e, g: (e, *g))(
+            *window_value_and_grad(pot, CUTOFF, pc_t, q_g, mf_g, offs)),
+        lambda: (lambda e, g: (e, *g))(
+            *_we_value_and_grad(pot, CUTOFF, pc_t, q_g, mf_g, offs)),
+        # 11 operations to place and test a candidate, 40 more for a pair inside the cutoff
+        bound(nbytes(pc_t, q_g, mf_g, offs, pc_t, q_g, offs) + 8, 11 * candidates + 40 * n_pairs),
+        report,
+    )
 
-    # -- 4. the slice: one energy + force step through the kernels ---------------
+    # kernels D, E, F at the 102k tile shapes, one channel and three
+    mesh_src = "torchpme_tpu_torch/csrc/mesh.cu"
+    mesh_ref = "torchpme_tpu/ops/pallas/mesh_pallas.py"
+    arrays = (interp.local_x, interp.local_y, interp.start_z, interp.weights)
+    for n_ch in (1, 3):
+        values = q32 if n_ch == 1 else torch.randn((N_ATOMS, n_ch), generator=gen, **f32)
+        q_slots = _slot_values(interp, values)
+        field = ct_rho if n_ch == 1 else torch.randn((n_ch, *NS_MESH), generator=gen, **f32)
+        wg = interp.weights
+        check_kernel(
+            "mesh_spread", mesh_src, f"{mesh_ref}:213",
+            lambda: (mk.mesh_spread(*arrays, q_slots, NS_MESH, NODES),),
+            lambda: (mk.mesh_spread_plain(*arrays, q_slots, NS_MESH, NODES),),
+            bound(nbytes(*arrays, q_slots, field), N_ATOMS * n_ch * 2 * n3), report,
+        )
+        check_kernel(
+            "mesh_gather", mesh_src, f"{mesh_ref}:239",
+            lambda: (mk.mesh_gather(*arrays, field, NS_MESH, NODES),),
+            lambda: (mk.mesh_gather_plain(*arrays, field, NS_MESH, NODES),),
+            bound(nbytes(*arrays, field, q_slots), N_ATOMS * n_ch * 2 * n3), report,
+        )
+        check_kernel(
+            "mesh_wgrad", mesh_src, f"{mesh_ref}:263",
+            lambda: (mk.mesh_wgrad(*arrays, q_slots, field, NS_MESH, NODES),),
+            lambda: (mk.mesh_wgrad_plain(*arrays, q_slots, field, NS_MESH, NODES),),
+            bound(nbytes(*arrays, q_slots, field, wg), N_ATOMS * n_ch * 8 * n3), report,
+        )
+        # E and F from one launch, as the backward of the spread runs them
+        both = mk.mesh_gather_wgrad(*arrays, q_slots, field, NS_MESH, NODES)
+        split = (mk.mesh_gather(*arrays, field, NS_MESH, NODES),
+                 mk.mesh_wgrad(*arrays, q_slots, field, NS_MESH, NODES))
+        sync()
+        if not all(torch.equal(a, b) for a, b in zip(both, split)):
+            raise AssertionError("mesh_gather_wgrad differs from its two kernels")
+        emit({"phase": "kernel", "name": "mesh_gather_wgrad", "channels": n_ch,
+              "ms": cuda_ms(lambda: mk.mesh_gather_wgrad(*arrays, q_slots, field, NS_MESH, NODES))})
+    del q_slots, field, values, both, split
+
+    # -- 4. the MD step: energy + forces in aligned mode (kernels A, B, C) --------
     cell_g = cell32.clone().requires_grad_()
     rows_g = rows32.clone().requires_grad_()
     kernels.reset_launch_counts()
     e32 = fp.energy(q32, cell_g, rows_g)
     g_rows, g_cell = torch.autograd.grad(e32, (rows_g, cell_g))
-    torch.cuda.synchronize()
+    sync()
     counts = kernels.launch_counts()
-    if min(counts.values()) < 1:
-        raise AssertionError(f"a kernel of the path never launched: {counts}")
+    md_kernels = ("spread_fwd", "spread_bwd", "window")
+    if min(counts[name] for name in md_kernels) < 1:
+        raise AssertionError(f"a kernel of the MD step never launched: {counts}")
 
     # the float64 reference takes the same float32-rounded inputs, so the
     # comparison measures float32 arithmetic, not input rounding
@@ -217,43 +389,27 @@ def main() -> int:
     rows64 = rows32.double().requires_grad_()
     e64 = fp.energy(q32.double(), cell64, rows64, plain=True)
     g_rows64, g_cell64 = torch.autograd.grad(e64, (rows64, cell64))
-    forces32 = -fp.unbucket(g_rows).double()
-    forces64 = -fp.unbucket(g_rows64)
     e32, e64 = e32.detach(), e64.detach()
     e_rel = abs(float(e32) - float(e64)) / abs(float(e64))
-    f_rms = float(torch.sqrt(torch.mean((forces32 - forces64) ** 2))
-                  / torch.sqrt(torch.mean(forces64**2)))
+    f_rms = rel_rms(fp.unbucket(g_rows), fp.unbucket(g_rows64))
     _, c_rel = rel_err(g_cell, g_cell64)
+    del rows64, g_rows64
 
-    def chain_ms(plain: bool) -> float:
-        def chain():
-            p = rows32
-            for _ in range(CHAIN):
-                p = p.detach().requires_grad_()
-                e = fp.energy(q32, cell32, p, plain=plain)
-                (g,) = torch.autograd.grad(e, p)
-                p = p - 1e-7 * g
-            return p
-        chain()
-        per_step = []
-        for _ in range(5):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            chain()
-            end.record()
-            torch.cuda.synchronize()
-            per_step.append(start.elapsed_time(end) / CHAIN)
-        return float(np.median(per_step))
+    def md_chain(plain: bool):
+        p = rows32
+        for _ in range(CHAIN):
+            p = p.detach().requires_grad_()
+            e = fp.energy(q32, cell32, p, plain=plain)
+            (g,) = torch.autograd.grad(e, p)
+            p = p - 1e-7 * g
+        return p
 
-    kernel_ms = chain_ms(plain=False)
-    plain_ms = chain_ms(plain=True)
+    kernel_ms, plain_ms = (t / CHAIN for t in alternate_ms(md_chain, 1))
     emit({"phase": "slice", "atoms": N_ATOMS, "energy_f32": float(e32),
           "energy_f64_plain": float(e64), "energy_rel": e_rel, "force_rel_rms": f_rms,
-          "cell_grad_rel": c_rel, "launches": counts, "create_seconds": create_s,
-          "ms_per_step": kernel_ms, "plain_f32_ms_per_step": plain_ms,
-          "nvidia_smi": smi})
+          "cell_grad_rel": c_rel, "launches": {k: counts[k] for k in md_kernels},
+          "create_seconds": create_s, "ms_per_step": kernel_ms,
+          "plain_f32_ms_per_step": plain_ms, "nvidia_smi": smi})
     if not (e_rel <= 1e-5 and f_rms <= 1e-5 and c_rel <= 1e-4):
         raise AssertionError(
             f"102k f32 step vs f64 plain: energy {e_rel:.3e}, forces {f_rms:.3e}, "
@@ -262,34 +418,118 @@ def main() -> int:
     if not all(math.isfinite(x) for x in (float(e32), kernel_ms, plain_ms)):
         raise AssertionError("non-finite slice result")
 
-    # -- 5. accuracy against the converged Ewald ground truth --------------------
-    gt = np.load(REPO / "tools" / "ground_truth.npz")
-    gpos, gq, gcell = water_box(GT_N)
-    gcalc = tpt.PMECalculator(tpt.CoulombPotential(smearing=GT_SMEARING), interpolation_nodes=NODES)
-    gpos32 = torch.tensor(gpos, **f32)
-    gfp = tpt.MDFastPath.create(gcalc, gpos32, torch.tensor(gcell, **f32), CUTOFF, GT_NS)
-    grows = gfp.bucket(gpos32).requires_grad_()
-    ge = gfp.energy(torch.tensor(gq, **f32), torch.tensor(gcell, **f32), grows)
-    (gg,) = torch.autograd.grad(ge, grows)
-    ge = ge.detach()
-    gforces = -gfp.unbucket(gg).double().cpu().numpy()
-    f_ref = gt["forces"]
-    gt_rms = float(np.sqrt(np.mean((gforces - f_ref) ** 2)) / np.sqrt(np.mean(f_ref**2)))
-    gt_e_rel = abs(float(ge) - GT_JAX_ENERGY) / abs(GT_JAX_ENERGY)
-    emit({"phase": "accuracy", "atoms": GT_N, "energy": float(ge),
-          "energy_rel_vs_jax": gt_e_rel,
-          "energy_rel_vs_truth": abs(float(ge) - float(gt["energy"])) / abs(float(gt["energy"])),
-          "force_rel_rms_vs_truth": gt_rms, "aligned_pad": gfp.aligned_pad,
-          "spill": gfp.clist.extra_index is not None})
-    if not (gt_e_rel <= 1e-5 and gt_rms <= 1.0e-3):
-        raise AssertionError(
-            f"1536-atom accuracy: energy {gt_e_rel:.3e} vs JAX, force rms {gt_rms:.3e}"
-        )
+    # -- 5. the per-atom call on the tiled mesh (kernels D, E, F) -----------------
+    def per_atom(dtype, plain, backward=True):
+        """(potentials, d/dpositions, d/dcharges, d/dcell of sum(pot·q), the
+        sum itself) of the calculator call; distances are recomputed inside
+        so the gradients reach positions and cell."""
+        p = pos32.to(dtype).requires_grad_(backward)
+        q = q32.to(dtype).requires_grad_(backward)
+        c = cell32.to(dtype).requires_grad_(backward)
+        dist = compute_distances(p, idx_t, c, shifts_t)
+        pot_i = calc(q, c, p, idx_t, dist, ns_mesh=NS_MESH, tiled_interp=interp, plain=plain)
+        if not backward:
+            return (pot_i,)
+        total = torch.sum(pot_i * q)
+        return (pot_i.detach(), *torch.autograd.grad(total, (p, q, c)), total.detach())
 
-    # -- 6. result --------------------------------------------------------------
+    kernels.reset_launch_counts()
+    got = per_atom(torch.float32, plain=False)
+    sync()
+    call_counts = kernels.launch_counts()
+    call_kernels = ("mesh_spread", "mesh_gather", "mesh_wgrad")
+    if min(call_counts[name] for name in call_kernels) < 1:
+        raise AssertionError(f"a kernel of the per-atom call never launched: {call_counts}")
+    ref = per_atom(torch.float64, plain=True)
+    pot_rel = rel_err(got[0], ref[0])[1]
+    force_rms = rel_rms(got[1], ref[1])
+    dq_rel = rel_err(got[2], ref[2])[1]
+    dcell_rel = rel_err(got[3], ref[3])[1]
+    e_sum, e_sum64 = float(got[4]), float(ref[4])
+    with torch.no_grad():
+        e_quad = float(calc.energy(
+            q32, cell32, pos32, idx_t, compute_distances(pos32, idx_t, cell32, shifts_t),
+            ns_mesh=NS_MESH, tiled_interp=interp,
+        ))
+    e_sum_rel = abs(e_sum - e_sum64) / abs(e_sum64)
+    e_quad_rel = abs(e_quad - e_sum) / abs(e_sum)
+    e_md_rel = abs(float(e32) - e_sum) / abs(e_sum)
+    del got, ref
+
+    fwd_ms, fwd_plain_ms = alternate_ms(
+        lambda plain: per_atom(torch.float32, plain, backward=False), CALL_REPEATS)
+    full_ms, full_plain_ms = alternate_ms(
+        lambda plain: per_atom(torch.float32, plain), CALL_REPEATS)
+    emit({"phase": "per_atom_call", "atoms": N_ATOMS, "pairs": n_pairs,
+          "tiles": n_tiles, "tile_capacity": tile_cap,
+          "energy_sum_pot_q_f32": e_sum, "energy_sum_pot_q_f64_plain": e_sum64,
+          "energy_rel": e_sum_rel, "potential_rel": pot_rel, "force_rel_rms": force_rms,
+          "charge_grad_rel": dq_rel, "cell_grad_rel": dcell_rel,
+          "energy_method_rel_vs_sum": e_quad_rel, "md_step_energy_rel_vs_sum": e_md_rel,
+          "launches": {k: call_counts[k] for k in call_kernels},
+          "forward_ms": fwd_ms, "forward_plain_f32_ms": fwd_plain_ms,
+          "forward_backward_ms": full_ms, "forward_backward_plain_f32_ms": full_plain_ms,
+          "neighbor_list_seconds": nl_s, "tiled_interpolation_seconds": interp_s,
+          "nvidia_smi": smi})
+    if not (e_sum_rel <= 1e-5 and pot_rel <= 1e-5 and force_rms <= 1e-5
+            and dq_rel <= 1e-5 and dcell_rel <= 1e-4):
+        raise AssertionError(
+            f"102k f32 per-atom call vs f64 plain: energy {e_sum_rel:.3e}, potentials "
+            f"{pot_rel:.3e}, forces {force_rms:.3e}, charge gradient {dq_rel:.3e}, "
+            f"cell gradient {dcell_rel:.3e}"
+        )
+    if not (e_quad_rel <= 1e-5 and e_md_rel <= 1e-5):
+        raise AssertionError(
+            f"sum(pot*q) vs calc.energy {e_quad_rel:.3e}, vs the MD step {e_md_rel:.3e}"
+        )
+    counts.update({k: call_counts[k] for k in call_kernels})
+    if "--profile" in sys.argv[1:]:
+        profile_path("md_step_aligned", lambda: md_chain(False), calls=2)  # 2 chains of CHAIN steps
+        profile_path("per_atom_forward", lambda: per_atom(torch.float32, False, backward=False))
+        profile_path("per_atom_forward_backward", lambda: per_atom(torch.float32, False))
+
+    # -- 6. accuracy against the converged Ewald ground truth ---------------------
+    gt = np.load(REPO / "tools" / "ground_truth.npz")
+    f_ref = torch.tensor(gt["forces"], device=dev)
+    e_truth = float(gt["energy"])
+    gpos, gq, gcell = water_box(GT_N)
+    gcalc = tpt.PMECalculator(tpt.CoulombPotential(smearing=GT_SMEARING),
+                              mesh_spacing=GT_MESH_SPACING, interpolation_nodes=NODES)
+    if gcalc.get_ns_mesh(gcell) != GT_TILED_NS:
+        raise AssertionError(f"mesh of the accuracy system: {gcalc.get_ns_mesh(gcell)}")
+    gpos32, gq32, gcell32 = (torch.tensor(a, **f32) for a in (gpos, gq, gcell))
+    accuracy = {}
+    for mode, ns, e_jax in (("aligned", GT_NS, GT_JAX_ENERGY),
+                            ("tiled", GT_TILED_NS, GT_TILED_JAX_ENERGY)):
+        gfp = tpt.MDFastPath.create(gcalc, gpos32, gcell32, CUTOFF, ns, mesh_impl=mode)
+        grows = gfp.bucket(gpos32).requires_grad_()
+        kernels.reset_launch_counts()
+        ge = gfp.energy(gq32, gcell32, grows)
+        (gg,) = torch.autograd.grad(ge, grows)
+        sync()
+        ge = float(ge.detach())
+        accuracy[mode] = {
+            "ns_mesh": ns, "energy": ge, "energy_rel_vs_jax": abs(ge - e_jax) / abs(e_jax),
+            "energy_rel_vs_truth": abs(ge - e_truth) / abs(e_truth),
+            "force_rel_rms_vs_truth": rel_rms(-gfp.unbucket(gg), f_ref),
+            "launches": {k: v for k, v in kernels.launch_counts().items() if v},
+        }
+    emit({"phase": "accuracy", "atoms": GT_N, **accuracy})
+    aligned, tiled = accuracy["aligned"], accuracy["tiled"]
+    if not (aligned["energy_rel_vs_jax"] <= 1e-5 and aligned["force_rel_rms_vs_truth"] <= 1.0e-3):
+        raise AssertionError(f"1536-atom accuracy, aligned mode: {aligned}")
+    if not (tiled["energy_rel_vs_jax"] <= 1e-5 and tiled["force_rel_rms_vs_truth"] <= GT_FORCE_BAR
+            and tiled["energy_rel_vs_truth"] <= GT_FORCE_BAR):
+        raise AssertionError(f"1536-atom accuracy, tiled mode: {tiled}")
+    # tiled mode: kernel D forward, kernel F backward (kernel E joins when the
+    # charges want a gradient), kernel C for the real-space window
+    if not {"window", "mesh_spread", "mesh_wgrad"} <= set(tiled["launches"]):
+        raise AssertionError(f"tiled mode launched {tiled['launches']}")
+
+    # -- 7. result ----------------------------------------------------------------
     emit({"kernels": [{k: v for k, v in report[name].items() if k != "max_rel_err"}
                       | {"launches": counts[name]} for name in report]})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
 

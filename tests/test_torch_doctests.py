@@ -1,5 +1,5 @@
 """Doctest every module of the torch port (on the CPU: examples run the
-plain twins)."""
+kernels' plain versions)."""
 
 import doctest
 import importlib
@@ -25,7 +25,11 @@ def _walk_modules():
 ALL_MODULES = _walk_modules()
 
 MUST_HAVE_EXAMPLES = [
+    "torchpme_tpu_torch.calculators.calculator",
+    "torchpme_tpu_torch.calculators.pme",
     "torchpme_tpu_torch.md",
+    "torchpme_tpu_torch.ops.mesh_tiled",
+    "torchpme_tpu_torch.utils.neighbors",
     "torchpme_tpu_torch.ops.kvectors",
     "torchpme_tpu_torch.ops.math",
     "torchpme_tpu_torch.potentials.coulomb",

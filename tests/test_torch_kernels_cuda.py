@@ -6,12 +6,16 @@ On a machine with a card (which has no JAX, so without the suite's
 conftest): ``python -m pytest tests/test_torch_kernels_cuda.py --noconftest``.
 """
 
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
 
 import torchpme_tpu_torch as tpt
 from torchpme_tpu_torch import kernels
+from torchpme_tpu_torch.ops import mesh_kernels as mk
+from torchpme_tpu_torch.ops import mesh_tiled as mt
 from torchpme_tpu_torch.ops import rspace_cells as rc
 from torchpme_tpu_torch.ops import spread_fused as sf
 
@@ -96,7 +100,8 @@ def test_step_launches_every_kernel_and_matches_plain(step):
         (g,) = torch.autograd.grad(e, rows)
         torch.cuda.synchronize()
         out[plain] = (float(e.detach()), g, kernels.launch_counts())
-    assert all(n == 1 for n in out[False][2].values()), out[False][2]
+    aligned = ("spread_fwd", "spread_bwd", "window")
+    assert all(out[False][2][name] == 1 for name in aligned), out[False][2]
     assert all(n == 0 for n in out[True][2].values()), out[True][2]
     assert abs(out[False][0] - out[True][0]) <= 1e-5 * abs(out[True][0])
     assert _rel(out[False][1], out[True][1]) <= 1e-5
@@ -107,3 +112,139 @@ def test_kernels_refuse_float64(step):
     with pytest.raises(TypeError, match="float32"):
         fp.energy(q.double(), cell.double(), fp.bucket(pos.double()))
     assert np.isfinite(float(fp.energy(q.double(), cell.double(), fp.bucket(pos.double()), plain=True)))
+
+
+# -- kernels D, E, F (tile spread, gather, weight gradient) --------------------
+
+MESH_CASES = [  # (nodes, channels, nz), as tests/ops/test_mesh_pallas.py
+    (nodes, n_ch, nz) for nodes in (3, 4, 5) for n_ch, nz in ((1, 128), (3, 128), (2, 96))
+]
+
+
+def _tiled_case(device, nodes, n_ch, nz, n=500, seed=0):
+    """A float32 bucketing on a (32, 32, nz) mesh, per-slot charges and a
+    random mesh field."""
+    rng = np.random.default_rng(seed)
+    ns = (32, 32, nz)
+    f32 = dict(dtype=torch.float32, device=device)
+    pos = torch.tensor(rng.uniform(0, 10.0, (n, 3)), **f32)
+    interp = mt.compute_tiled_interpolation(
+        pos, torch.eye(3, **f32) / 10.0, ns, nodes, "Lagrange"
+    )
+    q_slots = mt._slot_values(interp, torch.tensor(rng.normal(size=(n, n_ch)), **f32))
+    field = torch.tensor(rng.normal(size=(n_ch, *ns)), **f32)
+    return interp, q_slots, field
+
+
+def _arrays(interp):
+    return interp.local_x, interp.local_y, interp.start_z, interp.weights
+
+
+@pytest.mark.parametrize("nodes,n_ch,nz", MESH_CASES)
+def test_mesh_kernels_match_plain(device, nodes, n_ch, nz):
+    interp, q_slots, field = _tiled_case(device, nodes, n_ch, nz)
+    a, ns = _arrays(interp), interp.ns
+    kernels.reset_launch_counts()
+    assert _rel(mk.mesh_spread(*a, q_slots, ns, nodes),
+                mk.mesh_spread_plain(*a, q_slots, ns, nodes)) <= 1e-5
+    assert _rel(mk.mesh_gather(*a, field, ns, nodes),
+                mk.mesh_gather_plain(*a, field, ns, nodes)) <= 1e-5
+    wg_plain = mk.mesh_wgrad_plain(*a, q_slots, field, ns, nodes)
+    assert _rel(mk.mesh_wgrad(*a, q_slots, field, ns, nodes), wg_plain) <= 1e-5
+    vals, wg = mk.mesh_gather_wgrad(*a, q_slots, field, ns, nodes)
+    torch.cuda.synchronize()
+    assert _rel(vals, mk.mesh_gather_plain(*a, field, ns, nodes)) <= 1e-5
+    assert _rel(wg, wg_plain) <= 1e-5
+    counts = kernels.launch_counts()
+    assert (counts["mesh_spread"], counts["mesh_gather"], counts["mesh_wgrad"]) == (1, 2, 2)
+
+
+def test_mesh_spread_splits_z_when_the_tile_field_exceeds_shared_memory(device, monkeypatch):
+    interp, q_slots, _ = _tiled_case(device, 5, 2, 96)
+    a, ns = _arrays(interp), interp.ns
+    whole = mk.mesh_spread(*a, q_slots, ns, 5)
+    monkeypatch.setattr(mk, "SPREAD_SMEM_BUDGET", 12 * 12 * 4 * 40)  # 40 z cells a block
+    assert _rel(mk.mesh_spread(*a, q_slots, ns, 5), whole) <= 1e-6
+
+
+def test_mesh_kernels_ignore_stale_and_empty_slots(device):
+    """A stencil start beyond the tile window writes nothing outside the
+    mesh and empty slots contribute nothing: kernels ≡ plain versions."""
+    interp, q_slots, field = _tiled_case(device, 4, 1, 128)
+    lx = interp.local_x.clone()
+    lx[interp.atom_of_slot < 500] = 9  # stale: two of four x nodes fall off the window
+    a, ns = (lx, interp.local_y, interp.start_z, interp.weights), interp.ns
+    assert _rel(mk.mesh_spread(*a, q_slots, ns, 4), mk.mesh_spread_plain(*a, q_slots, ns, 4)) <= 1e-5
+    vals, wg = mk.mesh_gather_wgrad(*a, q_slots, field, ns, 4)
+    assert _rel(vals, mk.mesh_gather_plain(*a, field, ns, 4)) <= 1e-5
+    assert _rel(wg, mk.mesh_wgrad_plain(*a, q_slots, field, ns, 4)) <= 1e-5
+    empty = interp.atom_of_slot == 500
+    assert float(vals.transpose(1, 2)[empty].abs().max()) == 0.0
+    assert float(wg[empty].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("nodes,n_ch,nz", [(5, 1, 128), (4, 3, 128), (3, 2, 96)])
+def test_mesh_autograd_functions_match_plain_backward(device, nodes, n_ch, nz):
+    """Both autograd.Functions (spread: backward E + F; gather: backward
+    D + F) against autograd through the plain versions."""
+    interp, q_slots, field = _tiled_case(device, nodes, n_ch, nz)
+    ct_mesh = torch.randn_like(field)
+    ct_vals = torch.randn_like(q_slots)
+    grads = {}
+    for plain in (False, True):
+        w = interp.weights.clone().requires_grad_()
+        q = q_slots.clone().requires_grad_()
+        f = field.clone().requires_grad_()
+        it = replace(interp, weights=w)
+        kernels.reset_launch_counts()
+        loss = (mk.spread_tiles(it, q, plain=plain) * ct_mesh).sum() + (
+            mk.gather_tiles(it, f, plain=plain) * ct_vals
+        ).sum()
+        grads[plain] = torch.autograd.grad(loss, (w, q, f))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = (0, 0, 0) if plain else (2, 2, 2)
+        assert (counts["mesh_spread"], counts["mesh_gather"], counts["mesh_wgrad"]) == want
+    for got, ref in zip(grads[False], grads[True]):
+        assert _rel(got, ref) <= 1e-5
+
+
+def test_mesh_kernels_refuse_float64(device):
+    interp, q_slots, field = _tiled_case(device, 4, 1, 128)
+    a = (interp.local_x, interp.local_y, interp.start_z, interp.weights.double())
+    with pytest.raises(TypeError, match="float32"):
+        mk.mesh_spread(*a, q_slots.double(), interp.ns, 4)
+    with pytest.raises(TypeError, match="float32"):
+        mk.mesh_gather(*a, field.double(), interp.ns, 4)
+    ref = mk.mesh_gather_plain(*a, field.double(), interp.ns, 4)
+    assert ref.dtype == torch.float64 and ref.device.type == "cuda"
+
+
+def test_calculator_call_on_the_card_matches_plain(device):
+    """PMECalculator.forward + autograd through kernels D, E, F ≡ the plain
+    float32 path; `auto` picks the tiled backend on the card."""
+    from torchpme_tpu_torch.utils.neighbors import compute_distances, neighbor_list
+
+    pos, q, cell = _clustered_box()
+    idx, _, shifts = neighbor_list(pos, cell, cutoff=3.0)
+    f32 = dict(dtype=torch.float32, device=device)
+    idx_t, shifts_t = torch.as_tensor(idx, device=device), torch.as_tensor(shifts, device=device)
+    calc = tpt.PMECalculator(tpt.CoulombPotential(smearing=1.0), interpolation_nodes=5)
+    out = {}
+    for plain in (False, True):
+        p = torch.tensor(pos, **f32).requires_grad_()
+        c = torch.tensor(cell, **f32).requires_grad_()
+        qt = torch.tensor(q, **f32).requires_grad_()
+        kernels.reset_launch_counts()
+        pot = calc(qt, c, p, idx_t, compute_distances(p, idx_t, c, shifts_t), ns_mesh=NS, plain=plain)
+        g = torch.autograd.grad((pot * qt).sum(), (p, qt, c))
+        torch.cuda.synchronize()
+        out[plain] = (pot.detach(), *g)
+        counts = kernels.launch_counts()
+        launched = {k: counts[k] for k in ("mesh_spread", "mesh_gather", "mesh_wgrad")}
+        if plain:
+            assert not any(launched.values()), launched
+        else:
+            assert launched == {"mesh_spread": 2, "mesh_gather": 2, "mesh_wgrad": 2}, launched
+    for got, ref in zip(out[False], out[True]):
+        assert _rel(got, ref) <= 2e-5

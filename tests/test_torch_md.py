@@ -137,6 +137,7 @@ def test_convert_round_trip(f64_case):
             assert again[key].dtype == value.dtype, key
         else:
             assert again[key] == value, key
+    assert state["mesh_impl"] == "aligned" and state["tiled"] is None
     assert _port_step(back, pos, q, cell, torch.float64)[0] == _port_step(
         fp, pos, q, cell, torch.float64
     )[0]
@@ -170,10 +171,13 @@ def test_rebucket_keeps_shapes(f64_case):
 def test_mesh_modes_and_options_validated():
     pos, q, cell = random_box(100, 16.0, seed=9)
     _, calc = _calcs()
-    with pytest.raises(ValueError, match="ROADMAP"):  # tile edge 1.0 < cutoff
-        tpt.MDFastPath.create(calc, pos, cell, CUTOFF, (128, 128, 128))
+    with pytest.raises(ValueError, match="mesh_impl='tiled'"):  # tile edge 1.0 < cutoff
+        tpt.MDFastPath.create(calc, pos, cell, CUTOFF, (128, 128, 128), mesh_impl="aligned")
+    # `auto` takes the tiled mode where aligned cannot run
+    assert tpt.MDFastPath.create(calc, pos, cell, CUTOFF, (64, 64, 32)).mesh_impl == "tiled"
+    assert tpt.MDFastPath.create(calc, pos, cell, CUTOFF, NS).mesh_impl == "aligned"
+    assert tpt.MDFastPath.create(calc, pos, cell, CUTOFF, NS, mesh_impl="tiled").tiled is not None
     for kw, err in (
-        (dict(mesh_impl="tiled"), NotImplementedError),
         (dict(mesh_impl="fused"), NotImplementedError),
         (dict(mesh_impl="nope"), ValueError),
         (dict(extras_impl="tiled"), NotImplementedError),
@@ -246,3 +250,44 @@ def test_chip_smoke_reference_constants():
     f_ref = truth["forces"]
     assert abs(e - cs.GT_JAX_ENERGY) <= 1e-5 * abs(cs.GT_JAX_ENERGY)
     assert np.sqrt(np.mean((f - f_ref) ** 2)) / np.sqrt(np.mean(f_ref**2)) <= 1.0e-3
+
+
+def test_chip_smoke_tiled_reference_constants():
+    """chip_smoke.py's tiled-mode reference: the JAX package's float32 tiled
+    step at the 64³ mesh of mesh_spacing=1.2 (where aligned mode cannot run)
+    gives GT_TILED_JAX_ENERGY and meets the 1e-4 force bar against
+    tools/ground_truth.npz on this CPU; the port's own float32 tiled step
+    lands within the script's bars of both."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    pos, q, cell = cs.water_box(cs.GT_N)
+    kw = dict(mesh_spacing=cs.GT_MESH_SPACING, interpolation_nodes=cs.NODES)
+    calc_j = tpme.PMECalculator(tpme.CoulombPotential(smearing=cs.GT_SMEARING), **kw)
+    calc_t = tpt.PMECalculator(tpt.CoulombPotential(smearing=cs.GT_SMEARING), **kw)
+    assert calc_t.get_ns_mesh(cell) == calc_j.get_ns_mesh(jnp.asarray(cell)) == cs.GT_TILED_NS
+    assert not tpt.MDFastPath._aligned_supported(cell, cs.CUTOFF, cs.GT_TILED_NS)
+    truth = np.load(REPO / "tools" / "ground_truth.npz")
+    f_ref, e_ref = truth["forces"], float(truth["energy"])
+
+    def force_rms(f):
+        return np.sqrt(np.mean((f - f_ref) ** 2)) / np.sqrt(np.mean(f_ref**2))
+
+    f32 = jnp.float32
+    fp_j = tpme.MDFastPath.create(
+        calc_j, jnp.asarray(pos, f32), jnp.asarray(cell, f32), cs.CUTOFF, cs.GT_TILED_NS,
+        mesh_impl="tiled",
+    )
+    e_j, f_j, _ = _jax_step(fp_j, pos, q, cell, f32)
+    assert abs(e_j - cs.GT_TILED_JAX_ENERGY) <= 1e-6 * abs(cs.GT_TILED_JAX_ENERGY)
+    assert force_rms(f_j) <= cs.GT_FORCE_BAR and abs(e_j - e_ref) <= cs.GT_FORCE_BAR * abs(e_ref)
+
+    fp = tpt.MDFastPath.create(
+        calc_t, torch.tensor(pos, dtype=torch.float32),
+        torch.tensor(cell, dtype=torch.float32), cs.CUTOFF, cs.GT_TILED_NS,
+    )
+    assert fp.mesh_impl == "tiled" and fp.tiled.local_x.shape == (64, 64)
+    e, f, _ = _port_step(fp, pos, q, cell, torch.float32)
+    assert abs(e - cs.GT_TILED_JAX_ENERGY) <= 1e-5 * abs(cs.GT_TILED_JAX_ENERGY)
+    assert force_rms(f) <= cs.GT_FORCE_BAR and abs(e - e_ref) <= cs.GT_FORCE_BAR * abs(e_ref)
+    assert rel(f, f_j) <= 5e-5

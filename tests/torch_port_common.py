@@ -88,8 +88,22 @@ def rows_of(clist_j, positions):
     return rows
 
 
+TILED_FIELDS = (
+    "local_x", "local_y", "start_z", "weights", "slot_of_atom", "dropped", "atom_of_slot",
+)
+
+
+def jax_tiled_state(interp_j) -> dict:
+    """The numpy state dict of a JAX TiledInterpolation (convert's keys)."""
+    state = {"ns": tuple(interp_j.ns), "nodes": int(interp_j.nodes)}
+    for name in TILED_FIELDS:
+        value = getattr(interp_j, name)
+        state[name] = None if value is None else np.asarray(value)
+    return state
+
+
 def jax_md_state(fp_j) -> dict:
-    """The numpy state dict of a JAX aligned MDFastPath (convert's keys)."""
+    """The numpy state dict of a JAX MDFastPath (convert's keys)."""
     calc = fp_j.calc
     state = {
         "smearing": float(calc.potential.smearing),
@@ -97,6 +111,7 @@ def jax_md_state(fp_j) -> dict:
         "interpolation_nodes": int(calc.interpolation_nodes),
         "method": calc._method,
         "mesh_spacing": float(calc.mesh_spacing),
+        "mesh_impl": fp_j.mesh_impl,
         "n_axis": tuple(fp_j.clist.n_axis),
         "cutoff": float(fp_j.clist.cutoff),
         "slack": tuple(fp_j.clist.slack),
@@ -108,6 +123,7 @@ def jax_md_state(fp_j) -> dict:
         "aligned_pad": fp_j.aligned_pad,
     }
     state.update(clist_arrays(fp_j.clist))
+    state["tiled"] = None if fp_j.tiled is None else jax_tiled_state(fp_j.tiled)
     return state
 
 

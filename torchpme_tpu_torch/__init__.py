@@ -1,15 +1,19 @@
 """torchpme_tpu_torch: the PyTorch + CUDA port of :mod:`torchpme_tpu`.
 
 A second package beside the JAX one, keeping its module paths and public
-names.  Its first slice is the 102k-atom PME MD step (``MDFastPath`` in
-aligned mode over ``PMECalculator`` + ``CoulombPotential``), whose three
-TPU-side kernels are hand-written CUDA C++ for Hopper (``csrc/``), each
-with a plain PyTorch twin in the module that wraps it.  This package
-imports ``torch`` and ``numpy``, never ``jax``.
+names.  It holds the 102k-atom PME MD step (``MDFastPath`` in aligned and
+tiled mode) and the per-atom ``PMECalculator`` call over a neighbor list,
+both over ``CoulombPotential``.  The TPU-side kernels on those paths are
+hand-written CUDA C++ for Hopper (``csrc/``), each with a plain PyTorch
+version in the module that wraps it.  Entry points put their state on the
+CUDA device when one is present and the caller gave neither a device nor
+tensors (:func:`default_device`).  This package imports ``torch``,
+``numpy`` and ``scipy``, never ``jax``.
 """
 
-from . import calculators, md, ops, potentials, prefactors  # noqa: F401
+from . import calculators, md, ops, potentials, prefactors, utils  # noqa: F401
 from .calculators import Calculator, PMECalculator
+from .device import default_device
 from .md import MDFastPath
 from .potentials import CoulombPotential, Potential
 
@@ -19,4 +23,5 @@ __all__ = [
     "MDFastPath",
     "PMECalculator",
     "Potential",
+    "default_device",
 ]

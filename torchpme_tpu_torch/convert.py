@@ -1,10 +1,13 @@
 """State carried between the JAX package and the port, as numpy.
 
-The MD step has no learned weights.  Its state is the potential's scalars,
-the calculator's stencil settings, and the host-built bucketing of
-:class:`~torchpme_tpu_torch.md.MDFastPath` (the cell list, the row map and
-the static shapes).  :func:`md_state` writes that state as a flat dict of
-numpy arrays and Python scalars; :func:`md_from_state` builds the port's
+The calculators have no learned weights.  Their state is the potential's
+scalars and the calculator's stencil settings (:func:`calculator_state` /
+:func:`calculator_from_state`, enough for the per-atom call), a reusable
+tile bucketing (:func:`tiled_interp_state` / :func:`tiled_interp_from_state`)
+and the host-built bucketing of :class:`~torchpme_tpu_torch.md.MDFastPath`
+(the cell list, the row map, the static shapes and, in tiled mode, the tile
+bucketing).  :func:`md_state` writes that state as a flat dict of numpy
+arrays and Python scalars; :func:`md_from_state` builds the port's
 ``CoulombPotential``, ``PMECalculator`` and ``MDFastPath`` from such a dict
 on a given device.  A dict filled from the JAX package's objects (same
 keys, arrays via ``np.asarray``) gives the port the identical state, which
@@ -17,11 +20,20 @@ import numpy as np
 import torch
 
 from .calculators import PMECalculator
+from .device import resolve_device
 from .md import MDFastPath
+from .ops.mesh_tiled import TiledInterpolation
 from .ops.rspace_cells import CellList
 from .potentials import CoulombPotential
 
-__all__ = ["md_from_state", "md_state"]
+__all__ = [
+    "calculator_from_state",
+    "calculator_state",
+    "md_from_state",
+    "md_state",
+    "tiled_interp_from_state",
+    "tiled_interp_state",
+]
 
 _CLIST_ARRAYS = ("atom_index", "slot_mask", "atom_wrap")
 _EXTRA_ARRAYS = ("extra_index", "extra_mask", "extra_cell", "extra_wrap")
@@ -35,17 +47,75 @@ _DTYPES = {
     "extra_wrap": np.int8,
     "row_of_atom": np.int32,
 }
+_TILED_ARRAYS = (
+    "local_x", "local_y", "start_z", "weights", "slot_of_atom", "dropped", "atom_of_slot",
+)
 
 
-def md_state(fp: MDFastPath) -> dict:
-    """The port's MD state as numpy arrays and Python scalars."""
-    pot, calc, clist = fp.calc.potential, fp.calc, fp.clist
-    state = {
+def calculator_state(calc: PMECalculator) -> dict:
+    """The potential's scalars and the calculator's settings."""
+    pot = calc.potential
+    return {
         "smearing": pot.smearing,
         "prefactor": pot.prefactor,
         "interpolation_nodes": calc.interpolation_nodes,
         "method": calc._method,
         "mesh_spacing": calc.mesh_spacing,
+    }
+
+
+def calculator_from_state(state: dict, **kwargs) -> PMECalculator:
+    """The port's ``PMECalculator`` over a ``CoulombPotential`` from the keys
+    of :func:`calculator_state`; ``kwargs`` (``full_neighbor_list``,
+    ``mesh_backend``, ``tile_capacity``) go to the calculator."""
+    if state["method"] != "Lagrange":
+        raise ValueError(f"the port's PMECalculator is Lagrange-only, got {state['method']!r}")
+    potential = CoulombPotential(
+        smearing=float(state["smearing"]), prefactor=float(state["prefactor"])
+    )
+    return PMECalculator(
+        potential,
+        mesh_spacing=float(state["mesh_spacing"]),
+        interpolation_nodes=int(state["interpolation_nodes"]),
+        **kwargs,
+    )
+
+
+def tiled_interp_state(interp: TiledInterpolation) -> dict:
+    """A tile bucketing as numpy arrays plus its static ``ns`` and ``nodes``."""
+    state = {"ns": tuple(interp.ns), "nodes": int(interp.nodes)}
+    for name in _TILED_ARRAYS:
+        value = getattr(interp, name)
+        state[name] = None if value is None else value.detach().cpu().numpy()
+    return state
+
+
+def tiled_interp_from_state(state: dict, device=None) -> TiledInterpolation:
+    """The port's :class:`TiledInterpolation` from the keys of
+    :func:`tiled_interp_state` (the integer arrays as int32, the weights in
+    their own float type), on ``device``."""
+    device = resolve_device(device)
+
+    def dev(name):
+        value = state.get(name)
+        if value is None:
+            return None
+        dtype = None if name == "weights" else np.int32
+        return torch.from_numpy(np.array(value, dtype=dtype)).to(device)
+
+    return TiledInterpolation(
+        *(dev(name) for name in _TILED_ARRAYS),
+        ns=tuple(int(n) for n in state["ns"]),
+        nodes=int(state["nodes"]),
+    )
+
+
+def md_state(fp: MDFastPath) -> dict:
+    """The port's MD state as numpy arrays and Python scalars."""
+    clist = fp.clist
+    state = {
+        **calculator_state(fp.calc),
+        "mesh_impl": fp.mesh_impl,
         "n_axis": tuple(clist.n_axis),
         "cutoff": clist.cutoff,
         "slack": tuple(clist.slack),
@@ -59,22 +129,17 @@ def md_state(fp: MDFastPath) -> dict:
     for name in _CLIST_ARRAYS + _EXTRA_ARRAYS:
         value = getattr(clist, name)
         state[name] = None if value is None else value.cpu().numpy()
+    state["tiled"] = None if fp.tiled is None else tiled_interp_state(fp.tiled)
     return state
 
 
 def md_from_state(state: dict, device=None) -> MDFastPath:
     """Port objects (potential, calculator, MD state) from a numpy state
-    dict with the keys of :func:`md_state`, on ``device``."""
-    if state["method"] != "Lagrange":
-        raise ValueError(f"the port's PMECalculator is Lagrange-only, got {state['method']!r}")
-    potential = CoulombPotential(
-        smearing=float(state["smearing"]), prefactor=float(state["prefactor"])
-    )
-    calc = PMECalculator(
-        potential,
-        mesh_spacing=float(state["mesh_spacing"]),
-        interpolation_nodes=int(state["interpolation_nodes"]),
-    )
+    dict with the keys of :func:`md_state`, on ``device`` (default:
+    :func:`torchpme_tpu_torch.default_device`)."""
+    device = resolve_device(device)
+    calc = calculator_from_state(state)
+    tiled = state.get("tiled")
 
     def dev(name):
         value = state.get(name)
@@ -96,6 +161,7 @@ def md_from_state(state: dict, device=None) -> MDFastPath:
         tuple(int(n) for n in state["ns_mesh"]),
         int(state["n_rows"]),
         int(state["n_atoms"]),
-        tuple(int(n) for n in state["cell_grid"]),
+        None if tiled is not None else tuple(int(n) for n in state["cell_grid"]),
         int(state["aligned_pad"]),
+        None if tiled is None else tiled_interp_from_state(tiled, device),
     )

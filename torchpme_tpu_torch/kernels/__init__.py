@@ -2,8 +2,9 @@
 
 The kernels live in ``torchpme_tpu_torch/csrc/*.cu`` with a plain C
 interface.  :func:`load_library` compiles them with ``nvcc`` for ``sm_90a``
-into one shared library at first use (cached under ``_build/`` by a hash of
-the sources and flags) and binds it with ``ctypes``.  Nothing here touches
+(one ``nvcc`` per source, all started together) and links one shared library
+at first use (cached under ``_build/`` by a hash of the sources and flags),
+then binds it with ``ctypes``.  Nothing here touches
 CUDA at import time: the CPU tests import every module.
 
 Each kernel has a :class:`LaunchCounter` that its wrapper (beside the
@@ -28,6 +29,7 @@ import torch
 __all__ = [
     "COUNTERS",
     "LaunchCounter",
+    "MeshParams",
     "SpreadParams",
     "WindowParams",
     "check_cuda_tensor",
@@ -46,7 +48,6 @@ NVCC_FLAGS = (
     *ARCH_FLAGS,
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -69,7 +70,10 @@ class LaunchCounter:
 SPREAD_FWD = LaunchCounter("spread_fwd")
 SPREAD_BWD = LaunchCounter("spread_bwd")
 WINDOW = LaunchCounter("window")
-COUNTERS = (SPREAD_FWD, SPREAD_BWD, WINDOW)
+MESH_SPREAD = LaunchCounter("mesh_spread")
+MESH_GATHER = LaunchCounter("mesh_gather")
+MESH_WGRAD = LaunchCounter("mesh_wgrad")
+COUNTERS = (SPREAD_FWD, SPREAD_BWD, WINDOW, MESH_SPREAD, MESH_GATHER, MESH_WGRAD)
 
 
 def reset_launch_counts() -> None:
@@ -119,6 +123,24 @@ class WindowParams(ctypes.Structure):
     ]
 
 
+class MeshParams(ctypes.Structure):
+    """Mirror of ``struct MeshParams`` in ``csrc/mesh.cu``."""
+
+    _fields_ = [
+        ("nx", ctypes.c_int),
+        ("ny", ctypes.c_int),
+        ("nz", ctypes.c_int),
+        ("nodes", ctypes.c_int),
+        ("extent", ctypes.c_int),
+        ("ty_count", ctypes.c_int),
+        ("n_tiles", ctypes.c_int),
+        ("cap", ctypes.c_int),
+        ("n_ch", ctypes.c_int),
+        ("z_chunk", ctypes.c_int),
+        ("n_chunks", ctypes.c_int),
+    ]
+
+
 @dataclass(frozen=True)
 class KernelLibrary:
     """The loaded kernel library and how it was obtained."""
@@ -160,6 +182,49 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, p, p, p, ctypes.POINTER(WindowParams), p,
     ]
     lib.tpme_window.restype = ctypes.c_int
+    lib.tpme_mesh_spread.argtypes = [p, p, p, p, p, p, ctypes.POINTER(MeshParams), p]
+    lib.tpme_mesh_spread.restype = ctypes.c_int
+    lib.tpme_mesh_gather_wgrad.argtypes = [
+        p, p, p, p, p, p, p, p, ctypes.POINTER(MeshParams), p,
+    ]
+    lib.tpme_mesh_gather_wgrad.restype = ctypes.c_int
+
+
+def _build(sources: list[Path], path: Path) -> tuple[float, str]:
+    """Compile every source to an object file, all at once, and link them
+    into ``path``; returns (seconds, compiler output)."""
+    nvcc = _nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    start = time.perf_counter()
+    try:
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources, objects)
+        ]
+        outputs = [proc.communicate()[0] for proc in procs]
+        log = "".join(outputs)
+        for proc, src in zip(procs, sources):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}) on {src.name}:\n{log}"
+                )
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)],
+            capture_output=True, text=True, check=False,
+        )
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        os.replace(tmp, path)
+    finally:
+        for leftover in (*objects, tmp):
+            leftover.unlink(missing_ok=True)
+    return time.perf_counter() - start, log
 
 
 @functools.lru_cache(maxsize=None)
@@ -176,18 +241,7 @@ def load_library() -> KernelLibrary:
     build_seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        start = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        build_seconds = time.perf_counter() - start
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}"
-            )
-        os.replace(tmp, path)
+        build_seconds, log = _build(sources, path)
     lib = ctypes.CDLL(str(path))
     _declare(lib)
     return KernelLibrary(lib, path, build_seconds, log)

@@ -1,34 +1,50 @@
 """Bucket-order MD state: the PME energy + force step without per-step gathers.
 
-Counterpart of :class:`torchpme_tpu.md.MDFastPath` in its **aligned**
-mode.  Positions live in cell-bucket rows across steps (converted once, at
-build or rebucket time, like a neighbor-list build); the cell list's x/y
-grid is pinned to the 8×8 mesh-tile grid, so the same rows are the slots of
-the spread kernels, and the step pays no gather in either direction.
+Counterpart of :class:`torchpme_tpu.md.MDFastPath` in its **aligned** and
+**tiled** modes.  Positions live in cell-bucket rows across steps (converted
+once, at build or rebucket time, like a neighbor-list build).
 
-One step: the real-space window (kernel C) + the aligned spread (kernel A;
-its VJP is kernel B) + the k-space quadratic form on cuFFT.  Autograd of
-:meth:`MDFastPath.energy` with respect to the rows gives minus the forces
-in row layout.  Once an atom drifts out of its cell the energy and every
-gradient are NaN: rebuild with :meth:`MDFastPath.rebucket`.
+* ``"aligned"``: the cell list's x/y grid is pinned to the 8×8 mesh-tile
+  grid, so the same rows are the slots of the spread kernels, and the step
+  pays no gather in either direction.  One step: the real-space window
+  (kernel C) + the aligned spread (kernel A; its VJP is kernel B) + the
+  k-space quadratic form on cuFFT.  Needs one mesh tile per x/y cell with
+  edge ≥ cutoff, which bounds how fine the mesh can be.
+* ``"tiled"``: any mesh that tiles.  The cell list is free of the mesh; a
+  tile bucketing whose slots name bucket rows is refreshed from the rows
+  each step (one gather) and spread by kernel D (its VJP is kernels E + F).
+
+Autograd of :meth:`MDFastPath.energy` with respect to the rows gives minus
+the forces in row layout.  Once an atom drifts out of its cell (or, in tiled
+mode, out of its tile's stencil window) the energy and every gradient are
+NaN: rebuild with :meth:`MDFastPath.rebucket`.
 """
 
 from __future__ import annotations
+
+import copy
+from dataclasses import replace
 
 import numpy as np
 import torch
 from torch import nn
 
+from .device import resolve_device
 from .ops.math import inv3
-from .ops.mesh_tiled import TILE, supports_tiling
+from .ops.mesh_tiled import (
+    TILE,
+    TiledInterpolation,
+    compute_tiled_interpolation,
+    supports_tiling,
+)
 from .ops.rspace_cells import CellList, cell_list_rspace_energy_rows, compute_cell_list
 from .ops.spread_fused import aligned_geometry, aligned_tiled_density
 
 __all__ = ["MDFastPath"]
 
-_LATER_MODES = (
-    "the 'tiled'/'fused' mesh modes are not ported yet (ROADMAP.md, "
-    "section 1, row 9)"
+_FUSED_MODE = (
+    "mesh_impl='fused' (fused_tiled_density: refresh + spread in one kernel) is "
+    "not ported yet (ROADMAP.md, section 2); use 'tiled' or 'aligned'"
 )
 
 
@@ -57,7 +73,7 @@ def _to_numpy(x) -> np.ndarray:
 
 
 class MDFastPath(nn.Module):
-    """A PME calculator bound to a reusable aligned bucketing.
+    """A PME calculator bound to reusable bucketings, in bucket-row layout.
 
     Build with :meth:`create` (host-side, like a neighbor-list build).
 
@@ -87,18 +103,27 @@ class MDFastPath(nn.Module):
         ns_mesh: tuple[int, int, int],
         n_rows: int,
         n_atoms: int,
-        cell_grid: tuple[int, int, int, int],
-        aligned_pad: int,
+        cell_grid: tuple[int, int, int, int] | None,
+        aligned_pad: int = 0,
+        tiled: TiledInterpolation | None = None,
     ):
         super().__init__()
+        #: "aligned" (cell rows are the tile slots) or "tiled" (``tiled``
+        #: holds a tile bucketing whose ``atom_of_slot`` names bucket rows)
+        self.mesh_impl = "aligned" if tiled is None else "tiled"
+        if tiled is not None:
+            # the rows layout is consumed by the tile refresh: pin the backend
+            # so an auto-resolved scatter can never see row-layout positions
+            calc = copy.copy(calc)
+            calc.mesh_backend = "tiled"
         self.calc = calc
         self.clist = clist
+        self.tiled = tiled
         self.row_of_atom = row_of_atom
         self.ns_mesh = tuple(int(n) for n in ns_mesh)
         self.n_rows = int(n_rows)
         self.n_atoms = int(n_atoms)
-        self.mesh_impl = "aligned"
-        self.cell_grid = tuple(int(n) for n in cell_grid)
+        self.cell_grid = None if cell_grid is None else tuple(int(n) for n in cell_grid)
         self.aligned_pad = int(aligned_pad)
 
     @classmethod
@@ -110,6 +135,7 @@ class MDFastPath(nn.Module):
         cutoff: float,
         ns_mesh=None,
         cell_capacity: int | None = None,
+        tile_capacity: int | None = None,
         mesh_impl: str = "auto",
         extras_impl: str = "auto",
         balance: str | bool = "auto",
@@ -122,17 +148,20 @@ class MDFastPath(nn.Module):
         :param cutoff: real-space cutoff of the cell list.
         :param ns_mesh: static mesh shape (``calc.get_ns_mesh(cell)`` when
             omitted).
-        :param mesh_impl: ``"aligned"`` or ``"auto"`` (the same: aligned
-            where :meth:`_aligned_supported` allows it, an error otherwise).
-        :param extras_impl: ``"auto"`` or ``"scatter"``: spill atoms spread
-            through the generic scatter.
-        :param balance: overflow-balance the cell list (``"auto"``: when the
-            widened spread window fits the 2-tile fold).
+        :param tile_capacity: slots per mesh tile in tiled mode (default:
+            from the true maximum occupancy).
+        :param mesh_impl: ``"aligned"``, ``"tiled"`` or ``"auto"`` (aligned
+            where :meth:`_aligned_supported` allows it, tiled otherwise).
+        :param extras_impl: ``"auto"`` or ``"scatter"``: spill atoms of the
+            aligned mode spread through the generic scatter.
+        :param balance: overflow-balance the cell list (``"auto"``: in
+            aligned mode, when the widened spread window fits the 2-tile
+            fold; tiled mode balances only on ``True``).
         :param device: device of the state (default: that of ``positions``
-            when it is a tensor, else the CPU).
+            when it is a tensor, else
+            :func:`torchpme_tpu_torch.default_device`).
         """
-        if device is None:
-            device = positions.device if isinstance(positions, torch.Tensor) else "cpu"
+        device = resolve_device(device, positions, cell)
         pos_np = _to_numpy(positions)
         cell_np = np.asarray(_to_numpy(cell), np.float64)
         if ns_mesh is None:
@@ -144,17 +173,20 @@ class MDFastPath(nn.Module):
                 f"{calc.interpolation_nodes} nodes does not tile (nx, ny must "
                 "be multiples of 16)"
             )
-        if mesh_impl in ("tiled", "fused"):
-            raise NotImplementedError(f"mesh_impl={mesh_impl!r}: {_LATER_MODES}")
-        if mesh_impl not in ("auto", "aligned"):
+        if mesh_impl == "fused":
+            raise NotImplementedError(_FUSED_MODE)
+        if mesh_impl == "auto":
+            aligned_ok = cls._aligned_supported(cell_np, cutoff, ns_mesh)
+            mesh_impl = "aligned" if aligned_ok else "tiled"
+        if mesh_impl not in ("aligned", "tiled"):
             raise ValueError(
-                f"`mesh_impl` is {mesh_impl!r} but must be 'auto' or 'aligned'"
+                f"`mesh_impl` is {mesh_impl!r} but must be 'auto', 'aligned' or 'tiled'"
             )
-        if not cls._aligned_supported(cell_np, cutoff, ns_mesh):
+        if mesh_impl == "aligned" and not cls._aligned_supported(cell_np, cutoff, ns_mesh):
             raise ValueError(
                 "aligned MD state needs one mesh tile (8 mesh cells) per x/y "
                 "cell-list cell with edge >= cutoff; this cell/mesh/cutoff "
-                f"combination does not allow it, and {_LATER_MODES}"
+                "combination does not allow it (use mesh_impl='tiled')"
             )
         if extras_impl == "tiled":
             raise NotImplementedError(
@@ -168,6 +200,11 @@ class MDFastPath(nn.Module):
         if balance not in ("auto", True, False):
             raise ValueError(
                 f"`balance` is {balance!r} but must be 'auto', True or False"
+            )
+        if mesh_impl == "tiled":
+            return cls._create_tiled(
+                calc, pos_np, cell_np, cutoff, ns_mesh, cell_capacity, tile_capacity,
+                balance is True, _spill, device,
             )
         # overflow balance: x/y slack capped so the widened spread window
         # still fits the 2-tile fold; z slack is unconstrained on the mesh side
@@ -200,6 +237,41 @@ class MDFastPath(nn.Module):
             pos_np.shape[0],
             (*clist.n_axis, cap),
             aligned_pad,
+        )
+
+    @classmethod
+    def _create_tiled(
+        cls, calc, pos_np, cell_np, cutoff, ns_mesh, cell_capacity, tile_capacity,
+        balance, spill, device,
+    ) -> "MDFastPath":
+        """Tiled mode: a cell list free of the mesh plus a tile bucketing
+        whose slots name bucket rows."""
+        clist = compute_cell_list(
+            pos_np, cell_np, cutoff, capacity=cell_capacity, spill=spill,
+            balance=balance, device=device,
+        )
+        n_atoms = pos_np.shape[0]
+        row_of_atom, n_rows = _row_mapping(clist, n_atoms)
+        pos_t = torch.as_tensor(pos_np, device=device)
+        tiled = compute_tiled_interpolation(
+            pos_t, inv3(torch.as_tensor(cell_np, dtype=pos_t.dtype, device=device)),
+            ns_mesh, calc.interpolation_nodes, calc._method, capacity=tile_capacity,
+        )
+        dropped = int(tiled.dropped)
+        if dropped:
+            raise ValueError(
+                f"{dropped} atoms exceeded the tile capacity; pass a larger "
+                "`tile_capacity`"
+            )
+        # remap tile slots from atom ids to bucket-row ids (sentinel: n_rows)
+        slots = tiled.atom_of_slot.cpu().numpy()
+        remapped = np.where(
+            slots == n_atoms, n_rows, row_of_atom[np.minimum(slots, n_atoms - 1)]
+        ).astype(np.int32)
+        tiled = replace(tiled, atom_of_slot=torch.from_numpy(remapped).to(device))
+        return cls(
+            calc, clist, torch.from_numpy(row_of_atom).to(device), ns_mesh, n_rows,
+            n_atoms, None, 0, tiled,
         )
 
     @staticmethod
@@ -239,6 +311,7 @@ class MDFastPath(nn.Module):
             cutoff if cutoff is not None else self.clist.cutoff,
             ns_mesh=self.ns_mesh,
             cell_capacity=self.clist.slot_mask.shape[1],
+            tile_capacity=None if self.tiled is None else self.tiled.local_x.shape[1],
             mesh_impl=self.mesh_impl,
             balance=max(self.clist.slack) > 0.0,
             _spill=self.clist.extra_index is not None,
@@ -266,6 +339,15 @@ class MDFastPath(nn.Module):
         e_sr = cell_list_rspace_energy_rows(
             self.calc.potential, charges, pos_rows, cell, self.clist, plain=plain
         )
+        if self.mesh_impl == "tiled":
+            # pos_rows are consumed only by the tile refresh (row-id slots);
+            # a stale bucketing poisons the energy instead of raising, so the
+            # step never waits for the device
+            e_k = self.calc._compute_kspace_energy(
+                charges.to(pos_rows.dtype), cell, pos_rows, ns_mesh=self.ns_mesh,
+                tiled_interp=self.tiled, check_stale=False, plain=plain,
+            )
+            return e_sr + e_k
         dtype = pos_rows.dtype
         q_rows = charges.new_zeros((self.n_rows, charges.shape[-1]), dtype=dtype)
         q_rows = q_rows.index_copy(0, self.row_of_atom.long(), charges.to(dtype))

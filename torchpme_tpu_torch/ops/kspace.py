@@ -1,8 +1,9 @@
-"""Reciprocal-space filter and the Parseval quadratic form on cuFFT.
+"""Reciprocal-space filter, its application to a mesh, and the Parseval
+quadratic form, on cuFFT.
 
-Counterpart of :mod:`torchpme_tpu.ops.kspace` for the MD energy step.  The
-JAX package evaluates the quadratic form by DFT matmuls on the TPU (its 3D
-rFFT has a latency floor there); here the transform is ``torch.fft.rfftn``.
+Counterpart of :mod:`torchpme_tpu.ops.kspace`.  The JAX package can run the
+transforms as DFT matmuls on the TPU (its 3D rFFT has a latency floor
+there); here every transform is ``torch.fft.rfftn`` / ``irfftn``.
 """
 
 from __future__ import annotations
@@ -12,7 +13,36 @@ import torch
 
 from .kvectors import generate_kvectors_for_mesh
 
-__all__ = ["compute_kspace_filter", "kspace_filter_quadratic"]
+__all__ = ["apply_kspace_filter", "compute_kspace_filter", "kspace_filter_quadratic"]
+
+
+def apply_kspace_filter(
+    mesh_values: torch.Tensor,
+    kfilter: torch.Tensor,
+    fft_norm: str = "ortho",
+    ifft_norm: str = "ortho",
+) -> torch.Tensor:
+    r"""Apply a scalar reciprocal-space filter to a real-space mesh:
+    :math:`f \to \hat f \to \hat f\,\phi \to \tilde f` with a 3D rFFT over
+    the last three axes.  Mesh calculators use the ``backward``/``forward``
+    norm pair, which puts no :math:`1/n` factor in either direction.
+
+    :param mesh_values: ``(C, nx, ny, nz)`` real-space field.
+    :param kfilter: ``(nx, ny, nz//2+1)`` filter on the rFFT grid.
+    """
+    if mesh_values.ndim != 4:
+        raise ValueError(
+            "`mesh_values` needs to be a 4 dimensional tensor, got "
+            f"{mesh_values.ndim}"
+        )
+    dims = (1, 2, 3)
+    mesh_hat = torch.fft.rfftn(mesh_values, norm=fft_norm, dim=dims)
+    if mesh_hat.shape[-3:] != kfilter.shape[-3:]:
+        raise ValueError("The real-space mesh is inconsistent with the k-space grid.")
+    # explicit output size: for odd mesh sizes the inverse rFFT is ambiguous
+    return torch.fft.irfftn(
+        mesh_hat * kfilter, norm=ifft_norm, dim=dims, s=mesh_values.shape[-3:]
+    )
 
 
 def compute_kspace_filter(kernel_from_k_sq, cell: torch.Tensor, ns) -> torch.Tensor:

@@ -1,9 +1,11 @@
-"""Charge spreading onto a mesh by scatter (``index_add_``).
+"""Charge spreading onto a mesh by scatter (``index_add_``) and the
+gather back to the particles.
 
 Counterpart of :mod:`torchpme_tpu.ops.mesh`: the coefficient tables, the 1D
-stencil weights and the generic scatter spread.  In the MD step this path
-spreads only the few spill atoms of the cell list; it is also the oracle of
-the aligned spread kernel (``ops/spread_fused.py``).
+stencil weights, the generic scatter spread and its transpose.  In the MD
+step this path spreads only the few spill atoms of the cell list; it is the
+``mesh_backend="scatter"`` of the calculators and the oracle of the spread
+and gather kernels (``ops/spread_fused.py``, ``ops/mesh_kernels.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ __all__ = [
     "MeshInterpolationWeights",
     "compute_1d_weights",
     "compute_interpolation",
+    "mesh_to_points",
     "points_to_mesh",
 ]
 
@@ -198,3 +201,20 @@ def points_to_mesh(
     )
     mesh = mesh.index_add(1, interp.linear_indices.reshape(-1), values)
     return mesh.reshape(n_channels, nx, ny, nz)
+
+
+def mesh_to_points(
+    interp: MeshInterpolationWeights, mesh_vals: torch.Tensor
+) -> torch.Tensor:
+    """Interpolate a ``(C, nx, ny, nz)`` mesh field back to the particle
+    positions (transpose of :func:`points_to_mesh` with the same weights).
+
+    :return: ``(N, C)`` interpolated values.
+    """
+    if mesh_vals.ndim != 4:
+        raise ValueError(
+            f"`mesh_vals` of dimension {mesh_vals.ndim} has to be of dimension 4"
+        )
+    flat_mesh = mesh_vals.reshape(mesh_vals.shape[0], -1)
+    gathered = flat_mesh[:, interp.linear_indices]  # (C, nodes³, N)
+    return torch.sum(gathered * interp.combined_weights[None], dim=1).T

@@ -24,10 +24,12 @@ import numpy as np
 import torch
 
 from .. import kernels as _k
+from ..device import resolve_device
 from .math import inv3
 
 __all__ = [
     "CellList",
+    "cell_list_rspace_energy",
     "cell_list_rspace_energy_rows",
     "compute_cell_list",
     "window_value_and_grad",
@@ -207,9 +209,12 @@ def compute_cell_list(
         MD state pins them to the mesh-tile grid).
     :param balance: overflow-balance the bucketing within the per-axis
         slack ``(edge − cutoff)/2``; a 3-tuple caps the absolute slack.
-    :param device: device of the returned tensors (default CPU).
+    :param device: device of the returned tensors (default: that of
+        ``positions`` when it is a tensor, else
+        :func:`torchpme_tpu_torch.default_device`).
     """
     balance = _check_balance(balance)
+    device = resolve_device(device, positions)
     if isinstance(positions, torch.Tensor):
         positions = positions.detach().cpu().numpy()
     if isinstance(cell, torch.Tensor):
@@ -662,3 +667,20 @@ def cell_list_rspace_energy_rows(
         valid = valid & valid_e
     # NaN-poison through a multiply so gradients are poisoned too
     return e0 * torch.where(valid, 1.0, float("nan")).to(e0.dtype)
+
+
+def cell_list_rspace_energy(
+    potential,
+    charges: torch.Tensor,
+    positions: torch.Tensor,
+    cell: torch.Tensor,
+    clist: CellList,
+    plain: bool = False,
+) -> torch.Tensor:
+    r"""Short-range energy from atom-order ``positions``: one gather into
+    bucket rows, then :func:`cell_list_rspace_energy_rows` (same value and
+    gradients up to the row permutation)."""
+    rows = positions.index_select(0, clist.atom_index.reshape(-1).long())
+    if clist.extra_index is not None:
+        rows = torch.cat([rows, positions.index_select(0, clist.extra_index.long())], dim=0)
+    return cell_list_rspace_energy_rows(potential, charges, rows, cell, clist, plain=plain)

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port on one CUDA card: python3 chip_smoke.py
 
-Drives the port's two main paths at the 102k-atom water-density box through
-its hand-written CUDA kernels, and fails (non-zero exit, no result line) if
-any phase fails:
+Drives the port's main paths at the 102k-atom water-density box (point
+charges: the MD step and the per-atom call; point dipoles: the same two)
+through its hand-written CUDA kernels, and fails (non-zero exit, no result
+line) if any phase fails:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles ``torchpme_tpu_torch/csrc/*.cu`` with nvcc (sm_90a);
-3. kernels: each of the six kernels against its plain PyTorch version,
+3. kernels: each of the seven kernels against its plain PyTorch version,
    float32, at the 102k shapes (the tile kernels D, E, F also at three
-   channels), with CUDA-event times of both and the least time the card
-   could take (bytes over memory rate, operations over the float32 rate);
+   channels and at the dipolar shapes: 6 nodes, every slot three times; the
+   dipolar window G in smeared and direct mode and with separate i-side
+   dipoles), with CUDA-event times of both and the least time the card could
+   take (bytes over memory rate, operations over the float32 rate);
 4. the MD step (``MDFastPath`` in aligned mode: kernels A, B, C): float32
    kernels vs the plain float64 step (energy, forces, cell gradient), the
    launch counts and ms/step of both paths;
@@ -22,11 +25,23 @@ any phase fails:
 6. accuracy: the 1536-atom system of tools/validate_accuracy.py in float32,
    aligned mode (32³ mesh) and tiled mode (64³ mesh), against the JAX
    package's values and tools/ground_truth.npz (tiled: the 1e-4 bar);
-7. the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
+7. the dipolar MD step (``MDFastPathDipole`` over ``PMECalculatorDipole``:
+   kernel G for the window, D forward and E + F backward for the mesh) at
+   the system of tools/bench_family.py: float32 kernels vs the plain float64
+   step (energy, forces, fields ``dE/dmu``, cell gradient), launch counts
+   and ms/step of both paths;
+8. the dipolar per-atom call (``PMECalculatorDipole(...)(dipoles, cell,
+   positions, neighbor_indices, neighbor_vectors)`` on the tiled mesh) with
+   its gradients vs the plain float64 call, ``sum(pot·mu)`` ≡ ``energy`` ≡
+   the dipolar MD step's energy, and ms per forward and forward+backward;
+9. dipolar accuracy: the 3000-atom oracle of tools/bench_family.py, float32
+   mesh PME on the card against the port's float64 dipolar Ewald at
+   ``lr_wavelength = smearing / 2``, beside the JAX package's two energies;
+10. the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
-With ``--profile`` it also traces the MD step and the per-atom call with
-``torch.profiler`` and prints, for each, the device time and the number of
-device events per call and the kernels that take most of it.
+With ``--profile`` it also traces the four 102k paths with ``torch.profiler``
+and prints, for each, the device time and the number of device events per
+call and the kernels that take most of it.
 
 Imports torch, numpy, scipy (through the port's neighbor list) and the
 port; nothing of JAX.
@@ -40,6 +55,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -54,6 +70,11 @@ NS_MESH = (128, 128, 128)
 CHAIN = 20  # MD steps per timed chain, one sync per chain
 CALL_REPEATS = 5  # per-atom calls per timed chain
 KERNEL_TOL = 1e-5  # kernel vs plain version, max abs error over max |plain|
+# d_offs of the dipolar window totals every j-side force of a neighbor offset,
+# 1/d^4 terms that cancel to ~1e-3 of their size: the plain version's float32
+# sum carries that error (the JAX package's own bar,
+# tests/ops/test_window_dipole_pallas.py:57)
+D_OFFS_TOL = 5e-4
 
 # published peaks of the H100 SXM (NVIDIA's data sheet): the yardstick of
 # every bound below, whatever power limit this card runs at
@@ -69,6 +90,25 @@ GT_JAX_ENERGY = -32.388634
 GT_TILED_NS, GT_MESH_SPACING = (64, 64, 64), 1.2
 GT_TILED_JAX_ENERGY = -32.237873
 GT_FORCE_BAR = 1e-4  # ROADMAP's force accuracy, tools/validate_accuracy.py:113
+
+# the dipolar system of tools/bench_family.py:177-222: the 102k box with
+# normal dipoles (seed 1) at the monopole-tuned smearing and 128^3 mesh, and
+# its 3000-atom accuracy oracle.  The JAX package's float64 energies of the
+# oracle on the CPU (tests/test_torch_dipole_md.py pins both): mesh PME, and
+# the dipolar Ewald sum converged at lr_wavelength = smearing / 2
+DIPOLE_NODES = 6
+DIPOLE_GT_N, DIPOLE_GT_NS = 3000, (64, 64, 64)
+DIPOLE_GT_JAX_PME = 1113.8367343731925
+DIPOLE_GT_JAX_EWALD = 1114.2225485046647
+DIPOLE_GT_BAR = 5e-4  # mesh PME vs converged Ewald, relative energy
+# float32 step vs float64: the cell gradient sums per-atom forces of up to
+# ~1e5 (closest pairs 0.04 A apart under 1/d^4) whose float32 rounding alone
+# is ~1e-4 of the ~1e3 cell gradient
+DIPOLE_CELL_TOL = 5e-4
+# FLOPs of kernel G per pair inside the cutoff: 46 (smeared) or 8 (direct)
+# for (B, C, C'/d) with expf and rsqrtf as one each, and 72 for the three
+# contractions, the energy and the twelve i- and j-side cotangent terms
+G_PAIR_FLOP = {"smeared": 118, "direct": 80}
 
 
 def emit(obj) -> None:
@@ -91,6 +131,40 @@ def smearing_for(charges, cell, n_atoms: int) -> float:
     prefac = 2 * float((charges**2).sum()) / math.sqrt(n_atoms)
     ratio = math.sqrt(-2 * math.log(ACCURACY / 2 / prefac * math.sqrt(CUTOFF * volume)))
     return CUTOFF / ratio
+
+
+def dipole_parameters() -> tuple[float, float]:
+    """(smearing, mesh spacing) of the dipolar runs: bench.py's values for
+    the 102k box, whose spacing 2·box/127 gives the 128³ mesh."""
+    _, charges, cell = water_box(N_ATOMS)
+    return smearing_for(charges, cell, N_ATOMS), 2 * float(cell[0, 0]) / 127
+
+
+def dipole_oracle_box():
+    """``(positions, dipoles, cell)`` of the 3000-atom dipolar accuracy
+    oracle, from the same generator as tools/bench_family.py (seed 1, after
+    the draw of the 102k dipoles)."""
+    rng = np.random.default_rng(1)
+    rng.normal(size=(N_ATOMS, 3))
+    box = float((DIPOLE_GT_N / 0.1) ** (1 / 3))
+    positions = rng.uniform(0, box, (DIPOLE_GT_N, 3))
+    return positions, rng.normal(size=(DIPOLE_GT_N, 3)), np.eye(3) * box
+
+
+def dipole_ewald_oracle(tpt, positions, dipoles, cell, smearing, device) -> float:
+    """float64 dipolar Ewald energy of the port at ``lr_wavelength =
+    smearing / 2`` over a cell list (explicit structure-factor sums; the
+    window's plain version, the kernel being float32 only)."""
+    f64 = dict(dtype=torch.float64, device=device)
+    ewald = tpt.CalculatorDipole(tpt.PotentialDipole(smearing=smearing),
+                                 lr_wavelength=smearing / 2)
+    clist = tpt.ops.compute_cell_list(positions, cell, CUTOFF, device=device)
+    with torch.no_grad():
+        return float(ewald.energy(
+            torch.tensor(dipoles, **f64), torch.tensor(cell, **f64),
+            torch.tensor(positions, **f64), cell_list=clist,
+            ns_kvectors=ewald.get_ns_kvectors(cell), plain=True,
+        ))
 
 
 def card_line() -> str:
@@ -150,25 +224,30 @@ def bound(n_bytes: float, n_flop: float) -> dict:
             "bytes": int(n_bytes), "flop": int(n_flop)}
 
 
-def check_kernel(name, source, replaces, run_kernel, run_plain, cost, report) -> None:
+def check_kernel(name, source, replaces, run_kernel, run_plain, cost, report,
+                 tols=None, shape=None):
     """One kernel against its plain version (same inputs), timed, with its
-    bound; appends the entry of the ``kernels`` line to ``report``."""
+    bound; appends the entry of the ``kernels`` line to ``report``.  ``tols``
+    are per-output bars (default ``KERNEL_TOL``) on the max abs error over
+    max |plain|."""
     got, ref = run_kernel(), run_plain()
     sync()
     errs = [rel_err(a, b) for a, b in zip(got, ref)]
+    tols = [KERNEL_TOL] * len(errs) if tols is None else tols
     worst = max(r for _, r in errs)
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "max_abs_err": max(a for a, _ in errs), "max_rel_err": worst,
              "ms": cuda_ms(run_kernel), "plain_ms": cuda_ms(run_plain),
              "bound_ms": cost["bound_ms"], "bound_by": cost["bound_by"],
              "library_ms": None}
-    emit({"phase": "kernel", **entry, "bytes": cost["bytes"], "flop": cost["flop"],
-          "per_output_rel_err": [r for _, r in errs]})
-    if not worst <= KERNEL_TOL:
-        raise AssertionError(f"{name}: kernel vs plain {worst:.3e} > {KERNEL_TOL}")
-    if name in report:
-        return  # a second shape of a kernel is checked, not listed twice
-    report[name] = entry
+    emit({"phase": "kernel", **entry, "shape": shape, "bytes": cost["bytes"],
+          "flop": cost["flop"], "per_output_rel_err": [r for _, r in errs],
+          "per_output_tol": tols})
+    for i, ((_, r), tol) in enumerate(zip(errs, tols)):
+        if not r <= tol:
+            raise AssertionError(f"{name} ({shape}): output {i} kernel vs plain {r:.3e} > {tol}")
+    if name not in report:  # a second shape of a kernel is checked, not listed twice
+        report[name] = entry
 
 
 def alternate_ms(run, repeats: int) -> tuple[float, float]:
@@ -200,6 +279,294 @@ def profile_path(name: str, fn, calls: int = 5) -> None:
           "device_events_per_call": sum(e.count for e in on_device) / calls,
           "top": [{"name": e.key[:60], "ms_per_call": e.self_device_time_total / 1e3 / calls,
                    "per_call": e.count / calls} for e in on_device[:8]]})
+
+
+def dipole_phases(env) -> None:
+    """Phases 3 (kernel G; D, E, F at the dipolar shapes), 7, 8 and 9: the
+    dipolar paths at the system of tools/bench_family.py."""
+    tpt, kernels, f32, dev = env.tpt, env.kernels, env.f32, env.dev
+    from torchpme_tpu_torch.ops import mesh_kernels as mk
+    from torchpme_tpu_torch.ops import rspace_cells_dipole as rcd
+    from torchpme_tpu_torch.ops.math import inv3
+    from torchpme_tpu_torch.ops.mesh_tiled import (
+        _slot_values,
+        compute_tiled_interpolation,
+        dipole_slots,
+    )
+    from torchpme_tpu_torch.ops.rspace_cells import _prepare_bucketed, _window_offsets
+
+    pos32, cell32, idx_t, shifts_t = env.pos32, env.cell32, env.idx_t, env.shifts_t
+    smearing, spacing = dipole_parameters()
+    pot = tpt.PotentialDipole(smearing=smearing)
+    calc = tpt.PMECalculatorDipole(pot, mesh_spacing=spacing)
+    if calc.get_ns_mesh(env.cell) != NS_MESH or calc.interpolation_nodes != DIPOLE_NODES:
+        raise AssertionError(f"dipolar mesh: {calc.get_ns_mesh(env.cell)}")
+    mu32 = torch.tensor(np.random.default_rng(1).normal(size=(N_ATOMS, 3)), **f32)
+    t0 = time.perf_counter()
+    fp = tpt.MDFastPathDipole.create(calc, env.positions.astype(np.float32),
+                                     env.cell.astype(np.float32), CUTOFF)
+    create_s = time.perf_counter() - t0
+    if fp.row_of_atom.device.type != dev.type or fp.tiled is None or fp.tiled.dweights is None:
+        raise AssertionError("MDFastPathDipole.create: the state is not on the card, or not tiled")
+    n_cells, cap = fp.clist.slot_mask.shape
+    n_extra = 0 if fp.clist.extra_mask is None else int(fp.clist.extra_mask.sum())
+    t0 = time.perf_counter()
+    interp = compute_tiled_interpolation(pos32, inv3(cell32), NS_MESH, DIPOLE_NODES, "Lagrange",
+                                         derivatives=True)
+    sync()
+    interp_s = time.perf_counter() - t0
+    n_tiles, tile_cap = interp.local_x.shape
+    emit({"phase": "dipole_create", "seconds": create_s, "smearing": smearing,
+          "mesh_spacing": spacing, "n_axis": fp.clist.n_axis, "cell_capacity": cap,
+          "n_rows": fp.n_rows, "spill_atoms": n_extra, "tiles": n_tiles,
+          "tile_capacity": tile_cap, "tiled_interpolation_seconds": interp_s,
+          "dropped": int(interp.dropped)})
+    rows32 = fp.bucket(pos32)
+
+    # -- 3. kernel G at the 102k dipolar window, and D, E, F at the dipolar tiles --
+    with torch.no_grad():
+        pc_t, mu_g, mf_g, offs, _ = _prepare_bucketed(
+            mu32.index_select(0, fp.clist.atom_index.reshape(-1).long()).reshape(n_cells, cap, 3),
+            rows32[: n_cells * cap].reshape(n_cells, cap, 3), cell32, fp.clist,
+        )
+    # the work of this run's data: candidate pairs of occupied slots, and those
+    # of them the window's mask lets through (cutoff, no self pair)
+    occ = mf_g.sum(-1).double()
+    cutoff_sq = torch.tensor(CUTOFF, **f32) ** 2
+    candidates, inside = 0.0, 0
+    for k, offset in enumerate(_window_offsets(cap)):
+        shift = tuple(-o for o in offset)
+        candidates += float((occ * torch.roll(occ, shift, dims=(0, 1, 2))).sum())
+        pair_ok = rcd._offset_geometry(k, offset, pc_t, mu_g, mf_g, offs, cutoff_sq)[2]
+        inside += int((pair_ok & (mf_g[..., :, None] > 0.5)).sum())
+    del pair_ok
+    gen = torch.Generator(device=dev).manual_seed(1)
+    keep = (torch.rand(mu_g.shape[:3], generator=gen, device=dev) > 0.3).to(mu_g.dtype)
+    mui_split = (mu_g * keep[..., None, None]).contiguous()
+
+    def window(fn, potential, mui):
+        e, grads = fn(potential, CUTOFF, pc_t, mu_g, mf_g, offs, mui)
+        if mui is not None:
+            # with some i-side dipoles zeroed the energy loses the close pairs
+            # that dominate it, not its rounding error: its error is taken
+            # over the energy of all the dipoles, which rides beside it
+            e = torch.stack([e, e_all.to(e.dtype)])
+        return (e, *grads)
+
+    with torch.no_grad():
+        e_all = rcd._dw_value_and_grad(pot, CUTOFF, pc_t, mu_g, mf_g, offs)[0]
+    for shape, potential, mui in (("smeared", pot, None), ("direct", tpt.PotentialDipole(), None),
+                                  ("smeared, separate i-side dipoles", pot, mui_split)):
+        extra = [] if mui is None else [mui]
+        n_out = 3 if mui is None else 4
+        check_kernel(
+            "window_dipole", "torchpme_tpu_torch/csrc/window_dipole.cu",
+            "torchpme_tpu/ops/pallas/window_dipole_pallas.py:81",
+            lambda: window(rcd.dipole_window_value_and_grad, potential, mui),
+            lambda: window(rcd._dw_value_and_grad, potential, mui),
+            # inputs once, outputs (e in double, d_pc, d_mu, d_offs[, d_mui]) once; 11
+            # operations to place and test a candidate, G_PAIR_FLOP more inside the cutoff
+            bound(nbytes(pc_t, mu_g, mf_g, offs, *extra, pc_t, mu_g, offs, *extra) + 8,
+                  11 * candidates + G_PAIR_FLOP[shape.split(",")[0]] * inside),
+            env.report,
+            tols=[KERNEL_TOL, KERNEL_TOL, KERNEL_TOL, D_OFFS_TOL, KERNEL_TOL][: n_out + 1],
+            shape=shape,
+        )
+    # where the float32 plain version itself stands against float64
+    dbl = [t.double() for t in (pc_t, mu_g, mf_g, offs)]
+    e64, grads64 = rcd._dw_value_and_grad(pot, CUTOFF, *dbl)
+    got = window(rcd.dipole_window_value_and_grad, pot, None)
+    ref = window(rcd._dw_value_and_grad, pot, None)
+    emit({"phase": "kernel_vs_float64", "name": "window_dipole",
+          "candidate_pairs": candidates, "pairs_inside_cutoff": inside,
+          "kernel_rel_err": [rel_err(a, b)[1] for a, b in zip(got, (e64, *grads64))],
+          "plain_f32_rel_err": [rel_err(a, b)[1] for a, b in zip(ref, (e64, *grads64))]})
+    del dbl, e64, grads64, got, ref, mui_split
+
+    slots = dipole_slots(interp)
+    arrays = (slots.local_x, slots.local_y, slots.start_z, slots.weights.contiguous())
+    # what the dipolar density must move: each slot's indices, weights and
+    # weight derivatives once (the kernels' interface takes them tripled)
+    once = (interp.local_x, interp.local_y, interp.start_z, interp.weights, interp.dweights)
+    nu = (mu32 @ inv3(cell32)) * torch.tensor(NS_MESH, **f32)
+    q_slots = _slot_values(interp, nu).reshape(n_tiles, 1, 3 * tile_cap).contiguous()
+    field, n3 = env.ct_rho, DIPOLE_NODES**3
+    mesh_src, mesh_ref = "torchpme_tpu_torch/csrc/mesh.cu", "torchpme_tpu/ops/pallas/mesh_pallas.py"
+    shape = f"dipolar: {DIPOLE_NODES} nodes, T={n_tiles}, K=3x{tile_cap}"
+    check_kernel(
+        "mesh_spread", mesh_src, f"{mesh_ref}:213",
+        lambda: (mk.mesh_spread(*arrays, q_slots, NS_MESH, DIPOLE_NODES),),
+        lambda: (mk.mesh_spread_plain(*arrays, q_slots, NS_MESH, DIPOLE_NODES),),
+        bound(nbytes(*once, q_slots, field), 3 * N_ATOMS * 2 * n3), env.report, shape=shape,
+    )
+    check_kernel(
+        "mesh_gather", mesh_src, f"{mesh_ref}:239",
+        lambda: (mk.mesh_gather(*arrays, field, NS_MESH, DIPOLE_NODES),),
+        lambda: (mk.mesh_gather_plain(*arrays, field, NS_MESH, DIPOLE_NODES),),
+        bound(nbytes(*once, field, q_slots), 3 * N_ATOMS * 2 * n3), env.report, shape=shape,
+    )
+    check_kernel(
+        "mesh_wgrad", mesh_src, f"{mesh_ref}:263",
+        lambda: (mk.mesh_wgrad(*arrays, q_slots, field, NS_MESH, DIPOLE_NODES),),
+        lambda: (mk.mesh_wgrad_plain(*arrays, q_slots, field, NS_MESH, DIPOLE_NODES),),
+        bound(nbytes(*once, q_slots, field, interp.weights, interp.dweights),
+              3 * N_ATOMS * 8 * n3), env.report,
+        shape=shape,
+    )
+    emit({"phase": "kernel", "name": "mesh_gather_wgrad", "shape": shape, "ms": cuda_ms(
+        lambda: mk.mesh_gather_wgrad(*arrays, q_slots, field, NS_MESH, DIPOLE_NODES))})
+    del slots, arrays, q_slots, nu
+
+    # -- 7. the dipolar MD step (kernels G, D, E, F) -------------------------------
+    def step(dtype, plain):
+        """(energy, d/drows, d/ddipoles, d/dcell) of the dipolar step."""
+        r = rows32.to(dtype).detach().requires_grad_()
+        m = mu32.to(dtype).detach().requires_grad_()
+        c = cell32.to(dtype).detach().requires_grad_()
+        e = fp.energy(m, c, r, plain=plain)
+        return (e.detach(), *torch.autograd.grad(e, (r, m, c)))
+
+    kernels.reset_launch_counts()
+    got = step(torch.float32, plain=False)
+    sync()
+    counts = kernels.launch_counts()
+    md_kernels = ("window_dipole", "mesh_spread", "mesh_gather", "mesh_wgrad")
+    if min(counts[name] for name in md_kernels) < 1:
+        raise AssertionError(f"a kernel of the dipolar MD step never launched: {counts}")
+    ref = step(torch.float64, plain=True)  # on the same float32-rounded inputs
+    e_md = float(got[0])
+    e_rel = abs(e_md - float(ref[0])) / abs(float(ref[0]))
+    f_rms = rel_rms(fp.unbucket(got[1]), fp.unbucket(ref[1]))
+    field_rel = rel_err(got[2], ref[2])[1]
+    c_rel = rel_err(got[3], ref[3])[1]
+    max_force = float(ref[1].abs().max())
+    del got, ref
+
+    def md_chain(plain: bool):
+        p = rows32
+        for _ in range(CHAIN):
+            p = p.detach().requires_grad_()
+            e = fp.energy(mu32, cell32, p, plain=plain)
+            (g,) = torch.autograd.grad(e, p)
+            # a data dependency between the steps, not a trajectory: forces
+            # reach ~1e7 here (pairs 0.04 A apart under 1/d^4), and atoms that
+            # moved would leave their cells and time the kernels on NaN
+            p = p - 1e-12 * g
+        return p
+
+    kernel_ms, plain_ms = (t / CHAIN for t in alternate_ms(md_chain, 1))
+    if not bool(torch.isfinite(md_chain(False)).all()):
+        raise AssertionError("the dipolar MD chain left its bucketing")
+    emit({"phase": "dipole_slice", "atoms": N_ATOMS, "energy_f32": e_md,
+          "energy_rel": e_rel, "force_rel_rms": f_rms, "field_rel": field_rel,
+          "cell_grad_rel": c_rel, "max_abs_force": max_force,
+          "launches": {k: counts[k] for k in md_kernels}, "create_seconds": create_s,
+          "ms_per_step": kernel_ms, "plain_f32_ms_per_step": plain_ms, "nvidia_smi": env.smi})
+    if not (e_rel <= 1e-5 and f_rms <= 1e-5 and field_rel <= 1e-5 and c_rel <= DIPOLE_CELL_TOL):
+        raise AssertionError(
+            f"102k dipolar f32 step vs f64 plain: energy {e_rel:.3e}, forces {f_rms:.3e}, "
+            f"fields {field_rel:.3e}, cell {c_rel:.3e}"
+        )
+    if not all(math.isfinite(x) for x in (e_md, kernel_ms, plain_ms)):
+        raise AssertionError("non-finite dipolar slice result")
+    env.counts["window_dipole"] = counts["window_dipole"]
+    env.dipole_launches = {"step": {k: counts[k] for k in md_kernels}}
+
+    # -- 8. the dipolar per-atom call on the tiled mesh (kernels D, E, F) ----------
+    def per_atom(dtype, plain, backward=True):
+        """(potential vectors, d/dpositions, d/ddipoles, d/dcell of sum(pot·mu),
+        the sum itself); the neighbor vectors are rebuilt inside so the
+        gradients reach positions and cell."""
+        p = pos32.to(dtype).detach().requires_grad_(backward)
+        m = mu32.to(dtype).detach().requires_grad_(backward)
+        c = cell32.to(dtype).detach().requires_grad_(backward)
+        vec = (p.index_select(0, idx_t[:, 1]) - p.index_select(0, idx_t[:, 0])
+               + shifts_t.to(dtype) @ c)
+        pot_i = calc(m, c, p, idx_t, vec, ns_kvectors=NS_MESH, tiled_interp=interp, plain=plain)
+        if not backward:
+            return (pot_i,)
+        total = torch.sum(pot_i * m)
+        return (pot_i.detach(), *torch.autograd.grad(total, (p, m, c)), total.detach())
+
+    kernels.reset_launch_counts()
+    got = per_atom(torch.float32, plain=False)
+    sync()
+    call_counts = kernels.launch_counts()
+    call_kernels = ("mesh_spread", "mesh_gather", "mesh_wgrad")
+    if min(call_counts[name] for name in call_kernels) < 1:
+        raise AssertionError(f"a kernel of the dipolar per-atom call never launched: {call_counts}")
+    ref = per_atom(torch.float64, plain=True)
+    pot_rel = rel_err(got[0], ref[0])[1]
+    force_rms = rel_rms(got[1], ref[1])
+    dmu_rel = rel_err(got[2], ref[2])[1]
+    dcell_rel = rel_err(got[3], ref[3])[1]
+    e_sum, e_sum64 = float(got[4]), float(ref[4])
+    with torch.no_grad():
+        vec32 = (pos32.index_select(0, idx_t[:, 1]) - pos32.index_select(0, idx_t[:, 0])
+                 + shifts_t.to(torch.float32) @ cell32)
+        e_quad = float(calc.energy(mu32, cell32, pos32, idx_t, vec32, ns_kvectors=NS_MESH,
+                                   tiled_interp=interp))
+    e_sum_rel = abs(e_sum - e_sum64) / abs(e_sum64)
+    e_quad_rel = abs(e_quad - e_sum) / abs(e_sum)
+    e_md_rel = abs(e_md - e_sum) / abs(e_sum)
+    del got, ref, vec32
+
+    fwd_ms, fwd_plain_ms = alternate_ms(
+        lambda plain: per_atom(torch.float32, plain, backward=False), CALL_REPEATS)
+    full_ms, full_plain_ms = alternate_ms(
+        lambda plain: per_atom(torch.float32, plain), CALL_REPEATS)
+    emit({"phase": "dipole_per_atom_call", "atoms": N_ATOMS, "pairs": env.n_pairs,
+          "energy_sum_pot_mu_f32": e_sum, "energy_sum_pot_mu_f64_plain": e_sum64,
+          "energy_rel": e_sum_rel, "potential_rel": pot_rel, "force_rel_rms": force_rms,
+          "dipole_grad_rel": dmu_rel, "cell_grad_rel": dcell_rel,
+          "energy_method_rel_vs_sum": e_quad_rel, "md_step_energy_rel_vs_sum": e_md_rel,
+          "launches": {k: call_counts[k] for k in call_kernels},
+          "forward_ms": fwd_ms, "forward_plain_f32_ms": fwd_plain_ms,
+          "forward_backward_ms": full_ms, "forward_backward_plain_f32_ms": full_plain_ms,
+          "nvidia_smi": env.smi})
+    if not (e_sum_rel <= 1e-5 and pot_rel <= 1e-5 and force_rms <= 1e-5
+            and dmu_rel <= 1e-5 and dcell_rel <= DIPOLE_CELL_TOL):
+        raise AssertionError(
+            f"102k dipolar f32 per-atom call vs f64 plain: energy {e_sum_rel:.3e}, potentials "
+            f"{pot_rel:.3e}, forces {force_rms:.3e}, dipole gradient {dmu_rel:.3e}, "
+            f"cell gradient {dcell_rel:.3e}"
+        )
+    if not (e_quad_rel <= 1e-5 and e_md_rel <= 1e-5):
+        raise AssertionError(
+            f"dipolar sum(pot*mu) vs calc.energy {e_quad_rel:.3e}, vs the MD step {e_md_rel:.3e}"
+        )
+    env.dipole_launches["call"] = {k: call_counts[k] for k in call_kernels}
+    if env.profile:
+        profile_path("dipole_md_step", lambda: md_chain(False), calls=2)  # 2 chains of CHAIN
+        profile_path("dipole_per_atom_forward",
+                     lambda: per_atom(torch.float32, False, backward=False))
+        profile_path("dipole_per_atom_forward_backward", lambda: per_atom(torch.float32, False))
+
+    # -- 9. dipolar accuracy: mesh PME (float32) vs the converged dipolar Ewald ----
+    gpos, gmu, gcell = dipole_oracle_box()
+    if calc.get_ns_mesh(gcell) != DIPOLE_GT_NS:
+        raise AssertionError(f"mesh of the dipolar oracle: {calc.get_ns_mesh(gcell)}")
+    gpos32, gmu32, gcell32 = (torch.tensor(a, **f32) for a in (gpos, gmu, gcell))
+    gfp = tpt.MDFastPathDipole.create(calc, gpos32, gcell32, CUTOFF)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        e_pme = float(gfp.energy(gmu32, gcell32, gfp.bucket(gpos32)))
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    e_ewald = dipole_ewald_oracle(tpt, gpos, gmu, gcell, smearing, dev)
+    accuracy = {"energy_pme_f32": e_pme, "energy_ewald_f64": e_ewald,
+                "pme_rel_vs_ewald": abs(e_pme - e_ewald) / abs(e_ewald),
+                "jax_energy_pme_f64": DIPOLE_GT_JAX_PME, "jax_energy_ewald_f64": DIPOLE_GT_JAX_EWALD,
+                "pme_rel_vs_jax_pme": abs(e_pme - DIPOLE_GT_JAX_PME) / abs(DIPOLE_GT_JAX_PME),
+                "ewald_rel_vs_jax_ewald":
+                    abs(e_ewald - DIPOLE_GT_JAX_EWALD) / abs(DIPOLE_GT_JAX_EWALD),
+                "launches": launched}
+    emit({"phase": "dipole_accuracy", "atoms": DIPOLE_GT_N, "ns_mesh": DIPOLE_GT_NS, **accuracy})
+    if not (accuracy["pme_rel_vs_ewald"] <= DIPOLE_GT_BAR
+            and accuracy["ewald_rel_vs_jax_ewald"] <= 1e-9
+            and accuracy["pme_rel_vs_jax_pme"] <= 1e-5):
+        raise AssertionError(f"3000-atom dipolar accuracy: {accuracy}")
+    if not {"window_dipole", "mesh_spread"} <= set(launched):
+        raise AssertionError(f"the dipolar accuracy step launched {launched}")
 
 
 def main() -> int:
@@ -405,6 +772,8 @@ def main() -> int:
         return p
 
     kernel_ms, plain_ms = (t / CHAIN for t in alternate_ms(md_chain, 1))
+    if not bool(torch.isfinite(md_chain(False)).all()):
+        raise AssertionError("the MD chain left its bucketing")
     emit({"phase": "slice", "atoms": N_ATOMS, "energy_f32": float(e32),
           "energy_f64_plain": float(e64), "energy_rel": e_rel, "force_rel_rms": f_rms,
           "cell_grad_rel": c_rel, "launches": {k: counts[k] for k in md_kernels},
@@ -423,9 +792,11 @@ def main() -> int:
         """(potentials, d/dpositions, d/dcharges, d/dcell of sum(pot·q), the
         sum itself) of the calculator call; distances are recomputed inside
         so the gradients reach positions and cell."""
-        p = pos32.to(dtype).requires_grad_(backward)
-        q = q32.to(dtype).requires_grad_(backward)
-        c = cell32.to(dtype).requires_grad_(backward)
+        # detached views: `.to` of the same dtype is the tensor itself, and the
+        # shared inputs must not come to require grad
+        p = pos32.to(dtype).detach().requires_grad_(backward)
+        q = q32.to(dtype).detach().requires_grad_(backward)
+        c = cell32.to(dtype).detach().requires_grad_(backward)
         dist = compute_distances(p, idx_t, c, shifts_t)
         pot_i = calc(q, c, p, idx_t, dist, ns_mesh=NS_MESH, tiled_interp=interp, plain=plain)
         if not backward:
@@ -526,9 +897,23 @@ def main() -> int:
     if not {"window", "mesh_spread", "mesh_wgrad"} <= set(tiled["launches"]):
         raise AssertionError(f"tiled mode launched {tiled['launches']}")
 
-    # -- 7. result ----------------------------------------------------------------
+    # -- 3 (kernel G; D, E, F at the dipolar shapes), 7, 8, 9: the dipolar paths --
+    del gfp, grows, gg, f_ref
+    env = SimpleNamespace(
+        tpt=tpt, kernels=kernels, dev=dev, f32=f32, smi=smi, positions=positions, cell=cell,
+        pos32=pos32, cell32=cell32, idx_t=idx_t, shifts_t=shifts_t, n_pairs=n_pairs,
+        ct_rho=ct_rho, report=report, counts=counts, profile="--profile" in sys.argv[1:],
+    )
+    dipole_phases(env)
+
+    # -- 10. result ---------------------------------------------------------------
+    # launches: of the MD step (A, B, C), the per-atom call (D, E, F) and the
+    # dipolar MD step (G); D, E, F's on the two dipolar paths beside them
     emit({"kernels": [{k: v for k, v in report[name].items() if k != "max_rel_err"}
-                      | {"launches": counts[name]} for name in report]})
+                      | {"launches": counts[name]}
+                      | {f"launches_dipole_{path}": n[name]
+                         for path, n in env.dipole_launches.items() if name in n}
+                      for name in report]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

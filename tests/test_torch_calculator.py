@@ -444,6 +444,9 @@ def test_md_tiled_state_matches_jax_and_converts(md_case):
     for key, value in theirs.items():
         if key == "tiled":
             for name, arr in value.items():
+                if arr is None:  # no derivative stencils on the monopole bucketing
+                    assert ours[key][name] is None, name
+                    continue
                 np.testing.assert_allclose(ours[key][name], arr, rtol=0, atol=1e-12, err_msg=name)
         elif isinstance(value, np.ndarray):
             np.testing.assert_array_equal(ours[key], value, err_msg=key)

@@ -27,6 +27,9 @@ ALL_MODULES = _walk_modules()
 MUST_HAVE_EXAMPLES = [
     "torchpme_tpu_torch.calculators.calculator",
     "torchpme_tpu_torch.calculators.pme",
+    "torchpme_tpu_torch.calculators.dipole",
+    "torchpme_tpu_torch.calculators.pme_dipole",
+    "torchpme_tpu_torch.potentials.dipole",
     "torchpme_tpu_torch.md",
     "torchpme_tpu_torch.ops.mesh_tiled",
     "torchpme_tpu_torch.utils.neighbors",

@@ -17,6 +17,7 @@ from torchpme_tpu_torch import kernels
 from torchpme_tpu_torch.ops import mesh_kernels as mk
 from torchpme_tpu_torch.ops import mesh_tiled as mt
 from torchpme_tpu_torch.ops import rspace_cells as rc
+from torchpme_tpu_torch.ops import rspace_cells_dipole as rcd
 from torchpme_tpu_torch.ops import spread_fused as sf
 
 pytestmark = pytest.mark.cuda
@@ -244,6 +245,191 @@ def test_calculator_call_on_the_card_matches_plain(device):
         launched = {k: counts[k] for k in ("mesh_spread", "mesh_gather", "mesh_wgrad")}
         if plain:
             assert not any(launched.values()), launched
+        else:
+            assert launched == {"mesh_spread": 2, "mesh_gather": 2, "mesh_wgrad": 2}, launched
+    for got, ref in zip(out[False], out[True]):
+        assert _rel(got, ref) <= 2e-5
+
+
+# -- kernel G (the dipolar window) and the dipolar paths through D, E, F ---------
+
+G_NAMES = ("e", "d_pc", "d_mu", "d_offs", "d_mui")
+# d_offs totals every j-side force of a neighbor offset (cancelling 1/d^4
+# terms), which the plain version sums in float32
+G_TOLS = {"e": 1e-5, "d_pc": 1e-5, "d_mu": 1e-5, "d_offs": 5e-4, "d_mui": 1e-5}
+
+
+def _dipole_window_case(device, smearing, triclinic=False, capacity=None, seed=0):
+    rng = np.random.default_rng(seed)
+    cell = np.eye(3) * 13.0
+    if triclinic:
+        cell[1, 0], cell[2, 0], cell[2, 1] = 2.0, -1.3, 1.6
+    pos = rng.uniform(0, 1, (450, 3)) @ cell
+    mu = rng.normal(size=(450, 3))
+    f32 = dict(dtype=torch.float32, device=device)
+    clist = tpt.ops.compute_cell_list(pos, cell, 3.0, capacity=capacity, spill=False, device=device)
+    n_cells, cap = clist.slot_mask.shape
+    idx = clist.atom_index.reshape(-1).long()
+    ins = rc._prepare_bucketed(
+        torch.tensor(mu, **f32)[idx].reshape(n_cells, cap, 3),
+        torch.tensor(pos, **f32)[idx].reshape(n_cells, cap, 3), torch.tensor(cell, **f32), clist,
+    )[:4]
+    return tpt.PotentialDipole(smearing=smearing, prefactor=1.3), ins
+
+
+@pytest.mark.parametrize("smearing", [0.9, None], ids=["smeared", "direct"])
+@pytest.mark.parametrize("triclinic", [False, True], ids=["cubic", "triclinic"])
+@pytest.mark.parametrize("split", [False, True], ids=["shared", "split"])
+def test_dipole_window_kernel_matches_plain(device, smearing, triclinic, split):
+    pot, ins = _dipole_window_case(device, smearing, triclinic)
+    mui = None
+    if split:
+        keep = (torch.rand(ins[1].shape[:3], device=device) > 0.3).float()
+        mui = (ins[1] * keep[..., None, None]).contiguous()
+    kernels.reset_launch_counts()
+    e_k, g_k = rcd.dipole_window_value_and_grad(pot, 3.0, *ins, mui)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["window_dipole"] == 1
+    e_p, g_p = rcd._dw_value_and_grad(pot, 3.0, *ins, mui)
+    assert len(g_k) == len(g_p) == (4 if split else 3)
+    for name, a, b in zip(G_NAMES, (e_k, *g_k), (e_p, *g_p)):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert _rel(a, b) <= G_TOLS[name], name
+    # and against float64 on the same inputs, where the kernel's double sums show
+    e64, g64 = rcd._dw_value_and_grad(
+        pot, 3.0, *[t.double() for t in ins], None if mui is None else mui.double()
+    )
+    for name, a, b in zip(G_NAMES, (e_k, *g_k), (e64, *g64)):
+        assert _rel(a, b) <= (1e-4 if name == "d_offs" else 1e-5), name
+
+
+def test_dipole_window_kernel_takes_more_than_one_warp_of_home_atoms(device):
+    """A cell capacity above 32 gives every offset two lane chunks."""
+    pot, ins = _dipole_window_case(device, 0.9, capacity=40)
+    assert ins[0].shape[-1] == 40
+    e_k, g_k = rcd.dipole_window_value_and_grad(pot, 3.0, *ins)
+    e_p, g_p = rcd._dw_value_and_grad(pot, 3.0, *ins)
+    for name, a, b in zip(G_NAMES, (e_k, *g_k), (e_p, *g_p)):
+        assert _rel(a, b) <= G_TOLS[name], name
+
+
+def test_dipole_window_kernel_refuses_what_it_does_not_take(device):
+    pot, ins = _dipole_window_case(device, 0.9)
+    with pytest.raises(TypeError, match="float32"):
+        rcd.dipole_window_value_and_grad(pot, 3.0, *[t.double() for t in ins])
+    with pytest.raises(ValueError, match="contiguous"):
+        rcd.dipole_window_value_and_grad(pot, 3.0, ins[0].transpose(0, 1), *ins[1:])
+    with pytest.raises(ValueError, match="exclusion window"):
+        rcd.dipole_window_value_and_grad(
+            tpt.PotentialDipole(smearing=0.9, exclusion_radius=2.0), 3.0, *ins
+        )
+    e, _ = rcd._dw_value_and_grad(pot, 3.0, *[t.double() for t in ins])
+    assert e.dtype == torch.float64 and e.device.type == "cuda"
+
+
+def test_dipole_window_of_a_non_analytic_potential_raises_unless_plain(device):
+    """No kernel for an exclusion window or a trainable parameter: the entry
+    point raises on the card and runs plain autograd only with plain=True."""
+    rng = np.random.default_rng(1)
+    cell = np.eye(3) * 13.0
+    pos, mu = rng.uniform(0, 13.0, (300, 3)), rng.normal(size=(300, 3))
+    f32 = dict(dtype=torch.float32, device=device)
+    clist = tpt.ops.compute_cell_list(pos, cell, 3.0, device=device)
+    args = (torch.tensor(mu, **f32), torch.tensor(pos, **f32), torch.tensor(cell, **f32), clist)
+    smearing = torch.tensor(0.9, **f32, requires_grad=True)
+    for pot in (
+        tpt.PotentialDipole(smearing=0.9, exclusion_radius=2.0),
+        tpt.PotentialDipole(smearing=smearing),
+    ):
+        kernels.reset_launch_counts()
+        with pytest.raises(ValueError, match="plain=True"):
+            rcd.cell_list_rspace_dipole_energy(pot, *args)
+        e = rcd.cell_list_rspace_dipole_energy(pot, *args, plain=True)
+        assert torch.isfinite(e) and e.device.type == "cuda"
+        assert kernels.launch_counts()["window_dipole"] == 0
+    (g,) = torch.autograd.grad(e, smearing)
+    assert torch.isfinite(g) and float(g) != 0.0
+
+
+@pytest.fixture(scope="module")
+def dipole_step(device):
+    rng = np.random.default_rng(2)
+    pos = np.concatenate([rng.uniform(0, 16.0, (400, 3)), 0.5 + 0.6 * rng.uniform(size=(30, 3))])
+    mu, cell = rng.normal(size=(430, 3)), np.eye(3) * 16.0
+    calc = tpt.PMECalculatorDipole(tpt.PotentialDipole(smearing=1.0), mesh_spacing=1.0)
+    f32 = dict(dtype=torch.float32, device=device)
+    fp = tpt.MDFastPathDipole.create(calc, torch.tensor(pos, **f32), torch.tensor(cell, **f32), 3.0)
+    return fp, (pos, mu, cell), f32
+
+
+def test_dipole_step_launches_its_kernels_and_matches_plain(dipole_step):
+    """MDFastPathDipole.energy + autograd: kernel G once, D forward, E and F
+    in the backward; `auto` took the tiled mesh on the card; spill atoms ride
+    the plain side list.  ≡ the plain float32 step."""
+    fp, (pos, mu, cell), f32 = dipole_step
+    assert fp.tiled is not None and fp.clist.extra_index is not None
+    assert fp.row_of_atom.device.type == "cuda"
+    out = {}
+    for plain in (False, True):
+        rows = fp.bucket(torch.tensor(pos, **f32)).requires_grad_()
+        m = torch.tensor(mu, **f32).requires_grad_()
+        c = torch.tensor(cell, **f32).requires_grad_()
+        kernels.reset_launch_counts()
+        e = fp.energy(m, c, rows, plain=plain)
+        grads = torch.autograd.grad(e, (rows, m, c))
+        torch.cuda.synchronize()
+        out[plain] = (e.detach(), *grads)
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        want = {} if plain else {
+            "window_dipole": 1, "mesh_spread": 1, "mesh_gather": 1, "mesh_wgrad": 1}
+        assert counts == want, counts
+    # the cell gradient carries d_offs, whose cancelling sum the plain version
+    # takes in float32 (G_TOLS)
+    for got, ref, tol in zip(out[False], out[True], (2e-5, 2e-5, 2e-5, 5e-4)):
+        assert _rel(got, ref) <= tol
+
+
+def test_dipole_step_refuses_float64_and_poisons_when_stale(dipole_step):
+    fp, (pos, mu, cell), f32 = dipole_step
+    f64 = dict(f32, dtype=torch.float64)
+    args64 = (torch.tensor(mu, **f64), torch.tensor(cell, **f64))
+    with pytest.raises(TypeError, match="float32"):
+        fp.energy(*args64, fp.bucket(torch.tensor(pos, **f64)))
+    assert np.isfinite(float(fp.energy(*args64, fp.bucket(torch.tensor(pos, **f64)), plain=True)))
+    rows = fp.bucket(torch.tensor(pos, **f32))
+    rows[int(fp.row_of_atom[0]), 0] += 8.0
+    rows.requires_grad_()
+    e = fp.energy(torch.tensor(mu, **f32), torch.tensor(cell, **f32), rows)
+    (g,) = torch.autograd.grad(e, rows)
+    assert torch.isnan(e) and torch.isnan(fp.unbucket(g)).all()
+
+
+def test_dipole_calculator_call_on_the_card_matches_plain(device):
+    """PMECalculatorDipole.forward + autograd through kernels D, E, F over
+    the tripled slots ≡ the plain float32 path."""
+    from torchpme_tpu_torch.utils.neighbors import neighbor_list
+
+    rng = np.random.default_rng(4)
+    pos, mu, cell = rng.uniform(0, 16.0, (400, 3)), rng.normal(size=(400, 3)), np.eye(3) * 16.0
+    idx, _, shifts = neighbor_list(pos, cell, cutoff=3.0)
+    f32 = dict(dtype=torch.float32, device=device)
+    idx_t, shifts_t = torch.as_tensor(idx, device=device), torch.as_tensor(shifts, device=device)
+    calc = tpt.PMECalculatorDipole(tpt.PotentialDipole(smearing=1.0), mesh_spacing=1.0)
+    out = {}
+    for plain in (False, True):
+        p = torch.tensor(pos, **f32).requires_grad_()
+        c = torch.tensor(cell, **f32).requires_grad_()
+        m = torch.tensor(mu, **f32).requires_grad_()
+        vec = p.index_select(0, idx_t[:, 1]) - p.index_select(0, idx_t[:, 0]) + shifts_t.float() @ c
+        kernels.reset_launch_counts()
+        pot = calc(m, c, p, idx_t, vec, plain=plain)
+        g = torch.autograd.grad((pot * m).sum(), (p, m, c))
+        torch.cuda.synchronize()
+        out[plain] = (pot.detach(), *g)
+        counts = kernels.launch_counts()
+        launched = {k: counts[k] for k in ("mesh_spread", "mesh_gather", "mesh_wgrad")}
+        if plain:
+            assert not any(counts.values()), counts
         else:
             assert launched == {"mesh_spread": 2, "mesh_gather": 2, "mesh_wgrad": 2}, launched
     for got, ref in zip(out[False], out[True]):

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from torchpme_tpu.md import _row_mapping as jax_row_mapping
-from torchpme_tpu_torch.convert import md_from_state
+from torchpme_tpu_torch.convert import md_dipole_from_state, md_from_state
 from torchpme_tpu_torch.ops.rspace_cells import CellList
 
 CLIST_FIELDS = (
@@ -96,7 +96,7 @@ TILED_FIELDS = (
 def jax_tiled_state(interp_j) -> dict:
     """The numpy state dict of a JAX TiledInterpolation (convert's keys)."""
     state = {"ns": tuple(interp_j.ns), "nodes": int(interp_j.nodes)}
-    for name in TILED_FIELDS:
+    for name in (*TILED_FIELDS, "dweights"):
         value = getattr(interp_j, name)
         state[name] = None if value is None else np.asarray(value)
     return state
@@ -130,6 +130,66 @@ def jax_md_state(fp_j) -> dict:
 def port_from_jax(fp_j):
     """The port's MDFastPath on the JAX MDFastPath's exact state (CPU)."""
     return md_from_state(jax_md_state(fp_j), device="cpu")
+
+
+def dipole_box(n, box, seed, triclinic=False):
+    """``(positions, dipoles, cell)`` as float64 numpy: uniform positions and
+    normal dipoles in a cubic (or skewed) cell."""
+    rng = np.random.default_rng(seed)
+    cell = np.eye(3) * box
+    if triclinic:
+        cell[1, 0], cell[2, 0], cell[2, 1] = 0.15 * box, -0.1 * box, 0.12 * box
+    positions = rng.uniform(0, 1, (n, 3)) @ cell
+    return positions, rng.normal(size=(n, 3)), cell
+
+
+def jax_dipole_calculator_state(calc_j) -> dict:
+    """The numpy state dict of a JAX dipolar calculator (convert's keys)."""
+    pot = calc_j.potential
+    state = {
+        "smearing": None if pot.smearing is None else float(pot.smearing),
+        "exclusion_radius": (
+            None if pot.exclusion_radius is None else float(pot.exclusion_radius)
+        ),
+        "exclusion_degree": int(pot.exclusion_degree),
+        "epsilon": float(pot.epsilon),
+        "prefactor": float(pot.prefactor),
+        "full_neighbor_list": bool(calc_j.full_neighbor_list),
+    }
+    if hasattr(calc_j, "mesh_spacing"):
+        state.update(
+            kind="pme",
+            mesh_spacing=float(calc_j.mesh_spacing),
+            interpolation_nodes=int(calc_j.interpolation_nodes),
+            method=calc_j._method,
+            mesh_backend=calc_j.mesh_backend,
+            tile_capacity=calc_j.tile_capacity,
+        )
+    else:
+        state.update(kind="ewald", lr_wavelength=calc_j.lr_wavelength)
+    return state
+
+
+def jax_md_dipole_state(fp_j) -> dict:
+    """The numpy state dict of a JAX MDFastPathDipole (convert's keys)."""
+    state = {
+        **jax_dipole_calculator_state(fp_j.calc),
+        "n_axis": tuple(fp_j.clist.n_axis),
+        "cutoff": float(fp_j.clist.cutoff),
+        "slack": tuple(fp_j.clist.slack),
+        "row_of_atom": np.asarray(fp_j.row_of_atom),
+        "n_rows": fp_j.n_rows,
+        "n_atoms": fp_j.n_atoms,
+        "ns_kvectors": fp_j.ns_kvectors,
+    }
+    state.update(clist_arrays(fp_j.clist))
+    state["tiled"] = None if fp_j.tiled is None else jax_tiled_state(fp_j.tiled)
+    return state
+
+
+def port_dipole_from_jax(fp_j):
+    """The port's MDFastPathDipole on the JAX state's exact arrays (CPU)."""
+    return md_dipole_from_state(jax_md_dipole_state(fp_j), device="cpu")
 
 
 def rel(a, b) -> float:

@@ -3,7 +3,9 @@
 A second package beside the JAX one, keeping its module paths and public
 names.  It holds the 102k-atom PME MD step (``MDFastPath`` in aligned and
 tiled mode) and the per-atom ``PMECalculator`` call over a neighbor list,
-both over ``CoulombPotential``.  The TPU-side kernels on those paths are
+both over ``CoulombPotential``, and the point-dipole family: ``PotentialDipole``,
+``CalculatorDipole`` (direct and Ewald), ``PMECalculatorDipole`` and
+``MDFastPathDipole``.  The TPU-side kernels on those paths are
 hand-written CUDA C++ for Hopper (``csrc/``), each with a plain PyTorch
 version in the module that wraps it.  Entry points put their state on the
 CUDA device when one is present and the caller gave neither a device nor
@@ -12,16 +14,20 @@ tensors (:func:`default_device`).  This package imports ``torch``,
 """
 
 from . import calculators, md, ops, potentials, prefactors, utils  # noqa: F401
-from .calculators import Calculator, PMECalculator
+from .calculators import Calculator, CalculatorDipole, PMECalculator, PMECalculatorDipole
 from .device import default_device
-from .md import MDFastPath
-from .potentials import CoulombPotential, Potential
+from .md import MDFastPath, MDFastPathDipole
+from .potentials import CoulombPotential, Potential, PotentialDipole
 
 __all__ = [
     "Calculator",
+    "CalculatorDipole",
     "CoulombPotential",
     "MDFastPath",
+    "MDFastPathDipole",
     "PMECalculator",
+    "PMECalculatorDipole",
     "Potential",
+    "PotentialDipole",
     "default_device",
 ]

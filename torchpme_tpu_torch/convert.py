@@ -9,7 +9,9 @@ and the host-built bucketing of :class:`~torchpme_tpu_torch.md.MDFastPath`
 bucketing).  :func:`md_state` writes that state as a flat dict of numpy
 arrays and Python scalars; :func:`md_from_state` builds the port's
 ``CoulombPotential``, ``PMECalculator`` and ``MDFastPath`` from such a dict
-on a given device.  A dict filled from the JAX package's objects (same
+on a given device.  The dipolar family has the same four functions
+(:func:`dipole_calculator_state` / :func:`dipole_calculator_from_state`,
+:func:`md_dipole_state` / :func:`md_dipole_from_state`).  A dict filled from the JAX package's objects (same
 keys, arrays via ``np.asarray``) gives the port the identical state, which
 is how the tests hold the two packages against each other.
 """
@@ -19,16 +21,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .calculators import PMECalculator
+from .calculators import CalculatorDipole, PMECalculator, PMECalculatorDipole
 from .device import resolve_device
-from .md import MDFastPath
+from .md import MDFastPath, MDFastPathDipole
 from .ops.mesh_tiled import TiledInterpolation
 from .ops.rspace_cells import CellList
-from .potentials import CoulombPotential
+from .potentials import CoulombPotential, PotentialDipole
 
 __all__ = [
     "calculator_from_state",
     "calculator_state",
+    "dipole_calculator_from_state",
+    "dipole_calculator_state",
+    "md_dipole_from_state",
+    "md_dipole_state",
     "md_from_state",
     "md_state",
     "tiled_interp_from_state",
@@ -50,6 +56,7 @@ _DTYPES = {
 _TILED_ARRAYS = (
     "local_x", "local_y", "start_z", "weights", "slot_of_atom", "dropped", "atom_of_slot",
 )
+_TILED_FLOAT_ARRAYS = ("weights", "dweights")
 
 
 def calculator_state(calc: PMECalculator) -> dict:
@@ -84,7 +91,7 @@ def calculator_from_state(state: dict, **kwargs) -> PMECalculator:
 def tiled_interp_state(interp: TiledInterpolation) -> dict:
     """A tile bucketing as numpy arrays plus its static ``ns`` and ``nodes``."""
     state = {"ns": tuple(interp.ns), "nodes": int(interp.nodes)}
-    for name in _TILED_ARRAYS:
+    for name in (*_TILED_ARRAYS, "dweights"):
         value = getattr(interp, name)
         state[name] = None if value is None else value.detach().cpu().numpy()
     return state
@@ -100,31 +107,28 @@ def tiled_interp_from_state(state: dict, device=None) -> TiledInterpolation:
         value = state.get(name)
         if value is None:
             return None
-        dtype = None if name == "weights" else np.int32
+        dtype = None if name in _TILED_FLOAT_ARRAYS else np.int32
         return torch.from_numpy(np.array(value, dtype=dtype)).to(device)
 
     return TiledInterpolation(
         *(dev(name) for name in _TILED_ARRAYS),
         ns=tuple(int(n) for n in state["ns"]),
         nodes=int(state["nodes"]),
+        dweights=dev("dweights"),
     )
 
 
-def md_state(fp: MDFastPath) -> dict:
-    """The port's MD state as numpy arrays and Python scalars."""
+def _bucketing_state(fp) -> dict:
+    """The part of an MD state both families share: the cell list, the row
+    map, the static sizes and the tile bucketing."""
     clist = fp.clist
     state = {
-        **calculator_state(fp.calc),
-        "mesh_impl": fp.mesh_impl,
         "n_axis": tuple(clist.n_axis),
         "cutoff": clist.cutoff,
         "slack": tuple(clist.slack),
         "row_of_atom": fp.row_of_atom.cpu().numpy(),
         "n_rows": fp.n_rows,
         "n_atoms": fp.n_atoms,
-        "ns_mesh": fp.ns_mesh,
-        "cell_grid": fp.cell_grid,
-        "aligned_pad": fp.aligned_pad,
     }
     for name in _CLIST_ARRAYS + _EXTRA_ARRAYS:
         value = getattr(clist, name)
@@ -133,13 +137,21 @@ def md_state(fp: MDFastPath) -> dict:
     return state
 
 
-def md_from_state(state: dict, device=None) -> MDFastPath:
-    """Port objects (potential, calculator, MD state) from a numpy state
-    dict with the keys of :func:`md_state`, on ``device`` (default:
-    :func:`torchpme_tpu_torch.default_device`)."""
-    device = resolve_device(device)
-    calc = calculator_from_state(state)
-    tiled = state.get("tiled")
+def md_state(fp: MDFastPath) -> dict:
+    """The port's MD state as numpy arrays and Python scalars."""
+    return {
+        **calculator_state(fp.calc),
+        **_bucketing_state(fp),
+        "mesh_impl": fp.mesh_impl,
+        "ns_mesh": fp.ns_mesh,
+        "cell_grid": fp.cell_grid,
+        "aligned_pad": fp.aligned_pad,
+    }
+
+
+def _bucketing_from_state(state: dict, device):
+    """``(clist, row_of_atom, tiled)`` on ``device`` from the keys of
+    :func:`_bucketing_state`."""
 
     def dev(name):
         value = state.get(name)
@@ -154,14 +166,113 @@ def md_from_state(state: dict, device=None) -> MDFastPath:
         tuple(float(s) for s in state["slack"]),
         *(dev(name) for name in _EXTRA_ARRAYS),
     )
-    return MDFastPath(
-        calc,
+    tiled = state.get("tiled")
+    return (
         clist,
         dev("row_of_atom"),
+        None if tiled is None else tiled_interp_from_state(tiled, device),
+    )
+
+
+def md_from_state(state: dict, device=None) -> MDFastPath:
+    """Port objects (potential, calculator, MD state) from a numpy state
+    dict with the keys of :func:`md_state`, on ``device`` (default:
+    :func:`torchpme_tpu_torch.default_device`)."""
+    device = resolve_device(device)
+    clist, row_of_atom, tiled = _bucketing_from_state(state, device)
+    return MDFastPath(
+        calculator_from_state(state),
+        clist,
+        row_of_atom,
         tuple(int(n) for n in state["ns_mesh"]),
         int(state["n_rows"]),
         int(state["n_atoms"]),
         None if tiled is not None else tuple(int(n) for n in state["cell_grid"]),
         int(state["aligned_pad"]),
-        None if tiled is None else tiled_interp_from_state(tiled, device),
+        tiled,
+    )
+
+
+# -- the dipolar family ------------------------------------------------------------
+
+_DIPOLE_POTENTIAL_KEYS = (
+    "smearing", "exclusion_radius", "exclusion_degree", "epsilon", "prefactor",
+)
+
+
+def dipole_calculator_state(calc: CalculatorDipole) -> dict:
+    """The dipolar potential's scalars and the calculator's settings
+    (``kind`` is ``"ewald"`` for :class:`CalculatorDipole`, ``"pme"`` for
+    :class:`PMECalculatorDipole`)."""
+    pot = calc.potential
+    if pot.has_trainable_parameters():
+        raise ValueError("a potential with trainable parameters has no numpy state")
+    state = {
+        key: None if getattr(pot, key) is None else float(getattr(pot, key))
+        for key in _DIPOLE_POTENTIAL_KEYS
+    }
+    state["exclusion_degree"] = int(pot.exclusion_degree)
+    state["full_neighbor_list"] = calc.full_neighbor_list
+    if isinstance(calc, PMECalculatorDipole):
+        state.update(
+            kind="pme",
+            mesh_spacing=calc.mesh_spacing,
+            interpolation_nodes=calc.interpolation_nodes,
+            method=calc._method,
+            mesh_backend=calc.mesh_backend,
+            tile_capacity=calc.tile_capacity,
+        )
+    else:
+        state.update(kind="ewald", lr_wavelength=calc.lr_wavelength)
+    return state
+
+
+def dipole_calculator_from_state(state: dict, **kwargs) -> CalculatorDipole:
+    """The port's dipolar calculator over a :class:`PotentialDipole` from the
+    keys of :func:`dipole_calculator_state`; ``kwargs`` override the
+    calculator's own settings (``mesh_backend``, ``tile_capacity``, ...)."""
+    potential = PotentialDipole(**{key: state.get(key) for key in _DIPOLE_POTENTIAL_KEYS
+                                   if state.get(key) is not None})
+    full = bool(state.get("full_neighbor_list", False))
+    if state["kind"] == "ewald":
+        lr = state.get("lr_wavelength")
+        settings = dict(full_neighbor_list=full, lr_wavelength=None if lr is None else float(lr))
+        return CalculatorDipole(potential, **{**settings, **kwargs})
+    if state["kind"] != "pme":
+        raise ValueError(f"`kind` is {state['kind']!r} but must be 'ewald' or 'pme'")
+    settings = dict(
+        mesh_spacing=float(state["mesh_spacing"]),
+        interpolation_nodes=int(state["interpolation_nodes"]),
+        full_neighbor_list=full,
+        mesh_backend=state.get("mesh_backend", "auto"),
+        tile_capacity=state.get("tile_capacity"),
+        _method=state.get("method", "Lagrange"),
+    )
+    return PMECalculatorDipole(potential, **{**settings, **kwargs})
+
+
+def md_dipole_state(fp: MDFastPathDipole) -> dict:
+    """The port's dipolar MD state as numpy arrays and Python scalars."""
+    return {
+        **dipole_calculator_state(fp.calc),
+        **_bucketing_state(fp),
+        "ns_kvectors": fp.ns_kvectors,
+    }
+
+
+def md_dipole_from_state(state: dict, device=None) -> MDFastPathDipole:
+    """Port objects (potential, calculator, dipolar MD state) from a numpy
+    state dict with the keys of :func:`md_dipole_state`, on ``device``
+    (default: :func:`torchpme_tpu_torch.default_device`)."""
+    device = resolve_device(device)
+    clist, row_of_atom, tiled = _bucketing_from_state(state, device)
+    ns_k = state.get("ns_kvectors")
+    return MDFastPathDipole(
+        dipole_calculator_from_state(state),
+        clist,
+        row_of_atom,
+        None if ns_k is None else tuple(int(n) for n in ns_k),
+        int(state["n_rows"]),
+        int(state["n_atoms"]),
+        tiled,
     )

@@ -31,6 +31,7 @@ __all__ = [
     "LaunchCounter",
     "MeshParams",
     "SpreadParams",
+    "WindowDipoleParams",
     "WindowParams",
     "check_cuda_tensor",
     "check_status",
@@ -55,7 +56,7 @@ NVCC_FLAGS = (
 )
 
 MAX_NODES = 8  # csrc/spread.cu: coefficient table rows/cols
-N_OFFSETS = 14  # csrc/window.cu: half-window offsets + the self cell
+N_OFFSETS = 14  # csrc/window.cu, csrc/window_dipole.cu: half-window offsets + the self cell
 MAX_CHANNELS = 4  # csrc/window.cu: per-thread charge-channel registers
 
 
@@ -73,7 +74,10 @@ WINDOW = LaunchCounter("window")
 MESH_SPREAD = LaunchCounter("mesh_spread")
 MESH_GATHER = LaunchCounter("mesh_gather")
 MESH_WGRAD = LaunchCounter("mesh_wgrad")
-COUNTERS = (SPREAD_FWD, SPREAD_BWD, WINDOW, MESH_SPREAD, MESH_GATHER, MESH_WGRAD)
+WINDOW_DIPOLE = LaunchCounter("window_dipole")
+COUNTERS = (
+    SPREAD_FWD, SPREAD_BWD, WINDOW, MESH_SPREAD, MESH_GATHER, MESH_WGRAD, WINDOW_DIPOLE,
+)
 
 
 def reset_launch_counts() -> None:
@@ -117,6 +121,25 @@ class WindowParams(ctypes.Structure):
         ("cutoff_sq", ctypes.c_float),
         ("alpha", ctypes.c_float),
         ("alpha_sq", ctypes.c_float),
+        ("prefactor", ctypes.c_float),
+        ("c_gauss", ctypes.c_float),
+        ("offsets", ctypes.c_int * (3 * N_OFFSETS)),
+    ]
+
+
+class WindowDipoleParams(ctypes.Structure):
+    """Mirror of ``struct WindowDipoleParams`` in ``csrc/window_dipole.cu``."""
+
+    _fields_ = [
+        ("nx", ctypes.c_int),
+        ("ny", ctypes.c_int),
+        ("nz", ctypes.c_int),
+        ("cap", ctypes.c_int),
+        ("self_k", ctypes.c_int),
+        ("direct", ctypes.c_int),
+        ("cutoff_sq", ctypes.c_float),
+        ("alpha", ctypes.c_float),
+        ("sqrt_alpha", ctypes.c_float),
         ("prefactor", ctypes.c_float),
         ("c_gauss", ctypes.c_float),
         ("offsets", ctypes.c_int * (3 * N_OFFSETS)),
@@ -182,6 +205,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, p, p, p, ctypes.POINTER(WindowParams), p,
     ]
     lib.tpme_window.restype = ctypes.c_int
+    lib.tpme_window_dipole.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, ctypes.POINTER(WindowDipoleParams), p,
+    ]
+    lib.tpme_window_dipole.restype = ctypes.c_int
     lib.tpme_mesh_spread.argtypes = [p, p, p, p, p, p, ctypes.POINTER(MeshParams), p]
     lib.tpme_mesh_spread.restype = ctypes.c_int
     lib.tpme_mesh_gather_wgrad.argtypes = [

@@ -1,7 +1,8 @@
 """Bucket-order MD state: the PME energy + force step without per-step gathers.
 
 Counterpart of :class:`torchpme_tpu.md.MDFastPath` in its **aligned** and
-**tiled** modes.  Positions live in cell-bucket rows across steps (converted
+**tiled** modes, and of :class:`torchpme_tpu.md.MDFastPathDipole` (point
+dipoles: the window of kernel G plus the dipolar Ewald or mesh k-space).  Positions live in cell-bucket rows across steps (converted
 once, at build or rebucket time, like a neighbor-list build).
 
 * ``"aligned"``: the cell list's x/y grid is pinned to the 8×8 mesh-tile
@@ -38,9 +39,10 @@ from .ops.mesh_tiled import (
     supports_tiling,
 )
 from .ops.rspace_cells import CellList, cell_list_rspace_energy_rows, compute_cell_list
+from .ops.rspace_cells_dipole import cell_list_rspace_dipole_energy_rows
 from .ops.spread_fused import aligned_geometry, aligned_tiled_density
 
-__all__ = ["MDFastPath"]
+__all__ = ["MDFastPath", "MDFastPathDipole"]
 
 _FUSED_MODE = (
     "mesh_impl='fused' (fused_tiled_density: refresh + spread in one kernel) is "
@@ -70,6 +72,31 @@ def _to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _rows_tile_bucketing(
+    pos_np, cell_np, ns_mesh, nodes, method, tile_capacity, row_of_atom, n_rows, device,
+    derivatives=False,
+) -> TiledInterpolation:
+    """A tile bucketing of the atoms whose ``atom_of_slot`` names bucket
+    rows (sentinel ``n_rows``), so a refresh reads the row-layout positions."""
+    n_atoms = pos_np.shape[0]
+    pos_t = torch.as_tensor(pos_np, device=device)
+    tiled = compute_tiled_interpolation(
+        pos_t, inv3(torch.as_tensor(cell_np, dtype=pos_t.dtype, device=device)),
+        ns_mesh, nodes, method, capacity=tile_capacity, derivatives=derivatives,
+    )
+    dropped = int(tiled.dropped)
+    if dropped:
+        raise ValueError(
+            f"{dropped} atoms exceeded the tile capacity; pass a larger "
+            "`tile_capacity`"
+        )
+    slots = tiled.atom_of_slot.cpu().numpy()
+    remapped = np.where(
+        slots == n_atoms, n_rows, row_of_atom[np.minimum(slots, n_atoms - 1)]
+    ).astype(np.int32)
+    return replace(tiled, atom_of_slot=torch.from_numpy(remapped).to(device))
 
 
 class MDFastPath(nn.Module):
@@ -252,23 +279,10 @@ class MDFastPath(nn.Module):
         )
         n_atoms = pos_np.shape[0]
         row_of_atom, n_rows = _row_mapping(clist, n_atoms)
-        pos_t = torch.as_tensor(pos_np, device=device)
-        tiled = compute_tiled_interpolation(
-            pos_t, inv3(torch.as_tensor(cell_np, dtype=pos_t.dtype, device=device)),
-            ns_mesh, calc.interpolation_nodes, calc._method, capacity=tile_capacity,
+        tiled = _rows_tile_bucketing(
+            pos_np, cell_np, ns_mesh, calc.interpolation_nodes, calc._method,
+            tile_capacity, row_of_atom, n_rows, device,
         )
-        dropped = int(tiled.dropped)
-        if dropped:
-            raise ValueError(
-                f"{dropped} atoms exceeded the tile capacity; pass a larger "
-                "`tile_capacity`"
-            )
-        # remap tile slots from atom ids to bucket-row ids (sentinel: n_rows)
-        slots = tiled.atom_of_slot.cpu().numpy()
-        remapped = np.where(
-            slots == n_atoms, n_rows, row_of_atom[np.minimum(slots, n_atoms - 1)]
-        ).astype(np.int32)
-        tiled = replace(tiled, atom_of_slot=torch.from_numpy(remapped).to(device))
         return cls(
             calc, clist, torch.from_numpy(row_of_atom).to(device), ns_mesh, n_rows,
             n_atoms, None, 0, tiled,
@@ -366,5 +380,174 @@ class MDFastPath(nn.Module):
         # its cell keeps its stencil in the tile window), which poisons e_sr
         e_k = self.calc._kspace_energy_from_rho(
             rho, cell, charges, pos_rows, None, self.ns_mesh
+        )
+        return e_sr + e_k
+
+
+class MDFastPathDipole(nn.Module):
+    """Bucket-order MD state for dipolar systems, the dipolar counterpart of
+    :class:`MDFastPath`.
+
+    The real-space sum runs through the dipolar cell-list window in row
+    layout
+    (:func:`~torchpme_tpu_torch.ops.rspace_cells_dipole.cell_list_rspace_dipole_energy_rows`,
+    kernel G on a card: no per-step gather or force scatter).  With a
+    :class:`~torchpme_tpu_torch.PMECalculatorDipole` on the tiled mesh
+    backend, a tile bucketing (with derivative stencils) whose slots name
+    bucket rows is refreshed from the rows each step and spread by kernel D;
+    otherwise (Ewald, or the scatter backend) the k-space term consumes
+    dipole rows directly: every term is dipole-weighted, so padded rows
+    (with zero dipole) contribute nothing.
+
+    Example
+    -------
+    >>> import numpy as np, torch
+    >>> import torchpme_tpu_torch as tpt
+    >>> rng = np.random.default_rng(0)
+    >>> positions = torch.tensor(rng.uniform(0, 8.0, (60, 3)))
+    >>> dipoles = torch.tensor(rng.normal(size=(60, 3)))
+    >>> cell = torch.eye(3, dtype=torch.float64) * 8.0
+    >>> calc = tpt.CalculatorDipole(tpt.PotentialDipole(smearing=1.0), lr_wavelength=2.0)
+    >>> fp = tpt.MDFastPathDipole.create(calc, positions, cell, cutoff=2.5)
+    >>> rows = fp.bucket(positions).requires_grad_()
+    >>> e = fp.energy(dipoles, cell, rows)
+    >>> forces = -fp.unbucket(torch.autograd.grad(e, rows)[0])
+    >>> clist = tpt.ops.compute_cell_list(
+    ...     positions, cell, 2.5, capacity=fp.clist.slot_mask.shape[1], spill=False)
+    >>> e_ref = calc.energy(dipoles, cell, positions, cell_list=clist,
+    ...                     ns_kvectors=fp.ns_kvectors)
+    >>> print(bool(torch.allclose(e, e_ref, rtol=1e-10)))
+    True
+    """
+
+    def __init__(
+        self,
+        calc,
+        clist: CellList,
+        row_of_atom: torch.Tensor,
+        ns_kvectors: tuple[int, int, int] | None,
+        n_rows: int,
+        n_atoms: int,
+        tiled: TiledInterpolation | None = None,
+    ):
+        super().__init__()
+        if hasattr(calc, "mesh_backend"):
+            # the k-space term sees row-layout positions: pin the backend the
+            # state was built for, so `auto` cannot resolve differently later
+            calc = copy.copy(calc)
+            calc.mesh_backend = "scatter" if tiled is None else "tiled"
+        self.calc = calc
+        self.clist = clist
+        self.row_of_atom = row_of_atom
+        self.ns_kvectors = None if ns_kvectors is None else tuple(int(n) for n in ns_kvectors)
+        self.n_rows = int(n_rows)
+        self.n_atoms = int(n_atoms)
+        self.tiled = tiled
+
+    @classmethod
+    def create(
+        cls,
+        calc,
+        positions,
+        cell,
+        cutoff: float,
+        cell_capacity: int | None = None,
+        _spill: bool | None = None,
+        device=None,
+    ) -> "MDFastPathDipole":
+        """Bucket ``positions`` for the dipolar ``calc`` (host-side, numpy).
+
+        Like :meth:`MDFastPath.create`, the cell list uses a tight capacity
+        with the overflow spill side list by default (``_spill``), so
+        inhomogeneous systems need no manual capacity tuning; extras ride as
+        tail rows.  The JAX package's ``window_impl`` argument has no
+        counterpart here: the window runs kernel G on a card and its plain
+        version on the CPU (or with ``energy(..., plain=True)``).
+
+        :param calc: a :class:`~torchpme_tpu_torch.CalculatorDipole` or
+            :class:`~torchpme_tpu_torch.PMECalculatorDipole`.
+        :param device: device of the state (default: that of ``positions``
+            when it is a tensor, else
+            :func:`torchpme_tpu_torch.default_device`).
+        """
+        device = resolve_device(device, positions, cell)
+        pos_np = _to_numpy(positions)
+        cell_np = np.asarray(_to_numpy(cell), np.float64)
+        clist = compute_cell_list(
+            pos_np, cell_np, cutoff, capacity=cell_capacity, spill=_spill, device=device
+        )
+        n_atoms = pos_np.shape[0]
+        row_of_atom, n_rows = _row_mapping(clist, n_atoms)
+        ns_k = calc.get_ns_kvectors(cell_np) if calc.potential.smearing is not None else None
+        tiled = None
+        use_tiled = getattr(calc, "_use_tiled", None)
+        if ns_k is not None and use_tiled is not None and use_tiled(ns_k, device):
+            tiled = _rows_tile_bucketing(
+                pos_np, cell_np, ns_k, calc.interpolation_nodes, calc._method,
+                calc.tile_capacity, row_of_atom, n_rows, device, derivatives=True,
+            )
+        return cls(
+            calc, clist, torch.from_numpy(row_of_atom).to(device), ns_k, n_rows, n_atoms, tiled
+        )
+
+    def bucket(self, positions: torch.Tensor) -> torch.Tensor:
+        """Atom-order ``(N, 3)`` → bucket rows ``(n_rows, 3)`` (padding 0)."""
+        positions = torch.as_tensor(positions, device=self.row_of_atom.device)
+        rows = positions.new_zeros((self.n_rows, 3))
+        return rows.index_copy(0, self.row_of_atom.long(), positions)
+
+    def unbucket(self, pos_rows: torch.Tensor) -> torch.Tensor:
+        """Bucket rows back to atom order."""
+        return pos_rows[self.row_of_atom.long()]
+
+    def rebucket(self, pos_rows, cell, cutoff=None) -> "MDFastPathDipole":
+        """Rebuild the bucketing from drifted rows (like a neighbor-list
+        refresh), keeping the cell capacity and the spill side list."""
+        return type(self).create(
+            self.calc,
+            self.unbucket(pos_rows),
+            cell,
+            cutoff if cutoff is not None else self.clist.cutoff,
+            cell_capacity=self.clist.slot_mask.shape[1],
+            _spill=self.clist.extra_index is not None,
+            device=self.row_of_atom.device,
+        )
+
+    def energy(
+        self,
+        dipoles: torch.Tensor,
+        cell: torch.Tensor,
+        pos_rows: torch.Tensor,
+        plain: bool = False,
+    ) -> torch.Tensor:
+        r"""Total dipolar energy :math:`\sum_i \vec V_i\cdot\vec\mu_i` from
+        bucket rows.
+
+        Autograd with respect to ``pos_rows`` gives minus the forces in row
+        layout, with respect to ``dipoles`` (atom order, ``(N, 3)``) the
+        fields.  NaN when the bucketing is stale.
+
+        :param plain: run the kernels' plain versions on any device (the
+            reference path of the comparisons).
+        """
+        potential = self.calc.potential
+        e_sr = cell_list_rspace_dipole_energy_rows(
+            potential, dipoles, pos_rows, cell, self.clist, plain=plain
+        )
+        if potential.smearing is None:
+            return e_sr
+        dtype = pos_rows.dtype
+        if self.tiled is not None:
+            # the dipoles stay in atom order (the tile slots map atoms); the
+            # rows feed only the per-step weight refresh (row-id slots)
+            e_k = self.calc._compute_kspace_energy(
+                dipoles.to(dtype), cell, pos_rows, ns_kvectors=self.ns_kvectors,
+                tiled_interp=self.tiled, check_stale=False, plain=plain,
+            )
+            return e_sr + e_k
+        mu_rows = dipoles.new_zeros((self.n_rows, 3), dtype=dtype)
+        mu_rows = mu_rows.index_copy(0, self.row_of_atom.long(), dipoles.to(dtype))
+        e_k = self.calc._compute_kspace_energy(
+            mu_rows, cell, pos_rows, ns_kvectors=self.ns_kvectors, plain=plain
         )
         return e_sr + e_k

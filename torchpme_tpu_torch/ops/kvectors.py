@@ -1,8 +1,9 @@
 """Reciprocal-space vectors for the mesh calculators.
 
-Counterpart of :mod:`torchpme_tpu.ops.kvectors` (the mesh half; the Ewald
-k-sets come with the Ewald slice).  Mesh sizes are plain Python ints; the
-cell values only rescale the k-vectors, which stay differentiable.
+Counterpart of :mod:`torchpme_tpu.ops.kvectors`: the rFFT half-grid of the
+mesh calculators and the full k-set of explicit Ewald sums.  Mesh sizes are
+plain Python ints; the cell values only rescale the k-vectors, which stay
+differentiable.
 """
 
 from __future__ import annotations
@@ -14,7 +15,18 @@ import torch
 
 from .math import inv3
 
-__all__ = ["generate_kvectors_for_mesh", "get_ns_mesh"]
+__all__ = [
+    "generate_kvectors_for_ewald",
+    "generate_kvectors_for_mesh",
+    "get_ns_ewald",
+    "get_ns_mesh",
+]
+
+
+def _basis_norms(cell) -> np.ndarray:
+    if isinstance(cell, torch.Tensor):
+        cell = cell.detach().cpu().numpy()
+    return np.linalg.norm(np.asarray(cell, dtype=np.float64), axis=1)
 
 
 def get_ns_mesh(cell, mesh_spacing: float) -> tuple[int, int, int]:
@@ -27,18 +39,20 @@ def get_ns_mesh(cell, mesh_spacing: float) -> tuple[int, int, int]:
     >>> get_ns_mesh(np.eye(3) * 10.0, mesh_spacing=1.0)
     (32, 32, 32)
     """
-    if isinstance(cell, torch.Tensor):
-        cell = cell.detach().cpu().numpy()
-    basis_norms = np.linalg.norm(np.asarray(cell, dtype=np.float64), axis=1)
-    ns_approx = 2 * basis_norms / mesh_spacing + 1
+    ns_approx = 2 * _basis_norms(cell) / mesh_spacing + 1
     return tuple(int(2 ** math.ceil(math.log2(n))) for n in ns_approx)
 
 
-def generate_kvectors_for_mesh(cell: torch.Tensor, ns) -> torch.Tensor:
-    """All k-vectors on the half-spectrum rFFT grid of an ``ns`` mesh.
+def get_ns_ewald(cell, lr_wavelength: float) -> tuple[int, int, int]:
+    """Number of reciprocal basis-vector multiples within the Ewald k-cutoff:
+    ``k_cutoff = 2π / lr_wavelength``, and each axis keeps
+    ``ceil(k_cutoff · |a_i| / 2π)`` harmonics."""
+    k_cutoff = 2 * math.pi / lr_wavelength
+    return tuple(int(math.ceil(k_cutoff * n / (2 * math.pi))) for n in _basis_norms(cell))
 
-    :return: ``(nx, ny, nz // 2 + 1, 3)``; entry ``[0, 0, 0]`` is zero.
-    """
+
+def _generate_kvectors(cell: torch.Tensor, ns, last_real: bool) -> torch.Tensor:
+    """Broadcast sum of per-axis integer frequencies times reciprocal vectors."""
     ns = tuple(int(n) for n in ns)
     if len(ns) != 3:
         raise ValueError(f"ns of length {len(ns)} should have 3 entries")
@@ -48,5 +62,22 @@ def generate_kvectors_for_mesh(cell: torch.Tensor, ns) -> torch.Tensor:
     reciprocal = 2 * math.pi * inv3(cell).T
     kx = (torch.fft.fftfreq(ns[0], **opts) * ns[0])[:, None] * reciprocal[0]
     ky = (torch.fft.fftfreq(ns[1], **opts) * ns[1])[:, None] * reciprocal[1]
-    kz = (torch.fft.rfftfreq(ns[2], **opts) * ns[2])[:, None] * reciprocal[2]
+    freq_z = torch.fft.rfftfreq if last_real else torch.fft.fftfreq
+    kz = (freq_z(ns[2], **opts) * ns[2])[:, None] * reciprocal[2]
     return kx[:, None, None] + ky[None, :, None] + kz[None, None, :]
+
+
+def generate_kvectors_for_mesh(cell: torch.Tensor, ns) -> torch.Tensor:
+    """All k-vectors on the half-spectrum rFFT grid of an ``ns`` mesh.
+
+    :return: ``(nx, ny, nz // 2 + 1, 3)``; entry ``[0, 0, 0]`` is zero.
+    """
+    return _generate_kvectors(cell, ns, last_real=True)
+
+
+def generate_kvectors_for_ewald(cell: torch.Tensor, ns) -> torch.Tensor:
+    """Full (flattened) k-vector set for explicit Ewald sums.
+
+    :return: ``(nx · ny · nz, 3)``; entry 0 is the zero vector.
+    """
+    return _generate_kvectors(cell, ns, last_real=False).reshape(-1, 3)

@@ -2,8 +2,9 @@
 gather back to the particles.
 
 Counterpart of :mod:`torchpme_tpu.ops.mesh`: the coefficient tables, the 1D
-stencil weights, the generic scatter spread and its transpose.  In the MD
-step this path spreads only the few spill atoms of the cell list; it is the
+stencil weights, the generic scatter spread and its transpose, and the
+gradient stencil of point dipoles.  In the MD step this path spreads only
+the few spill atoms of the cell list; it is the
 ``mesh_backend="scatter"`` of the calculators and the oracle of the spread
 and gather kernels (``ops/spread_fused.py``, ``ops/mesh_kernels.py``).
 """
@@ -16,9 +17,14 @@ import numpy as np
 import torch
 
 __all__ = [
+    "DipoleInterpolationWeights",
     "MeshInterpolationWeights",
+    "compute_1d_weight_derivatives",
     "compute_1d_weights",
+    "compute_dipole_interpolation",
     "compute_interpolation",
+    "dipoles_to_mesh",
+    "mesh_to_dipole_field",
     "mesh_to_points",
     "points_to_mesh",
 ]
@@ -129,6 +135,21 @@ def compute_1d_weights(x: torch.Tensor, nodes: int, method: str) -> torch.Tensor
     return torch.tensordot(coeffs, powers, dims=1)
 
 
+def compute_1d_weight_derivatives(x: torch.Tensor, nodes: int, method: str) -> torch.Tensor:
+    """Derivatives ``dW/dx`` of the 1D interpolation weights at offsets ``x``,
+    shape ``(nodes, *x.shape)``: the coefficient tables of
+    :func:`compute_1d_weights`, differentiated in the power basis
+    (``d/dx Σ c_m x^m = Σ m·c_m x^{m-1}``)."""
+    if nodes == 1:
+        return x.new_zeros((1, *x.shape))
+    coeffs = _weight_coefficients(method, nodes)
+    dcoeffs = torch.as_tensor(
+        coeffs[:, 1:] * np.arange(1, nodes), dtype=x.dtype, device=x.device
+    )
+    powers = torch.stack([x**m for m in range(nodes - 1)])
+    return torch.tensordot(dcoeffs, powers, dims=1)
+
+
 def _axis_offsets(r: torch.Tensor, nodes: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(stencil base, offset) per the grid-centering parity rule: even-``n``
     stencils center between the two nearest grid points, odd-``n`` on the
@@ -150,6 +171,22 @@ class MeshInterpolationWeights:
     ns: tuple[int, int, int]
 
 
+def _stencil(positions, inverse_cell, ns, nodes: int):
+    """Per-axis stencil offsets ``(N, 3)``, the ``(nodes³, N)`` flat mesh
+    indices, and the node triples ``(sa, sb, sc)`` that enumerate them."""
+    device = positions.device
+    ns_t = torch.tensor(ns, dtype=positions.dtype, device=device)
+    rel = torch.matmul(positions, inverse_cell) * ns_t
+    base, offsets = _axis_offsets(rel, nodes)
+    shifts = torch.arange(1 - (nodes + 1) // 2, 1 + nodes // 2, device=device)
+    ns_i = torch.tensor(ns, device=device)
+    idx = torch.remainder(base[None] + shifts[:, None, None], ns_i)  # (nodes, N, 3)
+    grid = torch.arange(nodes, device=device)
+    sa, sb, sc = (g.reshape(-1) for g in torch.meshgrid(grid, grid, grid, indexing="ij"))
+    linear = (idx[sa, :, 0] * ns[1] + idx[sb, :, 1]) * ns[2] + idx[sc, :, 2]
+    return offsets, linear, (sa, sb, sc)
+
+
 def compute_interpolation(
     positions: torch.Tensor,
     inverse_cell: torch.Tensor,
@@ -161,20 +198,8 @@ def compute_interpolation(
     (grid centering by :func:`_axis_offsets`)."""
     ns = tuple(int(n) for n in ns)
     nodes = int(interpolation_nodes)
-    ns_t = torch.tensor(ns, dtype=positions.dtype, device=positions.device)
-    rel = torch.matmul(positions, inverse_cell) * ns_t
-    base, offsets = _axis_offsets(rel, nodes)
+    offsets, linear, (sa, sb, sc) = _stencil(positions, inverse_cell, ns, nodes)
     weights_1d = compute_1d_weights(offsets, nodes, method)  # (nodes, N, 3)
-
-    shifts = torch.arange(
-        1 - (nodes + 1) // 2, 1 + nodes // 2, device=positions.device
-    )
-    ns_i = torch.tensor(ns, device=positions.device)
-    idx = torch.remainder(base[None] + shifts[:, None, None], ns_i)  # (nodes, N, 3)
-
-    grid = torch.arange(nodes, device=positions.device)
-    sa, sb, sc = (g.reshape(-1) for g in torch.meshgrid(grid, grid, grid, indexing="ij"))
-    linear = (idx[sa, :, 0] * ns[1] + idx[sb, :, 1]) * ns[2] + idx[sc, :, 2]
     combined = weights_1d[sa, :, 0] * weights_1d[sb, :, 1] * weights_1d[sc, :, 2]
     return MeshInterpolationWeights(linear, combined, ns)
 
@@ -218,3 +243,74 @@ def mesh_to_points(
     flat_mesh = mesh_vals.reshape(mesh_vals.shape[0], -1)
     gathered = flat_mesh[:, interp.linear_indices]  # (C, nodes³, N)
     return torch.sum(gathered * interp.combined_weights[None], dim=1).T
+
+
+# -- point dipoles: the gradient stencil ----------------------------------------
+
+
+@dataclass(frozen=True)
+class DipoleInterpolationWeights:
+    r"""Gradient stencil for spreading point dipoles onto a mesh.
+
+    ``grad_weights[s, j, b]`` is :math:`\partial W^{3D}_s(r_j)/\partial
+    r_{j,b}`, the Cartesian gradient of the combined 3D stencil weight, so the
+    dipolar mesh density is :math:`Q(m) = \sum_j \vec\mu_j\cdot\nabla_{r_j}
+    W_j(m)` and the per-atom vector field gathers with the same stencil.
+    """
+
+    linear_indices: torch.Tensor  # (nodes³, N)
+    grad_weights: torch.Tensor  # (nodes³, N, 3)
+    ns: tuple[int, int, int]
+
+
+def compute_dipole_interpolation(
+    positions: torch.Tensor,
+    inverse_cell: torch.Tensor,
+    ns,
+    interpolation_nodes: int,
+    method: str,
+) -> DipoleInterpolationWeights:
+    r"""Gradient-stencil indices and weights for dipolar mesh spreading.
+
+    The chain rule through the fractional coordinates gives
+    :math:`\partial W/\partial r_b = \sum_a \dot W_a W_{a'} W_{a''}\,
+    (\text{inverse cell})_{ba}\, n_a`, from the coefficient tables of the
+    charge stencil and their analytic derivatives.
+    """
+    ns = tuple(int(n) for n in ns)
+    nodes = int(interpolation_nodes)
+    offsets, linear, (sa, sb, sc) = _stencil(positions, inverse_cell, ns, nodes)
+    w = compute_1d_weights(offsets, nodes, method)  # (nodes, N, 3)
+    dw = compute_1d_weight_derivatives(offsets, nodes, method)
+    wx, wy, wz = w[sa, :, 0], w[sb, :, 1], w[sc, :, 2]
+    # ∂W3D/∂rel_a, then the chain through rel = (pos @ inv_cell) ⊙ ns
+    grad_rel = torch.stack(
+        [dw[sa, :, 0] * wy * wz, wx * dw[sb, :, 1] * wz, wx * wy * dw[sc, :, 2]], dim=-1
+    )  # (nodes³, N, 3) in fractional-mesh units
+    ns_t = torch.tensor(ns, dtype=positions.dtype, device=positions.device)
+    grad_pos = torch.einsum("sna,ba,a->snb", grad_rel, inverse_cell, ns_t)
+    return DipoleInterpolationWeights(linear, grad_pos, ns)
+
+
+def dipoles_to_mesh(interp: DipoleInterpolationWeights, dipoles: torch.Tensor) -> torch.Tensor:
+    r"""Spread ``(N, 3)`` point dipoles onto the mesh as a gradient density
+    :math:`Q(m) = \sum_j \vec\mu_j\cdot\nabla_{r_j} W_j(m)`, ``(1, nx, ny,
+    nz)``.  Its Fourier transform is :math:`-i\,\hat w(k)\,S(k)` with
+    :math:`S(k) = \sum_j (\vec\mu_j\cdot\vec k)\,e^{-ik\cdot r_j}`, so the
+    scalar Parseval machinery applies unchanged."""
+    nx, ny, nz = interp.ns
+    values = torch.einsum("snb,nb->sn", interp.grad_weights, dipoles).reshape(-1)
+    mesh = values.new_zeros(nx * ny * nz)
+    mesh = mesh.index_add(0, interp.linear_indices.reshape(-1), values)
+    return mesh.reshape(1, nx, ny, nz)
+
+
+def mesh_to_dipole_field(
+    interp: DipoleInterpolationWeights, mesh_vals: torch.Tensor
+) -> torch.Tensor:
+    """Gather a filtered ``(1, nx, ny, nz)`` mesh back to per-atom vector
+    fields ``(N, 3)``: ``g_i = Σ_s ∇W_{s,i} · mesh[idx]`` (transpose of
+    :func:`dipoles_to_mesh` in the dipole argument, so ``Σ_i μ_i·g_i ==
+    Σ_m Q·mesh`` exactly)."""
+    gathered = mesh_vals.reshape(-1)[interp.linear_indices]  # (nodes³, N)
+    return torch.einsum("sn,snb->nb", gathered, interp.grad_weights)

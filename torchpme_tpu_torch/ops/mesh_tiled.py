@@ -27,14 +27,17 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from .mesh import _axis_offsets, compute_1d_weights
+from .mesh import _axis_offsets, compute_1d_weight_derivatives, compute_1d_weights
 
 __all__ = [
     "TILE",
     "TiledInterpolation",
     "compute_tiled_interpolation",
+    "dipole_slots",
     "refresh_tiled_interpolation",
     "supports_tiling",
+    "tiled_dipoles_to_mesh",
+    "tiled_mesh_to_dipole_field",
     "tiled_mesh_to_points",
     "tiled_points_to_mesh",
 ]
@@ -70,6 +73,9 @@ class TiledInterpolation:
     atom_of_slot: torch.Tensor | None = None  # (T, K) int32, N for empty slots
     ns: tuple[int, int, int] = (1, 1, 1)
     nodes: int = 4
+    #: (T, K, 3, n) derivatives dW/dx of the 1D weights (the dipolar gradient
+    #: stencil); None unless built with ``derivatives=True``
+    dweights: torch.Tensor | None = None
 
 
 def _start_indices(rel: torch.Tensor, ns, nodes: int):
@@ -105,6 +111,7 @@ def compute_tiled_interpolation(
     interpolation_nodes: int,
     method: str,
     capacity: int | None = None,
+    derivatives: bool = False,
 ) -> TiledInterpolation:
     """Bucket atoms into xy tiles and precompute stencil weights.
 
@@ -116,6 +123,9 @@ def compute_tiled_interpolation(
     :param capacity: slots per tile; by default the true maximum tile
         occupancy plus 8 (room for small drift across refreshes), rounded up
         to a multiple of 64.
+    :param derivatives: also keep the weight derivatives (``dweights``), which
+        the dipolar spread and gather need; a refresh keeps whichever the
+        bucketing carries.
 
     Example
     -------
@@ -147,6 +157,11 @@ def compute_tiled_interpolation(
     rel = torch.matmul(positions, inverse_cell) * ns_t
     start, offsets = _start_indices(rel, ns, nodes)  # (N, 3)
     weights = compute_1d_weights(offsets, nodes, method).permute(1, 2, 0)  # (N, 3, n)
+    dweights = (
+        compute_1d_weight_derivatives(offsets, nodes, method).permute(1, 2, 0)
+        if derivatives
+        else None
+    )
 
     tile_x = start[:, 0] // TILE
     tile_y = start[:, 1] // TILE
@@ -184,6 +199,7 @@ def compute_tiled_interpolation(
         atom_of_slot=bucketize(torch.arange(n_atoms, dtype=i32, device=device), fill=n_atoms),
         ns=ns,
         nodes=nodes,
+        dweights=None if dweights is None else bucketize(dweights),
     )
 
 
@@ -225,6 +241,9 @@ def refresh_tiled_interpolation(
     rel = torch.matmul(pos_slots, inverse_cell) * ns_t
     start, offsets = _start_indices(rel, ns, nodes)  # (T, K, 3)
     weights = compute_1d_weights(offsets, nodes, method).movedim(0, -1)  # (T, K, 3, n)
+    dweights = None
+    if interp.dweights is not None:
+        dweights = compute_1d_weight_derivatives(offsets, nodes, method).movedim(0, -1)
 
     # tile origins from the static tile index
     tile_idx = torch.arange(n_tiles, device=device)
@@ -235,6 +254,8 @@ def refresh_tiled_interpolation(
 
     empty = interp.atom_of_slot == n_atoms
     weights = torch.where(empty[..., None, None], 0.0, weights)
+    if dweights is not None:
+        dweights = torch.where(empty[..., None, None], 0.0, dweights)
     local_x = torch.where(empty, 0, local_x)
     local_y = torch.where(empty, 0, local_y)
     start_z = torch.where(empty, 0, start[..., 2])
@@ -251,6 +272,7 @@ def refresh_tiled_interpolation(
         local_y=local_y.to(i32),
         start_z=start_z.to(i32),
         weights=weights,
+        dweights=dweights,
     )
     return refreshed, still_valid
 
@@ -382,4 +404,96 @@ def tiled_mesh_to_points(
     per_slot = gather_tiles(interp, mesh_vals, plain=plain)  # (T, C, K)
     per_slot = per_slot.transpose(1, 2).reshape(-1, n_ch)
     per_slot = torch.cat([per_slot, per_slot.new_zeros((1, n_ch))], dim=0)
+    return per_slot.index_select(0, interp.slot_of_atom.long())
+
+
+# -- point dipoles: three derivative stencils through the same kernels ----------
+
+
+def dipole_slots(interp: TiledInterpolation) -> TiledInterpolation:
+    """The bucketing of the dipolar gradient stencil: every slot three times
+    along the capacity axis (``(T, 3K)``), copy ``a`` carrying the weight
+    triple whose axis-``a`` stencil is the derivative, ``(dw_x, w_y, w_z)``,
+    ``(w_x, dw_y, w_z)``, ``(w_x, w_y, dw_z)``.  Built with differentiable
+    tensor ops, so the position gradient flows through ``weights`` and
+    ``dweights``.  A caller that spreads and gathers on one bucketing builds
+    it once and hands it to both as ``slots=``."""
+    if interp.dweights is None:
+        raise ValueError(
+            "This TiledInterpolation carries no weight derivatives; build it "
+            "with compute_tiled_interpolation(..., derivatives=True)."
+        )
+    w, dw = interp.weights, interp.dweights
+    variants = []
+    for a in range(3):
+        picked = [dw[:, :, c] if c == a else w[:, :, c] for c in range(3)]
+        variants.append(torch.stack(picked, dim=2))  # (T, K, 3, n)
+
+    def triple(t):
+        return torch.cat([t, t, t], dim=1).contiguous()
+
+    return replace(
+        interp,
+        local_x=triple(interp.local_x),
+        local_y=triple(interp.local_y),
+        start_z=triple(interp.start_z),
+        weights=torch.cat(variants, dim=1),
+        dweights=None,
+    )
+
+
+def tiled_dipoles_to_mesh(
+    interp: TiledInterpolation,
+    nu: torch.Tensor,
+    plain: bool = False,
+    slots: TiledInterpolation | None = None,
+) -> torch.Tensor:
+    r"""Spread point dipoles onto the mesh as a gradient density, the tiled
+    counterpart of :func:`torchpme_tpu_torch.ops.mesh.dipoles_to_mesh`.
+
+    The dipolar density separates per fractional axis:
+    :math:`Q(m) = \sum_j \vec\mu_j\cdot\nabla_{r_j} W_j(m)
+    = \sum_a \nu_{ja}\,\partial_a[W_x W_y W_z]` with the effective per-axis
+    charges :math:`\nu_{ja} = n_a\,(\mu_j\,C^{-1})_a` (chain rule through
+    ``rel = pos @ inverse_cell * ns``): three monopole-like spreads whose
+    axis-``a`` stencil is the weight derivative.  The JAX package runs them
+    as one batched product with the variants concatenated along the
+    capacity axis; here the same concatenation goes through kernel D in one
+    launch (and its VJP, kernels E and F, gives the gradients).
+
+    :param nu: ``(N, 3)`` effective per-axis charges
+        ``(dipoles @ inverse_cell) * ns``.
+    :param plain: run the plain PyTorch version on any device.
+    :param slots: ``dipole_slots(interp)`` where the caller already built it.
+    :return: dipolar density mesh ``(1, nx, ny, nz)``.
+    """
+    from .mesh_kernels import spread_tiles
+
+    n_tiles, capacity = interp.local_x.shape
+    nu_slots = _slot_values(interp, nu)  # (T, 3, K)
+    slots = dipole_slots(interp) if slots is None else slots
+    return spread_tiles(slots, nu_slots.reshape(n_tiles, 1, 3 * capacity), plain=plain)
+
+
+def tiled_mesh_to_dipole_field(
+    interp: TiledInterpolation,
+    mesh_vals: torch.Tensor,
+    plain: bool = False,
+    slots: TiledInterpolation | None = None,
+) -> torch.Tensor:
+    r"""Back-interpolate a filtered ``(1, nx, ny, nz)`` mesh to per-atom
+    gradient fields in fractional-mesh units (transpose of
+    :func:`tiled_dipoles_to_mesh`): ``e_rel[j, a] = Σ_m ∂_a[W_j](m)·mesh(m)``,
+    so ``Σ_j ν_j·e_rel_j == Σ_m Q·mesh`` exactly.  Chain to position units
+    with ``(e_rel * ns) @ inverse_cell.T`` at the caller.  One launch of
+    kernel E over the tripled slots (``slots``: as in
+    :func:`tiled_dipoles_to_mesh`).
+    """
+    from .mesh_kernels import gather_tiles
+
+    n_tiles, capacity = interp.local_x.shape
+    slots = dipole_slots(interp) if slots is None else slots
+    per_slot = gather_tiles(slots, mesh_vals, plain=plain)  # (T, 1, 3K)
+    per_slot = per_slot.reshape(n_tiles, 3, capacity).transpose(1, 2).reshape(-1, 3)
+    per_slot = torch.cat([per_slot, per_slot.new_zeros((1, 3))], dim=0)
     return per_slot.index_select(0, interp.slot_of_atom.long())

@@ -9,11 +9,15 @@ line) if any phase fails:
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles ``torchpme_tpu_torch/csrc/*.cu`` with nvcc (sm_90a);
 3. kernels: each of the seven kernels against its plain PyTorch version,
-   float32, at the 102k shapes (the tile kernels D, E, F also at three
-   channels and at the dipolar shapes: 6 nodes, every slot three times; the
-   dipolar window G in smeared and direct mode and with separate i-side
-   dipoles), with CUDA-event times of both and the least time the card could
-   take (bytes over memory rate, operations over the float32 rate);
+   float32, at the 102k shapes (the window C also on a 3×3×3 cell grid with
+   a capacity above 32, and at capacity 250 with four channels, and two of
+   its launches bitwise equal in d_pc and d_q; the aligned spread A also at
+   nz = 288; the tile kernels D, E, F also at three channels and
+   at the dipolar shapes: 6 nodes, every slot three times; the dipolar window
+   G in smeared and direct mode and with separate i-side dipoles), with
+   CUDA-event times of both (launches queued on the card, so that the host's
+   pace does not enter) and the least time the card could take (bytes over
+   memory rate, operations over the float32 rate);
 4. the MD step (``MDFastPath`` in aligned mode: kernels A, B, C): float32
    kernels vs the plain float64 step (energy, forces, cell gradient), the
    launch counts and ms/step of both paths;
@@ -41,7 +45,8 @@ line) if any phase fails:
 
 With ``--profile`` it also traces the four 102k paths with ``torch.profiler``
 and prints, for each, the device time and the number of device events per
-call and the kernels that take most of it.
+call and the kernels that take most of it, and times kernel A's z chunk
+(``ops/spread_fused.py:z_chunk``) beside the neighbouring choices.
 
 Imports torch, numpy, scipy (through the port's neighbor list) and the
 port; nothing of JAX.
@@ -69,10 +74,22 @@ NODES = 5
 NS_MESH = (128, 128, 128)
 CHAIN = 20  # MD steps per timed chain, one sync per chain
 CALL_REPEATS = 5  # per-atom calls per timed chain
+# clock cycles of the card's spin per second of host time it must cover (the
+# H100 SXM's top SM clock, 1.98 GHz, rounded up: a slower clock spins longer)
+SPIN_CYCLES_PER_S = 2.0e9
 KERNEL_TOL = 1e-5  # kernel vs plain version, max abs error over max |plain|
-# d_offs of the dipolar window totals every j-side force of a neighbor offset,
-# 1/d^4 terms that cancel to ~1e-3 of their size: the plain version's float32
-# sum carries that error (the JAX package's own bar,
+# kernel C's energy and kernel A's density: float32 sums of the same terms in
+# another order, ~1e-7 of max in every run so far
+SUM_TOL = 1e-6
+# the edge shapes of kernels C and A: a 3x3x3 cell grid whose capacity is
+# above one warp (dense box, cell edges just over the cutoff), and a mesh of
+# 288 z cells, whose whole tile field the first kernel A could not hold
+EDGE_GRID_ATOMS = 1500
+EDGE_CAPACITY = 250  # and 4 channels: kernel C stages one x plane of offsets a pass
+EDGE_NZ = 288
+# d_offs of a window totals every j-side force of a neighbor offset, terms
+# that cancel (1/d^4 ones to ~1e-3 of their size for dipoles): the plain
+# version's float32 sum carries that error (the JAX package's own bar,
 # tests/ops/test_window_dipole_pallas.py:57)
 D_OFFS_TOL = 5e-4
 
@@ -167,6 +184,15 @@ def dipole_ewald_oracle(tpt, positions, dipoles, cell, smearing, device) -> floa
         ))
 
 
+def dense_grid_box():
+    """``(positions, charges, cell)`` of the window's edge shape: 3 cells of
+    edge just over the cutoff per axis, ~55 atoms a cell (seed 2)."""
+    rng = np.random.default_rng(2)
+    box = 3 * (CUTOFF + 0.2)
+    q = rng.normal(size=(EDGE_GRID_ATOMS, 1))
+    return rng.uniform(0.0, box, (EDGE_GRID_ATOMS, 3)), q - q.mean(), np.eye(3) * box
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -192,10 +218,26 @@ def timed_ms(fn, repeats: int) -> float:
 
 
 def cuda_ms(fn, repeats: int = 10) -> float:
-    """Mean ms per call from CUDA events, after two warm-up calls."""
+    """Mean ms per call on the card, after two warm-up calls: ``repeats``
+    calls between two CUDA events, queued behind a spin of the card that
+    outlasts the host's time to enqueue them, so that the host's pace does
+    not enter (a wrapper may take longer on the host than its kernel on the
+    card; a call that synchronises is host-paced all the same)."""
     for _ in range(2):
         fn()
-    return timed_ms(fn, repeats)
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    sync()
+    torch.cuda._sleep(int(min(2.0 * repeats * host_s, 1.0) * SPIN_CYCLES_PER_S))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / repeats
 
 
 def rel_err(got, ref) -> tuple[float, float]:
@@ -578,11 +620,13 @@ def main() -> int:
     import torchpme_tpu_torch as tpt
     from torchpme_tpu_torch import kernels
     from torchpme_tpu_torch.ops import mesh_kernels as mk
+    from torchpme_tpu_torch.ops import spread_fused as sf
     from torchpme_tpu_torch.ops.math import inv3
     from torchpme_tpu_torch.ops.mesh_tiled import _slot_values, compute_tiled_interpolation
     from torchpme_tpu_torch.ops.rspace_cells import (
         _prepare_bucketed,
         _we_value_and_grad,
+        _window_group,
         _window_offsets,
         window_value_and_grad,
     )
@@ -600,6 +644,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = tpt.default_device()
+    profile = "--profile" in sys.argv[1:]
     smi = card_line()
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -609,7 +654,14 @@ def main() -> int:
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     built = kernels.load_library()
-    ptxas = [ln for ln in built.build_log.splitlines() if "registers" in ln or "spill" in ln]
+    # ptxas per kernel entry: registers, spill stores and loads (a cached
+    # library was built by an earlier run and carries no log)
+    ptxas, entry = {}, ""
+    for ln in built.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif entry and ("registers" in ln or "spill" in ln):
+            ptxas[entry] = (ptxas.get(entry, "") + " " + ln.split(":", 1)[-1].strip()).strip()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": built.build_seconds, "ptxas": ptxas})
 
@@ -651,7 +703,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     nx_c, ny_c, nz_c, cap = fp.cell_grid
     extent, lpad = aligned_geometry(NODES, fp.aligned_pad)
-    geom = SpreadGeometry(NS_MESH, NODES, "Lagrange", extent, lpad, nx_c * ny_c, nz_c * cap)
+    geom = SpreadGeometry(NS_MESH, NODES, "Lagrange", extent, lpad, nx_c * ny_c, nz_c * cap,
+                          nz_c)
     nb = geom.n_tiles * geom.slots_per_tile
     q_rows = torch.zeros((fp.n_rows, 1), **f32).index_copy(0, fp.row_of_atom.long(), q32)
     rel = (rows32 @ inv3(cell32) * torch.tensor(NS_MESH, **f32))[:nb].contiguous()
@@ -667,13 +720,6 @@ def main() -> int:
     stencil = 6 * NODES * NODES  # the three 1D weight polynomials of one atom
     n_main = N_ATOMS - n_extra
     mesh1 = ct_rho
-    # candidate pairs of the window: occupied slots of each home cell against
-    # those of its 13 half-window neighbours and itself
-    occ = mf_g.sum(-1).double()
-    candidates = sum(
-        float((occ * torch.roll(occ, (-dx, -dy, -dz), dims=(0, 1, 2))).sum())
-        for dx, dy, dz in _window_offsets(cap)
-    )
     n_pairs = int(nl_idx.shape[0])
     report: dict[str, dict] = {}
     spread_src = "torchpme_tpu_torch/csrc/spread.cu"
@@ -682,23 +728,101 @@ def main() -> int:
         lambda: (fused_spread(rel, q_main, geom),),
         lambda: (spread_plain(rel, q_main, geom),),
         bound(nbytes(rel, q_main, mesh1), n_main * (2 * n3 + stencil)), report,
+        tols=[SUM_TOL],
     )
+    # the same slots on a mesh of EDGE_NZ z cells
+    ns_tall = (*NS_MESH[:2], EDGE_NZ)
+    geom_tall = SpreadGeometry(ns_tall, NODES, "Lagrange", extent, lpad, nx_c * ny_c,
+                               nz_c * cap, nz_c)
+    rel_tall = (rows32 @ inv3(cell32) * torch.tensor(ns_tall, **f32))[:nb].contiguous()
+    check_kernel(
+        "spread_fwd", spread_src, "torchpme_tpu/ops/pallas/spread_fused.py:169",
+        lambda: (fused_spread(rel_tall, q_main, geom_tall),),
+        lambda: (spread_plain(rel_tall, q_main, geom_tall),),
+        bound(nbytes(rel_tall, q_main) + 4 * math.prod(ns_tall), n_main * (2 * n3 + stencil)),
+        report, tols=[SUM_TOL], shape=f"mesh {ns_tall}",
+    )
+    if profile:
+        # kernel A's z chunk (ops/spread_fused.py:z_chunk) beside its neighbours
+        rule = sf.z_chunk
+        try:
+            for g, r in ((geom, rel), (geom_tall, rel_tall)):
+                nz, times = g.ns[2], {}
+                for zc in sorted({zc for zc in (32, 64, 96, 128) if zc <= nz} | {rule(nz)}):
+                    sf.z_chunk = lambda _nz, zc=zc: zc
+                    times[zc] = cuda_ms(lambda g=g, r=r: fused_spread(r, q_main, g))
+                emit({"phase": "z_chunk_sweep", "name": "spread_fwd", "nz": nz,
+                      "rule": rule(nz), "ms": times})
+        finally:
+            sf.z_chunk = rule
+    del rel_tall
     check_kernel(
         "spread_bwd", spread_src, "torchpme_tpu/ops/pallas/spread_fused.py:216",
         lambda: fused_spread_bwd(rel, q_main, ct_rho, geom),
         lambda: spread_plain_bwd(rel, q_main, ct_rho, geom),
         bound(nbytes(rel, q_main, mesh1, rel, q_main), n_main * (8 * n3 + 2 * stencil)), report,
     )
-    check_kernel(
-        "window", "torchpme_tpu_torch/csrc/window.cu", "torchpme_tpu/ops/rspace_cells.py:813",
-        lambda: (lambda e, g: (e, *g))(
-            *window_value_and_grad(pot, CUTOFF, pc_t, q_g, mf_g, offs)),
-        lambda: (lambda e, g: (e, *g))(
-            *_we_value_and_grad(pot, CUTOFF, pc_t, q_g, mf_g, offs)),
-        # 11 operations to place and test a candidate, 40 more for a pair inside the cutoff
-        bound(nbytes(pc_t, q_g, mf_g, offs, pc_t, q_g, offs) + 8, 11 * candidates + 40 * n_pairs),
-        report,
-    )
+    def window_check(ins, n_inside, shape=None):
+        """Kernel C against its plain version on ``ins``; the bound counts
+        the half-window work (each pair once), whatever evaluates it: the
+        candidate pairs of occupied slots of each home cell against those of
+        its 13 half-window neighbours and itself."""
+        occ = ins[2].sum(-1).double()
+        n_cand = sum(float((occ * torch.roll(occ, (-dx, -dy, -dz), dims=(0, 1, 2))).sum())
+                     for dx, dy, dz in _window_offsets(ins[0].shape[-1]))
+        check_kernel(
+            "window", "torchpme_tpu_torch/csrc/window.cu",
+            "torchpme_tpu/ops/rspace_cells.py:813",
+            lambda: (lambda e, g: (e, *g))(*window_value_and_grad(pot, CUTOFF, *ins)),
+            lambda: (lambda e, g: (e, *g))(*_we_value_and_grad(pot, CUTOFF, *ins)),
+            # 11 operations to place and test a candidate, 40 more for a pair
+            # inside the cutoff; inputs once, (e, d_pc, d_q, d_offs) once
+            bound(nbytes(*ins, ins[0], ins[1], ins[3]) + 8, 11 * n_cand + 40 * n_inside),
+            # d_offs: the plain version's float32 sum of a cancelling total
+            # leaves up to ~1e-4 of max in the self row, which is 0 in exact
+            # arithmetic and in the kernel; the kernel is held to float64 below
+            report, tols=[SUM_TOL, KERNEL_TOL, KERNEL_TOL, D_OFFS_TOL], shape=shape,
+        )
+        with torch.no_grad():
+            d_offs64 = _we_value_and_grad(pot, CUTOFF, *[t.double() for t in ins])[1][2]
+            d_offs = window_value_and_grad(pot, CUTOFF, *ins)[1][2]
+        d_offs_rel = rel_err(d_offs, d_offs64)[1]
+        emit({"phase": "kernel_vs_float64", "name": "window", "shape": shape,
+              "d_offs_rel_err": d_offs_rel})
+        if not d_offs_rel <= KERNEL_TOL:
+            raise AssertionError(f"kernel C's d_offs vs float64 {d_offs_rel:.3e} ({shape})")
+        # each row of d_pc and d_q has one writer: launches agree bit for bit
+        first, again = (window_value_and_grad(pot, CUTOFF, *ins)[1] for _ in range(2))
+        sync()
+        same = [bool(torch.equal(a, b)) for a, b in zip(first[:2], again[:2])]
+        emit({"phase": "kernel_reproducible", "name": "window", "shape": shape,
+              "d_pc_d_q_bitwise_equal": same})
+        if not all(same):
+            raise AssertionError(f"kernel C's d_pc, d_q differ between two launches ({shape})")
+
+    window_check((pc_t, q_g, mf_g, offs), n_pairs)
+    epos, eq, ecell = dense_grid_box()
+    e_pairs = int(neighbor_list(epos, ecell, CUTOFF)[0].shape[0])
+    lib = built.lib
+    emit({"phase": "window_capacity", "largest_capacity_by_channels": {
+        n: lib.tpme_window_max_cap(n, torch.cuda.current_device())
+        for n in range(1, kernels.MAX_CHANNELS + 1)}})
+    # the grid at its own capacity (all 27 offsets a pass), and at
+    # EDGE_CAPACITY with MAX_CHANNELS channels (one x plane of 9 a pass)
+    for capacity, n_ch in ((None, 1), (EDGE_CAPACITY, kernels.MAX_CHANNELS)):
+        eclist = tpt.ops.compute_cell_list(epos, ecell, CUTOFF, capacity=capacity, spill=False,
+                                           device=dev)
+        e_cap = eclist.slot_mask.shape[1]
+        if eclist.n_axis != (3, 3, 3) or e_cap <= 32:
+            raise AssertionError(f"edge grid {eclist.n_axis}, capacity {e_cap}")
+        eidx = eclist.atom_index.long()
+        e_q = torch.tensor(eq, **f32) * torch.linspace(1.0, 2.0, n_ch, **f32)
+        with torch.no_grad():
+            e_ins = _prepare_bucketed(e_q[eidx], torch.tensor(epos, **f32)[eidx],
+                                      torch.tensor(ecell, **f32), eclist)[:4]
+        window_check(e_ins, e_pairs, shape=f"3x3x3 cells, capacity {e_cap}, {n_ch} channel(s), "
+                     f"{_window_group(e_cap, n_ch, e_ins[0].device.index)} offsets a pass")
+        del e_ins
 
     # kernels D, E, F at the 102k tile shapes, one channel and three
     mesh_src = "torchpme_tpu_torch/csrc/mesh.cu"
@@ -854,7 +978,7 @@ def main() -> int:
             f"sum(pot*q) vs calc.energy {e_quad_rel:.3e}, vs the MD step {e_md_rel:.3e}"
         )
     counts.update({k: call_counts[k] for k in call_kernels})
-    if "--profile" in sys.argv[1:]:
+    if profile:
         profile_path("md_step_aligned", lambda: md_chain(False), calls=2)  # 2 chains of CHAIN steps
         profile_path("per_atom_forward", lambda: per_atom(torch.float32, False, backward=False))
         profile_path("per_atom_forward_backward", lambda: per_atom(torch.float32, False))
@@ -902,7 +1026,7 @@ def main() -> int:
     env = SimpleNamespace(
         tpt=tpt, kernels=kernels, dev=dev, f32=f32, smi=smi, positions=positions, cell=cell,
         pos32=pos32, cell32=cell32, idx_t=idx_t, shifts_t=shifts_t, n_pairs=n_pairs,
-        ct_rho=ct_rho, report=report, counts=counts, profile="--profile" in sys.argv[1:],
+        ct_rho=ct_rho, report=report, counts=counts, profile=profile,
     )
     dipole_phases(env)
 

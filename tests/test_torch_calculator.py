@@ -524,29 +524,36 @@ def test_md_tiled_stale_rows_poison_and_rebucket(md_case):
 
 
 def test_default_device_rule(monkeypatch):
-    """Host inputs and no device → default_device(): the card when there is
-    one.  A CPU tensor or device='cpu' is the caller asking for the CPU."""
+    """Host inputs and no device → default_device(): the card, or a raise
+    that says to pass device="cpu" when there is none.  A CPU tensor or
+    device='cpu' is the caller asking for the CPU."""
     from torchpme_tpu_torch.device import resolve_device
 
     pos, q, cell = random_box(60, 12.0, seed=2)
     _, calc = _md_calcs(nodes=4)
-    assert tpt.default_device() == torch.device("cpu")  # no card here
-    cpu_state = md_state(tpt.MDFastPath.create(calc, pos, cell, CUTOFF, NS))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cpu_state = md_state(tpt.MDFastPath.create(calc, pos, cell, CUTOFF, NS, device="cpu"))
+    host_calls = [
+        tpt.default_device,
+        lambda: resolve_device(None, pos, cell),
+        lambda: tpt.MDFastPath.create(calc, pos, cell, CUTOFF, NS),
+        lambda: tpt.MDFastPath.create(calc, pos, cell, CUTOFF, NS, mesh_impl="tiled"),
+        lambda: compute_cell_list(pos, cell, CUTOFF),
+        lambda: md_from_state(cpu_state),
+    ]
+    # no card: nothing lands on the CPU unless asked for
+    for call in host_calls:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert tpt.default_device() == torch.device("cuda")
     assert resolve_device(None, pos, cell) == torch.device("cuda")
     assert resolve_device(None, pos, torch.tensor(cell)) == torch.device("cpu")
     assert resolve_device("cpu", pos) == torch.device("cpu")
-    # host inputs now head for the card (this build of torch has none: the
+    # with a card, host inputs head for it (this build of torch has none: the
     # attempt itself is the evidence) ...
-    host_calls = [
-        lambda: tpt.MDFastPath.create(calc, pos, cell, CUTOFF, NS),
-        lambda: tpt.MDFastPath.create(calc, pos, cell, CUTOFF, NS, mesh_impl="tiled"),
-        lambda: compute_cell_list(pos, cell, CUTOFF),
-        lambda: md_from_state(cpu_state),
-    ]
-    for call in host_calls:
+    for call in host_calls[2:]:
         with pytest.raises((AssertionError, RuntimeError), match="(?i)cuda"):
             call()
     # ... while CPU tensors and device="cpu" stay on the CPU

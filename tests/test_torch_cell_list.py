@@ -41,7 +41,7 @@ SYSTEMS = _systems()
 def test_cell_list_bit_identical(name):
     pos, cell, cutoff, kw = SYSTEMS[name]
     ref = jax_rc.compute_cell_list(pos, cell, cutoff, **kw)
-    got = port_rc.compute_cell_list(pos, cell, cutoff, **kw)
+    got = port_rc.compute_cell_list(pos, cell, cutoff, **kw, device="cpu")
     ref_a, got_a = clist_arrays(ref), clist_arrays(got)
     for field, r in ref_a.items():
         g = got_a[field]
@@ -92,7 +92,7 @@ def test_balanced_unspilled_capacity_terminates():
     pos, cell = SYSTEMS["spilled"][0], SYSTEMS["spilled"][1]
     kw = dict(balance=True, spill=False)
     ref = jax_rc.compute_cell_list(pos, cell, 3.0, **kw)
-    got = port_rc.compute_cell_list(pos, cell, 3.0, **kw)
+    got = port_rc.compute_cell_list(pos, cell, 3.0, **kw, device="cpu")
     assert got.slot_mask.shape == ref.slot_mask.shape
     np.testing.assert_array_equal(got.atom_index.numpy(), np.asarray(ref.atom_index))
     assert got.extra_index is None
@@ -106,7 +106,7 @@ def test_balanced_unspilled_capacity_terminates():
 def test_balance_validated_up_front(bad):
     pos, cell, cutoff, _ = SYSTEMS["plain"]
     with pytest.raises(ValueError, match="`balance`"):
-        port_rc.compute_cell_list(pos, cell, cutoff, balance=bad)
+        port_rc.compute_cell_list(pos, cell, cutoff, balance=bad, device="cpu")
 
 
 def test_cell_list_errors_match_jax():
@@ -118,6 +118,6 @@ def test_cell_list_errors_match_jax():
         (dict(cutoff=9.0, spill=True), "spill"),
     ):
         with pytest.raises(ValueError, match=match):
-            port_rc.compute_cell_list(pos, cell, **kw)
+            port_rc.compute_cell_list(pos, cell, **kw, device="cpu")
         with pytest.raises(ValueError, match=match):
             jax_rc.compute_cell_list(pos, cell, **kw)

@@ -260,7 +260,8 @@ def test_create_validates_and_places_state():
             tile_capacity=8,
         )
         tpt.MDFastPathDipole.create(small, positions, cell, CUTOFF, device="cpu")
-    direct = tpt.MDFastPathDipole.create(_calcs("direct")[1], positions, cell, CUTOFF)
+    direct = tpt.MDFastPathDipole.create(_calcs("direct")[1], positions, cell, CUTOFF,
+                                         device="cpu")
     assert direct.ns_kvectors is None and direct.tiled is None
 
 

@@ -57,7 +57,7 @@ def _rel(a, b):
 def _slots(fp, pos, q, cell):
     nx_c, ny_c, nz_c, cap = fp.cell_grid
     extent, lpad = sf.aligned_geometry(5, fp.aligned_pad)
-    geom = sf.SpreadGeometry(NS, 5, "Lagrange", extent, lpad, nx_c * ny_c, nz_c * cap)
+    geom = sf.SpreadGeometry(NS, 5, "Lagrange", extent, lpad, nx_c * ny_c, nz_c * cap, nz_c)
     nb = geom.n_tiles * geom.slots_per_tile
     rows = fp.bucket(pos)
     ns = torch.tensor(NS, dtype=torch.float32, device=pos.device)
@@ -113,6 +113,116 @@ def test_kernels_refuse_float64(step):
     with pytest.raises(TypeError, match="float32"):
         fp.energy(q.double(), cell.double(), fp.bucket(pos.double()))
     assert np.isfinite(float(fp.energy(q.double(), cell.double(), fp.bucket(pos.double()), plain=True)))
+
+
+def _dense_window_inputs(device, capacity=None, n_ch=1):
+    """Window inputs of a 3×3×3 cell grid whose capacity exceeds one warp
+    (or is ``capacity``), with ``n_ch`` charge channels."""
+    rng = np.random.default_rng(21)
+    cell = np.eye(3) * 9.5 + np.asarray([[0, 0, 0], [0.7, 0, 0], [-0.4, 0.5, 0]])
+    pos = rng.uniform(0, 1, (1150, 3)) @ cell
+    f32 = dict(dtype=torch.float32, device=device)
+    clist = tpt.ops.compute_cell_list(pos, cell, 3.0, capacity=capacity, spill=False,
+                                      device=device)
+    assert clist.n_axis == (3, 3, 3) and clist.slot_mask.shape[1] > 32
+    idx = clist.atom_index.long()
+    return rc._prepare_bucketed(
+        torch.tensor(rng.normal(size=(1150, n_ch)), **f32)[idx], torch.tensor(pos, **f32)[idx],
+        torch.tensor(cell, **f32), clist,
+    )[:4]
+
+
+# (capacity, channels, offsets a pass): every group size of csrc/window.cu
+EDGE_WINDOWS = {
+    "grid3_cap_gt_32": (None, 1, 27),
+    "grid3_cap250_ch4": (250, 4, 9),
+    "grid3_cap700": (700, 1, 3),
+    "grid3_cap1600_ch4": (1600, 4, 1),
+}
+
+
+@pytest.mark.parametrize("shape", ["clustered", *EDGE_WINDOWS])
+def test_window_kernel_is_reproducible_and_matches_plain_at_edge_shapes(step, shape):
+    """Kernel C at a capacity above 32 on the smallest grid, up to capacities
+    that take one x plane, a row or one offset of the 27 per pass: within the
+    plain version's bars, and d_pc, d_q bitwise equal over two launches
+    (each row has one writer)."""
+    if shape == "clustered":
+        fp, pos, q, cell = step
+        n_cells, cap = fp.clist.slot_mask.shape
+        rows = fp.bucket(pos)[: n_cells * cap].reshape(n_cells, cap, 3)
+        ins = rc._prepare_bucketed(q[fp.clist.atom_index.long()], rows, cell, fp.clist)[:4]
+    else:
+        capacity, n_ch, group = EDGE_WINDOWS[shape]
+        ins = _dense_window_inputs(step[1].device, capacity, n_ch)
+        cap = ins[0].shape[-1]
+        assert rc._window_group(cap, n_ch, ins[0].device.index) == group
+    pot = tpt.CoulombPotential(smearing=1.0)
+    kernels.reset_launch_counts()
+    e_a, g_a = rc.window_value_and_grad(pot, 3.0, *ins)
+    e_b, g_b = rc.window_value_and_grad(pot, 3.0, *ins)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["window"] == 2
+    assert torch.equal(g_a[0], g_b[0]) and torch.equal(g_a[1], g_b[1])
+    e_p, g_p = rc._we_value_and_grad(pot, 3.0, *ins)
+    assert abs(float(e_a) - float(e_p)) <= 1e-6 * abs(float(e_p))
+    for a, b in zip(g_a, g_p):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+    assert _rel(g_a[0], g_p[0]) <= 1e-5 and _rel(g_a[1], g_p[1]) <= 1e-5
+    # d_offs totals every gradient of an offset; the plain version sums it in
+    # float32, which leaves ~1e-4 of max in the self row (0 in exact
+    # arithmetic, and in the kernel): hold it against float64 as well
+    _, g64 = rc._we_value_and_grad(pot, 3.0, *[t.double() for t in ins])
+    assert _rel(g_a[2], g_p[2]) <= 5e-4 and _rel(g_a[2], g64[2]) <= 1e-5
+
+
+def test_window_kernel_refuses_what_it_does_not_take(step):
+    fp, pos, q, cell = step
+    ins = _dense_window_inputs(pos.device)
+    with pytest.raises(TypeError, match="float32"):
+        rc.window_value_and_grad(fp.calc.potential, 3.0, *[t.double() for t in ins])
+    with pytest.raises(TypeError, match="Coulomb"):
+        rc.window_value_and_grad(tpt.Potential(smearing=1.0), 3.0, *ins)
+    # a capacity whose one offset a pass exceeds shared memory: a clear error
+    # that names the largest capacity it takes
+    lib = kernels.load_library().lib
+    largest = lib.tpme_window_max_cap(4, pos.device.index)
+    assert 1500 < largest < 4000
+    assert rc._window_group(largest, 4, pos.device.index) == 1
+    big = _dense_window_inputs(pos.device, capacity=largest + 1, n_ch=4)
+    with pytest.raises(ValueError, match=f"at most {largest} at 4 channel"):
+        rc.window_value_and_grad(fp.calc.potential, 3.0, *big)
+
+
+def test_spread_kernel_takes_a_tall_mesh(device):
+    """Kernel A at nz = 288 (the first version's tile field would not fit
+    shared memory there) against its plain version; every mesh cell is
+    written (the output is not zeroed first)."""
+    rng = np.random.default_rng(5)
+    cell = np.diag([16.0, 16.0, 36.0])
+    pos = rng.uniform(0, 1, (900, 3)) @ cell
+    ns = (32, 32, 288)
+    f32 = dict(dtype=torch.float32, device=device)
+    calc = tpt.PMECalculator(tpt.CoulombPotential(smearing=1.0), interpolation_nodes=5)
+    fp = tpt.MDFastPath.create(calc, torch.tensor(pos, **f32), torch.tensor(cell, **f32), 3.0, ns,
+                               mesh_impl="aligned")
+    nx_c, ny_c, nz_c, cap = fp.cell_grid
+    extent, lpad = sf.aligned_geometry(5, fp.aligned_pad)
+    geom = sf.SpreadGeometry(ns, 5, "Lagrange", extent, lpad, nx_c * ny_c, nz_c * cap, nz_c)
+    nb = geom.n_tiles * geom.slots_per_tile
+    rows = fp.bucket(torch.tensor(pos, **f32))
+    rel = (rows @ torch.linalg.inv(torch.tensor(cell, **f32)) * torch.tensor(ns, **f32))[:nb]
+    q = torch.zeros((fp.n_rows, 2), **f32)
+    q = q.index_copy(0, fp.row_of_atom.long(), torch.tensor(rng.normal(size=(900, 2)), **f32))
+    q = q[:nb].contiguous()
+    torch.cuda.empty_cache()
+    got = sf.fused_spread(rel.contiguous(), q, geom)
+    ref = sf.spread_plain(rel, q, geom)
+    torch.cuda.synchronize()
+    assert got.shape == (2, *ns) and bool(torch.isfinite(got).all())
+    assert _rel(got, ref) <= 1e-6
+    with pytest.raises(TypeError, match="float32"):
+        sf.fused_spread(rel.double().contiguous(), q.double(), geom)
 
 
 # -- kernels D, E, F (tile spread, gather, weight gradient) --------------------

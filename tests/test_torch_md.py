@@ -108,10 +108,22 @@ def test_slice_f32_matches_jax_aligned(f32_case):
 
 
 def test_create_reproduces_jax_state(f32_case):
+    """The port's aligned state is the JAX package's but for the staleness
+    tolerance folded into it: the x/y balance cap is STALE_TOL cell edges
+    smaller, and the pad covers slack + STALE_TOL (the arrays agree here)."""
+    from torchpme_tpu_torch.ops.rspace_cells import STALE_TOL
+
     fp_j, fp, _, _ = f32_case
     ours, theirs = md_state(fp), jax_md_state(fp_j)
     assert ours.keys() == theirs.keys()
+    for c in range(2):
+        assert theirs["slack"][c] - STALE_TOL <= ours["slack"][c] <= theirs["slack"][c]
+    assert ours["slack"][2] == theirs["slack"][2]
+    reach = (max(ours["slack"][:2]) + STALE_TOL) * 8 - 0.5 * (fp.calc.interpolation_nodes % 2)
+    assert ours["aligned_pad"] == int(np.ceil(reach - 1e-9)) >= theirs["aligned_pad"]
     for key, value in theirs.items():
+        if key in ("slack", "aligned_pad"):
+            continue
         if isinstance(value, np.ndarray):
             np.testing.assert_array_equal(ours[key], value, err_msg=key)
         else:
@@ -154,6 +166,91 @@ def test_stale_rows_poison_energy_and_forces(f64_case):
     assert torch.isnan(fp.unbucket(g)).all()
 
 
+# (balance, cutoff): the default slack, a wider one (cell edges 4 Å against a
+# 2.6 Å cutoff: 1.4 mesh cells where the balance cap allows it, and there an
+# odd stencil's pad, ceil(reach − ½), is one cell less than ceil(slack ·
+# TILE)), and none
+LIMIT_CASES = {"balanced": (True, CUTOFF), "balanced_wide": (True, 2.6),
+               "unbalanced": (False, CUTOFF)}
+
+
+@pytest.mark.parametrize("case", LIMIT_CASES)
+@pytest.mark.parametrize("nodes", [3, 4, 5, 6])
+@pytest.mark.parametrize("side", [-1, 1], ids=["low_face", "high_face"])
+def test_aligned_window_holds_every_atom_the_staleness_check_accepts(case, nodes, side):
+    """An even stencil starts at floor(r), an odd one at round(r): an atom
+    the staleness check still accepts (up to its slack + STALE_TOL cell
+    edges past its cell) must keep every stencil node inside the aligned
+    spread window, so the density keeps its whole charge while the energy
+    is flagged valid."""
+    from torchpme_tpu_torch.ops.mesh_tiled import TILE
+    from torchpme_tpu_torch.ops.rspace_cells import STALE_TOL, _prepare_bucketed
+    from torchpme_tpu_torch.ops.spread_fused import aligned_tiled_density
+
+    balance, cutoff = LIMIT_CASES[case]
+    pos, q, cell = random_box(300, 16.0, seed=5)
+    _, calc = _calcs(nodes=nodes)
+    fp = tpt.MDFastPath.create(calc, pos, cell, cutoff, NS, mesh_impl="aligned",
+                               balance=balance, device="cpu")
+    clist = fp.clist
+    if case == "balanced_wide" and nodes == 3:
+        # the pad is below ceil(slack · TILE) here: the half cell of the odd
+        # stencil's rounding is what the window leaves out (at 5 nodes the
+        # balance cap holds the slack under one mesh cell, and both agree)
+        assert fp.aligned_pad < np.ceil(clist.slack[0] * TILE)
+    nx, ny, nz = clist.n_axis
+    n_cells, cap = clist.slot_mask.shape
+    edge = cell[0, 0] / nx
+    ones = torch.ones((pos.shape[0], 1), dtype=torch.float64)
+
+    def flag_and_charge(rows):
+        n = n_cells * cap
+        valid = _prepare_bucketed(
+            ones[clist.atom_index.long()], rows[:n].reshape(n_cells, cap, 3),
+            torch.tensor(cell), clist,
+        )[4]
+        q_rows = torch.zeros((fp.n_rows, 1), dtype=torch.float64)
+        q_rows = q_rows.index_copy(0, fp.row_of_atom.long(), ones)
+        rho = aligned_tiled_density(
+            rows, q_rows, torch.linalg.inv(torch.tensor(cell)), NS, nodes, "Lagrange",
+            fp.cell_grid, pad_cells=fp.aligned_pad, plain=True,
+        )
+        return bool(valid), float(rho.sum())
+
+    rows = fp.bucket(torch.tensor(pos))
+    assert flag_and_charge(rows) == (True, pytest.approx(pos.shape[0], rel=1e-12))
+    # move one atom 0.5 STALE_TOL cell edges past its slack, beyond one x face
+    row = int(fp.row_of_atom[0])
+    home, slot = divmod(row, cap)
+    cx = home // (ny * nz)
+    past = clist.slack[0] + 0.5 * STALE_TOL
+    frac = cx - past if side < 0 else cx + 1 + past
+    rows[row, 0] = (frac + nx * int(clist.atom_wrap[home, slot, 0])) * edge
+    valid, charge = flag_and_charge(rows)
+    assert valid
+    assert charge == pytest.approx(pos.shape[0], rel=1e-12)
+
+
+@pytest.mark.parametrize("nodes", [3, 4, 5, 6, 7])
+def test_aligned_balance_cap_leaves_a_fresh_state_valid(nodes):
+    """The x/y balance cap less the staleness tolerance never goes below 0
+    (7 nodes leave no pad at all), the pad stays within the 2-tile fold, and
+    a freshly built state is never flagged stale."""
+    from torchpme_tpu_torch.ops.rspace_cells import _prepare_bucketed
+    from torchpme_tpu_torch.ops.spread_fused import aligned_geometry
+    from torchpme_tpu_torch.ops.mesh_tiled import TILE
+
+    pos, q, cell = random_box(300, 16.0, seed=5)
+    _, calc = _calcs(nodes=nodes)
+    fp = tpt.MDFastPath.create(calc, pos, cell, CUTOFF, NS, balance=True, device="cpu")
+    assert min(fp.clist.slack) >= 0.0
+    assert aligned_geometry(nodes, fp.aligned_pad)[0] <= 2 * TILE
+    n_cells, cap = fp.clist.slot_mask.shape
+    rows = fp.bucket(torch.tensor(pos))[: n_cells * cap].reshape(n_cells, cap, 3)
+    q_rows = torch.tensor(q)[fp.clist.atom_index.long()]
+    assert bool(_prepare_bucketed(q_rows, rows, torch.tensor(cell), fp.clist)[4])
+
+
 def test_rebucket_keeps_shapes(f64_case):
     fp, _, (pos, q, cell) = f64_case
     rows = fp.bucket(torch.tensor(pos))
@@ -172,11 +269,14 @@ def test_mesh_modes_and_options_validated():
     pos, q, cell = random_box(100, 16.0, seed=9)
     _, calc = _calcs()
     with pytest.raises(ValueError, match="mesh_impl='tiled'"):  # tile edge 1.0 < cutoff
-        tpt.MDFastPath.create(calc, pos, cell, CUTOFF, (128, 128, 128), mesh_impl="aligned")
+        tpt.MDFastPath.create(calc, pos, cell, CUTOFF, (128, 128, 128), mesh_impl="aligned",
+                              device="cpu")
     # `auto` takes the tiled mode where aligned cannot run
-    assert tpt.MDFastPath.create(calc, pos, cell, CUTOFF, (64, 64, 32)).mesh_impl == "tiled"
-    assert tpt.MDFastPath.create(calc, pos, cell, CUTOFF, NS).mesh_impl == "aligned"
-    assert tpt.MDFastPath.create(calc, pos, cell, CUTOFF, NS, mesh_impl="tiled").tiled is not None
+    cpu = dict(device="cpu")
+    assert tpt.MDFastPath.create(calc, pos, cell, CUTOFF, (64, 64, 32), **cpu).mesh_impl == "tiled"
+    assert tpt.MDFastPath.create(calc, pos, cell, CUTOFF, NS, **cpu).mesh_impl == "aligned"
+    assert tpt.MDFastPath.create(calc, pos, cell, CUTOFF, NS, mesh_impl="tiled",
+                                 **cpu).tiled is not None
     for kw, err in (
         (dict(mesh_impl="fused"), NotImplementedError),
         (dict(mesh_impl="nope"), ValueError),
@@ -184,9 +284,9 @@ def test_mesh_modes_and_options_validated():
         (dict(balance="yes"), ValueError),
     ):
         with pytest.raises(err):
-            tpt.MDFastPath.create(calc, pos, cell, CUTOFF, NS, **kw)
+            tpt.MDFastPath.create(calc, pos, cell, CUTOFF, NS, **kw, **cpu)
     with pytest.raises(ValueError, match="tile"):
-        tpt.MDFastPath.create(calc, pos, cell, CUTOFF, (24, 24, 24))
+        tpt.MDFastPath.create(calc, pos, cell, CUTOFF, (24, 24, 24), **cpu)
 
 
 def test_package_imports_no_jax_and_no_cuda():

@@ -120,7 +120,8 @@ def _slots(case, dtype=torch.float32, device="cpu"):
     nx_c, ny_c, nz_c, cap = fp.cell_grid
     extent, lpad = sf.aligned_geometry(fp.calc.interpolation_nodes, fp.aligned_pad)
     geom = sf.SpreadGeometry(
-        NS, fp.calc.interpolation_nodes, "Lagrange", extent, lpad, nx_c * ny_c, nz_c * cap
+        NS, fp.calc.interpolation_nodes, "Lagrange", extent, lpad, nx_c * ny_c, nz_c * cap,
+        nz_c,
     )
     nb = geom.n_tiles * geom.slots_per_tile
     rel_t = torch.tensor(case["rows"][:nb] @ case["inv"] * np.asarray(NS, np.float32))
@@ -161,3 +162,139 @@ def test_spread_geometry_checks():
         sf.aligned_tiled_density(p, q, inv, NS, 5, "Lagrange", (2, 4, 2, 8))
     with pytest.raises(ValueError, match="2-tile fold"):
         sf.aligned_tiled_density(p, q, inv, NS, 5, "Lagrange", (4, 4, 2, 8), pad_cells=2)
+
+
+# -- kernel A's decomposition, mirrored in float64 --------------------------------
+
+
+def _owner_block_mirror(rel, q, geom, z_chunk):
+    """Test-only mirror of kernel A's index algebra: one owner block per
+    (mesh tile, z chunk) holds its 8×8×zc cells, reads the slots of the 3×3
+    torus tiles around it (2 distinct ones along an axis of 2 tiles) in the
+    z cells whose atoms can reach the chunk (an atom stays within one z cell
+    of its own while the staleness check accepts it), and adds every
+    stencil node that lands in its cells; nothing crosses blocks.  Returns
+    the density and the number of blocks that read fewer than all z cells."""
+    nx, ny, nz = geom.ns
+    n, e, lpad = geom.nodes, geom.extent, geom.lpad
+    tx_count, ty_count = nx // sf.TILE, geom.ty_count
+    cap = geom.slots_per_tile // geom.z_cells
+    hz = nz / geom.z_cells
+    shift0 = 1 - (n + 1) // 2
+    coeffs, _ = sf._tables(geom.method, n)
+    rho = torch.zeros((q.shape[1], nx, ny, nz), dtype=rel.dtype)
+    nodes = torch.arange(n)
+    n_restricted = 0
+
+    def near(count):
+        return (-1, 0, 1) if count >= 3 else (0, 1)
+
+    def axis(base, tile_origin, size, origin):
+        """Local index of each node in the owner tile (−1 when outside)."""
+        local = torch.remainder(
+            torch.remainder(base + shift0, size) + lpad - tile_origin, size
+        )[:, None]
+        g = torch.remainder(tile_origin[:, None] - lpad + local + nodes, size)
+        own = torch.remainder(g - origin, size)
+        return torch.where((local + nodes < e) & (own < sf.TILE), own, -1)
+
+    for tx in range(tx_count):
+        for ty in range(ty_count):
+            for z0 in range(0, nz, z_chunk):
+                zlen = min(z_chunk, nz - z0)
+                c_lo = int(np.floor((z0 - n - 1) / hz)) - 2
+                c_hi = int(np.ceil((z0 + zlen + n + 1) / hz)) + 1
+                zcells = range(geom.z_cells)
+                if c_hi - c_lo + 1 < geom.z_cells:
+                    zcells = [c % geom.z_cells for c in range(c_lo, c_hi + 1)]
+                    n_restricted += 1
+                tiles = [
+                    ((tx + dx) % tx_count) * ty_count + (ty + dy) % ty_count
+                    for dx in near(tx_count) for dy in near(ty_count)
+                ]
+                slots = torch.tensor([
+                    t * geom.slots_per_tile + c * cap + s
+                    for t in tiles for c in zcells for s in range(cap)
+                ])
+                tile = slots // geom.slots_per_tile
+                r = rel[slots]
+                bx, offx = sf._axis_offsets(r[:, 0], n)
+                by, offy = sf._axis_offsets(r[:, 1], n)
+                bz, offz = sf._axis_offsets(r[:, 2], n)
+                lx = axis(bx, tile // ty_count * sf.TILE, nx, tx * sf.TILE)
+                ly = axis(by, tile % ty_count * sf.TILE, ny, ty * sf.TILE)
+                lz = torch.remainder(bz + shift0, nz)[:, None] + nodes - z0
+                lz = torch.where(lz >= nz, lz - nz, lz)
+                lz = torch.where((lz >= 0) & (lz < zlen), lz, -1)
+                w = (
+                    sf._node_weights(offx, coeffs)[:, :, None, None]
+                    * sf._node_weights(offy, coeffs)[:, None, :, None]
+                    * sf._node_weights(offz, coeffs)[:, None, None, :]
+                )
+                keep = (lx[:, :, None, None] >= 0) & (ly[:, None, :, None] >= 0) & (
+                    lz[:, None, None, :] >= 0
+                )
+                ix = lx[:, :, None, None].expand_as(keep)[keep]
+                iy = ly[:, None, :, None].expand_as(keep)[keep]
+                iz = lz[:, None, None, :].expand_as(keep)[keep]
+                for ch in range(q.shape[1]):
+                    field = torch.zeros((sf.TILE, sf.TILE, zlen), dtype=rel.dtype)
+                    vals = (w * q[slots, ch][:, None, None, None])[keep]
+                    field.index_put_((ix, iy, iz), vals, accumulate=True)
+                    rho[ch, tx * sf.TILE:(tx + 1) * sf.TILE, ty * sf.TILE:(ty + 1) * sf.TILE,
+                        z0:z0 + zlen] = field
+    return rho, n_restricted
+
+
+def _port_slots(nodes, ns, box, n_atoms, capacity=None, n_ch=1, seed=0):
+    """float64 slots of a port-built aligned MD state (CPU) in an
+    orthorhombic box of edges ``box``."""
+    from torchpme_tpu_torch import CoulombPotential, MDFastPath, PMECalculator
+
+    rng = np.random.default_rng(seed)
+    cell = np.diag(np.broadcast_to(np.asarray(box, np.float64), (3,)))
+    pos = rng.uniform(0, 1, (n_atoms, 3)) @ cell
+    calc = PMECalculator(CoulombPotential(smearing=1.0), interpolation_nodes=nodes)
+    fp = MDFastPath.create(calc, pos, cell, 3.0, ns, mesh_impl="aligned",
+                           cell_capacity=capacity, device="cpu")
+    nx_c, ny_c, nz_c, cap = fp.cell_grid
+    extent, lpad = sf.aligned_geometry(nodes, fp.aligned_pad)
+    geom = sf.SpreadGeometry(ns, nodes, "Lagrange", extent, lpad, nx_c * ny_c, nz_c * cap, nz_c)
+    nb = geom.n_tiles * geom.slots_per_tile
+    rows = fp.bucket(torch.tensor(pos))[:nb]
+    rel_t = rows @ torch.linalg.inv(torch.tensor(cell)) * torch.tensor(ns, dtype=torch.float64)
+    q = torch.zeros((fp.n_rows, n_ch), dtype=torch.float64)
+    q = q.index_copy(0, fp.row_of_atom.long(), torch.tensor(rng.normal(size=(n_atoms, n_ch))))
+    return rel_t, q[:nb].contiguous(), geom
+
+
+MIRROR_CASES = {
+    # the main path's layout scaled down: 5 nodes, balanced, widened window
+    "nodes5_scaled": dict(nodes=5, ns=(32, 32, 32), box=16.0, n_atoms=600),
+    # a tall column (13 z cells): chunks read only the z cells near them
+    "nodes5_tall": dict(nodes=5, ns=(32, 32, 80), box=(16.0, 16.0, 40.0), n_atoms=1400),
+    "nodes4_even": dict(nodes=4, ns=(32, 32, 40), box=16.0, n_atoms=500, n_ch=2),
+    "nodes3_cap_gt_32": dict(nodes=3, ns=(32, 32, 32), box=12.0, n_atoms=900, capacity=40),
+    "nodes6_two_tiles": dict(nodes=6, ns=(16, 16, 40), box=8.0, n_atoms=150),
+}
+
+
+@pytest.mark.parametrize("z_chunk", [8, 12, "rule"])
+@pytest.mark.parametrize("name", list(MIRROR_CASES))
+def test_kernel_decomposition_matches_plain(name, z_chunk):
+    """Kernel A's owner blocks (tile × z chunk, 3×3 tile neighbourhood, z
+    cell range) ≡ the plain tile fields and fold (float64, ≤ 1e-12), at
+    small chunks and at the chunk the wrapper picks (``z_chunk``)."""
+    rel_t, q, geom = _port_slots(**MIRROR_CASES[name])
+    if name == "nodes3_cap_gt_32":
+        assert geom.slots_per_tile // geom.z_cells > 32
+    assert geom.z_cells > 1
+    if z_chunk == "rule":
+        z_chunk = sf.z_chunk(geom.ns[2])
+        assert 2 * z_chunk >= geom.ns[2] > z_chunk
+    got, n_restricted = _owner_block_mirror(rel_t, q, geom, z_chunk)
+    if z_chunk in (8, 12):  # chunks this small read only the z cells near them
+        assert (n_restricted > 0) == (name == "nodes5_tall")
+    ref = sf.spread_plain(rel_t, q, geom)
+    assert rel(got.numpy(), ref.numpy()) <= 1e-12
+    np.testing.assert_allclose(float(got.sum()), float(q.sum()), rtol=1e-12, atol=1e-12)

@@ -139,3 +139,98 @@ def test_half_window_offsets():
     flat = port_rc._window_offsets(24)
     assert len(flat) == 14 and flat[-1] == (0, 0, 0)
     assert len(set(flat)) == 14 and all((-o[0], -o[1], -o[2]) not in flat[:-1] for o in flat[:-1])
+
+
+# -- kernel C's decomposition, mirrored in float64 --------------------------------
+
+
+def _i_side_mirror(potential, cutoff, pc_t, q_g, mf_g, offs):
+    """Test-only mirror of kernel C's index algebra: every home slot gathers
+    over all 27 neighbor offsets and keeps only its own (i-side) terms.
+
+    Offset ``o`` is half-window row ``k`` (vector ``offs[k]``) or its
+    negation (``-offs[k]``).  An occupied slot takes every pair at ½ energy
+    and full gradient weight; an empty slot (charge 0) keeps the plain
+    version's ``d_q``: the half window only, the self cell at ½.
+    ``d_offs[k] = ½(Σ_{−k} g − Σ_{+k} g)`` over the i-side gradients ``g``,
+    and the self row is 0."""
+    nx, ny, nz, _, cap = pc_t.shape
+    half = port_rc._window_offsets(cap)
+    self_k = half.index((0, 0, 0))
+    cut2 = torch.tensor(cutoff, dtype=pc_t.dtype) ** 2
+    eye = torch.eye(cap, dtype=torch.bool)
+    occupied = mf_g > 0.5
+    e = torch.zeros((), dtype=torch.float64)
+    d_pc, d_q = torch.zeros_like(pc_t), torch.zeros_like(q_g)
+    g_sum = {+1: torch.zeros_like(offs), -1: torch.zeros_like(offs)}
+    for o in port_rc._D27:
+        neg = tuple(-c for c in o)
+        sign = +1 if o in half else -1
+        k = half.index(o if sign > 0 else neg)
+        is_self = o == (0, 0, 0)
+        pj = torch.roll(pc_t, neg, dims=(0, 1, 2)) + sign * offs[k][:, None]
+        qj = torch.roll(q_g, neg, dims=(0, 1, 2))
+        mj = torch.roll(mf_g, neg, dims=(0, 1, 2))
+        diff = pc_t[..., :, :, None] - pj[..., :, None, :]  # (x, y, z, 3, i, j)
+        d_sq = (diff**2).sum(-3)
+        ok = (d_sq > 0) & (d_sq < cut2) & (mj[..., None, :] > 0.5)
+        if is_self:
+            ok = ok & ~eye
+        d = torch.sqrt(torch.where(ok, d_sq, 1.0))
+        okf = ok.to(pc_t.dtype)
+        vq = okf * torch.einsum("...ic,...jc->...ij", q_g, qj)
+        v_raw = potential.sr_from_dist(d)
+        pair_e = vq * v_raw
+        e = e + 0.5 * pair_e.sum()
+        s = potential.sr_pair_force(d, vq, pair_e) / d
+        g = (s[..., None, :, :] * diff).sum(-1)  # (x, y, z, 3, i)
+        w_empty = 0.0 if sign < 0 else (0.5 if is_self else 1.0)
+        w_i = torch.where(occupied, 1.0, w_empty).to(pc_t.dtype)
+        d_pc = d_pc + g
+        d_q = d_q + w_i[..., None] * torch.matmul(okf * v_raw, qj)
+        if not is_self:
+            g_sum[sign][k] += g.sum(dim=(0, 1, 2, 4))
+    d_offs = 0.5 * (g_sum[-1] - g_sum[+1])
+    d_offs[self_k] = 0.0
+    return e, (d_pc, d_q, d_offs)
+
+
+def _dense_grid_inputs(n_ch=1):
+    """A 3×3×3 cell grid whose capacity exceeds one warp (float64), with
+    ``n_ch`` charge channels."""
+    rng = np.random.default_rng(21)
+    cell = np.eye(3) * 9.5 + np.asarray([[0, 0, 0], [0.7, 0, 0], [-0.4, 0.5, 0]])
+    pos = rng.uniform(0, 1, (1150, 3)) @ cell
+    q = rng.normal(size=(1150, n_ch))
+    clist = port_rc.compute_cell_list(pos, cell, CUTOFF, spill=False, device="cpu")
+    n_cells, cap = clist.slot_mask.shape
+    assert clist.n_axis == (3, 3, 3) and cap > 32
+    idx = clist.atom_index.long()
+    pc_t, q_g, mf_g, offs, valid = port_rc._prepare_bucketed(
+        torch.tensor(q)[idx], torch.tensor(pos)[idx], torch.tensor(cell), clist
+    )
+    assert bool(valid) and not bool(mf_g.bool().all())  # empty slots are covered
+    return pc_t, q_g, mf_g, offs
+
+
+@pytest.mark.parametrize(
+    "name", ["spilled", "balanced_pinned", "triclinic", "grid3_cap_gt_32", "grid3_cap_gt_32_ch4"]
+)
+def test_kernel_decomposition_matches_plain(name):
+    """Kernel C's 27-offset i-side gather, d_offs from the ± pairs, ≡ the
+    plain half window with its j-side roll (float64, ≤ 1e-12), also at the
+    kernel's largest channel count."""
+    if name.startswith("grid3"):
+        ins = _dense_grid_inputs(4 if name.endswith("ch4") else 1)
+    else:
+        pos, q, cell, kw = SYSTEMS[name]
+        clist = port_clist(jax_rc.compute_cell_list(pos, cell, CUTOFF, **kw))
+        ins = _window_inputs(dict(dt="float64", clist=clist, q=q, cell=cell,
+                                  rows=rows_of(jax_rc.compute_cell_list(pos, cell, CUTOFF, **kw),
+                                               pos)))
+    pot = CoulombPotential(smearing=SMEARING)
+    e_m, g_m = _i_side_mirror(pot, CUTOFF, *ins)
+    e_p, g_p = port_rc._we_value_and_grad(pot, CUTOFF, *ins)
+    assert abs(float(e_m) - float(e_p)) <= 1e-12 * abs(float(e_p))
+    for got, ref in zip(g_m, g_p):
+        assert rel(got.numpy(), ref.numpy()) <= 1e-12

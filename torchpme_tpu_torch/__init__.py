@@ -8,8 +8,9 @@ both over ``CoulombPotential``, and the point-dipole family: ``PotentialDipole``
 ``MDFastPathDipole``.  The TPU-side kernels on those paths are
 hand-written CUDA C++ for Hopper (``csrc/``), each with a plain PyTorch
 version in the module that wraps it.  Entry points put their state on the
-CUDA device when one is present and the caller gave neither a device nor
-tensors (:func:`default_device`).  This package imports ``torch``,
+CUDA device when the caller gave neither a device nor tensors
+(:func:`default_device`, which raises without a card: ``device="cpu"`` asks
+for the CPU).  This package imports ``torch``,
 ``numpy`` and ``scipy``, never ``jax``.
 """
 

@@ -9,22 +9,51 @@
 // node o of the x (y) stencil lands on local window cell lx + o (ly + o)
 // of its tile, dropped beyond the window extent; z wraps modulo nz.
 //
-// What bounds it on the H100.  A: at the main path (256 tiles, 480 slots,
-// 5^3 stencil) the spread is 15.4M weighted adds into a 128^3 mesh, few
-// FLOPs per byte; the cost is the scattered accumulation.  The TPU kernel
-// produced per-tile fields and folded them with reshapes because TPU
-// scatters serialize.  Here one block owns one tile: it accumulates the
-// tile's (E, E, nz) local field in shared memory with shared-memory float
-// atomics (15*15*128*4 B = 115 KB at the main path, dynamic shared memory
-// above the 48 KB default), then adds that field into the periodic mesh with
-// global atomics, which fuses the TPU package's tile fold and roll(-lpad).
+// What bounds A on the H100.  At the main path (256 tiles of 480 slots,
+// 5^3 stencil, 128^3 mesh) the spread is 12.7M weighted adds into an 8 MB
+// mesh: few FLOPs per byte, bound by where the adds land.  The TPU kernel
+// forms each tile's (E^2, K) @ (K, C.nz) product and folds the tile fields
+// with reshapes, because TPU scatters serialize.  That product is >95%
+// zeros at this density, and tensor cores in TF32 keep ~3 digits where the
+// step's bar is 1e-5 in energy, so A stays on CUDA cores.  Its first
+// version kept one tile's whole (E, E, nz) field in shared memory (115 KB at
+// E = 15: one block of 8 warps per SM, 1.94 waves), recomputed each slot's
+// geometry per x node, folded ~7.4M field cells into the mesh with global
+// atomics over tiles that overlap 3.5x, needed a zeroed mesh and capped nz
+// at the shared-memory opt-in.  This design owns the output instead:
+//
+// * One block per (mesh tile, z chunk, channel) holds the tile's 8 x 8 x zc
+//   mesh cells in shared memory (16 KB at zc = 64; the wrapper's z_chunk
+//   picks 2-3 chunks a column): 512 blocks at the main path, no opt-in, and
+//   no ceiling on nz.
+// * It reads the slots of the 3 x 3 torus tiles around it (2 distinct ones
+//   along an axis of 2 tiles): extent <= 2 TILE means a stencil reaches at
+//   most one tile over.  Slots are tile * kp + zcell * cap + s, so the z
+//   cells whose atoms can reach the chunk are an index range, one segment
+//   of cap slots per (tile, z cell), whose starts the block tabulates: an
+//   atom stays within one z cell of its own while the staleness check
+//   accepts it (slack < 1/2 cell edge), a stale one may be missed (its
+//   energy is NaN).
+// * A thread takes one candidate slot: an empty one (charge 0) stops after
+//   one load, the z nodes are tested next, then x and y, with wraps by a
+//   float reciprocal instead of integer divides; only a slot with a node in
+//   the block's cells evaluates its 3n Horners, once, and adds the nodes
+//   that land there with shared-memory atomics.
+// * The block stores its cells with coalesced plain stores: every mesh cell
+//   has one writer, no global atomics, no fold and no zeroed mesh.
+// * What is left bounds it: a float atomicAdd to shared memory is a
+//   compare-and-swap loop on this card, and a warp walks the union of its
+//   lanes' stencil nodes.  Two variants ran slower on the card: compacting
+//   the slots first, so that full warps take (slot, x node, y node)
+//   columns, and binning the nodes per column to drop the atomics.
+//
 // B: one thread per slot reads its 5^3 window of the mesh cotangent (wrapping
 // modulo the mesh) and contracts it against the weight and derivative
 // stencils; it needs no atomics, and reads of neighbouring slots of one tile
 // hit the same cache lines.
 //
-// First version: plain CUDA C++, no TMA / wgmma.  float32 only; the wrapper
-// (ops/spread_fused.py) checks shapes, dtypes and the shared-memory size.
+// Plain CUDA C++, no TMA / wgmma; float32 only; the wrapper
+// (ops/spread_fused.py) checks shapes and dtypes.
 
 #include <cuda_runtime.h>
 
@@ -35,11 +64,10 @@ struct SpreadParams {
   int nx, ny, nz;
   int nodes, extent, lpad, ty_count;
   int n_tiles, kp, n_ch;
+  int z_cells, z_chunk;  // cell-list z cells of a tile column; mesh z cells a block of A owns
   float coeff[MAX_NODES * MAX_NODES];  // [node][power]
   float deriv[MAX_NODES * MAX_NODES];  // [node][power], nodes-1 powers used
 };
-
-__device__ __forceinline__ int fmod_i(int a, int n) { return (a % n + n) % n; }
 
 // (base, offset) per the grid-centering parity rule of ops/mesh.py
 __device__ __forceinline__ void axis_offset(float r, int nodes, int* base, float* off) {
@@ -60,6 +88,29 @@ __device__ __forceinline__ float horner(const float* c, int n, float x) {
   return acc;
 }
 
+// floor-mod of an int by n (any sign, |a| < 2^24) with float arithmetic, no
+// integer divide
+__device__ __forceinline__ int wrap_f(int a, int n, float inv_n) {
+  int r = a - (int)floorf((float)a * inv_n) * n;
+  if (r < 0) r += n;
+  if (r >= n) r -= n;
+  return r;
+}
+
+// Global stencil start along one axis of n mesh cells, wrapped into [0, n),
+// and the weights' offset
+__device__ __forceinline__ int axis_start(float r, int nodes, int n, float inv_n, float* off) {
+  int b;
+  axis_offset(r, nodes, &b, off);
+  return wrap_f(b + 1 - (nodes + 1) / 2, n, inv_n);
+}
+
+// Index of a global stencil start in the local window of the tile whose
+// origin along this axis is o (the window begins lpad cells before it)
+__device__ __forceinline__ int window_index(int start, int o, int lpad, int n, float inv_n) {
+  return wrap_f(start + lpad - o, n, inv_n);
+}
+
 // Local window start of a slot along x or y, and the global z start.
 struct SlotGeom {
   int lx, ly, sz;
@@ -67,73 +118,117 @@ struct SlotGeom {
 };
 
 __device__ __forceinline__ SlotGeom slot_geom(const float* rel3, int tile, const SpreadParams& p) {
-  const int shift0 = 1 - (p.nodes + 1) / 2;
-  const int ox = tile / p.ty_count * TILE;
-  const int oy = tile % p.ty_count * TILE;
-  int bx, by, bz;
+  const float inv_nx = 1.0f / p.nx, inv_ny = 1.0f / p.ny, inv_nz = 1.0f / p.nz;
   SlotGeom g;
-  axis_offset(rel3[0], p.nodes, &bx, &g.offx);
-  axis_offset(rel3[1], p.nodes, &by, &g.offy);
-  axis_offset(rel3[2], p.nodes, &bz, &g.offz);
-  g.lx = fmod_i(fmod_i(bx + shift0, p.nx) + p.lpad - ox, p.nx);
-  g.ly = fmod_i(fmod_i(by + shift0, p.ny) + p.lpad - oy, p.ny);
-  g.sz = fmod_i(bz + shift0, p.nz);
+  const int X = axis_start(rel3[0], p.nodes, p.nx, inv_nx, &g.offx);
+  const int Y = axis_start(rel3[1], p.nodes, p.ny, inv_ny, &g.offy);
+  g.sz = axis_start(rel3[2], p.nodes, p.nz, inv_nz, &g.offz);
+  g.lx = window_index(X, tile / p.ty_count * TILE, p.lpad, p.nx, inv_nx);
+  g.ly = window_index(Y, tile % p.ty_count * TILE, p.lpad, p.ny, inv_ny);
   return g;
 }
 
-// Kernel A: one block per tile.  rel (nb, 3), q (nb, C) in slot order
-// (slot = tile * kp + k); rho (C, nx, ny, nz) zeroed by the caller.
-__global__ void spread_fwd_kernel(const float* __restrict__ rel,
-                                  const float* __restrict__ q,
-                                  float* __restrict__ rho, SpreadParams p) {
-  extern __shared__ float field[];  // (E, E, nz) local tile field
+// Kernel A: one block per (tile, z chunk, channel).  rel (nb, 3), q (nb, C)
+// in slot order (slot = tile * kp + zcell * cap + s); writes every cell of
+// rho (C, nx, ny, nz).  Dynamic shared memory: the owned cells (TILE, TILE,
+// z_chunk), then the first slot of each (neighbour tile, z cell) segment the
+// block reads.
+template <int N>
+__global__ void __launch_bounds__(256)
+spread_fwd_kernel(const float* __restrict__ rel, const float* __restrict__ q,
+                  float* __restrict__ rho, SpreadParams p) {
+  extern __shared__ float field[];
+  int* s_seg = reinterpret_cast<int*>(field + TILE * TILE * p.z_chunk);
   __shared__ float s_coeff[MAX_NODES * MAX_NODES];
-  for (int i = threadIdx.x; i < MAX_NODES * MAX_NODES; i += blockDim.x) s_coeff[i] = p.coeff[i];
-  const int tile = blockIdx.x;
-  const int n = p.nodes, e = p.extent, nz = p.nz;
-  const int field_size = e * e * nz;
-  const int ox = tile / p.ty_count * TILE;
-  const int oy = tile % p.ty_count * TILE;
-  const int items = p.kp * n;  // (slot, x node) pairs
+  const int tile = blockIdx.x, ch = blockIdx.z;
+  const int nx = p.nx, ny = p.ny, nz = p.nz, zc = p.z_chunk;
+  const int tx_count = nx / TILE, ty_count = p.ty_count;
+  const int tx = tile / ty_count, ty = tile - tx * ty_count;
+  const int ox = tx * TILE, oy = ty * TILE;
+  const int z0 = blockIdx.y * zc, zlen = min(zc, nz - z0);
+  const float inv_nx = 1.0f / nx, inv_ny = 1.0f / ny, inv_nz = 1.0f / nz;
 
-  for (int ch = 0; ch < p.n_ch; ++ch) {
-    for (int i = threadIdx.x; i < field_size; i += blockDim.x) field[i] = 0.0f;
-    __syncthreads();
-    for (int it = threadIdx.x; it < items; it += blockDim.x) {
-      const int k = it / n, a = it % n;
-      const int slot = tile * p.kp + k;
-      const SlotGeom g = slot_geom(rel + 3 * slot, tile, p);
-      if (g.lx + a >= e) continue;
-      const float wx = horner(s_coeff + a * MAX_NODES, n, g.offx);
-      const float qv = q[slot * p.n_ch + ch];
-      float wz[MAX_NODES];
-      for (int c = 0; c < n; ++c) wz[c] = horner(s_coeff + c * MAX_NODES, n, g.offz) * qv;
-      float* row = field + (g.lx + a) * e * nz;
-      for (int b = 0; b < n; ++b) {
-        if (g.ly + b >= e) continue;
-        const float wxy = wx * horner(s_coeff + b * MAX_NODES, n, g.offy);
-        float* col = row + (g.ly + b) * nz;
-        for (int c = 0; c < n; ++c) {
-          int z = g.sz + c;
-          if (z >= nz) z -= nz;
-          atomicAdd(col + z, wxy * wz[c]);
-        }
+  // z cells whose atoms can reach [z0, z0 + zlen): an atom of z cell c has
+  // rel_z in (hz (c - 1), hz (c + 2)) and its nodes within N + 1 of rel_z
+  const int cap = p.kp / p.z_cells;
+  const float hz = (float)nz / (float)p.z_cells;
+  int c_lo = (int)floorf((float)(z0 - N - 1) / hz) - 2;
+  int n_zc = (int)ceilf((float)(z0 + zlen + N + 1) / hz) + 1 - c_lo + 1;
+  if (n_zc >= p.z_cells) c_lo = 0, n_zc = p.z_cells;
+  // distinct neighbour tiles along each axis (an axis of 2 tiles has 2)
+  const int x_tiles = tx_count >= 3 ? 3 : 2, y_tiles = ty_count >= 3 ? 3 : 2;
+  const int x_first = tx_count >= 3 ? -1 : 0, y_first = ty_count >= 3 ? -1 : 0;
+  const int n_seg = x_tiles * y_tiles * n_zc;
+  const int candidates = n_seg * cap;
+
+  for (int i = threadIdx.x; i < MAX_NODES * MAX_NODES; i += blockDim.x) s_coeff[i] = p.coeff[i];
+  for (int i = threadIdx.x; i < TILE * TILE * zc; i += blockDim.x) field[i] = 0.0f;
+  for (int sg = threadIdx.x; sg < n_seg; sg += blockDim.x) {
+    const int t = sg / n_zc, m = sg - t * n_zc;
+    const int ntx = (tx + x_first + t / y_tiles + tx_count) % tx_count;
+    const int nty = (ty + y_first + t % y_tiles + ty_count) % ty_count;
+    const int zcell = (c_lo + m + p.z_cells) % p.z_cells;
+    s_seg[sg] = (ntx * ty_count + nty) * p.kp + zcell * cap;
+  }
+  __syncthreads();
+
+  for (int it = threadIdx.x; it < candidates; it += blockDim.x) {
+    const int seg = it / cap;
+    const int slot = s_seg[seg] + (it - seg * cap);
+    const float qv = q[slot * p.n_ch + ch];
+    if (qv == 0.0f) continue;  // empty slot (or no charge): adds nothing
+    const float* r = rel + 3 * slot;
+    // z first: nodes sz .. sz + N - 1 (mod nz) against [z0, z0 + zlen)
+    float offz;
+    const int dz = wrap_f(axis_start(r[2], N, nz, inv_nz, &offz) - z0, nz, inv_nz);
+    if (!(dz < zlen || dz > nz - N)) continue;
+    // x and y: node o lies at column (X - ox + o) mod nx of this tile, and
+    // inside the window of the slot's own tile while lx0 + o < extent
+    float offx, offy;
+    const int X = axis_start(r[0], N, nx, inv_nx, &offx);
+    const int Y = axis_start(r[1], N, ny, inv_ny, &offy);
+    const int ntile = slot / p.kp, ntx = ntile / ty_count, nty = ntile - ntx * ty_count;
+    const int lx0 = window_index(X, ntx * TILE, p.lpad, nx, inv_nx);
+    const int ly0 = window_index(Y, nty * TILE, p.lpad, ny, inv_ny);
+    const int dx = wrap_f(X - ox, nx, inv_nx), dy = wrap_f(Y - oy, ny, inv_ny);
+    int lx[N], ly[N], lz[N];
+    bool any_x = false, any_y = false;
+#pragma unroll
+    for (int o = 0; o < N; ++o) {
+      int gx = dx + o, gy = dy + o, z = dz + o;
+      if (gx >= nx) gx -= nx;
+      if (gy >= ny) gy -= ny;
+      if (z >= nz) z -= nz;
+      lx[o] = (lx0 + o < p.extent && gx < TILE) ? gx : -1;
+      ly[o] = (ly0 + o < p.extent && gy < TILE) ? gy : -1;
+      lz[o] = z < zlen ? z : -1;
+      any_x |= lx[o] >= 0;
+      any_y |= ly[o] >= 0;
+    }
+    if (!(any_x && any_y)) continue;
+    float wz[N];
+#pragma unroll
+    for (int c = 0; c < N; ++c) wz[c] = horner(s_coeff + c * MAX_NODES, N, offz) * qv;
+#pragma unroll
+    for (int a = 0; a < N; ++a) {
+      if (lx[a] < 0) continue;
+      const float wx = horner(s_coeff + a * MAX_NODES, N, offx);
+#pragma unroll
+      for (int b = 0; b < N; ++b) {
+        if (ly[b] < 0) continue;
+        const float wxy = wx * horner(s_coeff + b * MAX_NODES, N, offy);
+        float* col = field + (lx[a] * TILE + ly[b]) * zc;
+#pragma unroll
+        for (int c = 0; c < N; ++c)
+          if (lz[c] >= 0) atomicAdd(col + lz[c], wxy * wz[c]);
       }
     }
-    __syncthreads();
-    // fold: local cell (ex, ey) is mesh cell (ox - lpad + ex, oy - lpad + ey)
-    float* out = rho + (size_t)ch * p.nx * p.ny * nz;
-    for (int i = threadIdx.x; i < field_size; i += blockDim.x) {
-      const float v = field[i];
-      if (v == 0.0f) continue;
-      const int z = i % nz;
-      const int ey = (i / nz) % e;
-      const int ex = i / (nz * e);
-      const int gx = fmod_i(ox - p.lpad + ex, p.nx);
-      const int gy = fmod_i(oy - p.lpad + ey, p.ny);
-      atomicAdd(out + ((size_t)gx * p.ny + gy) * nz + z, v);
-    }
-    __syncthreads();
+  }
+  __syncthreads();
+  float* out = rho + (size_t)ch * nx * ny * nz;
+  for (int i = threadIdx.x; i < TILE * TILE * zlen; i += blockDim.x) {
+    const int xy = i / zlen, z = i - xy * zlen;
+    out[((size_t)(ox + xy / TILE) * ny + oy + xy % TILE) * nz + z0 + z] = field[xy * zc + z];
   }
 }
 
@@ -157,6 +252,7 @@ __global__ void spread_bwd_kernel(const float* __restrict__ rel,
   const int ox = tile / p.ty_count * TILE;
   const int oy = tile % p.ty_count * TILE;
   const SlotGeom g = slot_geom(rel + 3 * slot, tile, p);
+  const float inv_nx = 1.0f / p.nx, inv_ny = 1.0f / p.ny;
   const int nd = n > 1 ? n - 1 : 1;
 
   float wx[MAX_NODES], wy[MAX_NODES], wz[MAX_NODES];
@@ -176,10 +272,10 @@ __global__ void spread_bwd_kernel(const float* __restrict__ rel,
     float cq = 0.0f;
     for (int a = 0; a < n; ++a) {
       if (g.lx + a >= e) continue;
-      const int gx = fmod_i(ox - p.lpad + g.lx + a, p.nx);
+      const int gx = wrap_f(ox - p.lpad + g.lx + a, p.nx, inv_nx);
       for (int b = 0; b < n; ++b) {
         if (g.ly + b >= e) continue;
-        const int gy = fmod_i(oy - p.lpad + g.ly + b, p.ny);
+        const int gy = wrap_f(oy - p.lpad + g.ly + b, p.ny, inv_ny);
         const float* col = mesh + ((size_t)gx * p.ny + gy) * nz;
         // z contractions of this (a, b) column: weights and derivatives
         float sw = 0.0f, sd = 0.0f;
@@ -218,11 +314,24 @@ int tpme_max_smem_optin(int device) {
 
 int tpme_spread_fwd(const float* rel, const float* q, float* rho, const SpreadParams* p,
                     void* stream) {
-  const size_t smem = (size_t)p->extent * p->extent * p->nz * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(spread_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  spread_fwd_kernel<<<p->n_tiles, 256, smem, (cudaStream_t)stream>>>(rel, q, rho, *p);
+  const dim3 grid(p->n_tiles, (p->nz + p->z_chunk - 1) / p->z_chunk, p->n_ch);
+  // owned cells, then up to 9 segment starts per z cell
+  const size_t smem = (size_t)TILE * TILE * p->z_chunk * sizeof(float) +
+                      (size_t)9 * p->z_cells * sizeof(int);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (p->nodes) {
+#define SPREAD_CASE(N)                                                                    \
+  case N:                                                                                 \
+    if (cudaFuncSetAttribute(spread_fwd_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                             (int)smem) != cudaSuccess)                                   \
+      return (int)cudaGetLastError();                                                     \
+    spread_fwd_kernel<N><<<grid, 256, smem, st>>>(rel, q, rho, *p);                      \
+    break;
+    SPREAD_CASE(1) SPREAD_CASE(2) SPREAD_CASE(3) SPREAD_CASE(4)
+    SPREAD_CASE(5) SPREAD_CASE(6) SPREAD_CASE(7) SPREAD_CASE(8)
+#undef SPREAD_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -4,54 +4,86 @@
 // Replaces torchpme_tpu/ops/rspace_cells.py:_we_value_and_grad (XLA code in
 // the JAX package; its Pallas variant was retired there, but it is the
 // largest phase of the step).  Energy sum_{pairs} q_i q_j V_SR(d_ij) over
-// the 13 half-window neighbor offsets plus the self cell of every home cell;
-// pairs need d^2 < cutoff^2, d^2 > 0 and an occupied j slot, the self pair
-// is excluded by identity and the self cell's j-side charges carry 1/2.
-// The pair math is CoulombPotential.sr_window_math in float32: V and V'/d
-// from d^2 with one shared Gaussian (Abramowitz & Stegun 7.1.26 erfc) and
-// rsqrt.  Outputs (zeroed by the caller): e (double), d_pc (cells, 3, cap),
-// d_q (cells, cap, C), d_offs (14, 3); the caller's autograd carries them
-// to positions, charges and the cell.
+// the cell-list torus window of every home cell; pairs need d^2 < cutoff^2,
+// d^2 > 0 and an occupied j slot, and the self pair is excluded by identity
+// (its d^2 is 0).  The pair math is CoulombPotential.sr_window_math in
+// float32: V and V'/d from d^2 with one shared Gaussian (Abramowitz & Stegun
+// 7.1.26 erfc) and rsqrt.  Outputs: acc (double, zeroed by the caller: [0]
+// the energy, [1, 43) the d_offs sums, then a block counter), d_pc (cells,
+// 3, cap), d_q (cells, cap, C) and d_offs (14, 3), written whole by the
+// kernel; the caller's autograd carries them to positions, charges and the
+// cell.
 //
 // What bounds it on the H100.  At the main path (5120 cells, cap 24) the
-// window is 41M candidate pairs, about 40 FLOPs and one exp each, with no
-// reuse across blocks: it is bound by instruction issue, plus the j-side
-// gradient traffic.  Design: one block per home cell, its atoms and its
-// gradient accumulators in shared memory; the block finds its neighbor
-// cells on the torus itself (no rolled copies, which the TPU version
-// materialised).  Each warp takes (offset, 32 home atoms) items; lanes are
-// home atoms i and loop over the neighbor cell's j atoms in lockstep, so
-// the j-side terms are reduced across the warp with shuffles and added to
-// the neighbor rows with one global atomic per value; a j whose pairs are
-// all masked in the warp is skipped.  d_offs is a block reduction in
-// shared memory followed by one atomic per component.
+// window is ~80M candidate pairs of occupied slots over 27 offsets, each
+// placed and tested in ~12 instructions, and 5.3M pairs inside the cutoff at
+// ~50 more (one expf, one rsqrtf, one divide): instruction issue and its
+// latency, with no reuse across blocks.  The first version evaluated each
+// pair once (the 14 half-window offsets) and sent the j side home with warp
+// shuffles and global float atomics: ~7M atomics on rows that 14 blocks hit
+// at once, 8 of 32 lanes idle at cap 24, 96 registers.  This design spends
+// the arithmetic twice to drop all of that:
 //
-// First version: plain CUDA C++, float32 only.  The wrapper
+// * One block per home cell stages its own cell and its 26 torus neighbours
+//   into shared memory with coalesced loads: one float4 per slot (position
+//   shifted by the offset vector, occupancy), an empty slot parked far away
+//   so that no distance test passes, and the charges.  It takes the 27
+//   offsets in passes of `group` (27, 9, 3 or 1; tpme_window_group picks the
+//   most that fit the opt-in shared memory): all 27 in one pass up to a
+//   capacity of ~200 at one channel (~130 at four), one x plane a pass up to
+//   ~580 (~360), and one offset a pass up to ~3000 (~1850;
+//   tpme_window_max_cap).
+// * Work items are (offset o of 27, home slot i).  An item whose
+//   neighbour's atoms all lie (by their bounding box) beyond the cutoff has
+//   no pair; the others go to a compacted list that the 224 threads share,
+//   so no lane idles on an empty item or for cap < 32.  An item loops over
+//   the neighbour's j slots twice: the first pass only tests d^2 and keeps a
+//   bit mask, the second evaluates the pair math for the set bits and keeps
+//   only i-side terms: g_i = sum s (pc_i - pj),
+//   dq_i = sum V q_j, and the energy (in double) at 1/2 a pair, so each pair
+//   is counted once from each end.
+// * Items store their sums in shared memory; after each pass they are added
+//   to the home rows' sums in offset order, the same order for every group
+//   size, and the rows of d_pc and d_q are written once with plain stores.
+//   Each row has one writer and each item one thread, no atomics, so d_pc
+//   and d_q are bitwise reproducible.
+// * Empty home slots carry charge 0 (as _prepare_bucketed makes them), so
+//   only their d_q is non-zero; they keep the plain version's value, the
+//   half window with the self cell at 1/2 (the plain version sums it only
+//   where the slot is home).
+// * d_offs.  The plain version's d_offs[k] is the total j-side gradient of
+//   half-window offset k, sum over its pairs of s (pj - pc_i) = -(sum of
+//   the i-side g over those pairs).  Here each such pair is met from its i
+//   end at offset +k (g) and from its j end at offset -k, where the i-side
+//   gradient of the same pair is -g.  So with S(+k), S(-k) the block's
+//   i-side sums over offsets +k and -k, d_offs[k] = 1/2 (S(-k) - S(+k)) over
+//   all blocks; the self row is 0 (its pairs cancel).  A block sums them in
+//   double and adds one double atomic per value, as the energy; the last
+//   block to finish writes the float d_offs.
+//
+// Plain CUDA C++, float32 only; the wrapper
 // (ops/rspace_cells.py:window_value_and_grad) checks shapes and dtypes.
 
 #include <cuda_runtime.h>
 
 #define N_OFF 14
+#define N_WIN 27
+#define SELF_O 13
 #define MAX_CH 4
+#define THREADS 224  // 7 full warps: every shuffle and ballot names 32 live lanes
 #define FULL_MASK 0xffffffffu
+#define FAR 1.0e18f  // where empty slots are parked: (FAR)^2 still fits a float
 
 struct WindowParams {
   int nx, ny, nz, cap, n_ch, self_k;
+  int group;  // neighbour offsets staged per pass: 27, 9, 3 or 1
   float cutoff_sq, alpha, alpha_sq, prefactor, c_gauss;
-  int offsets[3 * N_OFF];  // (dx, dy, dz) per offset, in the order of offs
+  int offsets[3 * N_OFF];
 };
 
 __device__ __forceinline__ int wrap_i(int a, int n) { return (a % n + n) % n; }
 
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(FULL_MASK, v, m);
-  return v;
-}
-
-// CoulombPotential.sr_window_math: (V_SR(d), V_SR'(d)/d) from d^2
-__device__ __forceinline__ void window_math(float d2, const WindowParams& p, float* v,
-                                            float* w) {
+__device__ __forceinline__ void window_math(float d2, const WindowParams& p, float* v, float* w) {
   const float rd = rsqrtf(d2);
   const float gauss = expf(-p.alpha_sq * d2);
   const float y = p.alpha * (d2 * rd);
@@ -63,139 +95,277 @@ __device__ __forceinline__ void window_math(float d2, const WindowParams& p, flo
   *w = -(*v + p.c_gauss * gauss) * (rd * rd);
 }
 
+// Shared memory of one block: the home cell (float4 slots, charges) and its
+// per-row sums over the offsets, and for the `group` offsets of one pass
+// their staged slots (float4) and charges, the item sums and the item list.
+// The float4 arrays come first, so that they stay 16-byte aligned.
+__host__ __device__ inline size_t window_smem(int cap, int n_ch, int group) {
+  const size_t home = (size_t)cap * (4 + n_ch + 3 + n_ch);
+  const size_t per_offset = (size_t)cap * (4 + n_ch + 3 + n_ch + 1);
+  return (home + group * per_offset) * sizeof(float);
+}
+
 // pc (cells, 3, cap), q (cells, cap, C), mf (cells, cap), offs (14, 3).
-__global__ void window_kernel(const float* __restrict__ pc, const float* __restrict__ q,
-                              const float* __restrict__ mf, const float* __restrict__ offs,
-                              double* __restrict__ e_out, float* __restrict__ d_pc,
-                              float* __restrict__ d_q, float* __restrict__ d_offs,
-                              WindowParams p) {
-  extern __shared__ float smem[];
-  const int cap = p.cap, C = p.n_ch;
-  float* s_pc = smem;             // 3 * cap, home coordinates
-  float* s_q = s_pc + 3 * cap;    // cap * C, home charges
-  float* s_dpc = s_q + cap * C;   // 3 * cap, home-side gradient
-  float* s_dq = s_dpc + 3 * cap;  // cap * C
-  float* s_doff = s_dq + cap * C; // 3 * N_OFF
-  __shared__ double s_e;
-  __shared__ int s_offsets[3 * N_OFF];
+// G neighbour offsets a pass; with all 27 in one pass the row sums go
+// straight to d_pc and d_q.
+template <int G>
+__global__ void __launch_bounds__(THREADS, 6)
+window_kernel(const float* __restrict__ pc, const float* __restrict__ q, const float* __restrict__ mf,
+        const float* __restrict__ offs, double* __restrict__ acc, float* __restrict__ d_pc,
+        float* __restrict__ d_q, float* __restrict__ d_offs, WindowParams p) {
+  extern __shared__ float4 smem4[];
+  const int cap = p.cap, C = p.n_ch, nv = 3 + C;
+  float4* s_home = smem4;                                      // (cap) home slots
+  float4* s_p = s_home + cap;                                  // (G, cap) staged slots
+  float* s_qh = reinterpret_cast<float*>(s_p + G * cap);       // (cap, C) home charges
+  float* s_sum = s_qh + cap * C;                               // (3 + C, cap) row sums
+  float* s_q = s_sum + nv * cap;                               // (G, cap, C)
+  float* s_res = s_q + G * cap * C;                            // (G, 3 + C, cap) item sums
+  int* s_list = reinterpret_cast<int*>(s_res + G * nv * cap);  // (G cap) item list
+  __shared__ int s_nbr[N_WIN], s_sign[N_WIN], s_jend[N_WIN], s_count;
+  __shared__ float s_off[3 * N_WIN], s_box[6 * N_WIN];
+  __shared__ double s_gsum[3 * N_WIN];  // per offset: the block's i-side gradient sum
+  __shared__ double s_e[THREADS / 32 + 1];
+  __shared__ bool s_last;
 
   const int home = blockIdx.x;
   const int hx = home / (p.ny * p.nz), hy = (home / p.nz) % p.ny, hz = home % p.nz;
-  for (int i = threadIdx.x; i < 3 * cap; i += blockDim.x) {
-    s_pc[i] = pc[(size_t)home * 3 * cap + i];
-    s_dpc[i] = 0.0f;
-  }
-  for (int i = threadIdx.x; i < cap * C; i += blockDim.x) {
-    s_q[i] = q[(size_t)home * cap * C + i];
-    s_dq[i] = 0.0f;
-  }
-  for (int i = threadIdx.x; i < 3 * N_OFF; i += blockDim.x) {
-    s_doff[i] = 0.0f;
-    s_offsets[i] = p.offsets[i];
-  }
-  if (threadIdx.x == 0) s_e = 0.0;
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
-  const int n_chunks = (cap + 31) / 32;
-  // the energy is a sum of terms far larger than their total: accumulate
-  // it in double
-  double e_acc = 0.0;
-  for (int item = warp; item < N_OFF * n_chunks; item += n_warps) {
-    const int k = item / n_chunks;
-    const int i = (item % n_chunks) * 32 + lane;
-    const bool active = i < cap;
-    const int nbr = (wrap_i(hx + s_offsets[3 * k], p.nx) * p.ny +
-                     wrap_i(hy + s_offsets[3 * k + 1], p.ny)) * p.nz +
-                    wrap_i(hz + s_offsets[3 * k + 2], p.nz);
-    const bool self_cell = k == p.self_k;
-    const float wj = self_cell ? 0.5f : 1.0f;
-    const float ofx = offs[3 * k], ofy = offs[3 * k + 1], ofz = offs[3 * k + 2];
-    float pix = 0.0f, piy = 0.0f, piz = 0.0f, qi[MAX_CH], dqi[MAX_CH];
-    for (int c = 0; c < MAX_CH; ++c) qi[c] = dqi[c] = 0.0f;
-    if (active) {
-      pix = s_pc[i];
-      piy = s_pc[cap + i];
-      piz = s_pc[2 * cap + i];
-      for (int c = 0; c < C; ++c) qi[c] = s_q[i * C + c];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x < N_WIN) {
+    const int o = threadIdx.x;
+    const int dx = o / 9 - 1, dy = (o / 3) % 3 - 1, dz = o % 3 - 1;
+    int k = 0, sign = 0;
+    for (int kk = 0; kk < N_OFF && sign == 0; ++kk) {
+      const int* r = p.offsets + 3 * kk;
+      if (r[0] == dx && r[1] == dy && r[2] == dz) k = kk, sign = 1;
+      else if (r[0] == -dx && r[1] == -dy && r[2] == -dz) k = kk, sign = -1;
     }
-    float gix = 0.0f, giy = 0.0f, giz = 0.0f;
-    float off_acc = 0.0f;  // lane c < 3 accumulates d_offs[k][c]
-    const float* npc = pc + (size_t)nbr * 3 * cap;
-    const float* nq = q + (size_t)nbr * cap * C;
-    const float* nm = mf + (size_t)nbr * cap;
-    for (int j = 0; j < cap; ++j) {
-      const float dx = pix - (npc[j] + ofx);
-      const float dy = piy - (npc[cap + j] + ofy);
-      const float dz = piz - (npc[2 * cap + j] + ofz);
-      const float d2 = dx * dx + dy * dy + dz * dz;
-      const bool ok = active && d2 > 0.0f && d2 < p.cutoff_sq && nm[j] > 0.5f &&
-                      !(self_cell && i == j);
-      if (!__any_sync(FULL_MASK, ok)) continue;
-      float gj[3 + MAX_CH];
-      for (int c = 0; c < 3 + MAX_CH; ++c) gj[c] = 0.0f;
-      if (ok) {
-        float v, w;
-        window_math(d2, p, &v, &w);
-        float qj[MAX_CH], qpair = 0.0f;
-        for (int c = 0; c < C; ++c) {
-          qj[c] = nq[j * C + c] * wj;
-          qpair += qi[c] * qj[c];
-        }
-        e_acc += (double)(qpair * v);
-        const float s = qpair * w;
-        gix += s * dx;
-        giy += s * dy;
-        giz += s * dz;
-        gj[0] = -s * dx;
-        gj[1] = -s * dy;
-        gj[2] = -s * dz;
-        for (int c = 0; c < C; ++c) {
-          dqi[c] += v * qj[c];
-          gj[3 + c] = v * qi[c] * wj;
+    s_sign[o] = sign;
+    s_nbr[o] = (wrap_i(hx + dx, p.nx) * p.ny + wrap_i(hy + dy, p.ny)) * p.nz + wrap_i(hz + dz, p.nz);
+    for (int c = 0; c < 3; ++c) s_off[3 * o + c] = sign * offs[3 * k + c];
+    s_jend[o] = 0;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < cap; j += blockDim.x) {
+    const float* src = pc + (size_t)home * 3 * cap + j;
+    s_home[j] = make_float4(src[0] + s_off[3 * SELF_O], src[cap] + s_off[3 * SELF_O + 1],
+                            src[2 * cap] + s_off[3 * SELF_O + 2], mf[(size_t)home * cap + j]);
+  }
+  for (int idx = threadIdx.x; idx < cap * C; idx += blockDim.x) s_qh[idx] = q[(size_t)home * cap * C + idx];
+  if (G < N_WIN)
+    for (int idx = threadIdx.x; idx < nv * cap; idx += blockDim.x) s_sum[idx] = 0.0f;
+
+  double e_acc = 0.0;
+  for (int g0 = 0; g0 < N_WIN; g0 += G) {
+    __syncthreads();  // the previous pass's readers are done
+    if (threadIdx.x == 0) s_count = 0;
+    for (int idx = threadIdx.x; idx < G * cap; idx += blockDim.x) {
+      const int o = g0 + idx / cap, j = idx % cap;
+      const float* src = pc + (size_t)s_nbr[o] * 3 * cap + j;
+      const float m = mf[(size_t)s_nbr[o] * cap + j];
+      const float x = src[0] + s_off[3 * o], y = src[cap] + s_off[3 * o + 1],
+                  z = src[2 * cap] + s_off[3 * o + 2];
+      // an empty j slot sits far away: no d^2 test passes
+      s_p[idx] = m > 0.5f ? make_float4(x, y, z, m) : make_float4(FAR, FAR, FAR, m);
+      if (m > 0.5f) atomicMax(&s_jend[o], j + 1);
+    }
+    for (int idx = threadIdx.x; idx < G * cap * C; idx += blockDim.x) {
+      const int o = g0 + idx / (cap * C);
+      s_q[idx] = q[(size_t)s_nbr[o] * cap * C + idx % (cap * C)];
+    }
+    __syncthreads();
+    // the box of each neighbour cell's occupied atoms, one warp per offset
+    for (int ol = warp; ol < G; ol += blockDim.x / 32) {
+      float lo[3] = {FAR, FAR, FAR}, hi[3] = {-FAR, -FAR, -FAR};
+      for (int j = lane; j < cap; j += 32) {
+        const float4 b = s_p[ol * cap + j];
+        if (b.w > 0.5f) {
+          lo[0] = fminf(lo[0], b.x), lo[1] = fminf(lo[1], b.y), lo[2] = fminf(lo[2], b.z);
+          hi[0] = fmaxf(hi[0], b.x), hi[1] = fmaxf(hi[1], b.y), hi[2] = fmaxf(hi[2], b.z);
         }
       }
-      // j-side terms: butterfly sums leave every total on every lane; lane c
-      // issues the atomic of value c
-      for (int c = 0; c < 3 + C; ++c) {
-        const float tot = warp_sum(gj[c]);
-        if (lane == c) {
-          if (c < 3) {
-            atomicAdd(d_pc + ((size_t)nbr * 3 + c) * cap + j, tot);
-            off_acc += tot;
-          } else {
-            atomicAdd(d_q + ((size_t)nbr * cap + j) * C + (c - 3), tot);
+      for (int m = 16; m > 0; m >>= 1)
+        for (int c = 0; c < 3; ++c) {
+          lo[c] = fminf(lo[c], __shfl_xor_sync(FULL_MASK, lo[c], m));
+          hi[c] = fmaxf(hi[c], __shfl_xor_sync(FULL_MASK, hi[c], m));
+        }
+      if (lane < 3) s_box[6 * (g0 + ol) + lane] = lo[lane], s_box[6 * (g0 + ol) + 3 + lane] = hi[lane];
+    }
+    __syncthreads();
+    // items with a neighbour atom possibly within the cutoff go to the list; the others
+    // have no pair: their sums are 0
+    for (int r = 0; r < G * cap; r += blockDim.x) {
+      const int it = r + threadIdx.x;
+      bool keep = false;
+      if (it < G * cap) {
+        const int o = g0 + it / cap, i = it % cap;
+        const float4 pi = s_home[i];
+        const bool work = pi.w > 0.5f || s_sign[o] > 0;
+        const float* bx = s_box + 6 * o;
+        const float ex = fmaxf(0.0f, fmaxf(bx[0] - pi.x, pi.x - bx[3]));
+        const float ey = fmaxf(0.0f, fmaxf(bx[1] - pi.y, pi.y - bx[4]));
+        const float ez = fmaxf(0.0f, fmaxf(bx[2] - pi.z, pi.z - bx[5]));
+        keep = work && ex * ex + ey * ey + ez * ez < p.cutoff_sq;
+        if (!keep) {
+          float* res = s_res + (it / cap) * nv * cap + i;
+          for (int c = 0; c < nv; ++c) res[c * cap] = 0.0f;
+        }
+      }
+      const unsigned b = __ballot_sync(FULL_MASK, keep);
+      if (b) {
+        const int leader = __ffs(b) - 1;
+        int at = 0;
+        if (lane == leader) at = atomicAdd(&s_count, __popc(b));
+        at = __shfl_sync(FULL_MASK, at, leader);
+        if (keep) s_list[at + __popc(b & ((1u << lane) - 1u))] = it;
+      }
+    }
+    __syncthreads();
+    const int n_items = s_count;
+
+    for (int k = threadIdx.x; k < n_items; k += blockDim.x) {
+      const int it = s_list[k];
+      const int ol = it / cap, i = it - ol * cap, o = g0 + ol;
+      const float4 pi = s_home[i];
+      const float wq = pi.w > 0.5f ? 1.0f : s_sign[o] < 0 ? 0.0f : o == SELF_O ? 0.5f : 1.0f;
+      float gx = 0.0f, gy = 0.0f, gz = 0.0f, dq[MAX_CH];
+      for (int c = 0; c < MAX_CH; ++c) dq[c] = 0.0f;
+      if (wq > 0.0f) {
+        float qi[MAX_CH];
+        for (int c = 0; c < MAX_CH; ++c) qi[c] = c < C ? s_qh[i * C + c] : 0.0f;
+        const float4* pj = s_p + ol * cap;
+        const float* qj = s_q + ol * cap * C;
+        const int jend = s_jend[o];
+        for (int jb = 0; jb < jend; jb += 32) {
+          const int jlim = min(jb + 32, jend);
+          unsigned mask = 0u;
+#pragma unroll 4
+          for (int j = jb; j < jlim; ++j) {
+            const float4 b = pj[j];
+            const float dx = pi.x - b.x, dy = pi.y - b.y, dz = pi.z - b.z;
+            const float d2 = dx * dx + dy * dy + dz * dz;
+            mask |= (unsigned)(d2 > 0.0f && d2 < p.cutoff_sq) << (j - jb);
+          }
+          while (mask) {
+            const int j = jb + __ffs(mask) - 1;
+            mask &= mask - 1;
+            const float4 b = pj[j];
+            const float dx = pi.x - b.x, dy = pi.y - b.y, dz = pi.z - b.z;
+            float v, w;
+            window_math(dx * dx + dy * dy + dz * dz, p, &v, &w);
+            float qpair = 0.0f;
+            for (int c = 0; c < C; ++c) qpair += qi[c] * qj[j * C + c];
+            e_acc += 0.5 * (double)(qpair * v);
+            const float s = qpair * w;
+            gx += s * dx;
+            gy += s * dy;
+            gz += s * dz;
+            for (int c = 0; c < C; ++c) dq[c] += v * qj[j * C + c];
           }
         }
       }
+      float* res = s_res + ol * nv * cap + i;
+      res[0] = gx;
+      res[cap] = gy;
+      res[2 * cap] = gz;
+      for (int c = 0; c < C; ++c) res[(3 + c) * cap] = dq[c] * wq;
     }
-    if (active) {
-      atomicAdd(s_dpc + i, gix);
-      atomicAdd(s_dpc + cap + i, giy);
-      atomicAdd(s_dpc + 2 * cap + i, giz);
-      for (int c = 0; c < C; ++c) atomicAdd(s_dq + i * C + c, dqi[c]);
+    __syncthreads();
+    // fold the pass into the row sums in offset order (the same order for every
+    // group size), and keep each offset's gradient sum for d_offs
+    for (int idx = threadIdx.x; idx < nv * cap; idx += blockDim.x) {
+      const int c = idx / cap, i = idx - c * cap;
+      float sum = G < N_WIN ? s_sum[idx] : 0.0f;
+      for (int ol = 0; ol < G; ++ol) sum += s_res[(ol * nv + c) * cap + i];
+      if (G < N_WIN && g0 + G < N_WIN) s_sum[idx] = sum;
+      else if (c < 3) d_pc[((size_t)home * 3 + c) * cap + i] = sum;
+      else d_q[((size_t)home * cap + i) * C + (c - 3)] = sum;
     }
-    if (lane < 3) atomicAdd(s_doff + 3 * k + lane, off_acc);
+    for (int t = threadIdx.x; t < 3 * G; t += blockDim.x) {
+      const int ol = t / 3, c = t % 3;
+      double s = 0.0;
+      for (int i = 0; i < cap; ++i) s += s_res[(ol * nv + c) * cap + i];
+      s_gsum[3 * (g0 + ol) + c] = s;
+    }
   }
-  e_acc = warp_sum(e_acc);
-  if (lane == 0) atomicAdd(&s_e, e_acc);
+  for (int m = 16; m > 0; m >>= 1) e_acc += __shfl_xor_sync(FULL_MASK, e_acc, m);
+  if (lane == 0) s_e[warp] = e_acc;
   __syncthreads();
-
-  for (int i = threadIdx.x; i < 3 * cap; i += blockDim.x)
-    atomicAdd(d_pc + (size_t)home * 3 * cap + i, s_dpc[i]);
-  for (int i = threadIdx.x; i < cap * C; i += blockDim.x)
-    atomicAdd(d_q + (size_t)home * cap * C + i, s_dq[i]);
-  for (int i = threadIdx.x; i < 3 * N_OFF; i += blockDim.x) atomicAdd(d_offs + i, s_doff[i]);
-  if (threadIdx.x == 0) atomicAdd(e_out, s_e);
+  if (threadIdx.x < 3 * N_OFF) {
+    const int k = threadIdx.x / 3, c = threadIdx.x % 3;
+    if (k != p.self_k) {
+      const int* r = p.offsets + 3 * k;
+      const int o_plus = (r[0] + 1) * 9 + (r[1] + 1) * 3 + r[2] + 1, o_minus = N_WIN - 1 - o_plus;
+      atomicAdd(acc + 1 + threadIdx.x, 0.5 * (s_gsum[3 * o_minus + c] - s_gsum[3 * o_plus + c]));
+    }
+  }
+  if (threadIdx.x == 0) {
+    double e_block = 0.0;
+    for (int w = 0; w < (blockDim.x + 31) / 32; ++w) e_block += s_e[w];
+    atomicAdd(acc, e_block);
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned* count = reinterpret_cast<unsigned*>(acc + 1 + 3 * N_OFF);
+    s_last = atomicAdd(count, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (s_last && threadIdx.x < 3 * N_OFF) {
+    __threadfence();
+    d_offs[threadIdx.x] = (float)((volatile double*)acc)[1 + threadIdx.x];
+  }
 }
 
-extern "C" int tpme_window(const float* pc, const float* q, const float* mf, const float* offs,
-                           double* e, float* d_pc, float* d_q, float* d_offs,
-                           const WindowParams* p, void* stream) {
+extern "C" {
+
+// Offsets per pass for a capacity and channel count on `device`: the most of
+// 27, 9, 3, 1 whose shared memory fits the block's opt-in limit; 0 when none
+// does (then the capacity exceeds tpme_window_max_cap).
+int tpme_window_group(int cap, int n_ch, int device) {
+  int optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, window_kernel<N_WIN>) != cudaSuccess)
+    return 0;
+  const size_t limit = (size_t)optin - attr.sharedSizeBytes;
+  const int groups[4] = {27, 9, 3, 1};
+  for (int group : groups)
+    if (window_smem(cap, n_ch, group) <= limit) return group;
+  return 0;
+}
+
+// The largest capacity that the kernel takes at n_ch channels (one offset a pass).
+int tpme_window_max_cap(int n_ch, int device) {
+  int lo = 0, hi = 1 << 16;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (tpme_window_group(mid, n_ch, device) > 0) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+int tpme_window(const float* pc, const float* q, const float* mf, const float* offs,
+                double* acc, float* d_pc, float* d_q, float* d_offs, const WindowParams* p,
+                void* stream) {
   if (p->n_ch < 1 || p->n_ch > MAX_CH) return (int)cudaErrorInvalidValue;
   const int n_cells = p->nx * p->ny * p->nz;
-  const size_t smem = (size_t)(6 * p->cap + 2 * p->cap * p->n_ch + 3 * N_OFF) * sizeof(float);
-  window_kernel<<<n_cells, 128, smem, (cudaStream_t)stream>>>(pc, q, mf, offs, e, d_pc, d_q,
-                                                             d_offs, *p);
+  const size_t smem = window_smem(p->cap, p->n_ch, p->group);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (p->group) {
+#define WINDOW_CASE(G)                                                                      \
+  case G:                                                                                   \
+    if (cudaFuncSetAttribute(window_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                             (int)smem) != cudaSuccess)                                     \
+      return (int)cudaGetLastError();                                                       \
+    window_kernel<G><<<n_cells, THREADS, smem, st>>>(pc, q, mf, offs, acc, d_pc, d_q, d_offs, *p); \
+    break;
+    WINDOW_CASE(27) WINDOW_CASE(9) WINDOW_CASE(3) WINDOW_CASE(1)
+#undef WINDOW_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
+
+}  // extern "C"

@@ -1,9 +1,9 @@
 """Where the port's entry points put their state when the caller does not say.
 
 An entry point that builds state from host data (numpy arrays, Python
-lists) and is given no ``device`` uses :func:`default_device`.  A tensor
-argument keeps its own device, and ``device="cpu"`` is the caller asking for
-the CPU.
+lists) and is given no ``device`` uses :func:`default_device`: the card.  A
+tensor argument keeps its own device, and ``device="cpu"`` is the caller
+asking for the CPU; nothing falls back to the CPU by itself.
 """
 
 from __future__ import annotations
@@ -14,8 +14,14 @@ __all__ = ["default_device", "resolve_device"]
 
 
 def default_device() -> torch.device:
-    """``cuda`` when a CUDA device is present, else ``cpu``."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """``cuda``; raises when no CUDA device is present."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's state goes to the card unless the caller "
+            "asks for another device; pass device=\"cpu\" (or CPU tensors) to run "
+            "on the CPU"
+        )
+    return torch.device("cuda")
 
 
 def resolve_device(device=None, *like) -> torch.device:

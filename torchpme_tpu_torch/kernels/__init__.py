@@ -103,6 +103,8 @@ class SpreadParams(ctypes.Structure):
         ("n_tiles", ctypes.c_int),
         ("kp", ctypes.c_int),
         ("n_ch", ctypes.c_int),
+        ("z_cells", ctypes.c_int),
+        ("z_chunk", ctypes.c_int),
         ("coeff", ctypes.c_float * (MAX_NODES * MAX_NODES)),
         ("deriv", ctypes.c_float * (MAX_NODES * MAX_NODES)),
     ]
@@ -118,6 +120,7 @@ class WindowParams(ctypes.Structure):
         ("cap", ctypes.c_int),
         ("n_ch", ctypes.c_int),
         ("self_k", ctypes.c_int),
+        ("group", ctypes.c_int),
         ("cutoff_sq", ctypes.c_float),
         ("alpha", ctypes.c_float),
         ("alpha_sq", ctypes.c_float),
@@ -205,6 +208,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, p, p, p, ctypes.POINTER(WindowParams), p,
     ]
     lib.tpme_window.restype = ctypes.c_int
+    lib.tpme_window_group.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.tpme_window_group.restype = ctypes.c_int
+    lib.tpme_window_max_cap.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.tpme_window_max_cap.restype = ctypes.c_int
     lib.tpme_window_dipole.argtypes = [
         p, p, p, p, p, p, p, p, p, p, ctypes.POINTER(WindowDipoleParams), p,
     ]

@@ -38,7 +38,12 @@ from .ops.mesh_tiled import (
     compute_tiled_interpolation,
     supports_tiling,
 )
-from .ops.rspace_cells import CellList, cell_list_rspace_energy_rows, compute_cell_list
+from .ops.rspace_cells import (
+    STALE_TOL,
+    CellList,
+    cell_list_rspace_energy_rows,
+    compute_cell_list,
+)
 from .ops.rspace_cells_dipole import cell_list_rspace_dipole_energy_rows
 from .ops.spread_fused import aligned_geometry, aligned_tiled_density
 
@@ -234,14 +239,18 @@ class MDFastPath(nn.Module):
                 balance is True, _spill, device,
             )
         # overflow balance: x/y slack capped so the widened spread window
-        # still fits the 2-tile fold; z slack is unconstrained on the mesh side
+        # still fits the 2-tile fold, with room for the staleness tolerance
+        # (an atom the check accepts sits up to slack + STALE_TOL cell edges
+        # outside its cell, and one x/y cell is TILE mesh cells); z slack is
+        # unconstrained on the mesh side
         base_extent, _ = aligned_geometry(calc.interpolation_nodes)
         pad_budget = (2 * TILE - base_extent) // 2
         plane = 1.0 / np.linalg.norm(np.linalg.inv(cell_np), axis=0)
         h_mesh = plane[:2] / np.asarray(ns_mesh[:2], np.float64)
         use_balance = balance is True or (balance == "auto" and pad_budget >= 1)
+        cap_cells = max(0.0, pad_budget - STALE_TOL * TILE)
         bal_arg = (
-            (pad_budget * float(h_mesh[0]), pad_budget * float(h_mesh[1]), np.inf)
+            (cap_cells * float(h_mesh[0]), cap_cells * float(h_mesh[1]), np.inf)
             if use_balance
             else False
         )
@@ -250,8 +259,13 @@ class MDFastPath(nn.Module):
             xy_cells=(ns_mesh[0] // TILE, ns_mesh[1] // TILE),
             balance=bal_arg, device=device,
         )
-        # slack is in cell-edge units and one x/y cell is TILE mesh cells
-        aligned_pad = int(np.ceil(max(clist.slack[:2]) * TILE - 1e-9))
+        # the window widens by every mesh cell that an atom the staleness
+        # check accepts (slack + STALE_TOL cell edges of TILE mesh cells past
+        # its tile) can start a stencil in: an even stencil starts at
+        # floor(r), an odd one at round(r), half a cell later
+        reach = (max(clist.slack[:2]) + STALE_TOL) * TILE
+        margin = 0.5 if calc.interpolation_nodes % 2 else 0.0
+        aligned_pad = max(0, int(np.ceil(reach - margin - 1e-9)))
         assert aligned_pad <= pad_budget, "balance slack exceeds the spread window"
         _, cap = clist.slot_mask.shape
         row_of_atom, n_rows = _row_mapping(clist, pos_np.shape[0])
@@ -376,8 +390,9 @@ class MDFastPath(nn.Module):
             pad_cells=self.aligned_pad,
             plain=plain,
         )
-        # mesh staleness is implied by cell-list staleness (an atom inside
-        # its cell keeps its stencil in the tile window), which poisons e_sr
+        # mesh staleness is implied by cell-list staleness (an atom the check
+        # accepts keeps its stencil in the tile window: the pad covers slack
+        # and tolerance), which poisons e_sr
         e_k = self.calc._kspace_energy_from_rho(
             rho, cell, charges, pos_rows, None, self.ns_mesh
         )

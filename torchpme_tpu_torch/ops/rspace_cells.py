@@ -18,6 +18,7 @@ the energy, and every gradient, is NaN.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -28,6 +29,7 @@ from ..device import resolve_device
 from .math import inv3
 
 __all__ = [
+    "STALE_TOL",
     "CellList",
     "cell_list_rspace_energy",
     "cell_list_rspace_energy_rows",
@@ -58,6 +60,11 @@ class CellList:
     extra_mask: torch.Tensor | None = None  # (E,) bool
     extra_cell: torch.Tensor | None = None  # (E, 3) int32
     extra_wrap: torch.Tensor | None = None  # (E, 3) int8
+
+
+#: how far past its assignment slack (in cell edges) an atom may drift before
+#: the staleness check poisons the energy
+STALE_TOL = 1e-4
 
 
 # -- host-side bucketing -------------------------------------------------------
@@ -399,7 +406,7 @@ def _prepare_bucketed(q_raw, pos_raw, cell, clist: CellList):
     with torch.no_grad():
         inv_cell = inv3(cell.detach())
         frac_t = torch.einsum("fe,xyzfa->xyzea", inv_cell * n_axis[None, :], pc_t)
-        bound = 0.5 + torch.tensor(clist.slack, dtype=dtype, device=device) + 1e-4
+        bound = 0.5 + torch.tensor(clist.slack, dtype=dtype, device=device) + STALE_TOL
         valid = torch.all(torch.abs(frac_t) < bound[:, None])
 
     flat = torch.tensor(_window_offsets(cap), dtype=dtype, device=device)
@@ -493,12 +500,29 @@ def _window_params(potential, cutoff: float, pc_t, q_g) -> _k.WindowParams:
     return p
 
 
+@functools.lru_cache(maxsize=None)
+def _window_group(cap: int, n_ch: int, device_index: int) -> int:
+    """Neighbour offsets that kernel C stages per pass at this capacity:
+    27, 9, 3 or 1, the most that fit the card's shared memory.  Raises
+    where even one offset a pass does not fit."""
+    lib = _k.load_library().lib
+    group = lib.tpme_window_group(cap, n_ch, device_index)
+    if group == 0:
+        raise ValueError(
+            f"the window kernel takes a cell capacity of at most "
+            f"{lib.tpme_window_max_cap(n_ch, device_index)} at {n_ch} channel(s), "
+            f"got {cap}; plain=True runs the plain version"
+        )
+    return group
+
+
 def window_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs):
     """Kernel C: window energy and ``(d_pc, d_q, d_offs)`` in one launch.
 
     CPU tensors take :func:`_we_value_and_grad`; CUDA tensors launch the
     kernel (float32, :class:`CoulombPotential`, at most
-    ``kernels.MAX_CHANNELS`` charge channels) or raise.
+    ``kernels.MAX_CHANNELS`` charge channels, a capacity whose one offset
+    fits shared memory: ~3000 at one channel, ~1850 at four) or raise.
     """
     if pc_t.device.type == "cpu":
         return _we_value_and_grad(potential, cutoff, pc_t, q_g, mf_g, offs)
@@ -519,19 +543,22 @@ def window_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs):
     _k.check_cuda_tensor(q_g, "q_g", (nx, ny, nz, cap, n_ch))
     _k.check_cuda_tensor(mf_g, "mf_g", (nx, ny, nz, cap))
     _k.check_cuda_tensor(offs, "offs", (_k.N_OFFSETS, 3))
-    e = torch.zeros((), dtype=torch.float64, device=pc_t.device)
-    d_pc = torch.zeros_like(pc_t)
-    d_q = torch.zeros_like(q_g)
-    d_offs = torch.zeros_like(offs)
+    # the kernel writes every row of its outputs; its double accumulators
+    # (energy, d_offs, a block counter) start at zero
+    acc = torch.zeros(2 + 3 * _k.N_OFFSETS, dtype=torch.float64, device=pc_t.device)
+    d_pc = torch.empty_like(pc_t)
+    d_q = torch.empty_like(q_g)
+    d_offs = torch.empty_like(offs)
     p = _window_params(potential, cutoff, pc_t, q_g)
+    p.group = _window_group(cap, n_ch, pc_t.device.index)
     status = _k.load_library().lib.tpme_window(
         pc_t.data_ptr(), q_g.data_ptr(), mf_g.data_ptr(), offs.data_ptr(),
-        e.data_ptr(), d_pc.data_ptr(), d_q.data_ptr(), d_offs.data_ptr(),
+        acc.data_ptr(), d_pc.data_ptr(), d_q.data_ptr(), d_offs.data_ptr(),
         ctypes.byref(p), _k.stream_handle(pc_t.device),
     )
     _k.check_status(status, "window")
     _k.WINDOW.launches += 1
-    return e.to(torch.float32), (d_pc, d_q, d_offs)
+    return acc[0].to(torch.float32), (d_pc, d_q, d_offs)
 
 
 class _WindowEnergy(torch.autograd.Function):
@@ -570,7 +597,7 @@ def _prepare_extras_bucketed(qe_raw, pe_raw, cell, clist: CellList):
     pe = (pe_abs - centers) * mask  # park padded at 0
     with torch.no_grad():
         frac = torch.matmul(pe, inv3(cell.detach())) * n_axis
-        bound = 0.5 + torch.tensor(clist.slack, dtype=dtype, device=device) + 1e-4
+        bound = 0.5 + torch.tensor(clist.slack, dtype=dtype, device=device) + STALE_TOL
         valid = torch.all(torch.abs(frac) < bound[None, :])
     return pe, pe_abs, qe, valid
 

@@ -9,11 +9,11 @@ Two kernels carry the step (``csrc/spread.cu``):
 
 * **A** (:func:`fused_spread`): scaled fractional coordinates
   ``rel = (pos @ cell⁻¹)·ns`` and charges in, the ``(C, nx, ny, nz)``
-  density out.  Per tile, the stencil weights are evaluated from the
-  coefficient tables, accumulated into a shared-memory tile field and added
-  into the periodic mesh with atomics (the TPU's tile output + parity-class
-  fold exists because TPU scatters serialize; on Hopper the fold and the
-  ``roll(-lpad)`` fuse into the atomic add).
+  density out.  Each block owns the mesh cells of one tile and z chunk
+  (:func:`z_chunk`), reads the slots of the 3×3 tiles around it in the z
+  cells that can reach the chunk, evaluates each slot's stencil weights
+  once and stores its cells: no global atomics, no fold (the TPU's tile
+  output + parity-class fold exists because TPU scatters serialize).
 * **B** (:func:`fused_spread_bwd`): ``(rel, q, ∂E/∂ρ)`` in,
   ``(∂E/∂rel, ∂E/∂q)`` out, one thread per slot against the derivative
   stencils (``d w / d rel``); ``d base / d rel = 0``, as autodiff through
@@ -55,6 +55,15 @@ __all__ = [
 ]
 
 
+def z_chunk(nz: int) -> int:
+    """Mesh z cells that one block of kernel A owns: ``nz`` split into
+    ``max(2, ceil(nz / 128))`` chunks (the last may be short).  More chunks
+    read each slot more often, fewer leave SMs idle: ``chip_smoke.py`` times
+    the neighbouring choices (its ``--profile`` ``z_chunk_sweep`` line)."""
+    n_chunks = max(2, -(-nz // 128))
+    return -(-nz // n_chunks)
+
+
 def aligned_geometry(nodes: int, pad_cells: int = 0) -> tuple[int, int]:
     """(extent, lpad) of the position-bucketed local window: atoms anywhere
     in the tile, so the stencil reaches ``lpad`` cells left of the tile
@@ -86,6 +95,10 @@ class SpreadGeometry:
     lpad: int
     n_tiles: int
     slots_per_tile: int  # nz_c · cap
+    #: cell-list z cells of a tile column (``nz_c``): the slots of z cell
+    #: ``c`` are ``c·cap … (c+1)·cap − 1``.  Kernel A reads, for each z chunk
+    #: of the mesh, only the z cells whose atoms can reach it.
+    z_cells: int
 
     @property
     def ty_count(self) -> int:
@@ -229,6 +242,7 @@ def _params(geom: SpreadGeometry, n_ch: int) -> _k.SpreadParams:
     p.ty_count, p.n_tiles, p.kp, p.n_ch = (
         geom.ty_count, geom.n_tiles, geom.slots_per_tile, n_ch,
     )
+    p.z_cells, p.z_chunk = geom.z_cells, z_chunk(geom.ns[2])
     for o in range(geom.nodes):
         for m in range(coeffs.shape[1]):
             p.coeff[o * _k.MAX_NODES + m] = float(coeffs[o, m])
@@ -258,18 +272,16 @@ def fused_spread(rel: torch.Tensor, q: torch.Tensor, geom: SpreadGeometry):
         return spread_plain(rel, q, geom)
     n_ch = _check_slots(rel, q, geom)
     nx, ny, nz = geom.ns
-    lib = _k.load_library().lib
-    smem = geom.extent * geom.extent * nz * 4
-    # the kernel's static shared memory (coefficient table) comes off the top
-    limit = lib.tpme_max_smem_optin(rel.device.index) - 4 * _k.MAX_NODES**2
-    if smem > limit:
+    # the blocks own every mesh cell once: the tiles must cover the mesh
+    if nx % TILE or ny % TILE or geom.n_tiles != (nx // TILE) * geom.ty_count:
+        raise ValueError(f"{geom.n_tiles} tiles do not cover the {geom.ns} mesh")
+    if geom.slots_per_tile % geom.z_cells:
         raise ValueError(
-            f"spread tile field ({geom.extent}x{geom.extent}x{nz} floats = "
-            f"{smem} B) exceeds the {limit} B of shared memory a block can use"
+            f"{geom.slots_per_tile} slots per tile do not split into {geom.z_cells} z cells"
         )
-    rho = torch.zeros((n_ch, nx, ny, nz), dtype=torch.float32, device=rel.device)
+    rho = torch.empty((n_ch, nx, ny, nz), dtype=torch.float32, device=rel.device)
     p = _params(geom, n_ch)
-    status = lib.tpme_spread_fwd(
+    status = _k.load_library().lib.tpme_spread_fwd(
         rel.data_ptr(), q.data_ptr(), rho.data_ptr(), ctypes.byref(p),
         _k.stream_handle(rel.device),
     )
@@ -357,7 +369,7 @@ def aligned_tiled_density(
             f"pad_cells={pad_cells}) exceeds the 2-tile fold window {2 * TILE}"
         )
     geom = SpreadGeometry(
-        ns, int(nodes), method, extent, lpad, nx_c * ny_c, nz_c * cap
+        ns, int(nodes), method, extent, lpad, nx_c * ny_c, nz_c * cap, nz_c
     )
     nb = geom.n_tiles * geom.slots_per_tile
     ns_t = torch.tensor(ns, dtype=pos_rows.dtype, device=pos_rows.device)

@@ -13,8 +13,12 @@ line) if any phase fails:
    a capacity above 32, and at capacity 250 with four channels, and two of
    its launches bitwise equal in d_pc and d_q; the aligned spread A also at
    nz = 288; the tile kernels D, E, F also at three channels and
-   at the dipolar shapes: 6 nodes, every slot three times; the dipolar window
-   G in smeared and direct mode and with separate i-side dipoles), with
+   at the dipolar shapes: 6 nodes, D's dipole form for its two launches (the
+   spread of the dipoles and of the gather's mesh cotangent), E and F over
+   every slot three times; the dipolar window G in smeared and direct mode
+   and with separate i-side dipoles, and on the 3×3×3 cell grid at
+   capacities 72 and 250 with and without them, with two launches bitwise
+   equal in d_pc, d_mu, d_mui and its outputs against float64), with
    CUDA-event times of both (launches queued on the card, so that the host's
    pace does not enter) and the least time the card could take (bytes over
    memory rate, operations over the float32 rate);
@@ -45,8 +49,10 @@ line) if any phase fails:
 
 With ``--profile`` it also traces the four 102k paths with ``torch.profiler``
 and prints, for each, the device time and the number of device events per
-call and the kernels that take most of it, and times kernel A's z chunk
-(``ops/spread_fused.py:z_chunk``) beside the neighbouring choices.
+call and the kernels that take most of it, times kernel A's z chunk
+(``ops/spread_fused.py:z_chunk``) beside the neighbouring choices, and counts
+the atomic instructions of each kernel in the built library's SASS
+(``cuobjdump -sass``).
 
 Imports torch, numpy, scipy (through the port's neighbor list) and the
 port; nothing of JAX.
@@ -122,6 +128,10 @@ DIPOLE_GT_BAR = 5e-4  # mesh PME vs converged Ewald, relative energy
 # ~1e5 (closest pairs 0.04 A apart under 1/d^4) whose float32 rounding alone
 # is ~1e-4 of the ~1e3 cell gradient
 DIPOLE_CELL_TOL = 5e-4
+# kernel G's d_offs against float64: double sums of float32 per-offset sums
+# (the float32 plain version is 1.2e-4 off at the 102k window, up to 6e-4 on
+# the 3x3x3 grid)
+G_D_OFFS_F64_TOL = 1e-4
 # FLOPs of kernel G per pair inside the cutoff: 46 (smeared) or 8 (direct)
 # for (B, C, C'/d) with expf and rsqrtf as one each, and 72 for the three
 # contractions, the energy and the twelve i- and j-side cotangent terms
@@ -271,7 +281,8 @@ def check_kernel(name, source, replaces, run_kernel, run_plain, cost, report,
     """One kernel against its plain version (same inputs), timed, with its
     bound; appends the entry of the ``kernels`` line to ``report``.  ``tols``
     are per-output bars (default ``KERNEL_TOL``) on the max abs error over
-    max |plain|."""
+    max |plain|; ``None`` for an output that the caller holds to float64
+    instead."""
     got, ref = run_kernel(), run_plain()
     sync()
     errs = [rel_err(a, b) for a, b in zip(got, ref)]
@@ -286,7 +297,7 @@ def check_kernel(name, source, replaces, run_kernel, run_plain, cost, report,
           "flop": cost["flop"], "per_output_rel_err": [r for _, r in errs],
           "per_output_tol": tols})
     for i, ((_, r), tol) in enumerate(zip(errs, tols)):
-        if not r <= tol:
+        if tol is not None and not r <= tol:
             raise AssertionError(f"{name} ({shape}): output {i} kernel vs plain {r:.3e} > {tol}")
     if name not in report:  # a second shape of a kernel is checked, not listed twice
         report[name] = entry
@@ -321,6 +332,26 @@ def profile_path(name: str, fn, calls: int = 5) -> None:
           "device_events_per_call": sum(e.count for e in on_device) / calls,
           "top": [{"name": e.key[:60], "ms_per_call": e.self_device_time_total / 1e3 / calls,
                    "per_call": e.count / calls} for e in on_device[:8]]})
+
+
+def sass_atomics(kernels, path) -> None:
+    """The atomic instructions of each kernel of the built library, counted
+    in its SASS (``cuobjdump -sass``): shared-memory float atomics that
+    compile to compare-and-swap loops show as ``ATOMS.CAS*``."""
+    tool = Path(kernels._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
+                         check=True).stdout
+    counts, name = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :", 1)[1].strip()
+        elif name and "/*" in ln:
+            parts = ln.split("*/", 1)[-1].strip().rstrip(";").split()
+            ops = [t for t in parts if t[:1].isupper()][:1]
+            if ops and ops[0].split(".")[0] in ("ATOMS", "ATOM", "ATOMG", "RED", "REDG"):
+                counts.setdefault(name, {}).setdefault(ops[0], 0)
+                counts[name][ops[0]] += 1
+    emit({"phase": "sass_atomics", "kernels": counts})
 
 
 def dipole_phases(env) -> None:
@@ -371,59 +402,110 @@ def dipole_phases(env) -> None:
             mu32.index_select(0, fp.clist.atom_index.reshape(-1).long()).reshape(n_cells, cap, 3),
             rows32[: n_cells * cap].reshape(n_cells, cap, 3), cell32, fp.clist,
         )
-    # the work of this run's data: candidate pairs of occupied slots, and those
-    # of them the window's mask lets through (cutoff, no self pair)
-    occ = mf_g.sum(-1).double()
-    cutoff_sq = torch.tensor(CUTOFF, **f32) ** 2
-    candidates, inside = 0.0, 0
-    for k, offset in enumerate(_window_offsets(cap)):
-        shift = tuple(-o for o in offset)
-        candidates += float((occ * torch.roll(occ, shift, dims=(0, 1, 2))).sum())
-        pair_ok = rcd._offset_geometry(k, offset, pc_t, mu_g, mf_g, offs, cutoff_sq)[2]
-        inside += int((pair_ok & (mf_g[..., :, None] > 0.5)).sum())
-    del pair_ok
-    gen = torch.Generator(device=dev).manual_seed(1)
-    keep = (torch.rand(mu_g.shape[:3], generator=gen, device=dev) > 0.3).to(mu_g.dtype)
-    mui_split = (mu_g * keep[..., None, None]).contiguous()
-
-    def window(fn, potential, mui):
-        e, grads = fn(potential, CUTOFF, pc_t, mu_g, mf_g, offs, mui)
+    def window(fn, potential, ins, mui, e_ref):
+        e, grads = fn(potential, CUTOFF, *ins, mui)
         if mui is not None:
             # with some i-side dipoles zeroed the energy loses the close pairs
             # that dominate it, not its rounding error: its error is taken
             # over the energy of all the dipoles, which rides beside it
-            e = torch.stack([e, e_all.to(e.dtype)])
+            e = torch.stack([e, e_ref.to(e.dtype)])
         return (e, *grads)
 
-    with torch.no_grad():
-        e_all = rcd._dw_value_and_grad(pot, CUTOFF, pc_t, mu_g, mf_g, offs)[0]
-    for shape, potential, mui in (("smeared", pot, None), ("direct", tpt.PotentialDipole(), None),
-                                  ("smeared, separate i-side dipoles", pot, mui_split)):
+    def window_dipole_check(potential, ins, mui, shape):
+        """Kernel G against its plain version on ``ins`` (bound: the work of
+        this data, the candidate pairs of occupied slots of the half window
+        and those inside the cutoff), against float64, and two launches
+        bitwise equal in d_pc, d_mu[, d_mui]."""
+        pc_i, mu_i, mf_i, offs_i = ins
+        occ_i = mf_i.sum(-1).double()
+        cut2 = torch.tensor(CUTOFF, **f32) ** 2
+        n_cand, n_in = 0.0, 0
+        for k, offset in enumerate(_window_offsets(pc_i.shape[-1])):
+            shift = tuple(-o for o in offset)
+            n_cand += float((occ_i * torch.roll(occ_i, shift, dims=(0, 1, 2))).sum())
+            ok = rcd._offset_geometry(k, offset, pc_i, mu_i, mf_i, offs_i, cut2)[2]
+            n_in += int((ok & (mf_i[..., :, None] > 0.5)).sum())
+        del ok
         extra = [] if mui is None else [mui]
-        n_out = 3 if mui is None else 4
+        with torch.no_grad():
+            e_all = rcd._dw_value_and_grad(potential, CUTOFF, *ins)[0]
+            # float64 on the same inputs, the reference of both float32 versions
+            dbl = [t.double() for t in ins]
+            e64 = rcd._dw_value_and_grad(potential, CUTOFF, *dbl)[0]
+            ref64 = window(rcd._dw_value_and_grad, potential, dbl,
+                           None if mui is None else mui.double(), e64)
+            ref = window(rcd._dw_value_and_grad, potential, ins, mui, e_all)
+        plain_f64 = [rel_err(a, b)[1] for a, b in zip(ref, ref64)]
+        # d_offs: the plain version's float32 sum of a cancelling total is
+        # itself up to ~6e-4 off float64 on the 3x3x3 grid, so the kernel's
+        # d_offs is held to float64 alone (below), at G_D_OFFS_F64_TOL
+        tols = [KERNEL_TOL, KERNEL_TOL, KERNEL_TOL, None, KERNEL_TOL]
         check_kernel(
             "window_dipole", "torchpme_tpu_torch/csrc/window_dipole.cu",
             "torchpme_tpu/ops/pallas/window_dipole_pallas.py:81",
-            lambda: window(rcd.dipole_window_value_and_grad, potential, mui),
-            lambda: window(rcd._dw_value_and_grad, potential, mui),
+            lambda: window(rcd.dipole_window_value_and_grad, potential, ins, mui, e_all),
+            lambda: window(rcd._dw_value_and_grad, potential, ins, mui, e_all),
             # inputs once, outputs (e in double, d_pc, d_mu, d_offs[, d_mui]) once; 11
             # operations to place and test a candidate, G_PAIR_FLOP more inside the cutoff
-            bound(nbytes(pc_t, mu_g, mf_g, offs, *extra, pc_t, mu_g, offs, *extra) + 8,
-                  11 * candidates + G_PAIR_FLOP[shape.split(",")[0]] * inside),
-            env.report,
-            tols=[KERNEL_TOL, KERNEL_TOL, KERNEL_TOL, D_OFFS_TOL, KERNEL_TOL][: n_out + 1],
-            shape=shape,
+            bound(nbytes(*ins, *extra, pc_i, mu_i, offs_i, *extra) + 8,
+                  11 * n_cand + G_PAIR_FLOP["direct" if potential.smearing is None
+                                            else "smeared"] * n_in),
+            env.report, tols=tols[: 4 + len(extra)], shape=shape,
         )
-    # where the float32 plain version itself stands against float64
-    dbl = [t.double() for t in (pc_t, mu_g, mf_g, offs)]
-    e64, grads64 = rcd._dw_value_and_grad(pot, CUTOFF, *dbl)
-    got = window(rcd.dipole_window_value_and_grad, pot, None)
-    ref = window(rcd._dw_value_and_grad, pot, None)
-    emit({"phase": "kernel_vs_float64", "name": "window_dipole",
-          "candidate_pairs": candidates, "pairs_inside_cutoff": inside,
-          "kernel_rel_err": [rel_err(a, b)[1] for a, b in zip(got, (e64, *grads64))],
-          "plain_f32_rel_err": [rel_err(a, b)[1] for a, b in zip(ref, (e64, *grads64))]})
-    del dbl, e64, grads64, got, ref, mui_split
+        got = window(rcd.dipole_window_value_and_grad, potential, ins, mui, e_all)
+        kernel_f64 = [rel_err(a, b)[1] for a, b in zip(got, ref64)]
+        emit({"phase": "kernel_vs_float64", "name": "window_dipole", "shape": shape,
+              "candidate_pairs": n_cand, "pairs_inside_cutoff": n_in,
+              "kernel_rel_err": kernel_f64,
+              "plain_f32_rel_err": plain_f64})
+        f64_tols = [KERNEL_TOL, KERNEL_TOL, KERNEL_TOL, G_D_OFFS_F64_TOL, KERNEL_TOL]
+        if not all(err <= tol for err, tol in zip(kernel_f64, f64_tols)):
+            raise AssertionError(f"kernel G vs float64 {kernel_f64} ({shape})")
+        # each row of d_pc, d_mu and d_mui has one writer: launches agree bit for bit
+        first, again = (rcd.dipole_window_value_and_grad(potential, CUTOFF, *ins, mui)[1]
+                        for _ in range(2))
+        sync()
+        same = [bool(torch.equal(first[i], again[i])) for i in (0, 1, 3)[: 2 + len(extra)]]
+        emit({"phase": "kernel_reproducible", "name": "window_dipole", "shape": shape,
+              "d_pc_d_mu_d_mui_bitwise_equal": same})
+        if not all(same):
+            raise AssertionError(f"kernel G's row gradients differ between two launches ({shape})")
+        del dbl, ref64, got, ref, first, again
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    keep = (torch.rand(mu_g.shape[:3], generator=gen, device=dev) > 0.3).to(mu_g.dtype)
+    mui_split = (mu_g * keep[..., None, None]).contiguous()
+    ins = (pc_t, mu_g, mf_g, offs)
+    for shape, potential, mui in (("smeared", pot, None), ("direct", tpt.PotentialDipole(), None),
+                                  ("smeared, separate i-side dipoles", pot, mui_split)):
+        window_dipole_check(potential, ins, mui, shape)
+    del mui_split
+    # the 3x3x3 cell grid at its own capacity and at EDGE_CAPACITY, with and
+    # without separate i-side dipoles
+    lib = kernels.load_library().lib
+    emit({"phase": "window_dipole_capacity", "largest_capacity": {
+        "mu": lib.tpme_window_dipole_max_cap(0, torch.cuda.current_device()),
+        "mu_and_mui": lib.tpme_window_dipole_max_cap(1, torch.cuda.current_device())}})
+    epos, _, ecell = dense_grid_box()
+    emu = torch.tensor(np.random.default_rng(3).normal(size=(EDGE_GRID_ATOMS, 3)), **f32)
+    for capacity in (None, EDGE_CAPACITY):
+        eclist = tpt.ops.compute_cell_list(epos, ecell, CUTOFF, capacity=capacity, spill=False,
+                                           device=dev)
+        e_cap = eclist.slot_mask.shape[1]
+        if eclist.n_axis != (3, 3, 3) or e_cap <= 32:
+            raise AssertionError(f"edge grid {eclist.n_axis}, capacity {e_cap}")
+        eidx = eclist.atom_index.long()
+        with torch.no_grad():
+            e_ins = _prepare_bucketed(emu[eidx], torch.tensor(epos, **f32)[eidx],
+                                      torch.tensor(ecell, **f32), eclist)[:4]
+        e_keep = (torch.rand(e_ins[1].shape[:3], generator=gen, device=dev) > 0.3).float()
+        for mui in (None, (e_ins[1] * e_keep[..., None, None]).contiguous()):
+            split = mui is not None
+            warps = rcd._window_dipole_warps(e_cap, split, e_ins[0].device.index)
+            window_dipole_check(
+                pot, e_ins, mui, f"3x3x3 cells, capacity {e_cap}"
+                f"{', separate i-side dipoles' if split else ''}, {warps} home cells a block")
+        del e_ins
 
     slots = dipole_slots(interp)
     arrays = (slots.local_x, slots.local_y, slots.start_z, slots.weights.contiguous())
@@ -434,13 +516,24 @@ def dipole_phases(env) -> None:
     q_slots = _slot_values(interp, nu).reshape(n_tiles, 1, 3 * tile_cap).contiguous()
     field, n3 = env.ct_rho, DIPOLE_NODES**3
     mesh_src, mesh_ref = "torchpme_tpu_torch/csrc/mesh.cu", "torchpme_tpu/ops/pallas/mesh_pallas.py"
+    # kernel D's dipole form, one pass per slot: the spread of the dipoles
+    # (forward) and of the gather's mesh cotangent, per-slot values (T, 3, K)
+    # that are zero in empty slots (the backward of the atom gather)
+    dip_args = (interp.local_x, interp.local_y, interp.start_z, interp.weights, interp.dweights)
+    occupied = (interp.atom_of_slot < N_ATOMS).to(torch.float32)[:, None, :]
+    ct_slots = torch.randn((n_tiles, 3, tile_cap), generator=gen, **f32) * occupied
+    for label, vals in (("the spread of the dipoles", q_slots.reshape(n_tiles, 3, tile_cap)),
+                        ("the gather's mesh cotangent", ct_slots)):
+        check_kernel(
+            "mesh_spread", mesh_src, f"{mesh_ref}:213",
+            lambda vals=vals: (mk.mesh_spread_dipole(*dip_args, vals, NS_MESH, DIPOLE_NODES),),
+            lambda vals=vals: (mk.mesh_spread_dipole_plain(*dip_args, vals, NS_MESH,
+                                                           DIPOLE_NODES),),
+            bound(nbytes(*once, vals, field), 3 * N_ATOMS * 2 * n3), env.report,
+            shape=f"dipole form, {label}: {DIPOLE_NODES} nodes, T={n_tiles}, K={tile_cap}",
+        )
+    del ct_slots
     shape = f"dipolar: {DIPOLE_NODES} nodes, T={n_tiles}, K=3x{tile_cap}"
-    check_kernel(
-        "mesh_spread", mesh_src, f"{mesh_ref}:213",
-        lambda: (mk.mesh_spread(*arrays, q_slots, NS_MESH, DIPOLE_NODES),),
-        lambda: (mk.mesh_spread_plain(*arrays, q_slots, NS_MESH, DIPOLE_NODES),),
-        bound(nbytes(*once, q_slots, field), 3 * N_ATOMS * 2 * n3), env.report, shape=shape,
-    )
     check_kernel(
         "mesh_gather", mesh_src, f"{mesh_ref}:239",
         lambda: (mk.mesh_gather(*arrays, field, NS_MESH, DIPOLE_NODES),),
@@ -664,6 +757,8 @@ def main() -> int:
             ptxas[entry] = (ptxas.get(entry, "") + " " + ln.split(":", 1)[-1].strip()).strip()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": built.build_seconds, "ptxas": ptxas})
+    if profile:
+        sass_atomics(kernels, built.path)
 
     # -- the 102k system (host build; the state lands on the card by default) ---
     positions, charges, cell = water_box(N_ATOMS)

@@ -20,6 +20,7 @@ from torchpme_tpu.ops import mesh as jm
 from torchpme_tpu.ops import mesh_tiled as jmt
 from torchpme_tpu_torch.convert import tiled_interp_from_state, tiled_interp_state
 from torchpme_tpu_torch.ops import mesh as tm
+from torchpme_tpu_torch.ops import mesh_kernels as mk
 from torchpme_tpu_torch.ops import mesh_tiled as mt
 
 torch.set_num_threads(1)
@@ -203,3 +204,142 @@ def test_tiled_dipole_gradients_match_jax(nodes):
     for a, b in zip(got, ref):
         scale = float(np.abs(np.asarray(b)).max())
         np.testing.assert_allclose(a.numpy() / scale, np.asarray(b) / scale, rtol=0, atol=1e-11)
+
+
+# -- kernel D's dipole form: one pass per slot, mirrored in float64 ----------------
+
+
+def _one_pass_mirror(interp, nu_slots):
+    """Test-only mirror of kernel D's dipole form: per slot and node ``(a, b,
+    c)`` the value ``w_y[b](ν_x w_z[c] dw_x[a] + ν_z dw_z[c] w_x[a]) +
+    dw_y[b] ν_y w_z[c] w_x[a]`` built from the slot's weights once, landing
+    on window cell ``(lx + a, ly + b)`` of its tile (dropped beyond the
+    window), i.e. mesh cell ``(tx·8 + lx + a, ty·8 + ly + b, sz + c)`` modulo
+    the mesh."""
+    nx, ny, nz = interp.ns
+    n = interp.nodes
+    t, _ = interp.local_x.shape
+    ty_count = ny // mt.TILE
+    tile = torch.arange(t)
+    ox, oy = (tile // ty_count * mt.TILE)[:, None, None], (tile % ty_count * mt.TILE)[:, None, None]
+    w, dw = interp.weights, interp.dweights
+    wx, wy, wz = w[..., 0, :], w[..., 1, :], w[..., 2, :]
+    dwx, dwy, dwz = dw[..., 0, :], dw[..., 1, :], dw[..., 2, :]
+    nux, nuy, nuz = (nu_slots[:, a, :, None] for a in range(3))
+    al, be, ga = nux * wz, nuy * wz, nuz * dwz  # (T, K, c)
+    pa = al[..., None, :] * dwx[..., :, None] + ga[..., None, :] * wx[..., :, None]  # (T, K, a, c)
+    qa = be[..., None, :] * wx[..., :, None]
+    val = pa[..., :, None, :] * wy[..., None, :, None] + qa[..., :, None, :] * dwy[..., None, :, None]
+    nodes = torch.arange(n)
+    xa = interp.local_x.long()[..., None] + nodes
+    yb = interp.local_y.long()[..., None] + nodes
+    zc = torch.remainder(interp.start_z.long()[..., None] + nodes, nz)
+    extent = mt.TILE + n - 1
+    keep = (xa < extent)[..., :, None, None] & (yb < extent)[..., None, :, None]
+    gx, gy = torch.remainder(ox + xa, nx), torch.remainder(oy + yb, ny)
+    idx = (gx[..., :, None, None] * ny + gy[..., None, :, None]) * nz + zc[..., None, None, :]
+    val = torch.where(keep, val, 0.0)
+    mesh = torch.zeros(nx * ny * nz, dtype=val.dtype).index_add(0, idx.reshape(-1), val.reshape(-1))
+    return mesh.reshape(1, nx, ny, nz)
+
+
+def _dipole_case(nodes, seed=8):
+    positions, dipoles = make_system(seed=seed)
+    interp_j, _ = _both_tiled(positions, nodes)
+    interp_t = tiled_interp_from_state(jax_tiled_state(interp_j), device="cpu")
+    nu = (dipoles @ INV) * np.asarray(NS)
+    return interp_j, interp_t, nu
+
+
+@pytest.mark.parametrize("nodes", [3, 4, 6, 7])
+def test_one_pass_dipole_spread_matches_plain_and_jax(nodes):
+    """The one-pass three-term stencil ≡ the plain version (the charge form
+    over every slot three times) ≤ 1e-12, and ≡ the JAX package's
+    concatenated spread ≤ 1e-10; the wrapper is the plain version on CPU
+    tensors."""
+    interp_j, interp_t, nu = _dipole_case(nodes)
+    nu_slots = mt._slot_values(interp_t, torch.tensor(nu))
+    it = interp_t
+    args = (it.local_x, it.local_y, it.start_z, it.weights, it.dweights, nu_slots, NS, nodes)
+    plain = mk.mesh_spread_dipole_plain(*args)
+    mirror = _one_pass_mirror(interp_t, nu_slots)
+    np.testing.assert_allclose(mirror.numpy(), plain.numpy(), rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(mk.mesh_spread_dipole(*args).numpy(), plain.numpy())
+    q_j = np.asarray(jmt.tiled_dipoles_to_mesh(interp_j, jnp.asarray(nu)))
+    np.testing.assert_allclose(mirror.numpy(), q_j, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(
+        mt.tiled_dipoles_to_mesh(interp_t, torch.tensor(nu)).numpy(), q_j, rtol=0, atol=1e-10
+    )
+
+
+def _leaves(interp, requires_grad=True):
+    """The interp with fresh leaf weights and derivatives."""
+    from dataclasses import replace
+
+    w = interp.weights.detach().clone().requires_grad_(requires_grad)
+    dw = interp.dweights.detach().clone().requires_grad_(requires_grad)
+    return replace(interp, weights=w, dweights=dw), w, dw
+
+
+@pytest.mark.parametrize("nodes", [4, 6])
+@pytest.mark.parametrize("share_slots", [False, True])
+def test_dipole_form_autograd_matches_the_tripled_path(nodes, share_slots):
+    """The cotangents of ``weights``, ``dweights`` and ``ν`` through the
+    dipole form's spread and gather (kernel D's dipole form forward and in the
+    gather's backward, E and F over the tripled slots) ≡ those of the path
+    through ``dipole_slots`` and the charge-form functions, and ≡ the
+    one-pass mirror's own autograd, ≤ 1e-12."""
+    _, interp_t, nu = _dipole_case(nodes, seed=9)
+    rng = np.random.default_rng(10)
+    nu_slots = mt._slot_values(interp_t, torch.tensor(nu))
+    ct_mesh = torch.tensor(rng.normal(size=(1, *NS)))
+    field = torch.tensor(rng.normal(size=(1, *NS)))
+    ct_vals = torch.tensor(rng.normal(size=nu_slots.shape))
+
+    def run(path):
+        it, w, dw = _leaves(interp_t)
+        nu_ = nu_slots.clone().requires_grad_()
+        fld = field.clone().requires_grad_()
+        t, _, k = nu_.shape
+        if path == "tripled":
+            slots = mt.dipole_slots(it)
+            mesh = mk.spread_tiles(slots, nu_.reshape(t, 1, 3 * k))
+            vals = mk.gather_tiles(slots, fld).reshape(t, 3, k)
+        elif path == "mirror":
+            mesh = _one_pass_mirror(it, nu_)
+            vals = mk.gather_tiles(mt.dipole_slots(it), fld).reshape(t, 3, k)
+        else:
+            with torch.no_grad():
+                slots = mt.dipole_slots(it) if share_slots else None
+            mesh = mk.spread_dipoles(it, nu_, slots=slots)
+            vals = mk.gather_dipole_fields(it, fld, slots=slots)
+        loss = (mesh * ct_mesh).sum() + (vals * ct_vals).sum()
+        return torch.autograd.grad(loss, (w, dw, nu_, fld))
+
+    got, ref, mirror = run("dipole"), run("tripled"), run("mirror")
+    for label, a, b, m in zip(("weights", "dweights", "nu", "mesh"), got, ref, mirror):
+        scale = float(b.abs().max())
+        np.testing.assert_allclose(a.numpy() / scale, b.numpy() / scale, rtol=0, atol=ATOL,
+                                   err_msg=label)
+        np.testing.assert_allclose(m.numpy() / scale, b.numpy() / scale, rtol=0, atol=ATOL,
+                                   err_msg=label)
+
+
+@pytest.mark.parametrize("fn", ["spread_dipoles", "gather_dipole_fields"])
+def test_dipole_form_backward_refuses_slots_changed_in_place(fn):
+    """The tripled slots that the backward reads are saved for it: changing
+    the caller's ``dipole_slots`` weights in place after the forward makes
+    the backward raise instead of using stale values."""
+    _, interp_t, nu = _dipole_case(4, seed=9)
+    it, w, _ = _leaves(interp_t)
+    with torch.no_grad():
+        slots = mt.dipole_slots(it)
+    if fn == "spread_dipoles":
+        x = mt._slot_values(interp_t, torch.tensor(nu)).requires_grad_()
+        out = mk.spread_dipoles(it, x, slots=slots)
+    else:
+        x = torch.zeros((1, *NS), dtype=torch.float64, requires_grad=True)
+        out = mk.gather_dipole_fields(it, x, slots=slots)
+    slots.weights.mul_(2.0)
+    with pytest.raises(RuntimeError, match="inplace"):
+        torch.autograd.grad(out.sum(), (w, x))

@@ -19,6 +19,7 @@ from torchpme_tpu.ops import rspace_cells as jax_rc
 from torchpme_tpu.ops import rspace_cells_dipole as jax_rcd
 from torchpme_tpu.ops.pallas import window_dipole_pallas as jax_wdp
 from torchpme_tpu_torch import PotentialDipole
+from torchpme_tpu_torch.ops import rspace_cells as port_rc
 from torchpme_tpu_torch.ops import rspace_cells_dipole as port_rcd
 
 torch.set_num_threads(1)
@@ -328,3 +329,140 @@ def test_window_dipole_params_mirror_the_potential():
     assert list(p.offsets[-3:]) == [0, 0, 0]
     direct = port_rcd._window_dipole_params(PotentialDipole(), CUTOFF, arrays_t[0])
     assert direct.direct == 1 and "window_dipole" in kernels.launch_counts()
+
+
+# -- kernel G's decomposition, mirrored in float64 ----------------------------------
+
+
+def _home_side_mirror(potential, cutoff, pc_t, mu_g, mf_g, offs, mui_g=None):
+    """Test-only mirror of kernel G's index algebra: every home atom gathers
+    over all 27 neighbor offsets and keeps only its own (home-side) terms.
+
+    Offset ``o`` is half-window row ``k`` (vector ``offs[k]``, sign +) or its
+    negation (sign −).  Partners are each neighbor cell's occupied slots in
+    slot order (the kernel's compacted staging).  The home atom takes weight
+    ``wi`` of the i-side terms (1 at +k, ½ on the self cell) and ``wj`` of
+    the j-side ones (1 at −k, ½ on the self cell; occupied slots only), and
+    the energy comes from the i side.  Without ``mui_g`` both sides read
+    ``mu``; with it the i side reads ``mui`` against the partner's ``mu``
+    (cotangent to ``d_mui``) and the j side ``mu`` against the partner's
+    ``mui`` (to ``d_mu``).  Empty slots sit at the centre with zero dipoles.
+    ``d_offs[k] = ½(S(−k) − S(+k))`` over the home-side position gradients,
+    and the self row is ½(S_j − S_i) of its two roles."""
+    nx, ny, nz, _, cap = pc_t.shape
+    half = port_rc._window_offsets(cap)
+    self_k = half.index((0, 0, 0))
+    cut2 = torch.tensor(cutoff, dtype=pc_t.dtype) ** 2
+    scalars, cderiv = port_rcd._scalar_hooks(potential)
+    split = mui_g is not None
+    mui_g = mu_g if mui_g is None else mui_g
+    occupied = mf_g > 0.5
+    p_home = pc_t.transpose(-1, -2)  # (x, y, z, cap, 3)
+    # compacted partner order: occupied slots first, in slot order
+    order = torch.argsort((~occupied).to(torch.int8), dim=-1, stable=True)
+
+    def compact(t):  # (x, y, z, cap, c) by the cell's own order
+        return torch.gather(t, 3, order[..., None].expand_as(t))
+
+    p_c, mu_c, mui_c, occ_c = (compact(t) for t in (p_home, mu_g, mui_g, occupied[..., None]))
+    e = torch.zeros((), dtype=torch.float64)
+    d_pc, d_mu, d_mui = (torch.zeros_like(t) for t in (p_home, mu_g, mu_g))
+    g_sum = {+1: torch.zeros_like(offs), -1: torch.zeros_like(offs)}
+    self_row = torch.zeros(3, dtype=pc_t.dtype)
+
+    def role(r, d_sq_safe, ok, m_home, m_part, w):
+        """(energy, w·dE/dp_home, w·dE/dm_home) of one role, summed over the partners."""
+        d = torch.sqrt(d_sq_safe)
+        b, c = scalars(d)
+        cpd = cderiv(d, b, c) / d
+        okf = ok.to(pc_t.dtype)
+        mm = (m_home[..., :, None, :] * m_part[..., None, :, :]).sum(-1)
+        rh = (m_home[..., :, None, :] * r).sum(-1)
+        rp = (m_part[..., None, :, :] * r).sum(-1)
+        s = -(c * mm) - cpd * rh * rp
+        g = (-s[..., None] * r + (c * rp)[..., None] * m_home[..., :, None, :]
+             + (c * rh)[..., None] * m_part[..., None, :, :])
+        h = b[..., None] * m_part[..., None, :, :] - (c * rp)[..., None] * r
+        wf = w[..., None]
+        return ((okf * (b * mm - c * rh * rp)).sum(-1),
+                (okf[..., None] * g).sum(-2) * wf, (okf[..., None] * h).sum(-2) * wf)
+
+    for o in port_rc._D27:
+        neg = tuple(-c for c in o)
+        sign = +1 if o in half else -1
+        k = half.index(o if sign > 0 else neg)
+        is_self = o == (0, 0, 0)
+        pj = torch.roll(p_c, neg, dims=(0, 1, 2)) + sign * offs[k]
+        mu_p = torch.roll(mu_c, neg, dims=(0, 1, 2))
+        mui_p = torch.roll(mui_c, neg, dims=(0, 1, 2))
+        occ_p = torch.roll(occ_c, neg, dims=(0, 1, 2))[..., 0]
+        r = pj[..., None, :, :] - p_home[..., :, None, :]  # (x, y, z, home, partner, 3)
+        d_sq = (r**2).sum(-1)
+        ok = (d_sq > 0) & (d_sq < cut2) & occ_p[..., None, :]
+        d_sq_safe = torch.where(ok, d_sq, 1.0)
+        wi = torch.full(occupied.shape, 0.5 if is_self else float(sign > 0), dtype=pc_t.dtype)
+        wj = torch.where(occupied, 0.5 if is_self else float(sign < 0), 0.0).to(pc_t.dtype)
+        if not split:
+            pair_e, g, h = role(r, d_sq_safe, ok, mu_g, mu_p, wi + wj)
+            e = e + (wi * pair_e).sum()
+            d_pc, d_mu = d_pc + g, d_mu + h
+        else:
+            pair_e, g_i, h_i = role(r, d_sq_safe, ok, mui_g, mu_p, wi)
+            _, g_j, h_j = role(r, d_sq_safe, ok, mu_g, mui_p, wj)
+            e = e + (wi * pair_e).sum()
+            g = g_i + g_j
+            d_pc, d_mui, d_mu = d_pc + g, d_mui + h_i, d_mu + h_j
+            if is_self:
+                self_row = self_row + 0.5 * (g_j - g_i).sum(dim=(0, 1, 2, 3))
+        if not is_self:
+            g_sum[sign][k] += g.sum(dim=(0, 1, 2, 3))
+    d_offs = 0.5 * (g_sum[-1] - g_sum[+1])
+    d_offs[self_k] = self_row
+    grads = (d_pc.transpose(-1, -2), d_mu, d_offs)
+    return e, grads + ((d_mui,) if split else ())
+
+
+def _dense_dipole_grid(split):
+    """A triclinic 3×3×3 cell grid whose capacity exceeds one warp, with
+    empty slots (float64), and the i-side dipoles of the split case."""
+    rng = np.random.default_rng(23)
+    cell = np.eye(3) * 9.5 + np.asarray([[0, 0, 0], [0.7, 0, 0], [-0.4, 0.5, 0]])
+    pos = rng.uniform(0, 1, (1100, 3)) @ cell
+    mu = rng.normal(size=(1100, 3))
+    clist = port_rc.compute_cell_list(pos, cell, CUTOFF, spill=False, device="cpu")
+    n_cells, cap = clist.slot_mask.shape
+    assert clist.n_axis == (3, 3, 3) and cap > 32
+    idx = clist.atom_index.long()
+    pc_t, mu_g, mf_g, offs, valid = port_rc._prepare_bucketed(
+        torch.tensor(mu)[idx], torch.tensor(pos)[idx], torch.tensor(cell), clist
+    )
+    assert bool(valid) and not bool(mf_g.bool().all())
+    mui_g = None
+    if split:
+        keep = torch.tensor(rng.uniform(size=mu_g.shape[:3]) > 0.3, dtype=mu_g.dtype)
+        mui_g = mu_g * keep[..., None, None]
+    return [pc_t, mu_g, mf_g, offs, mui_g]
+
+
+MIRROR_CASES = [(name, split) for name in ("triclinic", "direct", "grid3_cap_gt_32")
+                for split in (False, True)]
+
+
+@pytest.mark.parametrize("name,split", MIRROR_CASES,
+                         ids=[f"{n}-{'split' if s else 'mu'}" for n, s in MIRROR_CASES])
+def test_kernel_decomposition_matches_plain(name, split):
+    """Kernel G's 27-offset home-side gather (roles by offset sign, the
+    centre item for empty slots, compacted partners, d_offs from the ± pairs)
+    ≡ the plain half window with its j-side roll, float64, ≤ 1e-12 of max."""
+    if name == "grid3_cap_gt_32":
+        arrays = _dense_dipole_grid(split)
+        pot = PotentialDipole(smearing=0.8, prefactor=1.3)
+    else:
+        case = {**F64_CASES[name], "seed": 11 if split else F64_CASES[name].get("seed", 0)}
+        _, pot, _, arrays, _ = _window_inputs(dt="float64", split=split, **case)
+    e_m, g_m = _home_side_mirror(pot, CUTOFF, *arrays)
+    e_p, g_p = port_rcd._dw_value_and_grad(pot, CUTOFF, *arrays)
+    assert len(g_m) == len(g_p) == (4 if split else 3)
+    assert abs(float(e_m) - float(e_p)) <= 1e-12 * abs(float(e_p))
+    for label, got, ref in zip(GRAD_NAMES, g_m, g_p):
+        assert rel(got.numpy(), ref.numpy()) <= 1e-12, label

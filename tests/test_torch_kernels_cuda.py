@@ -270,12 +270,13 @@ def test_mesh_kernels_match_plain(device, nodes, n_ch, nz):
     assert (counts["mesh_spread"], counts["mesh_gather"], counts["mesh_wgrad"]) == (1, 2, 2)
 
 
-def test_mesh_spread_splits_z_when_the_tile_field_exceeds_shared_memory(device, monkeypatch):
-    interp, q_slots, _ = _tiled_case(device, 5, 2, 96)
+@pytest.mark.parametrize("nz", [20, 40], ids=["under_one_chunk", "partial_last_chunk"])
+def test_mesh_spread_splits_z_when_the_tile_field_exceeds_shared_memory(device, nz):
+    """Kernel D takes z in chunks of 32 cells a block: a z line shorter than
+    one chunk, and one whose last chunk is partial, ≡ the plain version."""
+    interp, q_slots, _ = _tiled_case(device, 5, 2, nz)
     a, ns = _arrays(interp), interp.ns
-    whole = mk.mesh_spread(*a, q_slots, ns, 5)
-    monkeypatch.setattr(mk, "SPREAD_SMEM_BUDGET", 12 * 12 * 4 * 40)  # 40 z cells a block
-    assert _rel(mk.mesh_spread(*a, q_slots, ns, 5), whole) <= 1e-6
+    assert _rel(mk.mesh_spread(*a, q_slots, ns, 5), mk.mesh_spread_plain(*a, q_slots, ns, 5)) <= 1e-5
 
 
 def test_mesh_kernels_ignore_stale_and_empty_slots(device):
@@ -387,30 +388,115 @@ def _dipole_window_case(device, smearing, triclinic=False, capacity=None, seed=0
     return tpt.PotentialDipole(smearing=smearing, prefactor=1.3), ins
 
 
+def _split_mui(mu, device, seed=0):
+    """Separate i-side dipoles: ``mu`` with ~30% of its slots zeroed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    keep = (torch.rand(mu.shape[:3], generator=gen, device=device) > 0.3).float()
+    return (mu * keep[..., None, None]).contiguous()
+
+
+def _g_rel(name, a, b, e_scale=0.0):
+    """``_rel``; the energy's error over ``max(|e|, e_scale)``: with some
+    i-side dipoles zeroed the energy can cancel to a small fraction of its
+    terms (float32 vs float64 then differs by ~4e-4 of it in the plain
+    version too), so it is measured on the scale of the energy of all the
+    dipoles, as chip_smoke.py does."""
+    if name != "e":
+        return _rel(a, b)
+    return float((a.double() - b.double()).abs() / max(float(b.double().abs()), e_scale))
+
+
 @pytest.mark.parametrize("smearing", [0.9, None], ids=["smeared", "direct"])
 @pytest.mark.parametrize("triclinic", [False, True], ids=["cubic", "triclinic"])
 @pytest.mark.parametrize("split", [False, True], ids=["shared", "split"])
 def test_dipole_window_kernel_matches_plain(device, smearing, triclinic, split):
     pot, ins = _dipole_window_case(device, smearing, triclinic)
-    mui = None
-    if split:
-        keep = (torch.rand(ins[1].shape[:3], device=device) > 0.3).float()
-        mui = (ins[1] * keep[..., None, None]).contiguous()
+    mui = _split_mui(ins[1], device) if split else None
     kernels.reset_launch_counts()
     e_k, g_k = rcd.dipole_window_value_and_grad(pot, 3.0, *ins, mui)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["window_dipole"] == 1
     e_p, g_p = rcd._dw_value_and_grad(pot, 3.0, *ins, mui)
     assert len(g_k) == len(g_p) == (4 if split else 3)
+    dbl = [t.double() for t in ins]
+    e_scale = abs(float(rcd._dw_value_and_grad(pot, 3.0, *dbl)[0])) if split else 0.0
     for name, a, b in zip(G_NAMES, (e_k, *g_k), (e_p, *g_p)):
         assert a.dtype == torch.float32 and a.shape == b.shape
-        assert _rel(a, b) <= G_TOLS[name], name
+        assert _g_rel(name, a, b, e_scale) <= G_TOLS[name], name
     # and against float64 on the same inputs, where the kernel's double sums show
-    e64, g64 = rcd._dw_value_and_grad(
-        pot, 3.0, *[t.double() for t in ins], None if mui is None else mui.double()
-    )
+    e64, g64 = rcd._dw_value_and_grad(pot, 3.0, *dbl, None if mui is None else mui.double())
     for name, a, b in zip(G_NAMES, (e_k, *g_k), (e64, *g64)):
-        assert _rel(a, b) <= (1e-4 if name == "d_offs" else 1e-5), name
+        assert _g_rel(name, a, b, e_scale) <= (1e-4 if name == "d_offs" else 1e-5), name
+
+
+def _dense_dipole_inputs(device, capacity=None, split=False):
+    """Window inputs of a 3×3×3 cell grid whose capacity exceeds one warp
+    (or is ``capacity``), with separate i-side dipoles when ``split``."""
+    rng = np.random.default_rng(23)
+    cell = np.eye(3) * 9.5 + np.asarray([[0, 0, 0], [0.7, 0, 0], [-0.4, 0.5, 0]])
+    pos = rng.uniform(0, 1, (1100, 3)) @ cell
+    f32 = dict(dtype=torch.float32, device=device)
+    clist = tpt.ops.compute_cell_list(pos, cell, 3.0, capacity=capacity, spill=False,
+                                      device=device)
+    assert clist.n_axis == (3, 3, 3) and clist.slot_mask.shape[1] > 32
+    idx = clist.atom_index.long()
+    ins = list(rc._prepare_bucketed(
+        torch.tensor(rng.normal(size=(1100, 3)), **f32)[idx], torch.tensor(pos, **f32)[idx],
+        torch.tensor(cell, **f32), clist,
+    )[:4])
+    mui = None
+    if split:
+        keep = torch.tensor(rng.uniform(size=ins[1].shape[:3]) > 0.3, **f32)
+        mui = (ins[1] * keep[..., None, None]).contiguous()
+    return ins, mui
+
+
+# (capacity, separate i-side dipoles, home cells a block): every block shape
+# of csrc/window_dipole.cu, with and without mui
+EDGE_DIPOLE_WINDOWS = {
+    "grid3_cap_gt_32": (None, False, 4),
+    "grid3_cap_gt_32_split": (None, True, 4),
+    "grid3_cap250_split": (250, True, 4),
+    "grid3_cap400_split": (400, True, 2),
+    "grid3_cap500": (500, False, 2),
+    "grid3_cap700_split": (700, True, 1),
+    "grid3_cap1000": (1000, False, 1),
+    "grid3_cap1024_split": (1024, True, 1),
+}
+
+
+@pytest.mark.parametrize("shape", [*EDGE_DIPOLE_WINDOWS, "smeared", "direct", "split"])
+def test_dipole_window_kernel_is_reproducible_and_matches_plain(device, shape):
+    """Kernel G at every block shape (capacity 250 with separate i-side
+    dipoles among them) and on a cubic box smeared, direct and split: within the
+    plain version's bars and float64's, and d_pc, d_mu, d_mui bitwise equal
+    over two launches (each row has one writer)."""
+    pot = tpt.PotentialDipole(smearing=0.9, prefactor=1.3)
+    if shape in EDGE_DIPOLE_WINDOWS:
+        capacity, split, warps = EDGE_DIPOLE_WINDOWS[shape]
+        ins, mui = _dense_dipole_inputs(device, capacity, split)
+        assert rcd._window_dipole_warps(ins[0].shape[-1], split, device.index) == warps
+    else:
+        pot, ins = _dipole_window_case(device, None if shape == "direct" else 0.9)
+        mui = _split_mui(ins[1], device) if shape == "split" else None
+    kernels.reset_launch_counts()
+    e_a, g_a = rcd.dipole_window_value_and_grad(pot, 3.0, *ins, mui)
+    e_b, g_b = rcd.dipole_window_value_and_grad(pot, 3.0, *ins, mui)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["window_dipole"] == 2
+    for i in (0, 1, 3)[: len(g_a) - 1]:
+        assert torch.equal(g_a[i], g_b[i]), G_NAMES[1 + i]
+    e_p, g_p = rcd._dw_value_and_grad(pot, 3.0, *ins, mui)
+    dbl = [t.double() for t in ins]
+    e64, g64 = rcd._dw_value_and_grad(pot, 3.0, *dbl, None if mui is None else mui.double())
+    e_scale = 0.0 if mui is None else abs(float(rcd._dw_value_and_grad(pot, 3.0, *dbl)[0]))
+    for name, a, b, c in zip(G_NAMES, (e_a, *g_a), (e_p, *g_p), (e64, *g64)):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        # d_offs: the plain version's float32 sum is itself up to ~6e-4 off
+        # float64 on the dense grid, so the kernel's is held to float64 alone
+        if name != "d_offs":
+            assert _g_rel(name, a, b, e_scale) <= G_TOLS[name], name
+        assert _g_rel(name, a, c, e_scale) <= (1e-4 if name == "d_offs" else 1e-5), name
 
 
 def test_dipole_window_kernel_takes_more_than_one_warp_of_home_atoms(device):
@@ -435,6 +521,16 @@ def test_dipole_window_kernel_refuses_what_it_does_not_take(device):
         )
     e, _ = rcd._dw_value_and_grad(pot, 3.0, *[t.double() for t in ins])
     assert e.dtype == torch.float64 and e.device.type == "cuda"
+    # a capacity whose one offset a pass exceeds shared memory: a clear error
+    # that names the largest capacity it takes, with and without mui
+    lib = kernels.load_library().lib
+    for split in (False, True):
+        largest = lib.tpme_window_dipole_max_cap(int(split), device.index)
+        assert 1024 < largest < 4000
+        assert rcd._window_dipole_warps(largest, split, device.index) == 1
+        big, mui = _dense_dipole_inputs(device, capacity=largest + 1, split=split)
+        with pytest.raises(ValueError, match=f"at most {largest} "):
+            rcd.dipole_window_value_and_grad(pot, 3.0, *big, mui)
 
 
 def test_dipole_window_of_a_non_analytic_potential_raises_unless_plain(device):
@@ -544,3 +640,71 @@ def test_dipole_calculator_call_on_the_card_matches_plain(device):
             assert launched == {"mesh_spread": 2, "mesh_gather": 2, "mesh_wgrad": 2}, launched
     for got, ref in zip(out[False], out[True]):
         assert _rel(got, ref) <= 2e-5
+
+
+# -- kernel D's dipole form ----------------------------------------------------
+
+DIPOLE_MESH_CASES = [(nodes, 128) for nodes in (3, 4, 5, 6, 7)] + [(6, 288)]
+
+
+def _dipole_tiled_case(device, nodes, nz, n=500, seed=0):
+    """A float32 bucketing with weight derivatives on a (32, 32, nz) mesh,
+    per-slot effective dipoles and a random mesh field."""
+    rng = np.random.default_rng(seed)
+    ns = (32, 32, nz)
+    f32 = dict(dtype=torch.float32, device=device)
+    pos = torch.tensor(rng.uniform(0, 10.0, (n, 3)), **f32)
+    interp = mt.compute_tiled_interpolation(
+        pos, torch.eye(3, **f32) / 10.0, ns, nodes, "Lagrange", derivatives=True
+    )
+    nu = mt._slot_values(interp, torch.tensor(rng.normal(size=(n, 3)), **f32))
+    return interp, nu, torch.tensor(rng.normal(size=(1, *ns)), **f32)
+
+
+@pytest.mark.parametrize("nodes,nz", DIPOLE_MESH_CASES)
+def test_dipole_spread_matches_plain_forward_and_backward(device, nodes, nz):
+    """Kernel D's dipole form against its plain version (the charge form
+    over the tripled slots); and the spread and the gather of the dipolar
+    mesh with their backwards (E, F over the tripled slots, the dipole form
+    for the gather's mesh cotangent) against the plain versions' autograd."""
+    interp, nu, field = _dipole_tiled_case(device, nodes, nz)
+    it, ns = interp, interp.ns
+    args = (it.local_x, it.local_y, it.start_z, it.weights, it.dweights, nu, ns, nodes)
+    kernels.reset_launch_counts()
+    got = mk.mesh_spread_dipole(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["mesh_spread"] == 1
+    assert got.shape == (1, *ns) and _rel(got, mk.mesh_spread_dipole_plain(*args)) <= 1e-5
+    ct_mesh, ct_vals = torch.randn_like(field), torch.randn_like(nu)
+    grads = {}
+    for plain in (False, True):
+        w = interp.weights.clone().requires_grad_()
+        dw = interp.dweights.clone().requires_grad_()
+        q = nu.clone().requires_grad_()
+        f = field.clone().requires_grad_()
+        leaf = replace(interp, weights=w, dweights=dw)
+        kernels.reset_launch_counts()
+        loss = (mk.spread_dipoles(leaf, q, plain=plain) * ct_mesh).sum() + (
+            mk.gather_dipole_fields(leaf, f, plain=plain) * ct_vals
+        ).sum()
+        grads[plain] = torch.autograd.grad(loss, (w, dw, q, f))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = (0, 0, 0) if plain else (2, 2, 2)
+        assert (counts["mesh_spread"], counts["mesh_gather"], counts["mesh_wgrad"]) == want
+    for name, got, ref in zip(("weights", "dweights", "nu", "mesh"), grads[False], grads[True]):
+        assert _rel(got, ref) <= 1e-5, name
+
+
+@pytest.mark.parametrize("nodes,n_ch,nz", [(5, 1, 128), (4, 3, 128), (7, 1, 288)])
+def test_mesh_spread_of_stale_slots_over_z_chunks(device, nodes, n_ch, nz):
+    """Kernel D's charge form ≡ the plain version on a mesh whose z line
+    takes several chunks, with half the slots stale (nodes off the window)."""
+    interp, q_slots, _ = _tiled_case(device, nodes, n_ch, nz)
+    lx = interp.local_x.clone()
+    lx[interp.atom_of_slot < 250] = 9  # stale: nodes fall off the window
+    a, ns = (lx, interp.local_y, interp.start_z, interp.weights), interp.ns
+    got = mk.mesh_spread(*a, q_slots, ns, nodes)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, mk.mesh_spread_plain(*a, q_slots, ns, nodes)) <= 1e-5

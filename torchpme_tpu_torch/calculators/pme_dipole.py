@@ -166,15 +166,17 @@ class PMECalculatorDipole(CalculatorDipole):
 
     def _dipole_mesh_density(
         self, dipoles, cell, positions, kvectors, ns_kvectors, tiled_interp,
-        check_stale: bool = True, plain: bool = False,
+        check_stale: bool = True, plain: bool = False, gather: bool = False,
     ):
         r"""Shared spread half of the k-space paths: the gradient-spread mesh
         density :math:`Q(m) = \sum_j \vec\mu_j\cdot\nabla W_j(m)`.
 
         Returns ``(q_mesh, interp, mesh_valid, ns, slots)``; ``interp`` is a
-        :class:`TiledInterpolation` on the tiled backend and ``slots`` its
-        tripled gradient-stencil bucketing, built once for the spread and the
-        gather (``None`` on the scatter backend); ``mesh_valid`` is the
+        :class:`TiledInterpolation` on the tiled backend and, where the caller
+        will ``gather``, ``slots`` its tripled gradient-stencil bucketing
+        (values only: the spread and gather functions carry the weights'
+        gradients), built once for the gather and both backwards (``None``
+        otherwise: the spread's backward builds its own); ``mesh_valid`` is the
         on-device validity flag of a reused bucketing (``None`` otherwise).  ``check_stale`` reads the flag and raises (one device
         sync); without it the caller poisons its result with NaN instead.
         """
@@ -229,7 +231,10 @@ class PMECalculatorDipole(CalculatorDipole):
         # effective per-axis charges: chain rule through rel = pos@C⁻¹·ns
         ns_t = torch.tensor(ns, dtype=dtype, device=positions.device)
         nu = torch.matmul(dipoles, inverse_cell) * ns_t
-        slots = dipole_slots(interp)
+        slots = None
+        if gather:
+            with torch.no_grad():
+                slots = dipole_slots(interp)
         q_mesh = tiled_dipoles_to_mesh(interp, nu, plain=plain, slots=slots)
         return q_mesh, interp, mesh_valid, ns, slots
 
@@ -238,7 +243,8 @@ class PMECalculatorDipole(CalculatorDipole):
         tiled_interp: TiledInterpolation | None = None, plain: bool = False,
     ) -> torch.Tensor:
         q_mesh, interp, mesh_valid, ns, slots = self._dipole_mesh_density(
-            dipoles, cell, positions, kvectors, ns_kvectors, tiled_interp, plain=plain
+            dipoles, cell, positions, kvectors, ns_kvectors, tiled_interp, plain=plain,
+            gather=True,
         )
         kfilter = compute_kspace_filter(self.potential.lr_from_k_sq, cell, ns)
         # backward/forward norm pair: no 1/n factor in either direction

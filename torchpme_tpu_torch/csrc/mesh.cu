@@ -15,20 +15,33 @@
 // What bounds them on the H100.  The TPU kernels densify the weights and run
 // an (E^2, K) x (K, C nz) product per tile only because TPU scatters
 // serialize; the work itself is n^3 multiply-adds per atom and channel, a few
-// FLOPs per byte moved, so all three are bound by bytes: the slot data
-// (weights, indices, charges) read once and the mesh written or read once.
-// Unlike the TPU kernels, none of them materializes per-tile fields in device
-// memory: D adds into the periodic (C, nx, ny, nz) mesh and E/F read it, so
-// the tile fold and the tile extraction of the TPU path are fused away.
+// FLOPs per byte moved, so all three are bound by bytes in principle: the
+// slot data (weights, indices, charges) read once and the mesh written or
+// read once.  Unlike the TPU kernels, none of them materializes per-tile
+// fields in device memory, so the tile fold and the tile extraction of the
+// TPU path are fused away.
 //
-// D: one block per (tile, channel, z chunk) accumulates the tile's (E, E, zc)
-// local field in shared memory with shared-memory float atomics (12*12*128*4
-// B = 72 KB at n = 5, nz = 128: dynamic shared memory above the 48 KB
-// default; longer z or a smaller budget splits z into chunks), then adds the
-// non-zero part of that field into the mesh with global atomics (neighbouring
-// tiles overlap by n - 1 cells).  A thread takes one (slot, z node) pair so
-// that the threads of one slot hit different banks.  The sum order is
-// run-dependent; everything accumulates in float32.
+// D: one block per (tile, channel, z chunk) accumulates the tile's (E, E,
+// zc) window in shared memory with shared-memory float atomics
+// (compare-and-swap loops on this card, ATOMS.CAST.SPIN in the SASS), then
+// adds its non-zero cells into a mesh zeroed by the caller with global
+// atomics (neighbouring tiles overlap by n - 1 cells).  The z chunk
+// (SPREAD_Z_CHUNK, 32 cells) splits the z line so that the grid fills the
+// card: 1024 blocks on the 132 SMs at the 102k shapes (256 tiles).  The work
+// items are (slot, z node) columns of n x n nodes, so that the lanes of one
+// slot hit different banks; each warp scans its share of them and keeps
+// those whose z node lies in the chunk (with non-zero weights) in a list that
+// it runs 32 at a time: a lane that idled through another lane's atomic loops
+// cost as much as a busy one.  Owner blocks (plain stores of the cells a
+// block owns, gathered from the four tiles whose windows reach them, no zero
+// fill) were measured slower at every z chunk (PERF.md section 5).
+// The dipole form (dw given, one channel) spreads Q(m) = sum_j sum_a nu_ja
+// d_a[W_x W_y W_z](m) in one pass per slot: from nu (T, 3, K), w and their
+// derivatives dw it builds the node value nu_x dw_x w_y w_z + nu_y w_x dw_y
+// w_z + nu_z w_x w_y dw_z in registers, (P_a w_y + Q_a dw_y) with P_a, Q_a per
+// x node, and issues one shared atomic per node, a third of the reads and
+// atomics of the charge form over every slot three times (dipole_slots).
+// Everything accumulates in float32.
 // E and F: one thread per slot reads its n^3 window of the mesh (wrapping
 // modulo the mesh) once and contracts it with the weights: E leaves nothing
 // open (the per-slot value), F leaves one axis open at a time (the cotangent
@@ -36,7 +49,7 @@
 // backward of the spread wants; no atomics.  The stencil size is a template
 // parameter so the per-thread weight and accumulator arrays stay in registers.
 //
-// First version: plain CUDA C++, no TMA / wgmma.  float32 only; the wrapper
+// Plain CUDA C++, no TMA / wgmma.  float32 only; the wrapper
 // (ops/mesh_kernels.py) checks shapes, dtypes and the shared-memory size.
 
 #include <cuda_runtime.h>
@@ -47,35 +60,21 @@ struct MeshParams {
   int nx, ny, nz;
   int nodes, extent, ty_count;
   int n_tiles, cap, n_ch;
-  int z_chunk, n_chunks;  // D only: z cells per block and blocks per z line
 };
 
-// Kernel D.  grid (T, C * n_chunks); mesh (C, nx, ny, nz) zeroed by the caller.
-template <int N>
-__global__ void mesh_spread_kernel(const int* __restrict__ lx, const int* __restrict__ ly,
-                                   const int* __restrict__ sz, const float* __restrict__ w,
-                                   const float* __restrict__ q, float* __restrict__ mesh,
-                                   MeshParams p) {
-  extern __shared__ float field[];  // (E, E, zn) local tile field
-  const int tile = blockIdx.x;
-  const int ch = blockIdx.y / p.n_chunks;
-  const int z0 = (blockIdx.y % p.n_chunks) * p.z_chunk;
-  const int zn = min(p.z_chunk, p.nz - z0);
-  const int e = p.extent, nz = p.nz, cap = p.cap;
-  const int field_size = e * e * zn;
-  for (int i = threadIdx.x; i < field_size; i += blockDim.x) field[i] = 0.0f;
-  __syncthreads();
+#define SPREAD_THREADS 256
+#define SPREAD_Z_CHUNK 32  // z cells a block of kernel D takes
+#define SPREAD_PEND 64  // per-warp list of the candidates that land in the block
 
-  const float* q_t = q + ((size_t)tile * p.n_ch + ch) * cap;
-  for (int it = threadIdx.x; it < cap * N; it += blockDim.x) {
-    const int k = it / N, c = it % N;
-    const size_t slot = (size_t)tile * cap + k;
-    const float* ws = w + slot * 3 * N;
-    const float wzq = ws[2 * N + c] * q_t[k];
-    if (wzq == 0.0f) continue;
-    const int z = (sz[slot] + c) % nz - z0;
-    if (z < 0 || z >= zn) continue;
-    const int x0 = lx[slot], y0 = ly[slot];
+// One (slot, z node) of kernel D: its N x N nodes into the block's (e, e, zn)
+// field, dropped beyond the window; col is the node's z row of the field.
+template <int N, bool DIPOLE>
+__device__ __forceinline__ void spread_node_column(const float* __restrict__ ws,
+                                                   const float* __restrict__ ds, float q0,
+                                                   float q1, float q2, int c, int x0, int y0,
+                                                   int e, int zn, float* col) {
+  if (!DIPOLE) {
+    const float wzq = ws[2 * N + c] * q0;
 #pragma unroll
     for (int a = 0; a < N; ++a) {
       if (x0 + a >= e) continue;
@@ -83,24 +82,106 @@ __global__ void mesh_spread_kernel(const int* __restrict__ lx, const int* __rest
 #pragma unroll
       for (int b = 0; b < N; ++b) {
         if (y0 + b >= e) continue;
-        atomicAdd(field + ((x0 + a) * e + y0 + b) * zn + z, wxz * ws[N + b]);
+        atomicAdd(col + ((x0 + a) * e + y0 + b) * zn, wxz * ws[N + b]);
+      }
+    }
+  } else {
+    const float wz = ws[2 * N + c];
+    const float al = q0 * wz, be = q1 * wz, ga = q2 * ds[2 * N + c];
+#pragma unroll
+    for (int a = 0; a < N; ++a) {
+      if (x0 + a >= e) continue;
+      // node (a, b): w_y[b] (nu_x wz dw_x[a] + nu_z dwz w_x[a]) + dw_y[b] nu_y wz w_x[a]
+      const float pa = al * ds[a] + ga * ws[a], qa = be * ws[a];
+#pragma unroll
+      for (int b = 0; b < N; ++b) {
+        if (y0 + b >= e) continue;
+        atomicAdd(col + ((x0 + a) * e + y0 + b) * zn, pa * ws[N + b] + qa * ds[N + b]);
       }
     }
   }
+}
+
+// Kernel D.  grid (T, C * z chunks).  Charges: q (T, C, K) with dw null;
+// dipole form: nu = q (T, 3, K) with dw (T, K, 3, n) and C = 1.
+template <int N, bool DIPOLE>
+__global__ void __launch_bounds__(SPREAD_THREADS)
+mesh_spread_kernel(const int* __restrict__ lx, const int* __restrict__ ly,
+                   const int* __restrict__ sz, const float* __restrict__ w,
+                   const float* __restrict__ dw, const float* __restrict__ q,
+                   float* __restrict__ mesh, MeshParams p) {
+  extern __shared__ float field[];  // (E, E, zn): the tile's window
+  const int tile = blockIdx.x;
+  const int n_chunks = (p.nz + SPREAD_Z_CHUNK - 1) / SPREAD_Z_CHUNK;
+  const int ch = blockIdx.y / n_chunks;
+  const int z0 = (blockIdx.y % n_chunks) * SPREAD_Z_CHUNK;
+  const int zn = min(SPREAD_Z_CHUNK, p.nz - z0);
+  const int e = p.extent, nz = p.nz, cap = p.cap;
+  const int field_size = e * e * zn;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* pend = reinterpret_cast<int*>(field + e * e * SPREAD_Z_CHUNK) + warp * SPREAD_PEND;
+  for (int i = threadIdx.x; i < field_size; i += blockDim.x) field[i] = 0.0f;
   __syncthreads();
 
-  // local cell (ex, ey) of tile (tx, ty) is mesh cell (tx*8 + ex, ty*8 + ey)
-  const int ox = tile / p.ty_count * TILE;
-  const int oy = tile % p.ty_count * TILE;
+  const int tx = tile / p.ty_count, ty = tile % p.ty_count;
+  // candidates (slot k, z node c).  A candidate whose z node lies outside
+  // the chunk is dropped; the others go to the warp's list and run 32 at a
+  // time, so that every lane of the atomic loops has a node column to add
+  const int n_cand = cap * N;
+  int npend = 0;
+  auto run = [&](int n) {
+    if (lane < n) {
+      const int it = pend[lane];
+      const int k = it / N, c = it - k * N;
+      const size_t slot = (size_t)tile * cap + k;
+      int z = sz[slot] + c;
+      while (z >= nz) z -= nz;
+      const float* ws = w + slot * 3 * N;
+      const float* qs = DIPOLE ? q + (size_t)tile * 3 * cap + k
+                               : q + ((size_t)tile * p.n_ch + ch) * cap + k;
+      spread_node_column<N, DIPOLE>(ws, DIPOLE ? dw + slot * 3 * N : nullptr, qs[0],
+                                    DIPOLE ? qs[cap] : 0.0f, DIPOLE ? qs[2 * cap] : 0.0f, c,
+                                    lx[slot], ly[slot], e, zn, field + z - z0);
+    }
+  };
+  for (int r0 = warp * 32; r0 < n_cand; r0 += blockDim.x) {
+    const int it = r0 + lane;
+    bool keep = false;
+    if (it < n_cand) {
+      const int k = it / N, c = it - k * N;
+      const size_t slot = (size_t)tile * cap + k;
+      int z = sz[slot] + c;
+      while (z >= nz) z -= nz;
+      // an empty slot has zero weights: nothing to add
+      keep = z >= z0 && z < z0 + zn &&
+             (w[slot * 3 * N + 2 * N + c] != 0.0f || (DIPOLE && dw[slot * 3 * N + 2 * N + c] != 0.0f));
+    }
+    const unsigned b = __ballot_sync(0xffffffffu, keep);
+    if (keep) pend[npend + __popc(b & ((1u << lane) - 1u))] = it;
+    npend += __popc(b);
+    __syncwarp();
+    if (npend >= 32) {
+      run(32);
+      const int moved = lane < npend - 32 ? pend[32 + lane] : 0;
+      __syncwarp();
+      if (lane < npend - 32) pend[lane] = moved;
+      __syncwarp();
+      npend -= 32;
+    }
+  }
+  run(npend);
+  __syncthreads();
+
   float* out = mesh + (size_t)ch * p.nx * p.ny * nz;
+  // window cell (ex, ey) of tile (tx, ty) is mesh cell (tx*8 + ex, ty*8 + ey) mod the mesh
   for (int i = threadIdx.x; i < field_size; i += blockDim.x) {
     const float v = field[i];
     if (v == 0.0f) continue;
     const int z = i % zn;
     const int ey = (i / zn) % e;
     const int ex = i / (zn * e);
-    const int gx = (ox + ex) % p.nx;
-    const int gy = (oy + ey) % p.ny;
+    const int gx = (tx * TILE + ex) % p.nx;
+    const int gy = (ty * TILE + ey) % p.ny;
     atomicAdd(out + ((size_t)gx * p.ny + gy) * nz + z0 + z, v);
   }
 }
@@ -187,16 +268,26 @@ __global__ void mesh_gather_wgrad_kernel(const int* __restrict__ lx, const int* 
   }
 }
 
+template <int N, bool DIPOLE>
+static int launch_spread_as(const int* lx, const int* ly, const int* sz, const float* w,
+                            const float* dw, const float* q, float* mesh, const MeshParams& p,
+                            cudaStream_t stream) {
+  // at most 14 x 14 x 32 floats and the lists: 27 KB, under the default 48 KB
+  const size_t smem = (size_t)p.extent * p.extent * SPREAD_Z_CHUNK * sizeof(float) +
+                      (SPREAD_THREADS / 32) * SPREAD_PEND * sizeof(int);
+  const dim3 grid(p.n_tiles, p.n_ch * ((p.nz + SPREAD_Z_CHUNK - 1) / SPREAD_Z_CHUNK));
+  mesh_spread_kernel<N, DIPOLE><<<grid, SPREAD_THREADS, smem, stream>>>(lx, ly, sz, w, dw, q,
+                                                                        mesh, p);
+  return (int)cudaGetLastError();
+}
+
 template <int N>
 static int launch_spread(const int* lx, const int* ly, const int* sz, const float* w,
-                         const float* q, float* mesh, const MeshParams& p, cudaStream_t stream) {
-  const size_t smem = (size_t)p.extent * p.extent * p.z_chunk * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(mesh_spread_kernel<N>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(p.n_tiles, p.n_ch * p.n_chunks);
-  mesh_spread_kernel<N><<<grid, 256, smem, stream>>>(lx, ly, sz, w, q, mesh, p);
-  return (int)cudaGetLastError();
+                         const float* dw, const float* q, float* mesh, const MeshParams& p,
+                         cudaStream_t stream) {
+  if (dw != nullptr && p.n_ch != 1) return (int)cudaErrorInvalidValue;
+  if (dw != nullptr) return launch_spread_as<N, true>(lx, ly, sz, w, dw, q, mesh, p, stream);
+  return launch_spread_as<N, false>(lx, ly, sz, w, dw, q, mesh, p, stream);
 }
 
 template <int N>
@@ -228,10 +319,12 @@ static int launch_gather_wgrad(const int* lx, const int* ly, const int* sz, cons
 
 extern "C" {
 
-// Kernel D: q (T, C, K) -> mesh (C, nx, ny, nz), added into a zeroed mesh.
-int tpme_mesh_spread(const int* lx, const int* ly, const int* sz, const float* w, const float* q,
-                     float* mesh, const MeshParams* p, void* stream) {
-#define SPREAD_CALL(N) launch_spread<N>(lx, ly, sz, w, q, mesh, *p, (cudaStream_t)stream)
+// Kernel D: q (T, C, K) -> mesh (C, nx, ny, nz), or with dw the dipole form
+// nu (T, 3, K) -> mesh (1, nx, ny, nz), added into the mesh (zeroed by the
+// caller).
+int tpme_mesh_spread(const int* lx, const int* ly, const int* sz, const float* w, const float* dw,
+                     const float* q, float* mesh, const MeshParams* p, void* stream) {
+#define SPREAD_CALL(N) launch_spread<N>(lx, ly, sz, w, dw, q, mesh, *p, (cudaStream_t)stream)
   DISPATCH_NODES(SPREAD_CALL)
 #undef SPREAD_CALL
 }

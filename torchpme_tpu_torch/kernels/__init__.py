@@ -140,6 +140,7 @@ class WindowDipoleParams(ctypes.Structure):
         ("cap", ctypes.c_int),
         ("self_k", ctypes.c_int),
         ("direct", ctypes.c_int),
+        ("warps", ctypes.c_int),
         ("cutoff_sq", ctypes.c_float),
         ("alpha", ctypes.c_float),
         ("sqrt_alpha", ctypes.c_float),
@@ -162,8 +163,6 @@ class MeshParams(ctypes.Structure):
         ("n_tiles", ctypes.c_int),
         ("cap", ctypes.c_int),
         ("n_ch", ctypes.c_int),
-        ("z_chunk", ctypes.c_int),
-        ("n_chunks", ctypes.c_int),
     ]
 
 
@@ -216,7 +215,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, p, p, p, p, p, ctypes.POINTER(WindowDipoleParams), p,
     ]
     lib.tpme_window_dipole.restype = ctypes.c_int
-    lib.tpme_mesh_spread.argtypes = [p, p, p, p, p, p, ctypes.POINTER(MeshParams), p]
+    lib.tpme_window_dipole_warps.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.tpme_window_dipole_warps.restype = ctypes.c_int
+    lib.tpme_window_dipole_max_cap.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.tpme_window_dipole_max_cap.restype = ctypes.c_int
+    lib.tpme_mesh_spread.argtypes = [p, p, p, p, p, p, p, ctypes.POINTER(MeshParams), p]
     lib.tpme_mesh_spread.restype = ctypes.c_int
     lib.tpme_mesh_gather_wgrad.argtypes = [
         p, p, p, p, p, p, p, p, ctypes.POINTER(MeshParams), p,

@@ -410,36 +410,44 @@ def tiled_mesh_to_points(
 # -- point dipoles: three derivative stencils through the same kernels ----------
 
 
+def _require_derivatives(interp: TiledInterpolation) -> None:
+    if interp.dweights is None:
+        raise ValueError(
+            "This TiledInterpolation carries no weight derivatives; build it "
+            "with compute_tiled_interpolation(..., derivatives=True)."
+        )
+
+
+def _dipole_triple(local_x, local_y, start_z, weights, dweights):
+    """``(lx, ly, sz, weights)`` of every slot three times along the capacity
+    axis, copy ``a`` with the weight triple whose axis-``a`` stencil is the
+    derivative (differentiable tensor ops)."""
+    variants = []
+    for a in range(3):
+        picked = [dweights[:, :, c] if c == a else weights[:, :, c] for c in range(3)]
+        variants.append(torch.stack(picked, dim=2))  # (T, K, 3, n)
+
+    def triple(t):
+        return torch.cat([t, t, t], dim=1).contiguous()
+
+    return (triple(local_x), triple(local_y), triple(start_z), torch.cat(variants, dim=1))
+
+
 def dipole_slots(interp: TiledInterpolation) -> TiledInterpolation:
     """The bucketing of the dipolar gradient stencil: every slot three times
     along the capacity axis (``(T, 3K)``), copy ``a`` carrying the weight
     triple whose axis-``a`` stencil is the derivative, ``(dw_x, w_y, w_z)``,
     ``(w_x, dw_y, w_z)``, ``(w_x, w_y, dw_z)``.  Built with differentiable
     tensor ops, so the position gradient flows through ``weights`` and
-    ``dweights``.  A caller that spreads and gathers on one bucketing builds
-    it once and hands it to both as ``slots=``."""
-    if interp.dweights is None:
-        raise ValueError(
-            "This TiledInterpolation carries no weight derivatives; build it "
-            "with compute_tiled_interpolation(..., derivatives=True)."
-        )
-    w, dw = interp.weights, interp.dweights
-    variants = []
-    for a in range(3):
-        picked = [dw[:, :, c] if c == a else w[:, :, c] for c in range(3)]
-        variants.append(torch.stack(picked, dim=2))  # (T, K, 3, n)
-
-    def triple(t):
-        return torch.cat([t, t, t], dim=1).contiguous()
-
-    return replace(
-        interp,
-        local_x=triple(interp.local_x),
-        local_y=triple(interp.local_y),
-        start_z=triple(interp.start_z),
-        weights=torch.cat(variants, dim=1),
-        dweights=None,
+    ``dweights``.  It is the charge-form argument of kernels E and F for the
+    dipolar mesh, and of the plain version of kernel D's dipole form; a
+    caller that gathers on one bucketing builds it once and hands it to the
+    spread and the gather as ``slots=``."""
+    _require_derivatives(interp)
+    lx, ly, sz, weights = _dipole_triple(
+        interp.local_x, interp.local_y, interp.start_z, interp.weights, interp.dweights
     )
+    return replace(interp, local_x=lx, local_y=ly, start_z=sz, weights=weights, dweights=None)
 
 
 def tiled_dipoles_to_mesh(
@@ -458,21 +466,21 @@ def tiled_dipoles_to_mesh(
     ``rel = pos @ inverse_cell * ns``): three monopole-like spreads whose
     axis-``a`` stencil is the weight derivative.  The JAX package runs them
     as one batched product with the variants concatenated along the
-    capacity axis; here the same concatenation goes through kernel D in one
-    launch (and its VJP, kernels E and F, gives the gradients).
+    capacity axis, which the plain version does too; kernel D's dipole form
+    builds the three-term stencil per slot in one pass (and its VJP, kernels
+    E and F over the concatenation, gives the gradients).
 
     :param nu: ``(N, 3)`` effective per-axis charges
         ``(dipoles @ inverse_cell) * ns``.
     :param plain: run the plain PyTorch version on any device.
-    :param slots: ``dipole_slots(interp)`` where the caller already built it.
+    :param slots: ``dipole_slots(interp)`` where the caller already built it
+        (the backward takes it instead of building its own).
     :return: dipolar density mesh ``(1, nx, ny, nz)``.
     """
-    from .mesh_kernels import spread_tiles
+    from .mesh_kernels import spread_dipoles
 
-    n_tiles, capacity = interp.local_x.shape
-    nu_slots = _slot_values(interp, nu)  # (T, 3, K)
-    slots = dipole_slots(interp) if slots is None else slots
-    return spread_tiles(slots, nu_slots.reshape(n_tiles, 1, 3 * capacity), plain=plain)
+    _require_derivatives(interp)
+    return spread_dipoles(interp, _slot_values(interp, nu), plain=plain, slots=slots)
 
 
 def tiled_mesh_to_dipole_field(
@@ -487,13 +495,13 @@ def tiled_mesh_to_dipole_field(
     so ``Σ_j ν_j·e_rel_j == Σ_m Q·mesh`` exactly.  Chain to position units
     with ``(e_rel * ns) @ inverse_cell.T`` at the caller.  One launch of
     kernel E over the tripled slots (``slots``: as in
-    :func:`tiled_dipoles_to_mesh`).
+    :func:`tiled_dipoles_to_mesh`); its backward spreads with kernel D's
+    dipole form.
     """
-    from .mesh_kernels import gather_tiles
+    from .mesh_kernels import gather_dipole_fields
 
-    n_tiles, capacity = interp.local_x.shape
-    slots = dipole_slots(interp) if slots is None else slots
-    per_slot = gather_tiles(slots, mesh_vals, plain=plain)  # (T, 1, 3K)
-    per_slot = per_slot.reshape(n_tiles, 3, capacity).transpose(1, 2).reshape(-1, 3)
+    _require_derivatives(interp)
+    per_slot = gather_dipole_fields(interp, mesh_vals, plain=plain, slots=slots)  # (T, 3, K)
+    per_slot = per_slot.transpose(1, 2).reshape(-1, 3)
     per_slot = torch.cat([per_slot, per_slot.new_zeros((1, 3))], dim=0)
     return per_slot.index_select(0, interp.slot_of_atom.long())

@@ -34,6 +34,7 @@ energy, and every gradient, is NaN.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -235,6 +236,23 @@ def _window_dipole_params(potential, cutoff: float, pc_t) -> _k.WindowDipolePara
     return p
 
 
+@functools.lru_cache(maxsize=None)
+def _window_dipole_warps(cap: int, split: bool, device_index: int) -> int:
+    """Home cells (one warp each) that a block of kernel G takes at this
+    capacity: 4, 2 or 1, the most whose shared memory fits the card.  Raises
+    where even one does not fit."""
+    lib = _k.load_library().lib
+    warps = lib.tpme_window_dipole_warps(cap, int(split), device_index)
+    if warps == 0:
+        raise ValueError(
+            f"the dipolar window kernel takes a cell capacity of at most "
+            f"{lib.tpme_window_dipole_max_cap(int(split), device_index)} "
+            f"{'with' if split else 'without'} separate i-side dipoles, got {cap}; "
+            f"plain=True runs the plain version"
+        )
+    return warps
+
+
 def dipole_window_value_and_grad(
     potential, cutoff: float, pc_t, mu_g, mf_g, offs, mui_g=None
 ):
@@ -243,7 +261,10 @@ def dipole_window_value_and_grad(
 
     CPU tensors take :func:`_dw_value_and_grad`; CUDA tensors launch the
     kernel (float32, :class:`~torchpme_tpu_torch.potentials.PotentialDipole`
-    with concrete parameters and no exclusion window) or raise.
+    with concrete parameters and no exclusion window, a capacity whose one
+    offset fits shared memory; ``mu_g`` and ``mui_g`` zero in empty slots, as
+    :func:`~torchpme_tpu_torch.ops.rspace_cells._prepare_bucketed` makes
+    them) or raise.
     """
     if pc_t.device.type == "cpu":
         return _dw_value_and_grad(potential, cutoff, pc_t, mu_g, mf_g, offs, mui_g)
@@ -269,24 +290,26 @@ def dipole_window_value_and_grad(
     split = mui_g is not None
     if split:
         _k.check_cuda_tensor(mui_g, "mui_g", (nx, ny, nz, cap, 3))
-    e = torch.zeros((), dtype=torch.float64, device=pc_t.device)
-    d_pc = torch.zeros_like(pc_t)
-    d_mu = torch.zeros_like(mu_g)
-    d_offs = torch.zeros_like(offs, dtype=torch.float64)  # a cancelling sum, as e
-    d_mui = torch.zeros_like(mu_g) if split else None
     p = _window_dipole_params(potential, cutoff, pc_t)
+    p.warps = _window_dipole_warps(cap, split, pc_t.device.index)
+    # the kernel writes every row of its outputs; its double accumulators
+    # (energy, d_offs, a block counter) start at zero
+    acc = torch.zeros(2 + 3 * _k.N_OFFSETS, dtype=torch.float64, device=pc_t.device)
+    d_pc = torch.empty_like(pc_t)
+    d_mu = torch.empty_like(mu_g)
+    d_offs = torch.empty_like(offs)
+    d_mui = torch.empty_like(mu_g) if split else None
     status = _k.load_library().lib.tpme_window_dipole(
         pc_t.data_ptr(), mu_g.data_ptr(), mf_g.data_ptr(), offs.data_ptr(),
         mui_g.data_ptr() if split else None,
-        e.data_ptr(), d_pc.data_ptr(), d_mu.data_ptr(), d_offs.data_ptr(),
+        acc.data_ptr(), d_pc.data_ptr(), d_mu.data_ptr(), d_offs.data_ptr(),
         d_mui.data_ptr() if split else None,
         ctypes.byref(p), _k.stream_handle(pc_t.device),
     )
     _k.check_status(status, "window_dipole")
     _k.WINDOW_DIPOLE.launches += 1
-    d_offs = d_offs.to(torch.float32)
     grads = (d_pc, d_mu, d_offs, d_mui) if split else (d_pc, d_mu, d_offs)
-    return e.to(torch.float32), grads
+    return acc[0].to(torch.float32), grads
 
 
 class _DipoleWindowEnergy(torch.autograd.Function):

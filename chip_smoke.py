@@ -14,8 +14,9 @@ line) if any phase fails:
    its launches bitwise equal in d_pc and d_q; the aligned spread A also at
    nz = 288; the tile kernels D, E, F also at three channels and
    at the dipolar shapes: 6 nodes, D's dipole form for its two launches (the
-   spread of the dipoles and of the gather's mesh cotangent), E and F over
-   every slot three times; the dipolar window G in smeared and direct mode
+   spread of the dipoles and of the gather's mesh cotangent), the dipole
+   forms of E and F, each slot read once, and E + F from one launch bitwise
+   equal over two launches; the dipolar window G in smeared and direct mode
    and with separate i-side dipoles, and on the 3×3×3 cell grid at
    capacities 72 and 250 with and without them, with two launches bitwise
    equal in d_pc, d_mu, d_mui and its outputs against float64), with
@@ -36,8 +37,9 @@ line) if any phase fails:
 7. the dipolar MD step (``MDFastPathDipole`` over ``PMECalculatorDipole``:
    kernel G for the window, D forward and E + F backward for the mesh) at
    the system of tools/bench_family.py: float32 kernels vs the plain float64
-   step (energy, forces, fields ``dE/dmu``, cell gradient), launch counts
-   and ms/step of both paths;
+   step (energy, forces, fields ``dE/dmu``, cell gradient, the cell gradient
+   split into its window and mesh parts), launch counts and ms/step of both
+   paths;
 8. the dipolar per-atom call (``PMECalculatorDipole(...)(dipoles, cell,
    positions, neighbor_indices, neighbor_vectors)`` on the tiled mesh) with
    its gradients vs the plain float64 call, ``sum(pot·mu)`` ≡ ``energy`` ≡
@@ -50,9 +52,15 @@ line) if any phase fails:
 With ``--profile`` it also traces the four 102k paths with ``torch.profiler``
 and prints, for each, the device time and the number of device events per
 call and the kernels that take most of it, times kernel A's z chunk
-(``ops/spread_fused.py:z_chunk``) beside the neighbouring choices, and counts
+(``ops/spread_fused.py:z_chunk``) and kernels E and F's
+(``ops/mesh_kernels.py:gather_z_chunk``) beside the neighbouring choices, E
+and F also as one thread a slot reading the mesh, and counts
 the atomic instructions of each kernel in the built library's SASS
 (``cuobjdump -sass``).
+
+``--cell-split TREE`` prints only the dipolar cell-gradient split of phase 7
+for the package of another checkout (the parent commit, say), so that two
+commits compare on one card.
 
 Imports torch, numpy, scipy (through the port's neighbor list) and the
 port; nothing of JAX.
@@ -354,6 +362,109 @@ def sass_atomics(kernels, path) -> None:
     emit({"phase": "sass_atomics", "kernels": counts})
 
 
+def gather_design_sweep(mk, shape: str, launches: dict) -> None:
+    """Queued ms of each of ``launches`` (kernels E and F) at the z chunk of
+    ``ops/mesh_kernels.py:gather_z_chunk`` ("rule") and at 16, 32 and 64
+    z cells, and at z chunk 0: one thread a slot reading its window from the
+    mesh in device memory."""
+    rule = mk.gather_z_chunk
+    times = {}
+    try:
+        for zc in ("rule", 0, 16, 32, 64):
+            mk.gather_z_chunk = rule if zc == "rule" else (lambda nodes, n_ch, zc=zc: zc)
+            times[zc] = {name: cuda_ms(fn) for name, fn in launches.items()}
+    finally:
+        mk.gather_z_chunk = rule
+    emit({"phase": "gather_design_sweep", "shape": shape, "ms": times})
+
+
+def dipole_cell_split(fp, rows32, mu32, cell32) -> dict:
+    """The dipolar MD step's cell gradient in its two parts, the window's
+    (kernel G: through ``d_offs`` and the cell centres of ``d_pc``) and the
+    mesh's (the k-space energy through the refresh and kernels D, E, F),
+    each of the float32 kernel path and of the plain float32 path against
+    the plain float64 path on the same float32-rounded inputs: max abs error
+    over max |float64 total| and over max |float64 part|.  Beside them the
+    window's net force, max |sum_i dE_sr/dr_i| over max |dE_sr/dr_i|: zero
+    in exact arithmetic, and where the cell gradient's weighted sum of
+    forces sees the rounding of action against reaction; and the window's
+    float32 floor: its float64 gradients (``d_pc``, ``d_offs``) rounded to
+    float32, and nothing else, pushed through the cell in float64."""
+    from torchpme_tpu_torch.ops.rspace_cells import _prepare_bucketed
+    from torchpme_tpu_torch.ops.rspace_cells_dipole import (
+        _dw_value_and_grad,
+        cell_list_rspace_dipole_energy_rows,
+    )
+
+    def parts(dtype, plain):
+        r = rows32.to(dtype).detach().requires_grad_()
+        m = mu32.to(dtype).detach()
+        c = cell32.to(dtype).detach().requires_grad_()
+        e_sr = cell_list_rspace_dipole_energy_rows(fp.calc.potential, m, r, c, fp.clist,
+                                                   plain=plain)
+        g_sr, g_r = torch.autograd.grad(e_sr, (c, r))
+        e_k = fp.calc._compute_kspace_energy(m, c, r.detach(), ns_kvectors=fp.ns_kvectors,
+                                             tiled_interp=fp.tiled, check_stale=False,
+                                             plain=plain)
+        (g_k,) = torch.autograd.grad(e_k, c)
+        g_r = g_r.double()
+        net = float(g_r.sum(0).abs().max()) / float(g_r.abs().max())
+        return g_sr.double(), g_k.double(), net
+
+    ref = parts(torch.float64, True)
+    total = float((ref[0] + ref[1]).abs().max())
+    out = {"window_max_abs": float(ref[0].abs().max()), "mesh_max_abs": float(ref[1].abs().max()),
+           "total_max_abs": total, "window_net_force_f64": ref[2]}
+    for label, plain in (("kernels", False), ("plain_f32", True)):
+        got = parts(torch.float32, plain)
+        for part, g, r in zip(("window", "mesh"), got, ref):
+            err = float((g - r).abs().max())
+            out[f"{part}_{label}_rel"] = err / total
+            out[f"{part}_{label}_rel_own"] = err / float(r.abs().max())
+        out[f"total_{label}_rel"] = float((got[0] + got[1] - ref[0] - ref[1]).abs().max()) / total
+        out[f"window_net_force_{label}"] = got[2]
+
+    n_cells, cap = fp.clist.slot_mask.shape
+    c = cell32.double().requires_grad_()
+    ins = _prepare_bucketed(
+        mu32.double().index_select(0, fp.clist.atom_index.reshape(-1).long())
+        .reshape(n_cells, cap, 3),
+        rows32[: n_cells * cap].double().reshape(n_cells, cap, 3), c, fp.clist,
+    )[:4]
+    _, (g_pc, _, g_offs) = _dw_value_and_grad(fp.calc.potential, fp.clist.cutoff,
+                                              *[t.detach() for t in ins])
+
+    def through(gp, go):
+        return torch.autograd.grad((ins[0], ins[3]), c, grad_outputs=(gp, go),
+                                   retain_graph=True)[0]
+
+    exact = through(g_pc, g_offs)
+    floor = through(g_pc.float().double(), g_offs.float().double())
+    out["window_f32_floor_rel"] = float((floor - exact).abs().max()) / total
+    sync()
+    return out
+
+
+def cell_split_of(tree: Path) -> int:
+    """``--cell-split TREE``: the 102k dipolar MD step's cell-gradient split
+    (:func:`dipole_cell_split`) of the package in another checkout ``TREE``,
+    so that two commits compare on one card; one JSON line."""
+    sys.path.insert(0, str(tree.resolve()))
+    import torchpme_tpu_torch as tpt
+
+    f32 = dict(dtype=torch.float32, device=tpt.default_device())
+    positions, _, cell = water_box(N_ATOMS)
+    smearing, spacing = dipole_parameters()
+    calc = tpt.PMECalculatorDipole(tpt.PotentialDipole(smearing=smearing), mesh_spacing=spacing)
+    fp = tpt.MDFastPathDipole.create(calc, positions.astype(np.float32),
+                                     cell.astype(np.float32), CUTOFF)
+    mu32 = torch.tensor(np.random.default_rng(1).normal(size=(N_ATOMS, 3)), **f32)
+    rows32 = fp.bucket(torch.tensor(positions, **f32))
+    emit({"phase": "cell_grad_split", "package": tpt.__file__, "nvidia_smi": card_line(),
+          **dipole_cell_split(fp, rows32, mu32, torch.tensor(cell, **f32))})
+    return 0
+
+
 def dipole_phases(env) -> None:
     """Phases 3 (kernel G; D, E, F at the dipolar shapes), 7, 8 and 9: the
     dipolar paths at the system of tools/bench_family.py."""
@@ -361,11 +472,7 @@ def dipole_phases(env) -> None:
     from torchpme_tpu_torch.ops import mesh_kernels as mk
     from torchpme_tpu_torch.ops import rspace_cells_dipole as rcd
     from torchpme_tpu_torch.ops.math import inv3
-    from torchpme_tpu_torch.ops.mesh_tiled import (
-        _slot_values,
-        compute_tiled_interpolation,
-        dipole_slots,
-    )
+    from torchpme_tpu_torch.ops.mesh_tiled import _slot_values, compute_tiled_interpolation
     from torchpme_tpu_torch.ops.rspace_cells import _prepare_bucketed, _window_offsets
 
     pos32, cell32, idx_t, shifts_t = env.pos32, env.cell32, env.idx_t, env.shifts_t
@@ -507,22 +614,20 @@ def dipole_phases(env) -> None:
                 f"{', separate i-side dipoles' if split else ''}, {warps} home cells a block")
         del e_ins
 
-    slots = dipole_slots(interp)
-    arrays = (slots.local_x, slots.local_y, slots.start_z, slots.weights.contiguous())
-    # what the dipolar density must move: each slot's indices, weights and
-    # weight derivatives once (the kernels' interface takes them tripled)
+    # what the dipolar kernels must move: each slot's indices, weights and
+    # weight derivatives once
     once = (interp.local_x, interp.local_y, interp.start_z, interp.weights, interp.dweights)
     nu = (mu32 @ inv3(cell32)) * torch.tensor(NS_MESH, **f32)
-    q_slots = _slot_values(interp, nu).reshape(n_tiles, 1, 3 * tile_cap).contiguous()
+    nu_slots = _slot_values(interp, nu)
     field, n3 = env.ct_rho, DIPOLE_NODES**3
     mesh_src, mesh_ref = "torchpme_tpu_torch/csrc/mesh.cu", "torchpme_tpu/ops/pallas/mesh_pallas.py"
     # kernel D's dipole form, one pass per slot: the spread of the dipoles
     # (forward) and of the gather's mesh cotangent, per-slot values (T, 3, K)
     # that are zero in empty slots (the backward of the atom gather)
-    dip_args = (interp.local_x, interp.local_y, interp.start_z, interp.weights, interp.dweights)
+    dip_args = once
     occupied = (interp.atom_of_slot < N_ATOMS).to(torch.float32)[:, None, :]
     ct_slots = torch.randn((n_tiles, 3, tile_cap), generator=gen, **f32) * occupied
-    for label, vals in (("the spread of the dipoles", q_slots.reshape(n_tiles, 3, tile_cap)),
+    for label, vals in (("the spread of the dipoles", nu_slots),
                         ("the gather's mesh cotangent", ct_slots)):
         check_kernel(
             "mesh_spread", mesh_src, f"{mesh_ref}:213",
@@ -533,24 +638,39 @@ def dipole_phases(env) -> None:
             shape=f"dipole form, {label}: {DIPOLE_NODES} nodes, T={n_tiles}, K={tile_cap}",
         )
     del ct_slots
-    shape = f"dipolar: {DIPOLE_NODES} nodes, T={n_tiles}, K=3x{tile_cap}"
+    # the dipole forms of E and F, one pass per slot
+    shape = f"dipole form: {DIPOLE_NODES} nodes, T={n_tiles}, K={tile_cap}"
     check_kernel(
         "mesh_gather", mesh_src, f"{mesh_ref}:239",
-        lambda: (mk.mesh_gather(*arrays, field, NS_MESH, DIPOLE_NODES),),
-        lambda: (mk.mesh_gather_plain(*arrays, field, NS_MESH, DIPOLE_NODES),),
-        bound(nbytes(*once, field, q_slots), 3 * N_ATOMS * 2 * n3), env.report, shape=shape,
+        lambda: (mk.mesh_gather_dipole(*dip_args, field, NS_MESH, DIPOLE_NODES),),
+        lambda: (mk.mesh_gather_dipole_plain(*dip_args, field, NS_MESH, DIPOLE_NODES),),
+        bound(nbytes(*once, field, nu_slots), 3 * N_ATOMS * 2 * n3), env.report, shape=shape,
     )
     check_kernel(
         "mesh_wgrad", mesh_src, f"{mesh_ref}:263",
-        lambda: (mk.mesh_wgrad(*arrays, q_slots, field, NS_MESH, DIPOLE_NODES),),
-        lambda: (mk.mesh_wgrad_plain(*arrays, q_slots, field, NS_MESH, DIPOLE_NODES),),
-        bound(nbytes(*once, q_slots, field, interp.weights, interp.dweights),
+        lambda: mk.mesh_wgrad_dipole(*dip_args, nu_slots, field, NS_MESH, DIPOLE_NODES),
+        lambda: mk.mesh_wgrad_dipole_plain(*dip_args, nu_slots, field, NS_MESH, DIPOLE_NODES),
+        bound(nbytes(*once, nu_slots, field, interp.weights, interp.dweights),
               3 * N_ATOMS * 8 * n3), env.report,
         shape=shape,
     )
-    emit({"phase": "kernel", "name": "mesh_gather_wgrad", "shape": shape, "ms": cuda_ms(
-        lambda: mk.mesh_gather_wgrad(*arrays, q_slots, field, NS_MESH, DIPOLE_NODES))})
-    del slots, arrays, q_slots, nu
+    both = lambda: mk.mesh_gather_wgrad_dipole(*dip_args, nu_slots, field, NS_MESH, DIPOLE_NODES)
+    first, again = both(), both()
+    split = (mk.mesh_gather_dipole(*dip_args, field, NS_MESH, DIPOLE_NODES),
+             *mk.mesh_wgrad_dipole(*dip_args, nu_slots, field, NS_MESH, DIPOLE_NODES))
+    sync()
+    if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(first, again, split)):
+        raise AssertionError("mesh_gather_wgrad_dipole differs between launches or from E and F")
+    emit({"phase": "kernel", "name": "mesh_gather_wgrad", "shape": shape, "ms": cuda_ms(both),
+          "bitwise_equal_over_two_launches_and_to_e_and_f": True})
+    del first, again, split
+    if env.profile:
+        gather_design_sweep(mk, f"dipole form, {DIPOLE_NODES} nodes", {
+            "mesh_gather": lambda: mk.mesh_gather_dipole(*dip_args, field, NS_MESH, DIPOLE_NODES),
+            "mesh_wgrad": lambda: mk.mesh_wgrad_dipole(*dip_args, nu_slots, field, NS_MESH,
+                                                       DIPOLE_NODES),
+            "mesh_gather_wgrad": both})
+    del nu_slots, nu
 
     # -- 7. the dipolar MD step (kernels G, D, E, F) -------------------------------
     def step(dtype, plain):
@@ -592,9 +712,10 @@ def dipole_phases(env) -> None:
     kernel_ms, plain_ms = (t / CHAIN for t in alternate_ms(md_chain, 1))
     if not bool(torch.isfinite(md_chain(False)).all()):
         raise AssertionError("the dipolar MD chain left its bucketing")
+    cell_split = dipole_cell_split(fp, rows32, mu32, cell32)
     emit({"phase": "dipole_slice", "atoms": N_ATOMS, "energy_f32": e_md,
           "energy_rel": e_rel, "force_rel_rms": f_rms, "field_rel": field_rel,
-          "cell_grad_rel": c_rel, "max_abs_force": max_force,
+          "cell_grad_rel": c_rel, "cell_grad_split": cell_split, "max_abs_force": max_force,
           "launches": {k: counts[k] for k in md_kernels}, "create_seconds": create_s,
           "ms_per_step": kernel_ms, "plain_f32_ms_per_step": plain_ms, "nvidia_smi": env.smi})
     if not (e_rel <= 1e-5 and f_rms <= 1e-5 and field_rel <= 1e-5 and c_rel <= DIPOLE_CELL_TOL):
@@ -709,6 +830,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if "--cell-split" in sys.argv[1:]:
+        return cell_split_of(Path(sys.argv[sys.argv.index("--cell-split") + 1]))
     sys.path.insert(0, str(REPO))
     import torchpme_tpu_torch as tpt
     from torchpme_tpu_torch import kernels
@@ -946,16 +1069,26 @@ def main() -> int:
             lambda: (mk.mesh_wgrad_plain(*arrays, q_slots, field, NS_MESH, NODES),),
             bound(nbytes(*arrays, q_slots, field, wg), N_ATOMS * n_ch * 8 * n3), report,
         )
-        # E and F from one launch, as the backward of the spread runs them
-        both = mk.mesh_gather_wgrad(*arrays, q_slots, field, NS_MESH, NODES)
+        # E and F from one launch, as the backward of the spread runs them;
+        # each slot has one writer: two launches agree bit for bit
+        def both():
+            return mk.mesh_gather_wgrad(*arrays, q_slots, field, NS_MESH, NODES)
+
+        first, again = both(), both()
         split = (mk.mesh_gather(*arrays, field, NS_MESH, NODES),
                  mk.mesh_wgrad(*arrays, q_slots, field, NS_MESH, NODES))
         sync()
-        if not all(torch.equal(a, b) for a, b in zip(both, split)):
-            raise AssertionError("mesh_gather_wgrad differs from its two kernels")
-        emit({"phase": "kernel", "name": "mesh_gather_wgrad", "channels": n_ch,
-              "ms": cuda_ms(lambda: mk.mesh_gather_wgrad(*arrays, q_slots, field, NS_MESH, NODES))})
-    del q_slots, field, values, both, split
+        if not all(torch.equal(a, b) and torch.equal(a, c)
+                   for a, b, c in zip(first, again, split)):
+            raise AssertionError("mesh_gather_wgrad differs between launches or from E and F")
+        emit({"phase": "kernel", "name": "mesh_gather_wgrad", "channels": n_ch, "ms": cuda_ms(both),
+              "bitwise_equal_over_two_launches_and_to_e_and_f": True})
+        if profile:
+            gather_design_sweep(mk, f"charges, {NODES} nodes, {n_ch} channel(s)", {
+                "mesh_gather": lambda: mk.mesh_gather(*arrays, field, NS_MESH, NODES),
+                "mesh_wgrad": lambda: mk.mesh_wgrad(*arrays, q_slots, field, NS_MESH, NODES),
+                "mesh_gather_wgrad": both})
+    del q_slots, field, values, first, again, split
 
     # -- 4. the MD step: energy + forces in aligned mode (kernels A, B, C) --------
     cell_g = cell32.clone().requires_grad_()

@@ -281,14 +281,25 @@ def _leaves(interp, requires_grad=True):
     return replace(interp, weights=w, dweights=dw), w, dw
 
 
-@pytest.mark.parametrize("nodes", [4, 6])
-@pytest.mark.parametrize("share_slots", [False, True])
-def test_dipole_form_autograd_matches_the_tripled_path(nodes, share_slots):
+def _tripled(interp):
+    """The bucketing of every slot three times along the capacity axis (copy
+    ``a`` with the axis-``a`` derivative), built with differentiable ops:
+    the charge-form path that the dipole forms replace."""
+    from dataclasses import replace
+
+    lx, ly, sz, w = mt._dipole_triple(
+        interp.local_x, interp.local_y, interp.start_z, interp.weights, interp.dweights
+    )
+    return replace(interp, local_x=lx, local_y=ly, start_z=sz, weights=w, dweights=None)
+
+
+@pytest.mark.parametrize("nodes", [3, 4, 6, 7])
+def test_dipole_form_autograd_matches_the_tripled_path(nodes):
     """The cotangents of ``weights``, ``dweights`` and ``ν`` through the
     dipole form's spread and gather (kernel D's dipole form forward and in the
-    gather's backward, E and F over the tripled slots) ≡ those of the path
-    through ``dipole_slots`` and the charge-form functions, and ≡ the
-    one-pass mirror's own autograd, ≤ 1e-12."""
+    gather's backward, the dipole forms of E and F in the backwards) ≡ those
+    of the path through the tripled slots and the charge-form functions, and
+    ≡ the one-pass mirror's own autograd, ≤ 1e-12."""
     _, interp_t, nu = _dipole_case(nodes, seed=9)
     rng = np.random.default_rng(10)
     nu_slots = mt._slot_values(interp_t, torch.tensor(nu))
@@ -302,17 +313,15 @@ def test_dipole_form_autograd_matches_the_tripled_path(nodes, share_slots):
         fld = field.clone().requires_grad_()
         t, _, k = nu_.shape
         if path == "tripled":
-            slots = mt.dipole_slots(it)
+            slots = _tripled(it)
             mesh = mk.spread_tiles(slots, nu_.reshape(t, 1, 3 * k))
             vals = mk.gather_tiles(slots, fld).reshape(t, 3, k)
         elif path == "mirror":
             mesh = _one_pass_mirror(it, nu_)
-            vals = mk.gather_tiles(mt.dipole_slots(it), fld).reshape(t, 3, k)
+            vals = mk.gather_tiles(_tripled(it), fld).reshape(t, 3, k)
         else:
-            with torch.no_grad():
-                slots = mt.dipole_slots(it) if share_slots else None
-            mesh = mk.spread_dipoles(it, nu_, slots=slots)
-            vals = mk.gather_dipole_fields(it, fld, slots=slots)
+            mesh = mk.spread_dipoles(it, nu_)
+            vals = mk.gather_dipole_fields(it, fld)
         loss = (mesh * ct_mesh).sum() + (vals * ct_vals).sum()
         return torch.autograd.grad(loss, (w, dw, nu_, fld))
 
@@ -326,20 +335,191 @@ def test_dipole_form_autograd_matches_the_tripled_path(nodes, share_slots):
 
 
 @pytest.mark.parametrize("fn", ["spread_dipoles", "gather_dipole_fields"])
-def test_dipole_form_backward_refuses_slots_changed_in_place(fn):
-    """The tripled slots that the backward reads are saved for it: changing
-    the caller's ``dipole_slots`` weights in place after the forward makes
+def test_dipole_form_backward_refuses_weights_changed_in_place(fn):
+    """The weights and derivatives that the backward's dipole forms of E and
+    F read are saved for it: changing them in place after the forward makes
     the backward raise instead of using stale values."""
     _, interp_t, nu = _dipole_case(4, seed=9)
-    it, w, _ = _leaves(interp_t)
-    with torch.no_grad():
-        slots = mt.dipole_slots(it)
+    it, w, dw = _leaves(interp_t)
     if fn == "spread_dipoles":
         x = mt._slot_values(interp_t, torch.tensor(nu)).requires_grad_()
-        out = mk.spread_dipoles(it, x, slots=slots)
+        out = mk.spread_dipoles(it, x)
     else:
         x = torch.zeros((1, *NS), dtype=torch.float64, requires_grad=True)
-        out = mk.gather_dipole_fields(it, x, slots=slots)
-    slots.weights.mul_(2.0)
+        out = mk.gather_dipole_fields(it, x)
+    with torch.no_grad():
+        dw.mul_(2.0)
     with pytest.raises(RuntimeError, match="inplace"):
         torch.autograd.grad(out.sum(), (w, x))
+
+
+# -- the dipole forms of kernels E and F ---------------------------------------
+
+
+def _slots_to_atoms(interp, per_slot):
+    """Per-slot ``(T, C, K)`` → atom-order ``(N, C)``."""
+    n_ch = per_slot.shape[1]
+    flat = per_slot.transpose(1, 2).reshape(-1, n_ch)
+    flat = torch.cat([flat, flat.new_zeros((1, n_ch))], dim=0)
+    return flat.index_select(0, interp.slot_of_atom.long())
+
+
+@pytest.mark.parametrize("nodes", [3, 4, 5, 6, 7])
+def test_dipole_gather_and_wgrad_plain_match_jax(nodes):
+    """The plain versions of the dipole forms of E and F ≡ the JAX package's
+    ``tiled_mesh_to_dipole_field`` and its ``jax.vjp`` with respect to the
+    weights and their derivatives (cotangent ν), and E ≡ the ``jax.vjp`` of
+    ``tiled_dipoles_to_mesh`` with respect to ν (cotangent the mesh), ≤ 1e-10
+    in float64 (XLA path); the CPU wrappers are the plain versions; empty
+    slots give zeros."""
+    from dataclasses import replace as jreplace
+
+    interp_j, it, nu = _dipole_case(nodes, seed=11)
+    field = np.random.default_rng(12).normal(size=(1, *NS))
+    args = (it.local_x, it.local_y, it.start_z, it.weights, it.dweights)
+    nu_slots = mt._slot_values(it, torch.tensor(nu))
+    fld = torch.tensor(field)
+    vals = mk.mesh_gather_dipole_plain(*args, fld, NS, nodes)
+    ct_w, ct_dw = mk.mesh_wgrad_dipole_plain(*args, nu_slots, fld, NS, nodes)
+    assert vals.shape == nu_slots.shape and ct_w.shape == ct_dw.shape == it.weights.shape
+
+    @jax.jit
+    def refs(interp, f, n):
+        def field_j(w, dw):
+            return jmt.tiled_mesh_to_dipole_field(jreplace(interp, weights=w, dweights=dw), f)
+
+        e, vjp_field = jax.vjp(field_j, interp.weights, interp.dweights)
+        _, vjp_spread = jax.vjp(lambda n_: jmt.tiled_dipoles_to_mesh(interp, n_), n)
+        return (e, *vjp_field(n), *vjp_spread(f))
+
+    e_j, ref_w, ref_dw, ref_nu = refs(interp_j, jnp.asarray(field), jnp.asarray(nu))
+    got_atoms = _slots_to_atoms(it, vals).numpy()
+    for got, ref in ((got_atoms, e_j), (got_atoms, ref_nu), (ct_w.numpy(), ref_w),
+                     (ct_dw.numpy(), ref_dw)):
+        np.testing.assert_allclose(got, np.asarray(ref), rtol=0, atol=1e-10)
+    empty = it.atom_of_slot == len(nu)
+    assert bool(empty.any())
+    assert float(vals.transpose(1, 2)[empty].abs().max()) == 0.0
+    assert float(ct_w[empty].abs().max()) == float(ct_dw[empty].abs().max()) == 0.0
+    both = mk.mesh_gather_wgrad_dipole(*args, nu_slots, fld, NS, nodes)
+    for got, ref in zip((mk.mesh_gather_dipole(*args, fld, NS, nodes),
+                         *mk.mesh_wgrad_dipole(*args, nu_slots, fld, NS, nodes), *both),
+                        (vals, ct_w, ct_dw, vals, ct_w, ct_dw)):
+        np.testing.assert_array_equal(got.numpy(), ref.numpy())
+
+
+def _contraction_mirror(interp, q_slots, mesh, dipole):
+    """Test-only float64 mirror of kernels E and F as ``csrc/mesh.cu``'s
+    ``contract_slot`` sums them, slot by slot in the kernel's order: over
+    the window's x nodes ``a``, then y nodes ``b`` (both dropped beyond the
+    window), then the z nodes ``c`` of the column (wrapping modulo the mesh).
+    Returns ``(values, ct_w[, ct_dw])``."""
+    nx, ny, nz = interp.ns
+    n = interp.nodes
+    e = mt.TILE + n - 1
+    t, k = interp.local_x.shape
+    ty_count = ny // mt.TILE
+    tile = torch.arange(t)[:, None]
+    ox, oy = tile // ty_count * mt.TILE, tile % ty_count * mt.TILE
+    x0, y0, z0 = (a.long() for a in (interp.local_x, interp.local_y, interp.start_z))
+    w = interp.weights
+    wx, wy, wz = (w[..., i, :] for i in range(3))
+    zero = torch.zeros((t, k), dtype=w.dtype)
+
+    def column(ch, a, b):  # (T, K, n) mesh values of window column (a, b)
+        gx, gy = torch.remainder(ox + x0 + a, nx), torch.remainder(oy + y0 + b, ny)
+        zc = torch.remainder(z0[..., None] + torch.arange(n), nz)
+        return mesh[ch][gx[..., None], gy[..., None], zc]
+
+    g = {key: [[zero] * n for _ in range(3)] for key in ("w", "d")}
+    if not dipole:
+        vals = []
+        for ch in range(q_slots.shape[1]):
+            qv = q_slots[:, ch]
+            acc = zero
+            for a in range(n):
+                keep_a = (x0 + a < e).to(w.dtype)
+                sa, qa = zero, wx[..., a] * qv
+                for b in range(n):
+                    keep = keep_a * (y0 + b < e).to(w.dtype)
+                    f = column(ch, a, b) * keep[..., None]
+                    s = zero
+                    for c in range(n):
+                        s = s + wz[..., c] * f[..., c]
+                    sa = sa + wy[..., b] * s
+                    tz = qa * wy[..., b]
+                    for c in range(n):
+                        g["w"][2][c] = g["w"][2][c] + tz * f[..., c]
+                    g["w"][1][b] = g["w"][1][b] + qa * s
+                acc = acc + wx[..., a] * sa
+                g["w"][0][a] = g["w"][0][a] + qv * sa
+            vals.append(acc)
+        vals = torch.stack(vals, dim=1)
+    else:
+        d = interp.dweights
+        dx, dy, dz = (d[..., i, :] for i in range(3))
+        nux, nuy, nuz = (q_slots[:, i] for i in range(3))
+        ex = ey = ez = zero
+        for a in range(n):
+            keep_a = (x0 + a < e).to(w.dtype)
+            sw = sdy = sdz = zero
+            cxa, cya, cza = nux * dx[..., a], nuy * wx[..., a], nuz * wx[..., a]
+            for b in range(n):
+                keep = keep_a * (y0 + b < e).to(w.dtype)
+                f = column(0, a, b) * keep[..., None]
+                s = sd = zero
+                for c in range(n):
+                    s = s + wz[..., c] * f[..., c]
+                    sd = sd + dz[..., c] * f[..., c]
+                sw = sw + wy[..., b] * s
+                sdy = sdy + dy[..., b] * s
+                sdz = sdz + wy[..., b] * sd
+                cw, cd = cxa * wy[..., b] + cya * dy[..., b], cza * wy[..., b]
+                for c in range(n):
+                    g["w"][2][c] = g["w"][2][c] + cw * f[..., c]
+                    g["d"][2][c] = g["d"][2][c] + cd * f[..., c]
+                g["w"][1][b] = g["w"][1][b] + cxa * s + cza * sd
+                g["d"][1][b] = g["d"][1][b] + cya * s
+            ex = ex + dx[..., a] * sw
+            ey = ey + wx[..., a] * sdy
+            ez = ez + wx[..., a] * sdz
+            g["w"][0][a] = keep_a * (nuy * sdy + nuz * sdz)
+            g["d"][0][a] = keep_a * (nux * sw)
+        vals = torch.stack([ex, ey, ez], dim=1)
+
+    def stacked(key):
+        return torch.stack([torch.stack(g[key][i], dim=-1) for i in range(3)], dim=2)
+
+    return (vals, stacked("w"), stacked("d")) if dipole else (vals, stacked("w"))
+
+
+@pytest.mark.parametrize("nodes", [3, 5, 7])
+@pytest.mark.parametrize("form", ["charges", "dipoles"])
+def test_kernel_order_mirror_of_gather_and_wgrad_matches_plain(nodes, form):
+    """A float64 mirror of the per-slot contraction of kernels E and F (both
+    forms), in the order the kernel sums it, ≡ the plain versions ≤ 1e-12,
+    with a third of the slots stale (x nodes beyond the window) and the empty
+    slots giving zeros; three channels in the charge form."""
+    _, it, nu = _dipole_case(nodes, seed=13)
+    rng = np.random.default_rng(14)
+    lx = it.local_x.clone()
+    stale = (it.atom_of_slot < len(nu)) & (torch.arange(lx.shape[1]) % 3 == 0)
+    lx[stale] = mt.TILE + 1  # nodes 0..n-3 of x fall off the window
+    from dataclasses import replace
+
+    it = replace(it, local_x=lx)
+    args = (it.local_x, it.local_y, it.start_z, it.weights)
+    if form == "charges":
+        q_slots = mt._slot_values(it, torch.tensor(rng.normal(size=(len(nu), 3))))
+        mesh = torch.tensor(rng.normal(size=(3, *NS)))
+        ref = (mk.mesh_gather_plain(*args, mesh, NS, nodes),
+               mk.mesh_wgrad_plain(*args, q_slots, mesh, NS, nodes))
+        got = _contraction_mirror(it, q_slots, mesh, dipole=False)
+    else:
+        q_slots = mt._slot_values(it, torch.tensor(nu))
+        mesh = torch.tensor(rng.normal(size=(1, *NS)))
+        ref = mk.mesh_gather_wgrad_dipole_plain(*args, it.dweights, q_slots, mesh, NS, nodes)
+        got = _contraction_mirror(it, q_slots, mesh, dipole=True)
+    for a, b in zip(got, ref):
+        scale = float(b.abs().max())
+        np.testing.assert_allclose(a.numpy() / scale, b.numpy() / scale, rtol=0, atol=ATOL)

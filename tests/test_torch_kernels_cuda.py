@@ -611,8 +611,8 @@ def test_dipole_step_refuses_float64_and_poisons_when_stale(dipole_step):
 
 
 def test_dipole_calculator_call_on_the_card_matches_plain(device):
-    """PMECalculatorDipole.forward + autograd through kernels D, E, F over
-    the tripled slots ≡ the plain float32 path."""
+    """PMECalculatorDipole.forward + autograd through the dipole forms of
+    kernels D, E, F ≡ the plain float32 path."""
     from torchpme_tpu_torch.utils.neighbors import neighbor_list
 
     rng = np.random.default_rng(4)
@@ -665,8 +665,8 @@ def _dipole_tiled_case(device, nodes, nz, n=500, seed=0):
 def test_dipole_spread_matches_plain_forward_and_backward(device, nodes, nz):
     """Kernel D's dipole form against its plain version (the charge form
     over the tripled slots); and the spread and the gather of the dipolar
-    mesh with their backwards (E, F over the tripled slots, the dipole form
-    for the gather's mesh cotangent) against the plain versions' autograd."""
+    mesh with their backwards (the dipole forms of E and F, and of D for the
+    gather's mesh cotangent) against the plain versions' autograd."""
     interp, nu, field = _dipole_tiled_case(device, nodes, nz)
     it, ns = interp, interp.ns
     args = (it.local_x, it.local_y, it.start_z, it.weights, it.dweights, nu, ns, nodes)
@@ -708,3 +708,174 @@ def test_mesh_spread_of_stale_slots_over_z_chunks(device, nodes, n_ch, nz):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
     assert _rel(got, mk.mesh_spread_plain(*a, q_slots, ns, nodes)) <= 1e-5
+
+
+# -- kernels E and F: both forms, staged windows --------------------------------
+
+EF_FORMS = [("charges", 1), ("charges", 3), ("dipoles", 1)]
+
+
+@pytest.mark.parametrize("nodes", [3, 4, 5, 6, 7])
+@pytest.mark.parametrize("form,n_ch", EF_FORMS, ids=["charges", "charges3", "dipoles"])
+def test_gather_wgrad_kernels_match_plain_and_reproduce(device, form, n_ch, nodes):
+    """Kernels E and F, charge and dipole forms, alone and from one launch,
+    ≡ their plain versions ≤ 1e-5 rel on a z line of 40 cells (a partial
+    last z chunk), with a quarter of the occupied slots stale (x nodes off
+    the window) and the empty slots giving zeros; two launches agree bit for
+    bit."""
+    interp, nu, _ = _dipole_tiled_case(device, nodes, 40)
+    rng = np.random.default_rng(5)
+    lx = interp.local_x.clone()
+    occupied = interp.atom_of_slot < 500
+    lx[occupied & (torch.arange(lx.shape[1], device=device) % 4 == 0)] = mt.TILE + 1
+    ns = interp.ns
+    f32 = dict(dtype=torch.float32, device=device)
+    field = torch.tensor(rng.normal(size=(n_ch, *ns)), **f32)
+    a = (lx, interp.local_y, interp.start_z, interp.weights)
+    if form == "charges":
+        q = mt._slot_values(interp, torch.tensor(rng.normal(size=(500, n_ch)), **f32))
+        kern = (lambda: (mk.mesh_gather(*a, field, ns, nodes),),
+                lambda: (mk.mesh_wgrad(*a, q, field, ns, nodes),),
+                lambda: mk.mesh_gather_wgrad(*a, q, field, ns, nodes))
+        plain = (mk.mesh_gather_plain(*a, field, ns, nodes),
+                 mk.mesh_wgrad_plain(*a, q, field, ns, nodes))
+    else:
+        a = (*a, interp.dweights)
+        kern = (lambda: (mk.mesh_gather_dipole(*a, field, ns, nodes),),
+                lambda: mk.mesh_wgrad_dipole(*a, nu, field, ns, nodes),
+                lambda: mk.mesh_gather_wgrad_dipole(*a, nu, field, ns, nodes))
+        plain = mk.mesh_gather_wgrad_dipole_plain(*a, nu, field, ns, nodes)
+    kernels.reset_launch_counts()
+    gather, wgrad, both = (fn() for fn in kern)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["mesh_gather"], counts["mesh_wgrad"]) == (2, 2)
+    for got, ref in zip((*gather, *wgrad), plain):
+        assert got.shape == ref.shape and _rel(got, ref) <= 1e-5
+    for got, ref in zip(both, (*gather, *wgrad)):
+        assert torch.equal(got, ref)
+    empty = interp.atom_of_slot == 500
+    assert float(gather[0].transpose(1, 2)[empty].abs().max()) == 0.0
+    assert all(float(g[empty].abs().max()) == 0.0 for g in wgrad)
+    again = kern[2]()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(both, again))
+
+
+def test_dipole_gather_wgrad_refuses_what_it_does_not_take(device):
+    interp, nu, field = _dipole_tiled_case(device, 6, 128)
+    a = (interp.local_x, interp.local_y, interp.start_z, interp.weights, interp.dweights)
+    ns = interp.ns
+    with pytest.raises(TypeError, match="float32"):
+        mk.mesh_gather_dipole(*a, field.double(), ns, 6)
+    with pytest.raises(TypeError, match="float32"):
+        mk.mesh_wgrad_dipole(*a[:4], a[4].double(), nu, field, ns, 6)
+    with pytest.raises(ValueError, match="shape"):
+        mk.mesh_gather_dipole(*a, field.expand(2, *ns).contiguous(), ns, 6)
+    with pytest.raises(ValueError, match="shape"):
+        mk.mesh_wgrad_dipole(*a, nu[:, :2].contiguous(), field, ns, 6)
+
+
+def test_dipolar_autograd_on_the_card_never_builds_tripled_slots(device, monkeypatch):
+    """The card path of the dipolar spread and gather, forward and backward,
+    and of the dipolar per-atom call with its gradients, runs the dipole
+    forms of D, E and F: the tripled slots are never built."""
+    def refuse(*args):
+        raise AssertionError("the tripled slots were built on the card path")
+
+    monkeypatch.setattr(mt, "_dipole_triple", refuse)
+    monkeypatch.setattr(mk, "_dipole_triple", refuse)
+    interp, nu, field = _dipole_tiled_case(device, 6, 128)
+    w = interp.weights.clone().requires_grad_()
+    dw = interp.dweights.clone().requires_grad_()
+    q = nu.clone().requires_grad_()
+    f = field.clone().requires_grad_()
+    leaf = replace(interp, weights=w, dweights=dw)
+    kernels.reset_launch_counts()
+    loss = (mk.spread_dipoles(leaf, q) * field).sum() + (
+        mk.gather_dipole_fields(leaf, f) * nu
+    ).sum()
+    grads = torch.autograd.grad(loss, (w, dw, q, f))
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    counts = kernels.launch_counts()
+    assert (counts["mesh_spread"], counts["mesh_gather"], counts["mesh_wgrad"]) == (2, 2, 2)
+
+    from torchpme_tpu_torch.utils.neighbors import neighbor_list
+
+    rng = np.random.default_rng(4)
+    pos, mu, cell = rng.uniform(0, 16.0, (400, 3)), rng.normal(size=(400, 3)), np.eye(3) * 16.0
+    idx = torch.as_tensor(neighbor_list(pos, cell, cutoff=3.0)[0], device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    p = torch.tensor(pos, **f32).requires_grad_()
+    m = torch.tensor(mu, **f32).requires_grad_()
+    calc = tpt.PMECalculatorDipole(tpt.PotentialDipole(smearing=1.0), mesh_spacing=1.0)
+    vec = p.index_select(0, idx[:, 1]) - p.index_select(0, idx[:, 0])
+    kernels.reset_launch_counts()
+    pot = calc(m, torch.tensor(cell, **f32), p, idx, vec)
+    grads = torch.autograd.grad((pot * m).sum(), (p, m))
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    counts = kernels.launch_counts()
+    launched = {k: counts[k] for k in ("mesh_spread", "mesh_gather", "mesh_wgrad")}
+    assert launched == {"mesh_spread": 2, "mesh_gather": 2, "mesh_wgrad": 2}, launched
+
+
+@pytest.mark.parametrize(
+    "form,n_ch,nodes", [("charges", 1, 5), ("charges", 40, 7), ("dipoles", 1, 6)],
+    ids=["charges", "charges40_7", "dipoles"],
+)
+def test_gather_wgrad_thread_per_slot_kernel_matches_plain(device, monkeypatch, form, n_ch, nodes):
+    """The kernel that reads each slot's window from the mesh in device
+    memory, one thread a slot (z chunk 0, and where the staged block does not
+    fit shared memory: 40 channels at 7 nodes), ≡ the plain versions."""
+    interp, nu, _ = _dipole_tiled_case(device, nodes, 40)
+    if n_ch == 1:
+        monkeypatch.setattr(mk, "gather_z_chunk", lambda nodes, n_ch: 0)
+    rng = np.random.default_rng(6)
+    f32 = dict(dtype=torch.float32, device=device)
+    ns = interp.ns
+    field = torch.tensor(rng.normal(size=(n_ch, *ns)), **f32)
+    a = (interp.local_x, interp.local_y, interp.start_z, interp.weights)
+    if form == "charges":
+        q = mt._slot_values(interp, torch.tensor(rng.normal(size=(500, n_ch)), **f32))
+        got = mk.mesh_gather_wgrad(*a, q, field, ns, nodes)
+        ref = (mk.mesh_gather_plain(*a, field, ns, nodes),
+               mk.mesh_wgrad_plain(*a, q, field, ns, nodes))
+    else:
+        a = (*a, interp.dweights)
+        got = mk.mesh_gather_wgrad_dipole(*a, nu, field, ns, nodes)
+        ref = mk.mesh_gather_wgrad_dipole_plain(*a, nu, field, ns, nodes)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= 1e-5
+
+
+@pytest.mark.parametrize("nz,offset", [(30, 0), (18, 0), (40, 1)],
+                         ids=["nz30", "nz18", "misaligned_mesh"])
+def test_gather_wgrad_kernels_stage_any_z_line(device, nz, offset):
+    """The staged kernels copy 4 bytes a lane where 16 do not fit: a z line
+    that is not a multiple of 4 (30, and 18, under one chunk) and a mesh
+    whose storage starts off a 16-byte boundary; both forms ≡ the plain
+    versions, with the charge form at 3 channels."""
+    for form, n_ch, nodes in (("charges", 3, 4), ("dipoles", 1, 7)):
+        interp, nu, _ = _dipole_tiled_case(device, nodes, nz)
+        rng = np.random.default_rng(7)
+        ns = interp.ns
+        buf = torch.empty(n_ch * int(np.prod(ns)) + offset, dtype=torch.float32, device=device)
+        field = buf[offset:].view(n_ch, *ns)
+        field.copy_(torch.tensor(rng.normal(size=(n_ch, *ns)), dtype=torch.float32))
+        a = (interp.local_x, interp.local_y, interp.start_z, interp.weights)
+        if form == "charges":
+            q = torch.tensor(rng.normal(size=(500, n_ch)), dtype=torch.float32, device=device)
+            q = mt._slot_values(interp, q)
+            got = mk.mesh_gather_wgrad(*a, q, field, ns, nodes)
+            ref = (mk.mesh_gather_plain(*a, field, ns, nodes),
+                   mk.mesh_wgrad_plain(*a, q, field, ns, nodes))
+        else:
+            a = (*a, interp.dweights)
+            got = mk.mesh_gather_wgrad_dipole(*a, nu, field, ns, nodes)
+            ref = mk.mesh_gather_wgrad_dipole_plain(*a, nu, field, ns, nodes)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert _rel(g, r) <= 1e-5, (form, nz, offset)

@@ -7,7 +7,8 @@ calculator replaces it with a mesh pipeline:
 * **spread**: the dipolar mesh density is the *gradient* spread
   :math:`Q(m) = \sum_j \vec\mu_j\cdot\nabla_{r_j} W_j(m)`, from the
   analytically differentiated 1D stencil tables.  On the tiled backend it is
-  three monopole-like spreads through kernel D in one launch
+  the three gradient stencils of each slot in one pass of kernel D's dipole
+  form
   (:func:`~torchpme_tpu_torch.ops.mesh_tiled.tiled_dipoles_to_mesh`);
 * **filter**: by the continuum shift identity :math:`\widehat Q(k) =
   -i\,\hat w(k)\,S(k)` with :math:`S(k) = \sum_j (\vec\mu_j\cdot\vec k)
@@ -16,7 +17,7 @@ calculator replaces it with a mesh pipeline:
   Coulomb kernel, on cuFFT (the JAX package's DFT-by-matmul branch is a TPU
   choice and is not ported);
 * **gather**: the per-atom vector field interpolates back with the same
-  gradient stencil (kernel E), the exact transpose of the spread, so autograd
+  gradient stencil (kernel E's dipole form), the exact transpose of the spread, so autograd
   gives forces, fields and the cell gradient.
 
 Drop-in for :class:`CalculatorDipole` (same ``forward`` / ``energy`` /
@@ -39,7 +40,6 @@ from ..ops.mesh import (
 from ..ops.mesh_tiled import (
     TiledInterpolation,
     compute_tiled_interpolation,
-    dipole_slots,
     refresh_tiled_interpolation,
     supports_tiling,
     tiled_dipoles_to_mesh,
@@ -166,19 +166,16 @@ class PMECalculatorDipole(CalculatorDipole):
 
     def _dipole_mesh_density(
         self, dipoles, cell, positions, kvectors, ns_kvectors, tiled_interp,
-        check_stale: bool = True, plain: bool = False, gather: bool = False,
+        check_stale: bool = True, plain: bool = False,
     ):
         r"""Shared spread half of the k-space paths: the gradient-spread mesh
         density :math:`Q(m) = \sum_j \vec\mu_j\cdot\nabla W_j(m)`.
 
-        Returns ``(q_mesh, interp, mesh_valid, ns, slots)``; ``interp`` is a
-        :class:`TiledInterpolation` on the tiled backend and, where the caller
-        will ``gather``, ``slots`` its tripled gradient-stencil bucketing
-        (values only: the spread and gather functions carry the weights'
-        gradients), built once for the gather and both backwards (``None``
-        otherwise: the spread's backward builds its own); ``mesh_valid`` is the
-        on-device validity flag of a reused bucketing (``None`` otherwise).  ``check_stale`` reads the flag and raises (one device
-        sync); without it the caller poisons its result with NaN instead.
+        Returns ``(q_mesh, interp, mesh_valid, ns)``; ``interp`` is a
+        :class:`TiledInterpolation` on the tiled backend; ``mesh_valid`` is the
+        on-device validity flag of a reused bucketing (``None`` otherwise).
+        ``check_stale`` reads the flag and raises (one device sync); without
+        it the caller poisons its result with NaN instead.
         """
         if kvectors is not None:
             raise ValueError(
@@ -206,7 +203,7 @@ class PMECalculatorDipole(CalculatorDipole):
             interp = compute_dipole_interpolation(
                 positions, inverse_cell, ns, self.interpolation_nodes, self._method
             )
-            return dipoles_to_mesh(interp, dipoles), interp, None, ns, None
+            return dipoles_to_mesh(interp, dipoles), interp, None, ns
 
         mesh_valid = None
         if tiled_interp is not None:
@@ -231,20 +228,15 @@ class PMECalculatorDipole(CalculatorDipole):
         # effective per-axis charges: chain rule through rel = pos@C⁻¹·ns
         ns_t = torch.tensor(ns, dtype=dtype, device=positions.device)
         nu = torch.matmul(dipoles, inverse_cell) * ns_t
-        slots = None
-        if gather:
-            with torch.no_grad():
-                slots = dipole_slots(interp)
-        q_mesh = tiled_dipoles_to_mesh(interp, nu, plain=plain, slots=slots)
-        return q_mesh, interp, mesh_valid, ns, slots
+        q_mesh = tiled_dipoles_to_mesh(interp, nu, plain=plain)
+        return q_mesh, interp, mesh_valid, ns
 
     def _compute_kspace(
         self, dipoles, cell, positions, kvectors=None, ns_kvectors=None,
         tiled_interp: TiledInterpolation | None = None, plain: bool = False,
     ) -> torch.Tensor:
-        q_mesh, interp, mesh_valid, ns, slots = self._dipole_mesh_density(
-            dipoles, cell, positions, kvectors, ns_kvectors, tiled_interp, plain=plain,
-            gather=True,
+        q_mesh, interp, mesh_valid, ns = self._dipole_mesh_density(
+            dipoles, cell, positions, kvectors, ns_kvectors, tiled_interp, plain=plain
         )
         kfilter = compute_kspace_filter(self.potential.lr_from_k_sq, cell, ns)
         # backward/forward norm pair: no 1/n factor in either direction
@@ -252,8 +244,8 @@ class PMECalculatorDipole(CalculatorDipole):
             q_mesh, kfilter, fft_norm="backward", ifft_norm="forward"
         )
         volume = torch.abs(det3(cell))
-        if slots is not None:
-            e_rel = tiled_mesh_to_dipole_field(interp, filtered, plain=plain, slots=slots)
+        if isinstance(interp, TiledInterpolation):
+            e_rel = tiled_mesh_to_dipole_field(interp, filtered, plain=plain)
             e_rel = e_rel / volume
             ns_t = torch.tensor(ns, dtype=e_rel.dtype, device=e_rel.device)
             field = torch.einsum("na,ba,a->nb", e_rel, inv3(cell), ns_t)
@@ -288,7 +280,7 @@ class PMECalculatorDipole(CalculatorDipole):
         With ``check_stale=False`` a stale ``tiled_interp`` gives NaN (value
         and gradients) instead of an error, without waiting for the device.
         """
-        q_mesh, _, mesh_valid, ns, _ = self._dipole_mesh_density(
+        q_mesh, _, mesh_valid, ns = self._dipole_mesh_density(
             dipoles, cell, positions, kvectors, ns_kvectors, tiled_interp,
             check_stale=check_stale, plain=plain,
         )

@@ -42,12 +42,27 @@
 // x node, and issues one shared atomic per node, a third of the reads and
 // atomics of the charge form over every slot three times (dipole_slots).
 // Everything accumulates in float32.
-// E and F: one thread per slot reads its n^3 window of the mesh (wrapping
-// modulo the mesh) once and contracts it with the weights: E leaves nothing
-// open (the per-slot value), F leaves one axis open at a time (the cotangent
-// of each 1D weight).  One launch can produce both, which is what the
-// backward of the spread wants; no atomics.  The stencil size is a template
-// parameter so the per-thread weight and accumulator arrays stay in registers.
+// E and F: each slot's n^3 window of the mesh (wrapping modulo the mesh) is
+// contracted with its weights by one thread: E leaves nothing open (the
+// per-slot value), F leaves one axis open at a time (the cotangent of each
+// 1D weight).  One launch can produce both, which is what the backward of
+// the spread wants; each slot has one writer, so no atomics.  A block takes
+// one (tile, z chunk): it stages the tile's (E, E, zc + n - 1) window of
+// every channel in shared memory with 16-byte asynchronous copies (neighbour
+// slots share most of their window: the first kernel read it from L1/L2 once
+// per slot, each lane at its own address), and owns the slots whose z start
+// lies in its chunk.  The slots' weight rows come in, and F's cotangent rows
+// go out, through shared memory in contiguous segments.  The z chunk
+// (ops/mesh_kernels.py:gather_z_chunk) keeps the windows under 36 KB: 32
+// cells at one channel, 1024 blocks at the 102k shapes.  Where the staged
+// block does not fit shared memory (tens of channels, a capacity of
+// thousands) one thread a slot reads its window from device memory.  The
+// dipole form (dw given, one channel) contracts the three gradient stencils
+// d_a[W_x W_y W_z] of each slot in one pass: E gives the three values, F the
+// cotangents of the weights and of their derivatives of sum_a nu_a E_a, a
+// third of the window reads of the charge form over every slot three times.
+// The stencil size is a template parameter so the per-thread weight and
+// accumulator arrays stay in registers.
 //
 // Plain CUDA C++, no TMA / wgmma.  float32 only; the wrapper
 // (ops/mesh_kernels.py) checks shapes, dtypes and the shared-memory size.
@@ -60,6 +75,7 @@ struct MeshParams {
   int nx, ny, nz;
   int nodes, extent, ty_count;
   int n_tiles, cap, n_ch;
+  int z_chunk;  // kernels E and F: z cells a block takes
 };
 
 #define SPREAD_THREADS 256
@@ -186,86 +202,401 @@ mesh_spread_kernel(const int* __restrict__ lx, const int* __restrict__ ly,
   }
 }
 
-// Kernels E and F in one pass over the slot's window.  mesh (C, nx, ny, nz);
-// vals (T, C, K) when GATHER; q (T, C, K) in and wg (T, K, 3, N) out when
-// WGRAD:  wg[k][axis][o] = d/dw[k][axis][o] sum_c q[c][k] sum_xyz wx wy wz F_c.
-template <int N, bool WGRAD>
-__global__ void mesh_gather_wgrad_kernel(const int* __restrict__ lx, const int* __restrict__ ly,
-                                         const int* __restrict__ sz, const float* __restrict__ w,
-                                         const float* __restrict__ q,
-                                         const float* __restrict__ mesh,
-                                         float* __restrict__ vals, float* __restrict__ wg,
-                                         MeshParams p) {
-  const size_t slot = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot >= (size_t)p.n_tiles * p.cap) return;
-  const int tile = (int)(slot / p.cap), k = (int)(slot % p.cap);
-  const int e = p.extent, nz = p.nz;
-  const int ox = tile / p.ty_count * TILE;
-  const int oy = tile % p.ty_count * TILE;
-  const int x0 = lx[slot], y0 = ly[slot], z0 = sz[slot];
+// -- kernels E and F ------------------------------------------------------------
 
-  float wx[N], wy[N], wz[N];
-  int zi[N];
-#pragma unroll
-  for (int o = 0; o < N; ++o) {
-    wx[o] = w[slot * 3 * N + o];
-    wy[o] = w[slot * 3 * N + N + o];
-    wz[o] = w[slot * 3 * N + 2 * N + o];
-    zi[o] = (z0 + o) % nz;
+#define GATHER_THREADS 128
+
+// floats a staged window column takes: the chunk and the stencil's reach,
+// rounded up to whole 16-byte vectors
+__host__ __device__ __forceinline__ int gather_row(int zc, int n) { return (zc + n - 1 + 3) & ~3; }
+
+// ints of a warp's list of kernels E and F: 32 for each of its scan rounds
+__host__ __device__ __forceinline__ int gather_list(int cap) {
+  return (cap + GATHER_THREADS - 1) / GATHER_THREADS * 32;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most `pending` of this thread's committed copy groups are in flight
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending));
+}
+
+// A slot's mesh window as staged by its block: (C, E, E, zs) floats in shared
+// memory, z contiguous; node (a, b, c) of channel ch is col(ch, a, b)[z(c)].
+struct StagedWindow {
+  const float* field;
+  int e, zs, ch_stride, base;  // base: (x0 e + y0) zs + the slot's z start in the chunk
+  __device__ __forceinline__ const float* col(int ch, int a, int b) const {
+    return field + ch * ch_stride + base + (a * e + b) * zs;
   }
-  // an empty slot (all weights zero) reads no window: every output is zero
+  __device__ __forceinline__ int z(int c) const { return c; }
+};
+
+// The same window read from the periodic mesh in device memory.
+template <int N>
+struct MeshWindow {
+  const float* mesh;
+  size_t ch_stride;
+  int ny, nz, gx0, gy0, nx;
+  int zi[N];
+  __device__ __forceinline__ const float* col(int ch, int a, int b) const {
+    int gx = gx0 + a, gy = gy0 + b;
+    gx = gx % nx;
+    gy = gy % ny;
+    return mesh + ch * ch_stride + ((size_t)gx * ny + gy) * nz;
+  }
+  __device__ __forceinline__ int z(int c) const { return zi[c]; }
+};
+
+// Kernels E and F for one slot: its stencil weights (and, in the dipole form,
+// their derivatives) contracted with its window.  Charge form: per channel
+// the value sum w_x w_y w_z F into vals[ch * stride] and, with WGRAD, the
+// weight cotangent of S = sum_ch q_ch sum w_x w_y w_z F_ch into wg (3, N).
+// Dipole form (one channel): the three values sum d_a[W_x W_y W_z] F into
+// vals[a * stride] and, with WGRAD, the cotangents of w into wg and of dw
+// into dwg of S = sum_a nu_a sum d_a[W_x W_y W_z] F, nu_a = q[a * stride].
+// Nodes beyond the window in x or y are dropped.  A slot with all weights
+// (and derivatives) zero is empty: every output is zero.
+template <int N, bool DIPOLE, bool WGRAD, class Window>
+__device__ __forceinline__ void contract_slot(const Window& win, int x0, int y0, int e,
+                                              const float* ws, const float* ds,
+                                              const float* __restrict__ qs, int stride, int n_ch,
+                                              float* __restrict__ vals, float* wg, float* dwg) {
+  float wx[N], wy[N], wz[N], dx[N], dy[N], dz[N];
   float wsum = 0.0f;
 #pragma unroll
-  for (int o = 0; o < N; ++o) wsum += fabsf(wx[o]) + fabsf(wy[o]) + fabsf(wz[o]);
+  for (int o = 0; o < N; ++o) {
+    wx[o] = ws[o];
+    wy[o] = ws[N + o];
+    wz[o] = ws[2 * N + o];
+    wsum += fabsf(wx[o]) + fabsf(wy[o]) + fabsf(wz[o]);
+    if (DIPOLE) {
+      dx[o] = ds[o];
+      dy[o] = ds[N + o];
+      dz[o] = ds[2 * N + o];
+      wsum += fabsf(dx[o]) + fabsf(dy[o]) + fabsf(dz[o]);
+    }
+  }
+  const int n_vals = DIPOLE ? 3 : n_ch;
   if (wsum == 0.0f) {
     if (vals != nullptr)
-      for (int ch = 0; ch < p.n_ch; ++ch) vals[((size_t)tile * p.n_ch + ch) * p.cap + k] = 0.0f;
-    if (WGRAD)
-      for (int o = 0; o < 3 * N; ++o) wg[slot * 3 * N + o] = 0.0f;
+      for (int i = 0; i < n_vals; ++i) vals[i * stride] = 0.0f;
+    if (WGRAD) {
+#pragma unroll
+      for (int o = 0; o < 3 * N; ++o) {
+        wg[o] = 0.0f;
+        if (DIPOLE) dwg[o] = 0.0f;
+      }
+    }
     return;
   }
-  float gx[N], gy[N], gz[N];
+  // cotangents: gw of the weights, gd of the derivatives (dipole form)
+  float gwx[N], gwy[N], gwz[N], gdx[N], gdy[N], gdz[N];
 #pragma unroll
-  for (int o = 0; o < N; ++o) gx[o] = gy[o] = gz[o] = 0.0f;
+  for (int o = 0; o < N; ++o) gwx[o] = gwy[o] = gwz[o] = gdx[o] = gdy[o] = gdz[o] = 0.0f;
 
-  for (int ch = 0; ch < p.n_ch; ++ch) {
-    const float* m = mesh + (size_t)ch * p.nx * p.ny * nz;
-    const size_t ck = ((size_t)tile * p.n_ch + ch) * p.cap + k;
-    const float qv = WGRAD ? q[ck] : 0.0f;
-    float acc = 0.0f;
+  if (!DIPOLE) {
+    for (int ch = 0; ch < n_ch; ++ch) {
+      const float qv = WGRAD ? qs[ch * stride] : 0.0f;
+      float acc = 0.0f;
+#pragma unroll
+      for (int a = 0; a < N; ++a) {
+        if (x0 + a >= e) continue;
+        float sa = 0.0f;  // sum_b wy[b] s_ab
+        const float qa = wx[a] * qv;
+#pragma unroll
+        for (int b = 0; b < N; ++b) {
+          if (y0 + b >= e) continue;
+          const float* col = win.col(ch, a, b);
+          float f[N];
+#pragma unroll
+          for (int c = 0; c < N; ++c) f[c] = col[win.z(c)];
+          float s = 0.0f;  // sum_c wz[c] F
+#pragma unroll
+          for (int c = 0; c < N; ++c) s += wz[c] * f[c];
+          sa += wy[b] * s;
+          if (WGRAD) {
+            const float t = qa * wy[b];
+#pragma unroll
+            for (int c = 0; c < N; ++c) gwz[c] += t * f[c];
+            gwy[b] += qa * s;
+          }
+        }
+        acc += wx[a] * sa;
+        if (WGRAD) gwx[a] += qv * sa;
+      }
+      if (vals != nullptr) vals[ch * stride] = acc;
+    }
+  } else {
+    const float nux = WGRAD ? qs[0] : 0.0f;
+    const float nuy = WGRAD ? qs[stride] : 0.0f;
+    const float nuz = WGRAD ? qs[2 * stride] : 0.0f;
+    float ex = 0.0f, ey = 0.0f, ez = 0.0f;
 #pragma unroll
     for (int a = 0; a < N; ++a) {
       if (x0 + a >= e) continue;
-      const int gxi = (ox + x0 + a) % p.nx;
-      float sa = 0.0f;  // sum_b wy[b] sum_c wz[c] F
+      // over b: sum wy s, sum dwy s, sum wy sd
+      float sw = 0.0f, sdy = 0.0f, sdz = 0.0f;
+      const float cxa = nux * dx[a], cya = nuy * wx[a], cza = nuz * wx[a];
 #pragma unroll
       for (int b = 0; b < N; ++b) {
         if (y0 + b >= e) continue;
-        const int gyi = (oy + y0 + b) % p.ny;
-        const float* col = m + ((size_t)gxi * p.ny + gyi) * nz;
-        float s = 0.0f;
+        const float* col = win.col(0, a, b);
+        float f[N];
+#pragma unroll
+        for (int c = 0; c < N; ++c) f[c] = col[win.z(c)];
+        float s = 0.0f, sd = 0.0f;  // sum_c wz[c] F, sum_c dwz[c] F
 #pragma unroll
         for (int c = 0; c < N; ++c) {
-          const float v = col[zi[c]];
-          s += wz[c] * v;
-          if (WGRAD) gz[c] += wx[a] * wy[b] * qv * v;
+          s += wz[c] * f[c];
+          sd += dz[c] * f[c];
         }
-        sa += wy[b] * s;
-        if (WGRAD) gy[b] += wx[a] * qv * s;
+        sw += wy[b] * s;
+        sdy += dy[b] * s;
+        sdz += wy[b] * sd;
+        if (WGRAD) {
+          const float cw = cxa * wy[b] + cya * dy[b], cd = cza * wy[b];
+#pragma unroll
+          for (int c = 0; c < N; ++c) {
+            gwz[c] += cw * f[c];
+            gdz[c] += cd * f[c];
+          }
+          gwy[b] += cxa * s + cza * sd;
+          gdy[b] += cya * s;
+        }
       }
-      acc += wx[a] * sa;
-      if (WGRAD) gx[a] += qv * sa;
+      ex += dx[a] * sw;
+      ey += wx[a] * sdy;
+      ez += wx[a] * sdz;
+      if (WGRAD) {
+        gwx[a] = nuy * sdy + nuz * sdz;
+        gdx[a] = nux * sw;
+      }
     }
-    if (vals != nullptr) vals[ck] = acc;
+    if (vals != nullptr) {
+      vals[0] = ex;
+      vals[stride] = ey;
+      vals[2 * stride] = ez;
+    }
   }
   if (WGRAD) {
 #pragma unroll
     for (int o = 0; o < N; ++o) {
-      wg[slot * 3 * N + o] = gx[o];
-      wg[slot * 3 * N + N + o] = gy[o];
-      wg[slot * 3 * N + 2 * N + o] = gz[o];
+      wg[o] = gwx[o];
+      wg[N + o] = gwy[o];
+      wg[2 * N + o] = gwz[o];
+      if (DIPOLE) {
+        dwg[o] = gdx[o];
+        dwg[N + o] = gdy[o];
+        dwg[2 * N + o] = gdz[o];
+      }
     }
   }
+}
+
+// Kernels E and F, staged.  grid (T, z chunks): the block stages its tile's
+// z starts and its (E, E, zn + N - 1) window of every channel, wrapping
+// modulo the mesh, with asynchronous copies (16 bytes a lane where the mesh
+// and the slot arrays allow it), and contracts the slots whose z start lies
+// in its chunk, one thread a slot (each slot has one owner: no atomics, the
+// same sums in the same order on every launch).  Each warp lists the slots
+// of its chunk among its share of the tile's and runs them 32 at a time; a
+// run loads its slots' weight rows, and stores their weight cotangents,
+// through shared memory in contiguous segments, and the first run's rows
+// are fetched while the window is in flight.
+template <int N, bool DIPOLE, bool WGRAD>
+__global__ void __launch_bounds__(GATHER_THREADS)
+mesh_gather_wgrad_kernel(const int* __restrict__ lx, const int* __restrict__ ly,
+                         const int* __restrict__ sz, const float* __restrict__ w,
+                         const float* __restrict__ dw, const float* __restrict__ q,
+                         const float* __restrict__ mesh, float* __restrict__ vals,
+                         float* __restrict__ wg, float* __restrict__ dwg, MeshParams p) {
+  constexpr int E = TILE + N - 1;
+  constexpr int ROW = 3 * N, STRIDE = 3 * N + 1;  // a slot's weights; its shared row
+  constexpr int N_ROWS = DIPOLE ? 2 : 1;           // weights (and derivatives)
+  extern __shared__ float field[];  // (C, E, E, zs), then the slot data below
+  const int tile = blockIdx.x;
+  const int zc = p.z_chunk, z0 = blockIdx.y * zc, nz = p.nz;
+  const int zn = min(zc, nz - z0), zlen = zn + N - 1;
+  const int zs = gather_row(zc, N), n_ch = p.n_ch, ch_stride = E * E * zs, cap = p.cap;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  const int tx = tile / p.ty_count, ty = tile % p.ty_count;
+  const int list_cap = gather_list(cap);
+  int* s_sz = reinterpret_cast<int*>(field + n_ch * ch_stride);
+  int* list = s_sz + cap + warp * list_cap;
+  float* rows = reinterpret_cast<float*>(s_sz + cap + n_warps * list_cap) +
+                warp * 32 * STRIDE * N_ROWS;
+  const size_t slot0 = (size_t)tile * cap;
+
+  // the tile's z starts: one copy group
+  if (cap % 4 == 0 && (reinterpret_cast<size_t>(sz) & 15) == 0) {
+    for (int k = 4 * threadIdx.x; k < cap; k += 4 * blockDim.x)
+      cp_async16(s_sz + k, sz + slot0 + k);
+  } else {
+    for (int k = threadIdx.x; k < cap; k += blockDim.x)
+      cp_async4(reinterpret_cast<float*>(s_sz + k), reinterpret_cast<const float*>(sz + slot0 + k));
+  }
+  cp_async_commit();
+
+  // the windows, another: window column (ex, ey) of tile (tx, ty) is mesh
+  // column (tx*8 + ex, ty*8 + ey) mod the mesh
+  const int n_cols = n_ch * E * E;
+  auto column = [&](int col) {
+    const int c = col / (E * E), ex = col / E % E, ey = col % E;
+    int gx = tx * TILE + ex, gy = ty * TILE + ey;
+    while (gx >= p.nx) gx -= p.nx;
+    while (gy >= p.ny) gy -= p.ny;
+    return mesh + (((size_t)c * p.nx + gx) * p.ny + gy) * nz;
+  };
+  if (nz % 4 == 0 && zc % 4 == 0 && (reinterpret_cast<size_t>(mesh) & 15) == 0) {
+    // 16 bytes a lane: zs / 4 vectors a column, a warp step over as many
+    // whole columns as its lanes cover; z0 and nz are multiples of 4, so no
+    // vector straddles the wrap
+    const int vecs = zs / 4, per_step = max(32 / vecs, 1);
+    const int lane_col = vecs <= 32 ? lane / vecs : 0;
+    for (int col0 = warp * per_step; col0 < n_cols; col0 += n_warps * per_step) {
+      const int col = col0 + lane_col;
+      if (lane_col >= per_step || col >= n_cols) continue;
+      const float* src = column(col);
+      for (int v = vecs <= 32 ? lane % vecs : lane; v < vecs; v += 32) {
+        int gz = z0 + 4 * v;
+        while (gz >= nz) gz -= nz;
+        cp_async16(field + col * zs + 4 * v, src + gz);
+      }
+    }
+  } else {
+    for (int col = warp; col < n_cols; col += n_warps) {
+      const float* src = column(col);
+      for (int zz = lane; zz < zlen; zz += 32) {
+        int gz = z0 + zz;
+        while (gz >= nz) gz -= nz;
+        cp_async4(field + col * zs + zz, src + gz);
+      }
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // the z starts
+  __syncthreads();
+
+  // the warp's list: the slots of its share whose z start lies in the chunk
+  int n_list = 0;
+  for (int r0 = warp * 32; r0 < cap; r0 += blockDim.x) {
+    const int k = r0 + lane;
+    const bool keep = k < cap && s_sz[k] >= z0 && s_sz[k] < z0 + zn;
+    const unsigned b = __ballot_sync(0xffffffffu, keep);
+    if (keep) list[n_list + __popc(b & ((1u << lane) - 1u))] = k;
+    n_list += __popc(b);
+  }
+  __syncwarp();
+
+  // a run's weight (and derivative) rows: each lane fetches ROW of the
+  // run's n * ROW floats of each into registers, then puts them in the
+  // rows; and the x, y starts of its own slot
+  const int nq = DIPOLE ? 3 : n_ch;  // rows of q and vals per tile
+  float pre[ROW * N_ROWS];
+  int x0 = 0, y0 = 0;
+  auto fetch = [&](const int* run, int n) {
+    if (lane < n) {
+      x0 = lx[slot0 + run[lane]];
+      y0 = ly[slot0 + run[lane]];
+    }
+#pragma unroll
+    for (int j = 0; j < ROW; ++j) {
+      const int e = lane + 32 * j;
+      if (e < n * ROW) {
+        const int r = e / ROW;
+        const size_t at = (slot0 + run[r]) * ROW + e - r * ROW;
+        pre[j] = w[at];
+        if (DIPOLE) pre[ROW * (N_ROWS - 1) + j] = dw[at];
+      }
+    }
+  };
+  auto put = [&](int n) {
+#pragma unroll
+    for (int j = 0; j < ROW; ++j) {
+      const int e = lane + 32 * j;
+      if (e < n * ROW) {
+        const int r = e / ROW, c = e - r * ROW;
+        rows[r * STRIDE + c] = pre[j];
+        if (DIPOLE) rows[(32 + r) * STRIDE + c] = pre[ROW * (N_ROWS - 1) + j];
+      }
+    }
+    __syncwarp();
+  };
+  if (n_list > 0) fetch(list, min(n_list, 32));
+  cp_async_wait<0>();  // the windows
+  __syncthreads();
+
+  float* own = rows + lane * STRIDE;
+  for (int r0 = 0; r0 < n_list; r0 += 32) {
+    const int* run = list + r0;
+    const int n = min(32, n_list - r0);
+    if (r0 > 0) fetch(run, n);
+    put(n);
+    if (lane < n) {
+      const int k = run[lane];
+      const StagedWindow win{field, E, zs, ch_stride, (x0 * E + y0) * zs + s_sz[k] - z0};
+      const size_t row = (size_t)tile * nq * cap + k;
+      // reads its rows first; its weight cotangents then overwrite them
+      contract_slot<N, DIPOLE, WGRAD>(win, x0, y0, E, own, own + 32 * STRIDE,
+                                      WGRAD ? q + row : nullptr, cap, n_ch,
+                                      vals != nullptr ? vals + row : nullptr, own,
+                                      own + 32 * STRIDE);
+    }
+    __syncwarp();
+    if (WGRAD) {
+      for (int e = lane; e < n * ROW; e += 32) {
+        const int r = e / ROW, c = e - r * ROW;
+        const size_t at = (slot0 + run[r]) * ROW + c;
+        wg[at] = rows[r * STRIDE + c];
+        if (DIPOLE) dwg[at] = rows[(32 + r) * STRIDE + c];
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Kernels E and F, one thread a slot reading its window from the mesh in
+// device memory: where the staged block does not fit shared memory (many
+// channels, a large capacity), or z_chunk 0.
+template <int N, bool DIPOLE, bool WGRAD>
+__global__ void mesh_gather_wgrad_direct_kernel(
+    const int* __restrict__ lx, const int* __restrict__ ly, const int* __restrict__ sz,
+    const float* __restrict__ w, const float* __restrict__ dw, const float* __restrict__ q,
+    const float* __restrict__ mesh, float* __restrict__ vals, float* __restrict__ wg,
+    float* __restrict__ dwg, MeshParams p) {
+  const size_t slot = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (slot >= (size_t)p.n_tiles * p.cap) return;
+  const int tile = (int)(slot / p.cap), k = (int)(slot % p.cap);
+  const int x0 = lx[slot], y0 = ly[slot];
+  MeshWindow<N> win;
+  win.mesh = mesh;
+  win.ch_stride = (size_t)p.nx * p.ny * p.nz;
+  win.nx = p.nx;
+  win.ny = p.ny;
+  win.nz = p.nz;
+  win.gx0 = tile / p.ty_count * TILE + x0;
+  win.gy0 = tile % p.ty_count * TILE + y0;
+#pragma unroll
+  for (int c = 0; c < N; ++c) win.zi[c] = (sz[slot] + c) % p.nz;
+  const int nq = DIPOLE ? 3 : p.n_ch;
+  const size_t row = (size_t)tile * nq * p.cap + k;
+  contract_slot<N, DIPOLE, WGRAD>(
+      win, x0, y0, p.extent, w + slot * 3 * N, DIPOLE ? dw + slot * 3 * N : nullptr,
+      WGRAD ? q + row : nullptr, p.cap, p.n_ch, vals != nullptr ? vals + row : nullptr,
+      WGRAD ? wg + slot * 3 * N : nullptr, DIPOLE && WGRAD ? dwg + slot * 3 * N : nullptr);
 }
 
 template <int N, bool DIPOLE>
@@ -290,20 +621,60 @@ static int launch_spread(const int* lx, const int* ly, const int* sz, const floa
   return launch_spread_as<N, false>(lx, ly, sz, w, dw, q, mesh, p, stream);
 }
 
+template <int N, bool DIPOLE, bool WGRAD>
+static int launch_gather_as(const int* lx, const int* ly, const int* sz, const float* w,
+                            const float* dw, const float* q, const float* mesh, float* vals,
+                            float* wg, float* dwg, MeshParams p, cudaStream_t stream) {
+  constexpr int E = TILE + N - 1;
+  // the windows, the tile's z starts, the lists, the weight rows of a run
+  auto smem = [&](int zc) {
+    return ((size_t)p.n_ch * E * E * gather_row(zc, N) + (size_t)p.cap +
+            (GATHER_THREADS / 32) * (gather_list(p.cap) + 32 * (3 * N + 1) * (DIPOLE ? 2 : 1))) *
+           sizeof(float);
+  };
+  int device = 0, optin = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+          cudaSuccess)
+    return (int)cudaGetLastError();
+  int zc = min(p.z_chunk, p.nz);
+  while (zc > 1 && smem(zc) > (size_t)optin) zc = (zc + 1) / 2;
+  if (zc == 0 || smem(zc) > (size_t)optin) {
+    // one thread a slot, the window read from the mesh in device memory
+    const size_t n_slots = (size_t)p.n_tiles * p.cap;
+    const unsigned blocks = (unsigned)((n_slots + GATHER_THREADS - 1) / GATHER_THREADS);
+    mesh_gather_wgrad_direct_kernel<N, DIPOLE, WGRAD><<<blocks, GATHER_THREADS, 0, stream>>>(
+        lx, ly, sz, w, dw, q, mesh, vals, wg, dwg, p);
+    return (int)cudaGetLastError();
+  }
+  p.z_chunk = zc;
+  static int granted = 48 * 1024;  // the largest dynamic shared memory asked for so far
+  if ((int)smem(zc) > granted) {
+    if (cudaFuncSetAttribute(mesh_gather_wgrad_kernel<N, DIPOLE, WGRAD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem(zc)) !=
+        cudaSuccess)
+      return (int)cudaGetLastError();
+    granted = (int)smem(zc);
+  }
+  const dim3 grid(p.n_tiles, (p.nz + zc - 1) / zc);
+  mesh_gather_wgrad_kernel<N, DIPOLE, WGRAD><<<grid, GATHER_THREADS, smem(zc), stream>>>(
+      lx, ly, sz, w, dw, q, mesh, vals, wg, dwg, p);
+  return (int)cudaGetLastError();
+}
+
 template <int N>
 static int launch_gather_wgrad(const int* lx, const int* ly, const int* sz, const float* w,
-                               const float* q, const float* mesh, float* vals, float* wg,
-                               const MeshParams& p, cudaStream_t stream) {
-  const size_t n_slots = (size_t)p.n_tiles * p.cap;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((n_slots + threads - 1) / threads);
+                               const float* dw, const float* q, const float* mesh, float* vals,
+                               float* wg, float* dwg, const MeshParams& p, cudaStream_t stream) {
+  if (dw != nullptr) {
+    if (p.n_ch != 1 || (wg != nullptr && dwg == nullptr)) return (int)cudaErrorInvalidValue;
+    if (wg != nullptr)
+      return launch_gather_as<N, true, true>(lx, ly, sz, w, dw, q, mesh, vals, wg, dwg, p, stream);
+    return launch_gather_as<N, true, false>(lx, ly, sz, w, dw, q, mesh, vals, wg, dwg, p, stream);
+  }
   if (wg != nullptr)
-    mesh_gather_wgrad_kernel<N, true><<<blocks, threads, 0, stream>>>(lx, ly, sz, w, q, mesh, vals,
-                                                                      wg, p);
-  else
-    mesh_gather_wgrad_kernel<N, false><<<blocks, threads, 0, stream>>>(lx, ly, sz, w, q, mesh,
-                                                                       vals, wg, p);
-  return (int)cudaGetLastError();
+    return launch_gather_as<N, false, true>(lx, ly, sz, w, dw, q, mesh, vals, wg, dwg, p, stream);
+  return launch_gather_as<N, false, false>(lx, ly, sz, w, dw, q, mesh, vals, wg, dwg, p, stream);
 }
 
 // the stencil sizes of the Lagrange tables (3 to 7 nodes)
@@ -330,14 +701,17 @@ int tpme_mesh_spread(const int* lx, const int* ly, const int* sz, const float* w
 }
 
 // Kernels E and/or F: vals (T, C, K) unless null; wg (T, K, 3, n) from
-// q (T, C, K) unless wg is null.
+// q (T, C, K) unless wg is null.  With dw (T, K, 3, n) the dipole form (one
+// channel): vals (T, 3, K), and from nu = q (T, 3, K) the cotangents wg of w
+// and dwg of dw.  p->z_chunk: the z cells a block takes (halved until the
+// staged windows fit shared memory).
 int tpme_mesh_gather_wgrad(const int* lx, const int* ly, const int* sz, const float* w,
-                           const float* q, const float* mesh, float* vals, float* wg,
-                           const MeshParams* p, void* stream) {
+                           const float* dw, const float* q, const float* mesh, float* vals,
+                           float* wg, float* dwg, const MeshParams* p, void* stream) {
   if (vals == nullptr && wg == nullptr) return (int)cudaErrorInvalidValue;
   if (wg != nullptr && q == nullptr) return (int)cudaErrorInvalidValue;
 #define GATHER_CALL(N) \
-  launch_gather_wgrad<N>(lx, ly, sz, w, q, mesh, vals, wg, *p, (cudaStream_t)stream)
+  launch_gather_wgrad<N>(lx, ly, sz, w, dw, q, mesh, vals, wg, dwg, *p, (cudaStream_t)stream)
   DISPATCH_NODES(GATHER_CALL)
 #undef GATHER_CALL
 }

@@ -163,6 +163,7 @@ class MeshParams(ctypes.Structure):
         ("n_tiles", ctypes.c_int),
         ("cap", ctypes.c_int),
         ("n_ch", ctypes.c_int),
+        ("z_chunk", ctypes.c_int),
     ]
 
 
@@ -222,7 +223,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tpme_mesh_spread.argtypes = [p, p, p, p, p, p, p, ctypes.POINTER(MeshParams), p]
     lib.tpme_mesh_spread.restype = ctypes.c_int
     lib.tpme_mesh_gather_wgrad.argtypes = [
-        p, p, p, p, p, p, p, p, ctypes.POINTER(MeshParams), p,
+        p, p, p, p, p, p, p, p, p, p, ctypes.POINTER(MeshParams), p,
     ]
     lib.tpme_mesh_gather_wgrad.restype = ctypes.c_int
 

@@ -9,6 +9,7 @@ from .kvectors import (
 )
 from .math import det3, inv3
 from .mesh import (
+    MeshInterpolationWeights,
     compute_1d_weight_derivatives,
     compute_1d_weights,
     compute_dipole_interpolation,
@@ -29,7 +30,12 @@ from .mesh_tiled import (
     tiled_mesh_to_points,
     tiled_points_to_mesh,
 )
-from .rspace_cells import CellList, cell_list_rspace_energy_rows, compute_cell_list
+from .rspace_cells import (
+    CellList,
+    cell_list_rspace_energy,
+    cell_list_rspace_energy_rows,
+    compute_cell_list,
+)
 from .rspace_cells_dipole import (
     cell_list_rspace_dipole_energy,
     cell_list_rspace_dipole_energy_rows,
@@ -38,6 +44,7 @@ from .spread_fused import aligned_geometry, aligned_tiled_density
 
 __all__ = [
     "CellList",
+    "MeshInterpolationWeights",
     "TILE",
     "TiledInterpolation",
     "aligned_geometry",
@@ -45,6 +52,7 @@ __all__ = [
     "apply_kspace_filter",
     "cell_list_rspace_dipole_energy",
     "cell_list_rspace_dipole_energy_rows",
+    "cell_list_rspace_energy",
     "cell_list_rspace_energy_rows",
     "compute_1d_weight_derivatives",
     "compute_1d_weights",

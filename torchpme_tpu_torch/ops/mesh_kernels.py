@@ -18,16 +18,24 @@ per-slot values in the ``(T, C, K)`` layout:
   output cotangent).  :func:`mesh_gather_wgrad` gives E and F from one pass
   over the mesh windows (one launch, counted for both).
 
+E and F have a dipole form too, each slot read once:
+:func:`mesh_gather_dipole` gives the three gradient-stencil values
+``Σ ∂_a[W_x W_y W_z] F`` per slot ``(T, 3, K)``, and :func:`mesh_wgrad_dipole`
+the cotangents of the weights and of their derivatives of
+:math:`S = \sum_k \sum_a \nu_{ka} \sum_{xyz} \partial_a[W_x W_y W_z] F`;
+:func:`mesh_gather_wgrad_dipole` gives both from one launch.
+
 The TPU kernels emit per-tile fields ``(T, E², C·nz)`` that a fold assembles
 into the mesh, because TPU scatters serialize.  The CUDA kernels
 (``csrc/mesh.cu``) add into, and read from, the periodic mesh directly, so
 the functions here go from slots to mesh and back; the plain versions have
 the same signatures and do the TPU package's arithmetic: dense per-tile
 weight factors, one batched matmul per tile, and the parity-class fold (or
-the window extraction); the dipole form's plain version is the charge form's
-over every slot three times (:func:`~torchpme_tpu_torch.ops.mesh_tiled.dipole_slots`).
-A wrapper takes the plain version only for a tensor that lies on the CPU; for
-a CUDA tensor it launches the kernel or raises (float32 only).
+the window extraction); the dipole forms' plain versions are the charge
+form's over every slot three times (copy ``a`` with the axis-``a``
+derivative, the JAX package's three stencils).  A wrapper takes the plain
+version only for a tensor that lies on the CPU; for a CUDA tensor it
+launches the kernel or raises (float32 only).
 """
 
 from __future__ import annotations
@@ -50,17 +58,36 @@ __all__ = [
     "gather_dipole_fields",
     "gather_tiles",
     "mesh_gather",
+    "mesh_gather_dipole",
+    "mesh_gather_dipole_plain",
     "mesh_gather_plain",
     "mesh_gather_wgrad",
+    "mesh_gather_wgrad_dipole",
+    "mesh_gather_wgrad_dipole_plain",
     "mesh_spread",
     "mesh_spread_dipole",
     "mesh_spread_dipole_plain",
     "mesh_spread_plain",
     "mesh_wgrad",
+    "mesh_wgrad_dipole",
+    "mesh_wgrad_dipole_plain",
     "mesh_wgrad_plain",
     "spread_dipoles",
     "spread_tiles",
 ]
+
+
+def gather_z_chunk(nodes: int, n_ch: int) -> int:
+    """Z cells a block of kernels E and F stages: 32, halved while the
+    staged windows of all channels take more than 36 KB of shared memory
+    (on an H100 the best of 16, 32 and 64 z cells at one and at three
+    channels, ``chip_smoke.py --profile``: ``gather_design_sweep``).  0
+    selects one thread a slot reading the mesh in device memory, which the
+    kernel also takes where the staged block does not fit shared memory."""
+    extent, zc = TILE + nodes - 1, 32
+    while zc > 4 and n_ch * extent * extent * ((zc + nodes + 2) // 4) * 16 > 36 * 1024:
+        zc //= 2
+    return zc
 
 
 # -- plain versions -------------------------------------------------------------
@@ -145,6 +172,51 @@ def mesh_wgrad_plain(lx, ly, sz, weights, q_slots, mesh, ns, nodes: int) -> torc
     )
 
 
+def _untriple(ct_w3: torch.Tensor, capacity: int):
+    """Cotangents of ``(weights, dweights)`` from those of the tripled slots'
+    weights ``(T, 3K, 3, n)``: copy ``a`` carries the derivative on axis
+    ``a`` and the weights on the other two."""
+    parts = ct_w3.reshape(ct_w3.shape[0], 3, capacity, 3, -1)  # (T, copy, K, axis, n)
+    ct_dw = torch.stack([parts[:, a, :, a] for a in range(3)], dim=2)
+    ct_w = torch.stack(
+        [sum(parts[:, b, :, a] for b in range(3) if b != a) for a in range(3)], dim=2
+    )
+    return ct_w, ct_dw
+
+
+def mesh_gather_dipole_plain(lx, ly, sz, weights, dweights, mesh, ns, nodes: int):
+    """Plain version of kernel E's dipole form: ``(1, nx, ny, nz)`` mesh →
+    ``(T, 3, K)`` per-slot gradient-stencil values, the charge form over
+    every slot three times."""
+    t, k = lx.shape
+    vals = mesh_gather_plain(*_dipole_triple(lx, ly, sz, weights, dweights), mesh, ns, nodes)
+    return vals.reshape(t, 3, k)
+
+
+def mesh_wgrad_dipole_plain(lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes: int):
+    """Plain version of kernel F's dipole form: the cotangents ``(ct_w,
+    ct_dw)``, each ``(T, K, 3, n)``, of the weights and their derivatives for
+    per-slot ``ν (T, 3, K)`` and the ``(1, nx, ny, nz)`` field, the charge
+    form over every slot three times with the copies' cotangents folded
+    back."""
+    t, _, k = nu_slots.shape
+    ct_w3 = mesh_wgrad_plain(
+        *_dipole_triple(lx, ly, sz, weights, dweights), nu_slots.reshape(t, 1, 3 * k), mesh,
+        ns, nodes,
+    )
+    return _untriple(ct_w3, k)
+
+
+def mesh_gather_wgrad_dipole_plain(lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes: int):
+    """Plain version of :func:`mesh_gather_wgrad_dipole`: ``(values, ct_w,
+    ct_dw)``."""
+    args = (lx, ly, sz, weights, dweights)
+    return (
+        mesh_gather_dipole_plain(*args, mesh, ns, nodes),
+        *mesh_wgrad_dipole_plain(*args, nu_slots, mesh, ns, nodes),
+    )
+
+
 # -- kernels D, E, F --------------------------------------------------------------
 
 
@@ -169,6 +241,7 @@ def _params(ns, nodes: int, t: int, k: int, n_ch: int) -> _k.MeshParams:
     p.nx, p.ny, p.nz = ns
     p.nodes, p.extent, p.ty_count = nodes, TILE + nodes - 1, ns[1] // TILE
     p.n_tiles, p.cap, p.n_ch = t, k, n_ch
+    p.z_chunk = gather_z_chunk(nodes, n_ch)
     return p
 
 
@@ -219,22 +292,34 @@ def mesh_spread_dipole(lx, ly, sz, weights, dweights, nu_slots, ns, nodes: int) 
     return _launch_spread(lx, ly, sz, weights, dweights, nu_slots, ns, nodes)
 
 
-def _launch_gather_wgrad(lx, ly, sz, weights, q_slots, mesh, ns, nodes, gather, wgrad):
+def _launch_gather_wgrad(lx, ly, sz, weights, dweights, q_slots, mesh, ns, nodes, gather, wgrad):
+    """Kernels E and/or F in one launch: the charge form, or with
+    ``dweights`` the dipole form (``q_slots`` is then ``ν (T, 3, K)``).
+    Returns ``(values, ct_w, ct_dw)``, ``None`` where not asked for."""
     t, k = _check(lx, ly, sz, weights, ns, nodes)
-    n_ch = mesh.shape[0]
+    dipole = dweights is not None
+    n_ch = 1 if dipole else mesh.shape[0]
     _k.check_cuda_tensor(mesh, "mesh", (n_ch, *ns))
+    if dipole:
+        _k.check_cuda_tensor(dweights, "dweights", (t, k, 3, nodes))
+    n_vals = 3 if dipole else n_ch
     dev = weights.device
-    vals = wg = None
+    vals = wg = dwg = None
     if wgrad:
-        _k.check_cuda_tensor(q_slots, "q_slots", (t, n_ch, k))
+        _k.check_cuda_tensor(q_slots, "nu_slots" if dipole else "q_slots", (t, n_vals, k))
         wg = torch.empty((t, k, 3, nodes), dtype=torch.float32, device=dev)
+        if dipole:
+            dwg = torch.empty_like(wg)
     if gather:
-        vals = torch.empty((t, n_ch, k), dtype=torch.float32, device=dev)
+        vals = torch.empty((t, n_vals, k), dtype=torch.float32, device=dev)
     p = _params(ns, nodes, t, k, n_ch)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     status = _k.load_library().lib.tpme_mesh_gather_wgrad(
-        lx.data_ptr(), ly.data_ptr(), sz.data_ptr(), weights.data_ptr(),
-        q_slots.data_ptr() if wgrad else None, mesh.data_ptr(),
-        vals.data_ptr() if gather else None, wg.data_ptr() if wgrad else None,
+        lx.data_ptr(), ly.data_ptr(), sz.data_ptr(), weights.data_ptr(), ptr(dweights),
+        q_slots.data_ptr() if wgrad else None, mesh.data_ptr(), ptr(vals), ptr(wg), ptr(dwg),
         ctypes.byref(p), _k.stream_handle(dev),
     )
     _k.check_status(status, "mesh_gather_wgrad")
@@ -242,7 +327,7 @@ def _launch_gather_wgrad(lx, ly, sz, weights, q_slots, mesh, ns, nodes, gather, 
         _k.MESH_GATHER.launches += 1
     if wgrad:
         _k.MESH_WGRAD.launches += 1
-    return vals, wg
+    return vals, wg, dwg
 
 
 def mesh_gather(lx, ly, sz, weights, mesh, ns, nodes: int) -> torch.Tensor:
@@ -253,7 +338,7 @@ def mesh_gather(lx, ly, sz, weights, mesh, ns, nodes: int) -> torch.Tensor:
     """
     if weights.device.type == "cpu":
         return mesh_gather_plain(lx, ly, sz, weights, mesh, ns, nodes)
-    return _launch_gather_wgrad(lx, ly, sz, weights, None, mesh, ns, nodes, True, False)[0]
+    return _launch_gather_wgrad(lx, ly, sz, weights, None, None, mesh, ns, nodes, True, False)[0]
 
 
 def mesh_wgrad(lx, ly, sz, weights, q_slots, mesh, ns, nodes: int) -> torch.Tensor:
@@ -265,7 +350,9 @@ def mesh_wgrad(lx, ly, sz, weights, q_slots, mesh, ns, nodes: int) -> torch.Tens
     """
     if weights.device.type == "cpu":
         return mesh_wgrad_plain(lx, ly, sz, weights, q_slots, mesh, ns, nodes)
-    return _launch_gather_wgrad(lx, ly, sz, weights, q_slots, mesh, ns, nodes, False, True)[1]
+    return _launch_gather_wgrad(
+        lx, ly, sz, weights, None, q_slots, mesh, ns, nodes, False, True
+    )[1]
 
 
 def mesh_gather_wgrad(lx, ly, sz, weights, q_slots, mesh, ns, nodes: int):
@@ -277,7 +364,51 @@ def mesh_gather_wgrad(lx, ly, sz, weights, q_slots, mesh, ns, nodes: int):
             mesh_gather_plain(lx, ly, sz, weights, mesh, ns, nodes),
             mesh_wgrad_plain(lx, ly, sz, weights, q_slots, mesh, ns, nodes),
         )
-    return _launch_gather_wgrad(lx, ly, sz, weights, q_slots, mesh, ns, nodes, True, True)
+    return _launch_gather_wgrad(
+        lx, ly, sz, weights, None, q_slots, mesh, ns, nodes, True, True
+    )[:2]
+
+
+def mesh_gather_dipole(lx, ly, sz, weights, dweights, mesh, ns, nodes: int) -> torch.Tensor:
+    """Kernel E's dipole form: ``(1, nx, ny, nz)`` mesh → ``(T, 3, K)``
+    per-slot values ``Σ ∂_a[W_x W_y W_z] F``, each slot read once.
+
+    CPU tensors take :func:`mesh_gather_dipole_plain`; CUDA tensors launch
+    the kernel (float32 only) or raise.
+    """
+    if weights.device.type == "cpu":
+        return mesh_gather_dipole_plain(lx, ly, sz, weights, dweights, mesh, ns, nodes)
+    return _launch_gather_wgrad(
+        lx, ly, sz, weights, dweights, None, mesh, ns, nodes, True, False
+    )[0]
+
+
+def mesh_wgrad_dipole(lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes: int):
+    """Kernel F's dipole form: the cotangents ``(ct_w, ct_dw)``, each ``(T,
+    K, 3, n)``, of the weights and their derivatives for ``ν (T, 3, K)`` and
+    the ``(1, nx, ny, nz)`` field, each slot read once.
+
+    CPU tensors take :func:`mesh_wgrad_dipole_plain`; CUDA tensors launch
+    the kernel (float32 only) or raise.
+    """
+    if weights.device.type == "cpu":
+        return mesh_wgrad_dipole_plain(lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes)
+    return _launch_gather_wgrad(
+        lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes, False, True
+    )[1:]
+
+
+def mesh_gather_wgrad_dipole(lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes: int):
+    """The dipole forms of kernels E and F from one pass over the mesh
+    windows: ``(values (T, 3, K), ct_w, ct_dw)``.  On CUDA tensors this is
+    one launch, counted once for each of the two kernels."""
+    if weights.device.type == "cpu":
+        return mesh_gather_wgrad_dipole_plain(
+            lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes
+        )
+    return _launch_gather_wgrad(
+        lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes, True, True
+    )
 
 
 # -- differentiable entry points --------------------------------------------------
@@ -325,48 +456,48 @@ class _TileSpread(torch.autograd.Function):
         return ct_w, ct_q, None, None, None, None, None, None
 
 
-def _untriple(ct_w3: torch.Tensor, capacity: int):
-    """Cotangents of ``(weights, dweights)`` from those of the tripled slots'
-    weights ``(T, 3K, 3, n)``: copy ``a`` carries the derivative on axis
-    ``a`` and the weights on the other two."""
-    parts = ct_w3.reshape(ct_w3.shape[0], 3, capacity, 3, -1)  # (T, copy, K, axis, n)
-    ct_dw = torch.stack([parts[:, a, :, a] for a in range(3)], dim=2)
-    ct_w = torch.stack(
-        [sum(parts[:, b, :, a] for b in range(3) if b != a) for a in range(3)], dim=2
-    )
-    return ct_w, ct_dw
+def _dipole_spread_vjp(args, nu_slots, ct_mesh, ns, nodes, plain, want_w, want_nu):
+    """``(ct_nu, ct_w, ct_dw)`` of the dipole-form spread over ``args = (lx,
+    ly, sz, weights, dweights)``: the dipole forms of kernels E and F (one
+    launch when both are wanted), each slot read once."""
+    ct_nu = ct_w = ct_dw = None
+    if plain:
+        if want_nu:
+            ct_nu = mesh_gather_dipole_plain(*args, ct_mesh, ns, nodes)
+        if want_w:
+            ct_w, ct_dw = mesh_wgrad_dipole_plain(*args, nu_slots, ct_mesh, ns, nodes)
+    elif want_w and want_nu:
+        ct_nu, ct_w, ct_dw = mesh_gather_wgrad_dipole(*args, nu_slots, ct_mesh, ns, nodes)
+    elif want_nu:
+        ct_nu = mesh_gather_dipole(*args, ct_mesh, ns, nodes)
+    elif want_w:
+        ct_w, ct_dw = mesh_wgrad_dipole(*args, nu_slots, ct_mesh, ns, nodes)
+    return ct_nu, ct_w, ct_dw
 
 
 class _TileDipoleSpread(torch.autograd.Function):
     """``(weights, dweights, ν (T, 3, K)) → (1, nx, ny, nz)`` over kernel D's
     dipole form (or, with ``plain``, its plain version on any device).  The
-    backward runs kernels E and F over the tripled slots (``tripled``: the
-    caller's, else built there)."""
+    backward runs the dipole forms of kernels E and F."""
 
     @staticmethod
-    def forward(ctx, weights, dweights, nu_slots, lx, ly, sz, ns, nodes, plain, tripled):
-        ctx.save_for_backward(weights, dweights, nu_slots, lx, ly, sz, *(tripled or (None,) * 4))
+    def forward(ctx, weights, dweights, nu_slots, lx, ly, sz, ns, nodes, plain):
+        ctx.save_for_backward(weights, dweights, nu_slots, lx, ly, sz)
         ctx.static = (ns, nodes, plain)
         spread = mesh_spread_dipole_plain if plain else mesh_spread_dipole
         return spread(lx, ly, sz, weights, dweights, nu_slots, ns, nodes)
 
     @staticmethod
     def backward(ctx, ct_mesh):
-        weights, dweights, nu_slots, lx, ly, sz, *tripled = ctx.saved_tensors
+        weights, dweights, nu_slots, lx, ly, sz = ctx.saved_tensors
         ns, nodes, plain = ctx.static
         want_w, want_dw, want_nu = ctx.needs_input_grad[:3]
-        t, _, k = nu_slots.shape
-        args = tripled if tripled[0] is not None else _dipole_triple(lx, ly, sz, weights, dweights)
-        ct_q, ct_w3 = _spread_vjp(
-            args, nu_slots.reshape(t, 1, 3 * k), ct_mesh.contiguous(), ns, nodes, plain,
+        ct_nu, ct_w, ct_dw = _dipole_spread_vjp(
+            (lx, ly, sz, weights, dweights), nu_slots, ct_mesh.contiguous(), ns, nodes, plain,
             want_w or want_dw, want_nu,
         )
-        ct_w = ct_dw = None
-        if ct_w3 is not None:
-            ct_w, ct_dw = _untriple(ct_w3, k)
-        ct_nu = None if ct_q is None else ct_q.reshape(t, 3, k)
         return (ct_w if want_w else None, ct_dw if want_dw else None, ct_nu,
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 class _TileGather(torch.autograd.Function):
@@ -424,72 +555,56 @@ def gather_tiles(
 
 class _TileDipoleGather(torch.autograd.Function):
     """``(weights, dweights, mesh (1, nx, ny, nz)) → (T, 3, K)`` per-slot
-    gradient fields over kernel E on the tripled slots (or, with ``plain``,
-    the plain versions on any device).  The backward spreads the cotangent
-    with kernel D's dipole form and runs kernel F over the tripled slots."""
+    gradient fields over kernel E's dipole form (or, with ``plain``, the
+    plain versions on any device).  The backward spreads the cotangent with
+    kernel D's dipole form and runs kernel F's."""
 
     @staticmethod
-    def forward(ctx, weights, dweights, mesh, lx, ly, sz, ns, nodes, plain, tripled):
+    def forward(ctx, weights, dweights, mesh, lx, ly, sz, ns, nodes, plain):
         mesh = mesh.contiguous()
-        args = tripled or _dipole_triple(lx, ly, sz, weights, dweights)
-        ctx.save_for_backward(weights, dweights, mesh, lx, ly, sz, *args)
+        ctx.save_for_backward(weights, dweights, mesh, lx, ly, sz)
         ctx.static = (ns, nodes, plain)
-        gather = mesh_gather_plain if plain else mesh_gather
-        t, k = lx.shape
-        return gather(*args, mesh, ns, nodes).reshape(t, 3, k)
+        gather = mesh_gather_dipole_plain if plain else mesh_gather_dipole
+        return gather(lx, ly, sz, weights, dweights, mesh, ns, nodes)
 
     @staticmethod
     def backward(ctx, ct_out):
-        weights, dweights, mesh, lx, ly, sz, *args = ctx.saved_tensors
+        weights, dweights, mesh, lx, ly, sz = ctx.saved_tensors
         ns, nodes, plain = ctx.static
         want_w, want_dw, want_mesh = ctx.needs_input_grad[:3]
         ct_out = ct_out.contiguous()
-        t, _, k = ct_out.shape
+        args = (lx, ly, sz, weights, dweights)
         ct_w = ct_dw = ct_mesh = None
         if want_mesh:
             spread = mesh_spread_dipole_plain if plain else mesh_spread_dipole
-            ct_mesh = spread(lx, ly, sz, weights, dweights, ct_out, ns, nodes)
+            ct_mesh = spread(*args, ct_out, ns, nodes)
         if want_w or want_dw:
-            wgrad = mesh_wgrad_plain if plain else mesh_wgrad
-            ct_w, ct_dw = _untriple(
-                wgrad(*args, ct_out.reshape(t, 1, 3 * k), mesh, ns, nodes), k
-            )
+            wgrad = mesh_wgrad_dipole_plain if plain else mesh_wgrad_dipole
+            ct_w, ct_dw = wgrad(*args, ct_out, mesh, ns, nodes)
         return (ct_w if want_w else None, ct_dw if want_dw else None, ct_mesh,
-                None, None, None, None, None, None, None)
-
-
-def _tripled_arrays(slots: TiledInterpolation | None):
-    """The charge-form arguments of a caller's ``dipole_slots`` bucketing,
-    as values (the dipole functions carry the weights' gradients themselves)."""
-    if slots is None:
-        return None
-    return (slots.local_x, slots.local_y, slots.start_z, slots.weights.detach().contiguous())
+                None, None, None, None, None, None)
 
 
 def spread_dipoles(
-    interp: TiledInterpolation, nu_slots: torch.Tensor, plain: bool = False,
-    slots: TiledInterpolation | None = None,
+    interp: TiledInterpolation, nu_slots: torch.Tensor, plain: bool = False
 ) -> torch.Tensor:
     """Per-slot effective dipoles ``(T, 3, K)`` → gradient density ``(1, nx,
     ny, nz)`` through kernel D's dipole form.  Differentiable with respect to
-    ``nu_slots``, the weights and their derivatives (kernels E and F over the
-    tripled slots ``slots``, built where the backward needs them)."""
+    ``nu_slots``, the weights and their derivatives (the dipole forms of
+    kernels E and F)."""
     return _TileDipoleSpread.apply(
         interp.weights.contiguous(), interp.dweights.contiguous(), nu_slots.contiguous(),
         interp.local_x, interp.local_y, interp.start_z, interp.ns, interp.nodes, plain,
-        _tripled_arrays(slots),
     )
 
 
 def gather_dipole_fields(
-    interp: TiledInterpolation, mesh: torch.Tensor, plain: bool = False,
-    slots: TiledInterpolation | None = None,
+    interp: TiledInterpolation, mesh: torch.Tensor, plain: bool = False
 ) -> torch.Tensor:
     """Mesh ``(1, nx, ny, nz)`` → per-slot gradient fields ``(T, 3, K)``
-    (kernel E over the tripled slots; the backward spreads with kernel D's
-    dipole form)."""
+    (kernel E's dipole form; the backward spreads with kernel D's dipole form
+    and runs kernel F's)."""
     return _TileDipoleGather.apply(
         interp.weights.contiguous(), interp.dweights.contiguous(), mesh,
         interp.local_x, interp.local_y, interp.start_z, interp.ns, interp.nodes, plain,
-        _tripled_arrays(slots),
     )

@@ -33,7 +33,6 @@ __all__ = [
     "TILE",
     "TiledInterpolation",
     "compute_tiled_interpolation",
-    "dipole_slots",
     "refresh_tiled_interpolation",
     "supports_tiling",
     "tiled_dipoles_to_mesh",
@@ -407,7 +406,7 @@ def tiled_mesh_to_points(
     return per_slot.index_select(0, interp.slot_of_atom.long())
 
 
-# -- point dipoles: three derivative stencils through the same kernels ----------
+# -- point dipoles: the three derivative stencils ---------------------------------
 
 
 def _require_derivatives(interp: TiledInterpolation) -> None:
@@ -421,7 +420,10 @@ def _require_derivatives(interp: TiledInterpolation) -> None:
 def _dipole_triple(local_x, local_y, start_z, weights, dweights):
     """``(lx, ly, sz, weights)`` of every slot three times along the capacity
     axis, copy ``a`` with the weight triple whose axis-``a`` stencil is the
-    derivative (differentiable tensor ops)."""
+    derivative, ``(dw_x, w_y, w_z)``, ``(w_x, dw_y, w_z)``, ``(w_x, w_y,
+    dw_z)`` (differentiable tensor ops): the charge-form argument through
+    which the plain versions of the dipole forms of kernels D, E and F do
+    the JAX package's concatenated three-stencil arithmetic."""
     variants = []
     for a in range(3):
         picked = [dweights[:, :, c] if c == a else weights[:, :, c] for c in range(3)]
@@ -433,28 +435,8 @@ def _dipole_triple(local_x, local_y, start_z, weights, dweights):
     return (triple(local_x), triple(local_y), triple(start_z), torch.cat(variants, dim=1))
 
 
-def dipole_slots(interp: TiledInterpolation) -> TiledInterpolation:
-    """The bucketing of the dipolar gradient stencil: every slot three times
-    along the capacity axis (``(T, 3K)``), copy ``a`` carrying the weight
-    triple whose axis-``a`` stencil is the derivative, ``(dw_x, w_y, w_z)``,
-    ``(w_x, dw_y, w_z)``, ``(w_x, w_y, dw_z)``.  Built with differentiable
-    tensor ops, so the position gradient flows through ``weights`` and
-    ``dweights``.  It is the charge-form argument of kernels E and F for the
-    dipolar mesh, and of the plain version of kernel D's dipole form; a
-    caller that gathers on one bucketing builds it once and hands it to the
-    spread and the gather as ``slots=``."""
-    _require_derivatives(interp)
-    lx, ly, sz, weights = _dipole_triple(
-        interp.local_x, interp.local_y, interp.start_z, interp.weights, interp.dweights
-    )
-    return replace(interp, local_x=lx, local_y=ly, start_z=sz, weights=weights, dweights=None)
-
-
 def tiled_dipoles_to_mesh(
-    interp: TiledInterpolation,
-    nu: torch.Tensor,
-    plain: bool = False,
-    slots: TiledInterpolation | None = None,
+    interp: TiledInterpolation, nu: torch.Tensor, plain: bool = False
 ) -> torch.Tensor:
     r"""Spread point dipoles onto the mesh as a gradient density, the tiled
     counterpart of :func:`torchpme_tpu_torch.ops.mesh.dipoles_to_mesh`.
@@ -467,41 +449,35 @@ def tiled_dipoles_to_mesh(
     axis-``a`` stencil is the weight derivative.  The JAX package runs them
     as one batched product with the variants concatenated along the
     capacity axis, which the plain version does too; kernel D's dipole form
-    builds the three-term stencil per slot in one pass (and its VJP, kernels
-    E and F over the concatenation, gives the gradients).
+    builds the three-term stencil per slot in one pass, and its VJP, the
+    dipole forms of kernels E and F, reads each slot once too.
 
     :param nu: ``(N, 3)`` effective per-axis charges
         ``(dipoles @ inverse_cell) * ns``.
     :param plain: run the plain PyTorch version on any device.
-    :param slots: ``dipole_slots(interp)`` where the caller already built it
-        (the backward takes it instead of building its own).
     :return: dipolar density mesh ``(1, nx, ny, nz)``.
     """
     from .mesh_kernels import spread_dipoles
 
     _require_derivatives(interp)
-    return spread_dipoles(interp, _slot_values(interp, nu), plain=plain, slots=slots)
+    return spread_dipoles(interp, _slot_values(interp, nu), plain=plain)
 
 
 def tiled_mesh_to_dipole_field(
-    interp: TiledInterpolation,
-    mesh_vals: torch.Tensor,
-    plain: bool = False,
-    slots: TiledInterpolation | None = None,
+    interp: TiledInterpolation, mesh_vals: torch.Tensor, plain: bool = False
 ) -> torch.Tensor:
     r"""Back-interpolate a filtered ``(1, nx, ny, nz)`` mesh to per-atom
     gradient fields in fractional-mesh units (transpose of
     :func:`tiled_dipoles_to_mesh`): ``e_rel[j, a] = Σ_m ∂_a[W_j](m)·mesh(m)``,
     so ``Σ_j ν_j·e_rel_j == Σ_m Q·mesh`` exactly.  Chain to position units
     with ``(e_rel * ns) @ inverse_cell.T`` at the caller.  One launch of
-    kernel E over the tripled slots (``slots``: as in
-    :func:`tiled_dipoles_to_mesh`); its backward spreads with kernel D's
-    dipole form.
+    kernel E's dipole form; its backward spreads with kernel D's dipole form
+    and runs kernel F's.
     """
     from .mesh_kernels import gather_dipole_fields
 
     _require_derivatives(interp)
-    per_slot = gather_dipole_fields(interp, mesh_vals, plain=plain, slots=slots)  # (T, 3, K)
+    per_slot = gather_dipole_fields(interp, mesh_vals, plain=plain)  # (T, 3, K)
     per_slot = per_slot.transpose(1, 2).reshape(-1, 3)
     per_slot = torch.cat([per_slot, per_slot.new_zeros((1, 3))], dim=0)
     return per_slot.index_select(0, interp.slot_of_atom.long())

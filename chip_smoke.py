@@ -11,8 +11,10 @@ line) if any phase fails:
 3. kernels: each of the seven kernels against its plain PyTorch version,
    float32, at the 102k shapes (the window C also on a 3×3×3 cell grid with
    a capacity above 32, and at capacity 250 with four channels, and two of
-   its launches bitwise equal in d_pc and d_q; the aligned spread A also at
-   nz = 288; the tile kernels D, E, F also at three channels and
+   its launches bitwise equal in d_pc and d_q; the spread A and its VJP B
+   also at nz = 288 and at the fused mode's geometry (the per-atom call's
+   stencil-start bucketing, lpad 0), B also at three channels and two of its
+   launches bitwise equal; the tile kernels D, E, F also at three channels and
    at the dipolar shapes: 6 nodes, D's dipole form for its two launches (the
    spread of the dipoles and of the gather's mesh cotangent), the dipole
    forms of E and F, each slot read once, and E + F from one launch bitwise
@@ -25,15 +27,17 @@ line) if any phase fails:
    memory rate, operations over the float32 rate);
 4. the MD step (``MDFastPath`` in aligned mode: kernels A, B, C): float32
    kernels vs the plain float64 step (energy, forces, cell gradient), the
-   launch counts and ms/step of both paths;
+   launch counts and ms/step of both paths; then in fused mode (A and B at
+   the stencil-start geometry, C; none of D, E, F), the same checks, with
+   the tiled mode's ms/step (D, E, F) timed in the same turns;
 5. the per-atom call (``PMECalculator(...)(charges, cell, positions,
    neighbor_indices, neighbor_distances)`` on the tiled mesh: kernels D, E,
    F forward and backward): potentials, forces, charge and cell gradients
    vs the plain float64 call, ``energy`` ≡ ``sum(pot·q)`` ≡ the MD step's
    energy, the launch counts, and ms per forward and forward+backward;
 6. accuracy: the 1536-atom system of tools/validate_accuracy.py in float32,
-   aligned mode (32³ mesh) and tiled mode (64³ mesh), against the JAX
-   package's values and tools/ground_truth.npz (tiled: the 1e-4 bar);
+   aligned mode (32³ mesh), tiled and fused mode (64³ mesh), against the JAX
+   package's values and tools/ground_truth.npz (tiled, fused: the 1e-4 bar);
 7. the dipolar MD step (``MDFastPathDipole`` over ``PMECalculatorDipole``:
    kernel G for the window, D forward and E + F backward for the mesh) at
    the system of tools/bench_family.py: float32 kernels vs the plain float64
@@ -49,12 +53,13 @@ line) if any phase fails:
    ``lr_wavelength = smearing / 2``, beside the JAX package's two energies;
 10. the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
-With ``--profile`` it also traces the four 102k paths with ``torch.profiler``
+With ``--profile`` it also traces the 102k paths (the MD step in aligned,
+fused and tiled mode) with ``torch.profiler``
 and prints, for each, the device time and the number of device events per
 call and the kernels that take most of it, times kernel A's z chunk
-(``ops/spread_fused.py:z_chunk``) and kernels E and F's
-(``ops/mesh_kernels.py:gather_z_chunk``) beside the neighbouring choices, E
-and F also as one thread a slot reading the mesh, and counts
+(``ops/spread_fused.py:z_chunk``), kernel B's (``bwd_z_chunk``) and kernels E
+and F's (``ops/mesh_kernels.py:gather_z_chunk``) beside the neighbouring
+choices, B, E and F also as one thread a slot reading the mesh, and counts
 the atomic instructions of each kernel in the built library's SASS
 (``cuobjdump -sass``).
 
@@ -311,14 +316,23 @@ def check_kernel(name, source, replaces, run_kernel, run_plain, cost, report,
         report[name] = entry
 
 
+def turns_ms(runs: dict, repeats: int) -> dict:
+    """ms per call of each of ``runs`` (name → function): medians over turns
+    taken forwards, then backwards, twice (a, b, b, a, a, b, b, a for two),
+    after one warm-up each."""
+    for fn in runs.values():
+        fn()
+    order = list(runs) + list(runs)[::-1]
+    times = {name: [] for name in runs}
+    for name in order + order:
+        times[name].append(timed_ms(runs[name], repeats))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
 def alternate_ms(run, repeats: int) -> tuple[float, float]:
-    """(kernel ms, plain ms) per call of ``run(plain)``: medians over turns
-    taken in the order kernel, plain, plain, kernel, after one warm-up each."""
-    run(False), run(True)
-    times = {False: [], True: []}
-    for plain in (False, True, True, False, False, True, True, False):
-        times[plain].append(timed_ms(lambda p=plain: run(p), repeats))
-    return float(np.median(times[False])), float(np.median(times[True]))
+    """(kernel ms, plain ms) per call of ``run(plain)``, in turns."""
+    ms = turns_ms({"kernel": lambda: run(False), "plain": lambda: run(True)}, repeats)
+    return ms["kernel"], ms["plain"]
 
 
 def profile_path(name: str, fn, calls: int = 5) -> None:
@@ -698,16 +712,9 @@ def dipole_phases(env) -> None:
     del got, ref
 
     def md_chain(plain: bool):
-        p = rows32
-        for _ in range(CHAIN):
-            p = p.detach().requires_grad_()
-            e = fp.energy(mu32, cell32, p, plain=plain)
-            (g,) = torch.autograd.grad(e, p)
-            # a data dependency between the steps, not a trajectory: forces
-            # reach ~1e7 here (pairs 0.04 A apart under 1/d^4), and atoms that
-            # moved would leave their cells and time the kernels on NaN
-            p = p - 1e-12 * g
-        return p
+        # forces reach ~1e7 here (pairs 0.04 A apart under 1/d^4): atoms that
+        # moved by 1e-7 of them would leave their cells and time NaN
+        return md_chain_of(fp, mu32, cell32, rows32, plain, step=1e-12)
 
     kernel_ms, plain_ms = (t / CHAIN for t in alternate_ms(md_chain, 1))
     if not bool(torch.isfinite(md_chain(False)).all()):
@@ -823,6 +830,84 @@ def dipole_phases(env) -> None:
         raise AssertionError(f"3000-atom dipolar accuracy: {accuracy}")
     if not {"window_dipole", "mesh_spread"} <= set(launched):
         raise AssertionError(f"the dipolar accuracy step launched {launched}")
+
+
+def md_chain_of(fp, q, cell, rows, plain: bool, step: float = 1e-7):
+    """CHAIN chained energy + force steps of ``fp`` from ``rows`` (a data
+    dependency between steps, not a trajectory)."""
+    p = rows
+    for _ in range(CHAIN):
+        p = p.detach().requires_grad_()
+        e = fp.energy(q, cell, p, plain=plain)
+        (g,) = torch.autograd.grad(e, p)
+        p = p - step * g
+    return p
+
+
+def fused_md_phase(tpt, kernels, calc, positions, cell, pos32, q32, cell32, smi, profile):
+    """Phase 4b: ``MDFastPath(mesh_impl="fused")`` at 102k in float32 against
+    the plain float64 step (the tiled mode's: float64 takes it), its launches
+    (A, B, C and none of D, E, F), and the ms/step of its kernel and plain
+    paths with the tiled mode's, forced, in the same turns; with ``profile``
+    the profiler's breakdown of the fused and the tiled step."""
+    t0 = time.perf_counter()
+    modes = {mode: tpt.MDFastPath.create(calc, positions.astype(np.float32),
+                                         cell.astype(np.float32), CUTOFF, NS_MESH,
+                                         mesh_impl=mode)
+             for mode in ("fused", "tiled")}
+    create_s = time.perf_counter() - t0
+    fp = modes["fused"]
+    if fp.mesh_impl != "fused" or fp.calc.mesh_backend != "fused":
+        raise AssertionError("MDFastPath.create(mesh_impl='fused') built another mode")
+    rows = fp.bucket(pos32)
+    cell_g = cell32.clone().requires_grad_()
+    rows_g = rows.clone().requires_grad_()
+    kernels.reset_launch_counts()
+    e32 = fp.energy(q32, cell_g, rows_g)
+    g_rows, g_cell = torch.autograd.grad(e32, (rows_g, cell_g))
+    sync()
+    counts = kernels.launch_counts()
+    fused_kernels, off = ("spread_fwd", "spread_bwd", "window"), ("mesh_spread", "mesh_gather",
+                                                                  "mesh_wgrad")
+    if min(counts[k] for k in fused_kernels) < 1 or any(counts[k] for k in off):
+        raise AssertionError(f"the fused MD step launched {counts}")
+    cell64 = cell32.double().requires_grad_()
+    rows64 = rows.double().requires_grad_()
+    e64 = fp.energy(q32.double(), cell64, rows64, plain=True)
+    g_rows64, g_cell64 = torch.autograd.grad(e64, (rows64, cell64))
+    e_rel = abs(float(e32.detach()) - float(e64.detach())) / abs(float(e64.detach()))
+    f_rms = rel_rms(fp.unbucket(g_rows), fp.unbucket(g_rows64))
+    c_rel = rel_err(g_cell, g_cell64)[1]
+    del rows64, g_rows64
+    rows_t = modes["tiled"].bucket(pos32)
+    ms = turns_ms({
+        "fused": lambda: md_chain_of(fp, q32, cell32, rows, False),
+        "fused_plain": lambda: md_chain_of(fp, q32, cell32, rows, True),
+        "tiled": lambda: md_chain_of(modes["tiled"], q32, cell32, rows_t, False),
+    }, 1)
+    ms = {k: v / CHAIN for k, v in ms.items()}
+    if not bool(torch.isfinite(md_chain_of(fp, q32, cell32, rows, False)).all()):
+        raise AssertionError("the fused MD chain left its bucketing")
+    out = {"phase": "fused_slice", "atoms": N_ATOMS, "energy_f32": float(e32.detach()),
+           "energy_rel": e_rel, "force_rel_rms": f_rms, "cell_grad_rel": c_rel,
+           "launches": {k: counts[k] for k in fused_kernels + off},
+           "tiles": fp.tiled.local_x.shape[0], "tile_capacity": fp.tiled.local_x.shape[1],
+           "create_seconds_fused_and_tiled": create_s, "ms_per_step": ms["fused"],
+           "plain_f32_ms_per_step": ms["fused_plain"], "tiled_mode_ms_per_step": ms["tiled"],
+           "nvidia_smi": smi}
+    emit(out)
+    if not (e_rel <= 1e-5 and f_rms <= 1e-5 and c_rel <= 1e-4):
+        raise AssertionError(
+            f"102k fused f32 step vs f64 plain: energy {e_rel:.3e}, forces {f_rms:.3e}, "
+            f"cell {c_rel:.3e}"
+        )
+    if not all(math.isfinite(x) for x in (float(e32.detach()), *ms.values())):
+        raise AssertionError("non-finite fused slice result")
+    if profile:
+        profile_path("md_step_fused", lambda: md_chain_of(fp, q32, cell32, rows, False), calls=2)
+        profile_path("md_step_tiled",
+                     lambda: md_chain_of(modes["tiled"], q32, cell32, rows_t, False), calls=2)
+    return {k: counts[k] for k in fused_kernels}
 
 
 def main() -> int:
@@ -973,13 +1058,77 @@ def main() -> int:
                       "rule": rule(nz), "ms": times})
         finally:
             sf.z_chunk = rule
-    del rel_tall
+    # kernel B: 8 operations a node (the weight and derivative contractions of
+    # the z line, three products a column), two stencil sets an atom; each
+    # input read once, ct_rel and ct_q written once
+    def bwd_bound(r, q, ct, n_ch, n_atoms):
+        return bound(nbytes(r, q, ct, r, q), n_atoms * (n_ch * 8 * n3 + 2 * stencil))
+
+    bwd_ref = "torchpme_tpu/ops/pallas/spread_fused.py:216"
     check_kernel(
-        "spread_bwd", spread_src, "torchpme_tpu/ops/pallas/spread_fused.py:216",
+        "spread_bwd", spread_src, bwd_ref,
         lambda: fused_spread_bwd(rel, q_main, ct_rho, geom),
         lambda: spread_plain_bwd(rel, q_main, ct_rho, geom),
-        bound(nbytes(rel, q_main, mesh1, rel, q_main), n_main * (8 * n3 + 2 * stencil)), report,
+        bwd_bound(rel, q_main, ct_rho, 1, n_main), report,
     )
+    # each slot has one writer: two launches agree bit for bit
+    first, again = (fused_spread_bwd(rel, q_main, ct_rho, geom) for _ in range(2))
+    sync()
+    same = [bool(torch.equal(a, b)) for a, b in zip(first, again)]
+    emit({"phase": "kernel_reproducible", "name": "spread_bwd", "ct_rel_ct_q_bitwise_equal": same})
+    if not all(same):
+        raise AssertionError("kernel B's outputs differ between two launches")
+    del first, again
+    ct_tall = torch.randn((1, *ns_tall), generator=gen, **f32)
+    check_kernel(
+        "spread_bwd", spread_src, bwd_ref,
+        lambda: fused_spread_bwd(rel_tall, q_main, ct_tall, geom_tall),
+        lambda: spread_plain_bwd(rel_tall, q_main, ct_tall, geom_tall),
+        bwd_bound(rel_tall, q_main, ct_tall, 1, n_main), report, shape=f"mesh {ns_tall}",
+    )
+    del rel_tall, ct_tall
+    q3 = torch.zeros((fp.n_rows, 3), **f32).index_copy(
+        0, fp.row_of_atom.long(), torch.randn((N_ATOMS, 3), generator=gen, **f32))[:nb].contiguous()
+    ct3 = torch.randn((3, *NS_MESH), generator=gen, **f32)
+    check_kernel(
+        "spread_bwd", spread_src, bwd_ref,
+        lambda: fused_spread_bwd(rel, q3, ct3, geom),
+        lambda: spread_plain_bwd(rel, q3, ct3, geom),
+        bwd_bound(rel, q3, ct3, 3, n_main), report, shape="3 channels",
+    )
+    del q3, ct3
+    # A and B at the fused mode's geometry: the stencil-start bucketing of the
+    # per-atom call (lpad 0, tile slots in bucketing order)
+    rel_f, q_f, geom_f = sf._fused_slots(interp, pos32, inv3(cell32), q32, "Lagrange")
+    fused_shape = f"fused geometry: lpad 0, T={geom_f.n_tiles}, K={geom_f.slots_per_tile}"
+    check_kernel(
+        "spread_fwd", spread_src, "torchpme_tpu/ops/pallas/spread_fused.py:169",
+        lambda: (fused_spread(rel_f, q_f, geom_f),),
+        lambda: (spread_plain(rel_f, q_f, geom_f),),
+        bound(nbytes(rel_f, q_f, mesh1), N_ATOMS * (2 * n3 + stencil)), report,
+        tols=[SUM_TOL], shape=fused_shape,
+    )
+    check_kernel(
+        "spread_bwd", spread_src, bwd_ref,
+        lambda: fused_spread_bwd(rel_f, q_f, ct_rho, geom_f),
+        lambda: spread_plain_bwd(rel_f, q_f, ct_rho, geom_f),
+        bwd_bound(rel_f, q_f, ct_rho, 1, N_ATOMS), report, shape=fused_shape,
+    )
+    if profile:
+        # kernel B's z chunk (ops/spread_fused.py:bwd_z_chunk) beside its
+        # neighbours, and 0: one thread a slot reading device memory
+        rule = sf.bwd_z_chunk
+        try:
+            for label, g, r, qq in (("aligned", geom, rel, q_main), ("fused", geom_f, rel_f, q_f)):
+                times = {}
+                for zc in ("rule", 0, 16, 32, 64, 128):
+                    sf.bwd_z_chunk = rule if zc == "rule" else (lambda *_, zc=zc: zc)
+                    times[zc] = cuda_ms(lambda g=g, r=r, qq=qq: fused_spread_bwd(r, qq, ct_rho, g))
+                emit({"phase": "z_chunk_sweep", "name": "spread_bwd", "layout": label,
+                      "rule": rule(g.nodes, g.extent, 1), "ms": times})
+        finally:
+            sf.bwd_z_chunk = rule
+    del rel_f, q_f
     def window_check(ins, n_inside, shape=None):
         """Kernel C against its plain version on ``ins``; the bound counts
         the half-window work (each pair once), whatever evaluates it: the
@@ -1115,13 +1264,7 @@ def main() -> int:
     del rows64, g_rows64
 
     def md_chain(plain: bool):
-        p = rows32
-        for _ in range(CHAIN):
-            p = p.detach().requires_grad_()
-            e = fp.energy(q32, cell32, p, plain=plain)
-            (g,) = torch.autograd.grad(e, p)
-            p = p - 1e-7 * g
-        return p
+        return md_chain_of(fp, q32, cell32, rows32, plain)
 
     kernel_ms, plain_ms = (t / CHAIN for t in alternate_ms(md_chain, 1))
     if not bool(torch.isfinite(md_chain(False)).all()):
@@ -1138,6 +1281,11 @@ def main() -> int:
         )
     if not all(math.isfinite(x) for x in (float(e32), kernel_ms, plain_ms)):
         raise AssertionError("non-finite slice result")
+
+    # -- 4b. the MD step in fused mode: kernels A and B at the stencil-start
+    # geometry, C for the window; beside it the tiled mode (D, E, F) --------------
+    counts_fused = fused_md_phase(tpt, kernels, calc, positions, cell, pos32, q32, cell32, smi,
+                                  profile)
 
     # -- 5. the per-atom call on the tiled mesh (kernels D, E, F) -----------------
     def per_atom(dtype, plain, backward=True):
@@ -1223,7 +1371,8 @@ def main() -> int:
     gpos32, gq32, gcell32 = (torch.tensor(a, **f32) for a in (gpos, gq, gcell))
     accuracy = {}
     for mode, ns, e_jax in (("aligned", GT_NS, GT_JAX_ENERGY),
-                            ("tiled", GT_TILED_NS, GT_TILED_JAX_ENERGY)):
+                            ("tiled", GT_TILED_NS, GT_TILED_JAX_ENERGY),
+                            ("fused", GT_TILED_NS, GT_TILED_JAX_ENERGY)):
         gfp = tpt.MDFastPath.create(gcalc, gpos32, gcell32, CUTOFF, ns, mesh_impl=mode)
         grows = gfp.bucket(gpos32).requires_grad_()
         kernels.reset_launch_counts()
@@ -1237,17 +1386,25 @@ def main() -> int:
             "force_rel_rms_vs_truth": rel_rms(-gfp.unbucket(gg), f_ref),
             "launches": {k: v for k, v in kernels.launch_counts().items() if v},
         }
-    emit({"phase": "accuracy", "atoms": GT_N, **accuracy})
-    aligned, tiled = accuracy["aligned"], accuracy["tiled"]
+    # where the aligned mode cannot run, `auto` takes the fused mode on the card
+    auto_mode = tpt.MDFastPath.create(gcalc, gpos32, gcell32, CUTOFF, GT_TILED_NS).mesh_impl
+    emit({"phase": "accuracy", "atoms": GT_N, **accuracy, "auto_mode_at_64": auto_mode})
+    if auto_mode != "fused":
+        raise AssertionError(f"MDFastPath.create(mesh_impl='auto') took {auto_mode!r} at 64^3")
+    aligned = accuracy["aligned"]
     if not (aligned["energy_rel_vs_jax"] <= 1e-5 and aligned["force_rel_rms_vs_truth"] <= 1.0e-3):
         raise AssertionError(f"1536-atom accuracy, aligned mode: {aligned}")
-    if not (tiled["energy_rel_vs_jax"] <= 1e-5 and tiled["force_rel_rms_vs_truth"] <= GT_FORCE_BAR
-            and tiled["energy_rel_vs_truth"] <= GT_FORCE_BAR):
-        raise AssertionError(f"1536-atom accuracy, tiled mode: {tiled}")
+    for mode in ("tiled", "fused"):
+        acc = accuracy[mode]
+        if not (acc["energy_rel_vs_jax"] <= 1e-5 and acc["force_rel_rms_vs_truth"] <= GT_FORCE_BAR
+                and acc["energy_rel_vs_truth"] <= GT_FORCE_BAR):
+            raise AssertionError(f"1536-atom accuracy, {mode} mode: {acc}")
     # tiled mode: kernel D forward, kernel F backward (kernel E joins when the
-    # charges want a gradient), kernel C for the real-space window
-    if not {"window", "mesh_spread", "mesh_wgrad"} <= set(tiled["launches"]):
-        raise AssertionError(f"tiled mode launched {tiled['launches']}")
+    # charges want a gradient), fused mode: A and B; kernel C for the window
+    if not {"window", "mesh_spread", "mesh_wgrad"} <= set(accuracy["tiled"]["launches"]):
+        raise AssertionError(f"tiled mode launched {accuracy['tiled']['launches']}")
+    if set(accuracy["fused"]["launches"]) != {"window", "spread_fwd", "spread_bwd"}:
+        raise AssertionError(f"fused mode launched {accuracy['fused']['launches']}")
 
     # -- 3 (kernel G; D, E, F at the dipolar shapes), 7, 8, 9: the dipolar paths --
     del gfp, grows, gg, f_ref
@@ -1260,11 +1417,13 @@ def main() -> int:
 
     # -- 10. result ---------------------------------------------------------------
     # launches: of the MD step (A, B, C), the per-atom call (D, E, F) and the
-    # dipolar MD step (G); D, E, F's on the two dipolar paths beside them
+    # dipolar MD step (G); A, B, C's on the fused MD step and D, E, F's on the
+    # two dipolar paths beside them
+    paths = {"fused_step": counts_fused,
+             **{f"dipole_{path}": n for path, n in env.dipole_launches.items()}}
     emit({"kernels": [{k: v for k, v in report[name].items() if k != "max_rel_err"}
                       | {"launches": counts[name]}
-                      | {f"launches_dipole_{path}": n[name]
-                         for path, n in env.dipole_launches.items() if name in n}
+                      | {f"launches_{path}": n[name] for path, n in paths.items() if name in n}
                       for name in report]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -879,3 +879,157 @@ def test_gather_wgrad_kernels_stage_any_z_line(device, nz, offset):
         torch.cuda.synchronize()
         for g, r in zip(got, ref):
             assert _rel(g, r) <= 1e-5, (form, nz, offset)
+
+
+# -- kernel B (and A at lpad = 0): both layouts -----------------------------------
+
+
+def _spread_slots(device, layout, nodes, n_ch, nz, nxy=32, seed=0, capacity=None):
+    """float32 slots of kernels A and B on a (nxy, nxy, nz) mesh at about
+    0.08 atoms per Å³: the aligned MD state's rows (layout "aligned", cell
+    capacity ``capacity``) or a stencil-start bucketing (layout "fused"),
+    with empty slots, and with a few occupied slots moved far from their
+    tile and z cell (stale)."""
+    rng = np.random.default_rng(seed)
+    cell = np.diag([nxy / 2.0, nxy / 2.0, nz / 2.0])
+    n = int(0.08 * np.prod(np.diag(cell)))
+    pos = rng.uniform(0, 1, (n, 3)) @ cell
+    f32 = dict(dtype=torch.float32, device=device)
+    q_atoms = torch.tensor(rng.normal(size=(n, n_ch)), **f32)
+    ns = (nxy, nxy, nz)
+    if layout == "aligned":
+        calc = tpt.PMECalculator(tpt.CoulombPotential(smearing=1.0), interpolation_nodes=nodes)
+        fp = tpt.MDFastPath.create(calc, torch.tensor(pos, **f32), torch.tensor(cell, **f32), 3.0,
+                                   ns, mesh_impl="aligned", cell_capacity=capacity)
+        nx_c, ny_c, nz_c, cap = fp.cell_grid
+        extent, lpad = sf.aligned_geometry(nodes, fp.aligned_pad)
+        geom = sf.SpreadGeometry(ns, nodes, "Lagrange", extent, lpad, nx_c * ny_c, nz_c * cap,
+                                 nz_c)
+        nb = geom.n_tiles * geom.slots_per_tile
+        rows = fp.bucket(torch.tensor(pos, **f32))
+        rel = (rows @ torch.linalg.inv(torch.tensor(cell, **f32)) * torch.tensor(ns, **f32))[:nb]
+        q = torch.zeros((fp.n_rows, n_ch), **f32).index_copy(0, fp.row_of_atom.long(), q_atoms)
+        rel, q = rel.contiguous(), q[:nb].contiguous()
+    else:
+        p = torch.tensor(pos, **f32)
+        inv = torch.linalg.inv(torch.tensor(cell, **f32))
+        interp = mt.compute_tiled_interpolation(p, inv, ns, nodes, "Lagrange")
+        rel, q, geom = sf._fused_slots(interp, p, inv, q_atoms, "Lagrange")
+    occupied = torch.nonzero((q != 0).any(dim=1))[:, 0]
+    assert occupied.numel() < q.shape[0]  # empty slots too
+    stale = occupied[:: max(1, occupied.numel() // 5)][:5]
+    rel[stale] += torch.tensor([0.4 * nxy, 0.0, 0.45 * nz], **f32)
+    return rel, q, geom
+
+
+B_CASES = [(nodes, n_ch, nz) for nodes in (3, 4, 5, 6, 7) for n_ch, nz in ((1, 40), (3, 288))]
+
+
+@pytest.mark.parametrize("layout", ["aligned", "fused"])
+@pytest.mark.parametrize("nodes,n_ch,nz", B_CASES)
+def test_spread_bwd_kernel_matches_plain_and_reproduces(device, layout, nodes, n_ch, nz):
+    """Kernel B's staged blocks ≡ its plain version, stale and empty slots
+    included (every slot has one owner whatever its position), and two
+    launches are bitwise equal; nz = 40 leaves a partial last chunk."""
+    rel, q, geom = _spread_slots(device, layout, nodes, n_ch, nz)
+    assert (geom.lpad == 0) == (layout == "fused")
+    ct = torch.randn((n_ch, *geom.ns), device=device)
+    kernels.reset_launch_counts()
+    got = sf.fused_spread_bwd(rel, q, ct, geom)
+    again = sf.fused_spread_bwd(rel, q, ct, geom)
+    ref = sf.spread_plain_bwd(rel, q, ct, geom)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["spread_bwd"] == 2
+    for g, a, r in zip(got, again, ref):
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, r) <= 1e-5, (layout, nodes, n_ch, nz)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("n_ch,nodes", [(1, 5), (40, 7)], ids=["z_chunk_0", "channels40_7"])
+@pytest.mark.parametrize("layout", ["aligned", "fused"])
+def test_spread_bwd_thread_per_slot_kernel_matches_plain(device, monkeypatch, layout, n_ch, nodes):
+    """Kernel B as one thread a slot reading the mesh in device memory: at
+    z chunk 0, and where the staged block does not fit shared memory (40
+    channels at 7 nodes) ≡ the plain version."""
+    rel, q, geom = _spread_slots(device, layout, nodes, n_ch, 40)
+    if n_ch == 1:
+        monkeypatch.setattr(sf, "bwd_z_chunk", lambda nodes, extent, n_ch: 0)
+    ct = torch.randn((n_ch, *geom.ns), device=device)
+    got = sf.fused_spread_bwd(rel, q, ct, geom)
+    ref = sf.spread_plain_bwd(rel, q, ct, geom)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= 1e-5
+
+
+@pytest.mark.parametrize(
+    "layout,nz,capacity,offset",
+    [("aligned", 30, 9, 0), ("fused", 18, None, 0), ("fused", 40, None, 1)],
+    ids=["nz30_odd_slot_rows", "nz18", "misaligned_cotangent"],
+)
+def test_spread_bwd_kernel_stages_any_z_line_and_slot_rows(device, layout, nz, capacity, offset):
+    """Kernel B copies 4 bytes a lane where 16 do not fit: a z line that is
+    not a multiple of 4 (30 and 18, under one chunk), a tile's slot rows of
+    an odd length (45 slots: 5 z cells of capacity 9), and a mesh
+    cotangent whose storage starts off a 16-byte boundary; ≡ the plain
+    version at 2 channels."""
+    rel, q, geom = _spread_slots(device, layout, 5, 2, nz, capacity=capacity)
+    if capacity is not None:
+        assert geom.slots_per_tile % 4
+    buf = torch.empty(2 * int(np.prod(geom.ns)) + offset, dtype=torch.float32, device=device)
+    ct = buf[offset:].view(2, *geom.ns)
+    ct.copy_(torch.randn((2, *geom.ns), device=device))
+    got = sf.fused_spread_bwd(rel, q, ct, geom)
+    ref = sf.spread_plain_bwd(rel, q, ct, geom)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= 1e-5, (layout, nz, offset)
+
+
+@pytest.mark.parametrize("nxy", [32, 16])
+@pytest.mark.parametrize("nodes", [3, 4, 5, 6, 7])
+def test_spread_fwd_kernel_at_the_fused_geometry(device, nodes, nxy):
+    """Kernel A at lpad = 0 (the blocks read the 2 × 2 tiles at and before
+    their own) ≡ its plain version, stale and empty slots included, on 4 × 4
+    and 2 × 2 tile grids."""
+    rel, q, geom = _spread_slots(device, "fused", nodes, 2, 40, nxy=nxy)
+    got = sf.fused_spread(rel, q, geom)
+    ref = sf.spread_plain(rel, q, geom)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= 1e-6
+
+
+def test_fused_step_launches_a_b_c_and_matches_plain(device):
+    """MDFastPath(mesh_impl="fused") on the card: kernels A, B and C once a
+    step (no D, E, F), ≡ the plain float32 step; `auto` picks it where the
+    aligned mode cannot run; float64 state is refused (it takes the tiled
+    step, whose kernels are float32 only)."""
+    pos, q, cell = _clustered_box()
+    calc = tpt.PMECalculator(tpt.CoulombPotential(smearing=1.0), interpolation_nodes=5)
+    f32 = dict(dtype=torch.float32, device=device)
+    pos32, q32, cell32 = (torch.tensor(a, **f32) for a in (pos, q, cell))
+    fp = tpt.MDFastPath.create(calc, pos32, cell32, 3.0, NS, mesh_impl="fused")
+    assert fp.mesh_impl == "fused" and fp.calc.mesh_backend == "fused"
+    # `auto` takes it on the card where the aligned mode cannot run (tile edge 2 Å < cutoff)
+    assert tpt.MDFastPath.create(calc, pos32, cell32, 3.0, (64, 64, 32)).mesh_impl == "fused"
+    out = {}
+    for plain in (False, True):
+        rows = fp.bucket(pos32).requires_grad_()
+        c = cell32.clone().requires_grad_()
+        kernels.reset_launch_counts()
+        e = fp.energy(q32, c, rows, plain=plain)
+        g_rows, g_cell = torch.autograd.grad(e, (rows, c))
+        torch.cuda.synchronize()
+        out[plain] = (float(e.detach()), g_rows, g_cell, kernels.launch_counts())
+    counts = out[False][3]
+    assert (counts["spread_fwd"], counts["spread_bwd"], counts["window"]) == (1, 1, 1), counts
+    assert counts["mesh_spread"] == counts["mesh_gather"] == counts["mesh_wgrad"] == 0, counts
+    assert all(n == 0 for n in out[True][3].values()), out[True][3]
+    assert abs(out[False][0] - out[True][0]) <= 1e-5 * abs(out[True][0])
+    assert _rel(out[False][1], out[True][1]) <= 1e-5
+    assert _rel(out[False][2], out[True][2]) <= 1e-4
+    with pytest.raises(TypeError, match="float32"):
+        fp.energy(q32.double(), cell32.double(), fp.bucket(pos32.double()))
+    assert np.isfinite(float(fp.energy(q32.double(), cell32.double(), fp.bucket(pos32.double()),
+                                       plain=True)))

@@ -278,7 +278,7 @@ def test_mesh_modes_and_options_validated():
     assert tpt.MDFastPath.create(calc, pos, cell, CUTOFF, NS, mesh_impl="tiled",
                                  **cpu).tiled is not None
     for kw, err in (
-        (dict(mesh_impl="fused"), NotImplementedError),
+        (dict(mesh_impl="fused", tile_capacity=100), ValueError),
         (dict(mesh_impl="nope"), ValueError),
         (dict(extras_impl="tiled"), NotImplementedError),
         (dict(balance="yes"), ValueError),

@@ -298,3 +298,143 @@ def test_kernel_decomposition_matches_plain(name, z_chunk):
     ref = sf.spread_plain(rel_t, q, geom)
     assert rel(got.numpy(), ref.numpy()) <= 1e-12
     np.testing.assert_allclose(float(got.sum()), float(q.sum()), rtol=1e-12, atol=1e-12)
+
+
+# -- kernel B's decomposition, mirrored in float64 --------------------------------
+
+
+def _bwd_block_mirror(rel, q, ct, geom, z_chunk):
+    """Test-only mirror of kernel B's staged blocks: one block per (tile, z
+    chunk) stages the tile's ``(C, E, E, zn + n − 1)`` window of the mesh
+    cotangent (wrapping modulo the mesh), scans all of its tile's slots and
+    owns those whose z stencil start lies in its chunk, and contracts each
+    against the staged window in the kernel's summation order.  Checks that
+    every node a slot reads is the mesh node it stands for, and returns
+    ``(ct_rel, ct_q, owners)``: the outputs and how many blocks own each
+    slot."""
+    nx, ny, nz = geom.ns
+    n, e, lpad = geom.nodes, geom.extent, geom.lpad
+    kp, n_ch = geom.slots_per_tile, q.shape[1]
+    shift0 = 1 - (n + 1) // 2
+    coeffs, deriv = sf._tables(geom.method, n)
+    (bx, offx), (by, offy), (bz, offz) = (sf._axis_offsets(rel[:, i], n) for i in range(3))
+    gx0 = torch.remainder(bx + shift0, nx)
+    gy0 = torch.remainder(by + shift0, ny)
+    sz = torch.remainder(bz + shift0, nz)
+    w = [sf._node_weights(off, coeffs) for off in (offx, offy, offz)]
+    d = [sf._node_weights(off, deriv) for off in (offx, offy, offz)]
+    ct_rel = torch.full((rel.shape[0], 3), float("nan"), dtype=rel.dtype)
+    ct_q = torch.full((rel.shape[0], n_ch), float("nan"), dtype=rel.dtype)
+    owners = torch.zeros(rel.shape[0], dtype=torch.long)
+    for tile in range(geom.n_tiles):
+        ox, oy = tile // geom.ty_count * sf.TILE, tile % geom.ty_count * sf.TILE
+        slots = torch.arange(tile * kp, (tile + 1) * kp)
+        for z0 in range(0, nz, z_chunk):
+            zn = min(z_chunk, nz - z0)
+            zlen = zn + n - 1
+            assert zlen <= (z_chunk + n - 1 + 3) & ~3  # the kernel's row of floats
+            wx_ = torch.remainder(ox - lpad + torch.arange(e), nx)
+            wy_ = torch.remainder(oy - lpad + torch.arange(e), ny)
+            wz_ = torch.remainder(z0 + torch.arange(zlen), nz)
+            window = ct[:, wx_][:, :, wy_][:, :, :, wz_]  # (C, E, E, zlen)
+            mine = slots[(sz[slots] >= z0) & (sz[slots] < z0 + zn)]
+            owners[mine] += 1
+            if mine.numel() == 0:
+                continue
+            lx = torch.remainder(gx0[mine] + lpad - ox, nx)
+            ly = torch.remainder(gy0[mine] + lpad - oy, ny)
+            zi = sz[mine] - z0
+            (wx, wy, wz), (dx, dy, dz) = ([t[mine] for t in w], [t[mine] for t in d])
+            zero = torch.zeros(mine.numel(), dtype=rel.dtype)
+            cx = cy = cz = zero
+            for ch in range(n_ch):
+                cq = gx = gy = gz = zero
+                for a in range(n):
+                    ok_x = lx + a < e
+                    sw = sdy = sdz = zero
+                    for b in range(n):
+                        ok = ok_x & (ly + b < e)
+                        ia = torch.where(ok, lx + a, 0)
+                        ib = torch.where(ok, ly + b, 0)
+                        sw_c = sd_c = zero
+                        for c in range(n):
+                            v = window[ch, ia, ib, zi + c]
+                            node = ct[ch, torch.remainder(gx0[mine] + a, nx),
+                                      torch.remainder(gy0[mine] + b, ny),
+                                      torch.remainder(sz[mine] + c, nz)]
+                            assert torch.equal(v[ok], node[ok])
+                            sw_c = sw_c + wz[:, c] * v
+                            sd_c = sd_c + dz[:, c] * v
+                        sw = torch.where(ok, sw + wy[:, b] * sw_c, sw)
+                        sdy = torch.where(ok, sdy + dy[:, b] * sw_c, sdy)
+                        sdz = torch.where(ok, sdz + wy[:, b] * sd_c, sdz)
+                    cq = torch.where(ok_x, cq + wx[:, a] * sw, cq)
+                    gx = torch.where(ok_x, gx + dx[:, a] * sw, gx)
+                    gy = torch.where(ok_x, gy + wx[:, a] * sdy, gy)
+                    gz = torch.where(ok_x, gz + wx[:, a] * sdz, gz)
+                ct_q[mine, ch] = cq
+                qv = q[mine, ch]
+                cx, cy, cz = cx + qv * gx, cy + qv * gy, cz + qv * gz
+            ct_rel[mine] = torch.stack([cx, cy, cz], dim=1)
+    return ct_rel, ct_q, owners
+
+
+def _fused_bwd_slots(nodes, ns, box, n_atoms, n_ch, seed=0):
+    """float64 slots of a stencil-start bucketing (``fused_tiled_density``'s
+    layout), with one atom drifted out of its tile after the bucketing (a
+    stale slot) and an atom at the top of the box (its z stencil wraps)."""
+    from torchpme_tpu_torch.ops.mesh_tiled import compute_tiled_interpolation
+
+    rng = np.random.default_rng(seed)
+    cell = torch.tensor(np.diag(np.broadcast_to(np.asarray(box, np.float64), (3,))))
+    pos = torch.tensor(rng.uniform(0, 1, (n_atoms, 3))) @ cell
+    pos[1, 2] = cell[2, 2] * (1 - 0.2 / ns[2])
+    inv = torch.linalg.inv(cell)
+    interp = compute_tiled_interpolation(pos, inv, ns, nodes, "Lagrange")
+    pos[0, 0] += 0.4 * cell[0, 0]
+    q = torch.tensor(rng.normal(size=(n_atoms, n_ch)))
+    return sf._fused_slots(interp, pos, inv, q, "Lagrange")
+
+
+BWD_MIRROR_CASES = {
+    **{f"aligned_{name}": name for name in ("nodes5_scaled", "nodes4_even", "nodes6_two_tiles")},
+    "fused_nodes5": dict(nodes=5, ns=(32, 32, 40), box=10.0, n_atoms=300, n_ch=1),
+    "fused_nodes4_ch2": dict(nodes=4, ns=(16, 32, 36), box=(5.0, 10.0, 12.0), n_atoms=200,
+                             n_ch=2),
+    "fused_nodes7": dict(nodes=7, ns=(16, 16, 24), box=6.0, n_atoms=120, n_ch=1),
+}
+
+
+@pytest.mark.parametrize("z_chunk", [8, 16, "rule"])
+@pytest.mark.parametrize("name", list(BWD_MIRROR_CASES))
+def test_kernel_b_partition_matches_plain(name, z_chunk):
+    """Kernel B's blocks (tile × z chunk, every slot of the tile scanned,
+    the owner the chunk of its z stencil start) own every slot once, stage
+    every node the slot reads, and in the kernel's summation order ≡ the
+    plain VJP (float64, ≤ 1e-12): in the aligned layout and the fused one,
+    with a partial last chunk (nz = 40, 36, 24 at 16 cells), z stencils that
+    wrap, empty slots and a stale slot."""
+    case = BWD_MIRROR_CASES[name]
+    if isinstance(case, str):
+        rel_t, q, geom = _port_slots(**MIRROR_CASES[case])
+        occupied = torch.nonzero((q != 0).any(dim=1))[:, 0]
+        rel_t[occupied[0], 2] = geom.ns[2] - 0.3  # its z stencil wraps
+        rel_t[occupied[1], 2] += 0.45 * geom.ns[2]  # stale: far from its z cell
+    else:
+        rel_t, q, geom = _fused_bwd_slots(**case)
+        assert geom.lpad == 0 and geom.z_cells == 1
+    if z_chunk == "rule":
+        z_chunk = sf.bwd_z_chunk(geom.nodes, geom.extent, q.shape[1])
+    ct = torch.tensor(
+        np.random.default_rng(5).normal(size=(q.shape[1], *geom.ns)), dtype=torch.float64
+    )
+    got_rel, got_q, owners = _bwd_block_mirror(rel_t, q, ct, geom, z_chunk)
+    assert bool((owners == 1).all())
+    ref_rel, ref_q = sf.spread_plain_bwd(rel_t, q, ct, geom)
+    assert rel(got_rel.numpy(), ref_rel.numpy()) <= 1e-12
+    assert rel(got_q.numpy(), ref_q.numpy()) <= 1e-12
+    empty = (q == 0).all(dim=1)
+    assert float(got_rel[empty].abs().sum()) == 0.0
+    nz, n = geom.ns[2], geom.nodes
+    sz = torch.remainder(sf._axis_offsets(rel_t[~empty, 2], n)[0] + 1 - (n + 1) // 2, nz)
+    assert bool((sz + n - 1 >= nz).any())  # a z stencil wraps

@@ -6,7 +6,9 @@ rFFT filter → gather back), so the whole forward, including the filter,
 which depends on ``cell``, differentiates with respect to positions,
 charges and cell.  On CUDA float32 tensors the tiled backend spreads and
 gathers through the hand-written kernels of
-:mod:`~torchpme_tpu_torch.ops.mesh_kernels`; the transform is cuFFT.
+:mod:`~torchpme_tpu_torch.ops.mesh_kernels`, and the fused backend spreads
+the quadratic energy path's density through those of
+:mod:`~torchpme_tpu_torch.ops.spread_fused`; the transform is cuFFT.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..ops.mesh_tiled import (
     tiled_mesh_to_points,
     tiled_points_to_mesh,
 )
+from ..ops.spread_fused import fused_tiled_density, supports_fused
 from .calculator import Calculator
 
 __all__ = ["PMECalculator"]
@@ -55,7 +58,12 @@ class PMECalculator(Calculator):
     :param mesh_backend: ``"auto"`` takes the tiled backend where the mesh
         tiles (:func:`~torchpme_tpu_torch.ops.mesh_tiled.supports_tiling`)
         and the tensors are on a CUDA device, the scatter backend otherwise;
-        ``"tiled"`` / ``"scatter"`` force one.
+        ``"tiled"`` / ``"scatter"`` force one.  ``"fused"`` behaves like
+        ``"tiled"`` except on the quadratic energy path (:meth:`energy`) with
+        a reusable ``tiled_interp``, float32 data and a tile capacity that is
+        a multiple of 8: there the refresh and the spread make way for
+        :func:`~torchpme_tpu_torch.ops.spread_fused.fused_tiled_density`
+        (kernels A and B on a card).
     :param tile_capacity: per-tile atom capacity of the tiled backend
         (default: from the true maximum occupancy).
 
@@ -96,15 +104,10 @@ class PMECalculator(Calculator):
                 f"`interpolation_nodes` is {interpolation_nodes} but only "
                 "values from 3 to 7 for method 'Lagrange' are allowed"
             )
-        if mesh_backend == "fused":
-            raise NotImplementedError(
-                "mesh_backend='fused' (fused_tiled_density: refresh + spread in one "
-                "kernel) is not ported yet (ROADMAP.md, section 2)"
-            )
-        if mesh_backend not in ("auto", "tiled", "scatter"):
+        if mesh_backend not in ("auto", "tiled", "fused", "scatter"):
             raise ValueError(
-                f"`mesh_backend` is {mesh_backend!r} but must be 'auto', 'tiled' "
-                "or 'scatter'"
+                f"`mesh_backend` is {mesh_backend!r} but must be 'auto', 'tiled', "
+                "'fused' or 'scatter'"
             )
         self.mesh_spacing = float(mesh_spacing)
         self.interpolation_nodes = int(interpolation_nodes)
@@ -135,6 +138,7 @@ class PMECalculator(Calculator):
         tiled_interp: TiledInterpolation | None,
         check_stale: bool = True,
         plain: bool = False,
+        energy_only: bool = False,
     ):
         """Spread the charges onto the mesh (shared by the per-atom
         potential path and the quadratic energy path).
@@ -143,7 +147,10 @@ class PMECalculator(Calculator):
         is the on-device validity flag of a reused tiled bucketing (``None``
         on the scatter path and for a fresh bucketing).  ``check_stale``
         reads the flag and raises (one device sync); without it the caller
-        poisons its result with NaN instead, as an MD loop wants."""
+        poisons its result with NaN instead, as an MD loop wants.  With
+        ``energy_only`` (no gather from the mesh follows) the fused backend
+        spreads a reused bucketing through
+        :func:`~torchpme_tpu_torch.ops.spread_fused.fused_tiled_density`."""
         if kvectors is not None:
             raise NotImplementedError(
                 "Mesh calculators build their own k-grid; precomputed `kvectors` "
@@ -161,7 +168,7 @@ class PMECalculator(Calculator):
                 and positions.device.type == "cuda"
             )
         else:
-            use_tiled = self.mesh_backend == "tiled"
+            use_tiled = self.mesh_backend in ("tiled", "fused")
 
         if not use_tiled:
             interp = compute_interpolation(
@@ -170,6 +177,20 @@ class PMECalculator(Calculator):
             return points_to_mesh(interp, charges), interp, None, ns_mesh
 
         mesh_valid = None
+        if (
+            tiled_interp is not None
+            and energy_only
+            and self.mesh_backend == "fused"
+            and supports_fused(tiled_interp, positions.dtype)
+        ):
+            # positions → density in kernels A (and B backward): no per-slot
+            # weights in device memory
+            rho_mesh, mesh_valid = fused_tiled_density(
+                tiled_interp, positions, inv3(cell), charges, self._method, plain=plain
+            )
+            if check_stale and not bool(mesh_valid):
+                raise ValueError(_STALE)
+            return rho_mesh, tiled_interp, mesh_valid, ns_mesh
         if tiled_interp is not None:
             # bucket reuse (MD): refresh only the per-slot geometry from the
             # current positions, differentiably
@@ -256,7 +277,7 @@ class PMECalculator(Calculator):
         """
         rho_mesh, _, mesh_valid, ns_mesh = self._mesh_density(
             charges, cell, positions, kvectors, ns_mesh, tiled_interp,
-            check_stale=check_stale, plain=plain,
+            check_stale=check_stale, plain=plain, energy_only=True,
         )
         return self._kspace_energy_from_rho(
             rho_mesh, cell, charges, positions, periodic, ns_mesh, mesh_valid=mesh_valid

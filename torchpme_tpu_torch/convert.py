@@ -190,6 +190,7 @@ def md_from_state(state: dict, device=None) -> MDFastPath:
         None if tiled is not None else tuple(int(n) for n in state["cell_grid"]),
         int(state["aligned_pad"]),
         tiled,
+        state.get("mesh_impl"),
     )
 
 

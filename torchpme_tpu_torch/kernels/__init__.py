@@ -105,6 +105,7 @@ class SpreadParams(ctypes.Structure):
         ("n_ch", ctypes.c_int),
         ("z_cells", ctypes.c_int),
         ("z_chunk", ctypes.c_int),
+        ("bwd_z_chunk", ctypes.c_int),
         ("coeff", ctypes.c_float * (MAX_NODES * MAX_NODES)),
         ("deriv", ctypes.c_float * (MAX_NODES * MAX_NODES)),
     ]

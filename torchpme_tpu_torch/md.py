@@ -1,9 +1,11 @@
 """Bucket-order MD state: the PME energy + force step without per-step gathers.
 
-Counterpart of :class:`torchpme_tpu.md.MDFastPath` in its **aligned** and
-**tiled** modes, and of :class:`torchpme_tpu.md.MDFastPathDipole` (point
-dipoles: the window of kernel G plus the dipolar Ewald or mesh k-space).  Positions live in cell-bucket rows across steps (converted
-once, at build or rebucket time, like a neighbor-list build).
+Counterpart of :class:`torchpme_tpu.md.MDFastPath` in its **aligned**,
+**tiled** and **fused** modes, and of
+:class:`torchpme_tpu.md.MDFastPathDipole` (point dipoles: the window of
+kernel G plus the dipolar Ewald or mesh k-space).  Positions live in
+cell-bucket rows across steps (converted once, at build or rebucket time,
+like a neighbor-list build).
 
 * ``"aligned"``: the cell list's x/y grid is pinned to the 8×8 mesh-tile
   grid, so the same rows are the slots of the spread kernels, and the step
@@ -14,6 +16,11 @@ once, at build or rebucket time, like a neighbor-list build).
 * ``"tiled"``: any mesh that tiles.  The cell list is free of the mesh; a
   tile bucketing whose slots name bucket rows is refreshed from the rows
   each step (one gather) and spread by kernel D (its VJP is kernels E + F).
+* ``"fused"``: the tiled mode's state, but the step spreads the slots
+  straight from the gathered rows with kernel A at the stencil-start
+  geometry (its VJP is kernel B), with no per-slot weights in device memory
+  (:func:`~torchpme_tpu_torch.ops.spread_fused.fused_tiled_density`).
+  float32 state; float64 state runs the tiled mode's step.
 
 Autograd of :meth:`MDFastPath.energy` with respect to the rows gives minus
 the forces in row layout.  Once an atom drifts out of its cell (or, in tiled
@@ -48,11 +55,6 @@ from .ops.rspace_cells_dipole import cell_list_rspace_dipole_energy_rows
 from .ops.spread_fused import aligned_geometry, aligned_tiled_density
 
 __all__ = ["MDFastPath", "MDFastPathDipole"]
-
-_FUSED_MODE = (
-    "mesh_impl='fused' (fused_tiled_density: refresh + spread in one kernel) is "
-    "not ported yet (ROADMAP.md, section 2); use 'tiled' or 'aligned'"
-)
 
 
 def _row_mapping(clist: CellList, n_atoms: int) -> tuple[np.ndarray, int]:
@@ -138,16 +140,19 @@ class MDFastPath(nn.Module):
         cell_grid: tuple[int, int, int, int] | None,
         aligned_pad: int = 0,
         tiled: TiledInterpolation | None = None,
+        mesh_impl: str | None = None,
     ):
         super().__init__()
-        #: "aligned" (cell rows are the tile slots) or "tiled" (``tiled``
-        #: holds a tile bucketing whose ``atom_of_slot`` names bucket rows)
-        self.mesh_impl = "aligned" if tiled is None else "tiled"
+        #: "aligned" (cell rows are the tile slots), or "tiled" / "fused"
+        #: (``tiled`` holds a tile bucketing whose ``atom_of_slot`` names
+        #: bucket rows; "tiled" when not given)
+        self.mesh_impl = "aligned" if tiled is None else mesh_impl or "tiled"
         if tiled is not None:
-            # the rows layout is consumed by the tile refresh: pin the backend
-            # so an auto-resolved scatter can never see row-layout positions
+            # the rows layout is consumed by the tile refresh (or the fused
+            # spread): pin the backend so an auto-resolved scatter can never
+            # see row-layout positions
             calc = copy.copy(calc)
-            calc.mesh_backend = "tiled"
+            calc.mesh_backend = "fused" if self.mesh_impl == "fused" else "tiled"
         self.calc = calc
         self.clist = clist
         self.tiled = tiled
@@ -180,10 +185,14 @@ class MDFastPath(nn.Module):
         :param cutoff: real-space cutoff of the cell list.
         :param ns_mesh: static mesh shape (``calc.get_ns_mesh(cell)`` when
             omitted).
-        :param tile_capacity: slots per mesh tile in tiled mode (default:
-            from the true maximum occupancy).
-        :param mesh_impl: ``"aligned"``, ``"tiled"`` or ``"auto"`` (aligned
-            where :meth:`_aligned_supported` allows it, tiled otherwise).
+        :param tile_capacity: slots per mesh tile in tiled and fused mode
+            (default: from the true maximum occupancy, a multiple of 64; fused
+            mode takes multiples of 8).
+        :param mesh_impl: ``"aligned"``, ``"tiled"``, ``"fused"`` or
+            ``"auto"``: aligned where :meth:`_aligned_supported` allows it;
+            otherwise fused for state on a CUDA device (on an H100 the fused
+            102k step ran faster than the tiled one, in wall and in device
+            time: PERF.md), tiled on the CPU.
         :param extras_impl: ``"auto"`` or ``"scatter"``: spill atoms of the
             aligned mode spread through the generic scatter.
         :param balance: overflow-balance the cell list (``"auto"``: in
@@ -205,14 +214,20 @@ class MDFastPath(nn.Module):
                 f"{calc.interpolation_nodes} nodes does not tile (nx, ny must "
                 "be multiples of 16)"
             )
-        if mesh_impl == "fused":
-            raise NotImplementedError(_FUSED_MODE)
         if mesh_impl == "auto":
-            aligned_ok = cls._aligned_supported(cell_np, cutoff, ns_mesh)
-            mesh_impl = "aligned" if aligned_ok else "tiled"
-        if mesh_impl not in ("aligned", "tiled"):
+            if cls._aligned_supported(cell_np, cutoff, ns_mesh):
+                mesh_impl = "aligned"
+            else:
+                mesh_impl = "fused" if device.type == "cuda" else "tiled"
+        if mesh_impl not in ("aligned", "tiled", "fused"):
             raise ValueError(
-                f"`mesh_impl` is {mesh_impl!r} but must be 'auto', 'aligned' or 'tiled'"
+                f"`mesh_impl` is {mesh_impl!r} but must be 'auto', 'aligned', 'tiled' "
+                "or 'fused'"
+            )
+        if mesh_impl == "fused" and tile_capacity is not None and tile_capacity % 8:
+            raise ValueError(
+                "the fused spread needs a tile capacity that is a multiple of 8, "
+                f"got tile_capacity={tile_capacity}"
             )
         if mesh_impl == "aligned" and not cls._aligned_supported(cell_np, cutoff, ns_mesh):
             raise ValueError(
@@ -233,10 +248,10 @@ class MDFastPath(nn.Module):
             raise ValueError(
                 f"`balance` is {balance!r} but must be 'auto', True or False"
             )
-        if mesh_impl == "tiled":
+        if mesh_impl != "aligned":
             return cls._create_tiled(
                 calc, pos_np, cell_np, cutoff, ns_mesh, cell_capacity, tile_capacity,
-                balance is True, _spill, device,
+                balance is True, _spill, device, mesh_impl,
             )
         # overflow balance: x/y slack capped so the widened spread window
         # still fits the 2-tile fold, with room for the staleness tolerance
@@ -283,10 +298,10 @@ class MDFastPath(nn.Module):
     @classmethod
     def _create_tiled(
         cls, calc, pos_np, cell_np, cutoff, ns_mesh, cell_capacity, tile_capacity,
-        balance, spill, device,
+        balance, spill, device, mesh_impl,
     ) -> "MDFastPath":
-        """Tiled mode: a cell list free of the mesh plus a tile bucketing
-        whose slots name bucket rows."""
+        """Tiled and fused mode: a cell list free of the mesh plus a tile
+        bucketing whose slots name bucket rows."""
         clist = compute_cell_list(
             pos_np, cell_np, cutoff, capacity=cell_capacity, spill=spill,
             balance=balance, device=device,
@@ -299,7 +314,7 @@ class MDFastPath(nn.Module):
         )
         return cls(
             calc, clist, torch.from_numpy(row_of_atom).to(device), ns_mesh, n_rows,
-            n_atoms, None, 0, tiled,
+            n_atoms, None, 0, tiled, mesh_impl,
         )
 
     @staticmethod
@@ -367,10 +382,10 @@ class MDFastPath(nn.Module):
         e_sr = cell_list_rspace_energy_rows(
             self.calc.potential, charges, pos_rows, cell, self.clist, plain=plain
         )
-        if self.mesh_impl == "tiled":
-            # pos_rows are consumed only by the tile refresh (row-id slots);
-            # a stale bucketing poisons the energy instead of raising, so the
-            # step never waits for the device
+        if self.mesh_impl != "aligned":
+            # pos_rows are consumed only by the tile refresh or the fused
+            # spread (row-id slots); a stale bucketing poisons the energy
+            # instead of raising, so the step never waits for the device
             e_k = self.calc._compute_kspace_energy(
                 charges.to(pos_rows.dtype), cell, pos_rows, ns_mesh=self.ns_mesh,
                 tiled_interp=self.tiled, check_stale=False, plain=plain,

@@ -1,24 +1,35 @@
-r"""Aligned charge spreading: bucket rows → density mesh, and its VJP.
+r"""Charge spreading from positions: scaled coordinates → density mesh, and
+its VJP.
 
-Counterpart of :mod:`torchpme_tpu.ops.pallas.spread_fused` for the aligned
-MD state.  The cell-list x/y grid is pinned to the 8×8 mesh-tile grid, so
-the ``nz_c·cap`` bucket rows of the z-column of cells at ``(tx, ty)`` are
-exactly the slots of mesh tile ``(tx, ty)``: a reshape, no gather.
+Counterpart of :mod:`torchpme_tpu.ops.pallas.spread_fused`, for its two
+callers:
 
-Two kernels carry the step (``csrc/spread.cu``):
+* :func:`aligned_tiled_density`, the aligned MD state: the cell-list x/y
+  grid is pinned to the 8×8 mesh-tile grid, so the ``nz_c·cap`` bucket rows
+  of the z-column of cells at ``(tx, ty)`` are exactly the slots of mesh
+  tile ``(tx, ty)`` (a reshape, no gather); atoms are position-bucketed, so
+  the window begins ``lpad`` cells before the tile (:func:`aligned_geometry`);
+* :func:`fused_tiled_density`, the fused mesh mode: the slots of a
+  :class:`~torchpme_tpu_torch.ops.mesh_tiled.TiledInterpolation` (stencil
+  starts bucketed into their tile, ``lpad = 0``, extent ``TILE + nodes − 1``)
+  filled from positions with one gather, in place of the refresh and
+  kernel D.
+
+Two kernels carry both (``csrc/spread.cu``):
 
 * **A** (:func:`fused_spread`): scaled fractional coordinates
   ``rel = (pos @ cell⁻¹)·ns`` and charges in, the ``(C, nx, ny, nz)``
   density out.  Each block owns the mesh cells of one tile and z chunk
-  (:func:`z_chunk`), reads the slots of the 3×3 tiles around it in the z
-  cells that can reach the chunk, evaluates each slot's stencil weights
-  once and stores its cells: no global atomics, no fold (the TPU's tile
-  output + parity-class fold exists because TPU scatters serialize).
+  (:func:`z_chunk`), reads the slots of the tiles whose windows reach it, in
+  the z cells that can reach the chunk, evaluates each slot's stencil
+  weights once and stores its cells: no global atomics, no fold (the TPU's
+  tile output + parity-class fold exists because TPU scatters serialize).
 * **B** (:func:`fused_spread_bwd`): ``(rel, q, ∂E/∂ρ)`` in,
-  ``(∂E/∂rel, ∂E/∂q)`` out, one thread per slot against the derivative
-  stencils (``d w / d rel``); ``d base / d rel = 0``, as autodiff through
-  ``round``/``floor`` gives.  The cell cotangent flows through ``rel``,
-  which is plain PyTorch.
+  ``(∂E/∂rel, ∂E/∂q)`` out.  Each block stages one tile's window of the
+  mesh cotangent for a z chunk (:func:`bwd_z_chunk`) and contracts it, one
+  thread a slot, against the derivative stencils (``d w / d rel``);
+  ``d base / d rel = 0``, as autodiff through ``round``/``floor`` gives.
+  The cell cotangent flows through ``rel``, which is plain PyTorch.
 
 Beside each kernel sits its plain PyTorch twin (:func:`spread_plain`,
 :func:`spread_plain_bwd`), the batched form of the JAX package's
@@ -42,7 +53,7 @@ from .mesh import (
     compute_interpolation,
     points_to_mesh,
 )
-from .mesh_tiled import TILE, _fold_tiles_to_mesh
+from .mesh_tiled import TILE, TiledInterpolation, _fold_tiles_to_mesh
 
 __all__ = [
     "SpreadGeometry",
@@ -50,8 +61,10 @@ __all__ = [
     "aligned_tiled_density",
     "fused_spread",
     "fused_spread_bwd",
+    "fused_tiled_density",
     "spread_plain",
     "spread_plain_bwd",
+    "supports_fused",
 ]
 
 
@@ -62,6 +75,19 @@ def z_chunk(nz: int) -> int:
     the neighbouring choices (its ``--profile`` ``z_chunk_sweep`` line)."""
     n_chunks = max(2, -(-nz // 128))
     return -(-nz // n_chunks)
+
+
+def bwd_z_chunk(nodes: int, extent: int, n_ch: int) -> int:
+    """Mesh z cells that one block of kernel B stages: 64 where the windows
+    of all channels, ``(extent, extent, zc + nodes − 1)`` rounded to whole
+    16-byte vectors, take at most 64 KB of shared memory, 32 otherwise (on
+    an H100 the best of 32, 64 and 128 at the main path's aligned and fused
+    shapes and at three channels: ``chip_smoke.py --profile``,
+    ``z_chunk_sweep``).  The launcher halves it where a block does not fit
+    the card, and runs one thread a slot reading device memory where none
+    fits; 0 selects that form."""
+    row = (64 + nodes - 1 + 3) // 4 * 4
+    return 64 if n_ch * extent * extent * row * 4 <= 64 * 1024 else 32
 
 
 def aligned_geometry(nodes: int, pad_cells: int = 0) -> tuple[int, int]:
@@ -86,7 +112,7 @@ def _tables(method: str, nodes: int) -> tuple[np.ndarray, np.ndarray]:
 
 @dataclass(frozen=True)
 class SpreadGeometry:
-    """Static shape of one aligned spread: mesh, stencil, tiles, slots."""
+    """Static shape of one spread: mesh, stencil, window, tiles, slots."""
 
     ns: tuple[int, int, int]
     nodes: int
@@ -97,7 +123,8 @@ class SpreadGeometry:
     slots_per_tile: int  # nz_c · cap
     #: cell-list z cells of a tile column (``nz_c``): the slots of z cell
     #: ``c`` are ``c·cap … (c+1)·cap − 1``.  Kernel A reads, for each z chunk
-    #: of the mesh, only the z cells whose atoms can reach it.
+    #: of the mesh, only the z cells whose atoms can reach it.  1 for the
+    #: stencil-start bucketing, whose slots are in no z order.
     z_cells: int
 
     @property
@@ -243,6 +270,7 @@ def _params(geom: SpreadGeometry, n_ch: int) -> _k.SpreadParams:
         geom.ty_count, geom.n_tiles, geom.slots_per_tile, n_ch,
     )
     p.z_cells, p.z_chunk = geom.z_cells, z_chunk(geom.ns[2])
+    p.bwd_z_chunk = bwd_z_chunk(geom.nodes, geom.extent, n_ch)
     for o in range(geom.nodes):
         for m in range(coeffs.shape[1]):
             p.coeff[o * _k.MAX_NODES + m] = float(coeffs[o, m])
@@ -312,9 +340,9 @@ def fused_spread_bwd(rel, q, ct_rho: torch.Tensor, geom: SpreadGeometry):
     return ct_rel, ct_q
 
 
-class _AlignedSpread(torch.autograd.Function):
+class _Spread(torch.autograd.Function):
     """``(rel, q) → ρ`` with the kernel pair (or, with ``plain``, the twin
-    pair on any device) as forward and backward."""
+    pair on any device) as forward and backward; both layouts."""
 
     @staticmethod
     def forward(ctx, rel, q, geom, plain):
@@ -376,9 +404,106 @@ def aligned_tiled_density(
     # (pos @ cell⁻¹) · ns in this order keeps the floor/round stencil starts
     # in lockstep with the JAX package
     rel = torch.matmul(pos_rows, inverse_cell) * ns_t
-    rho = _AlignedSpread.apply(rel[:nb], q_rows[:nb].contiguous(), geom, plain)
+    rho = _Spread.apply(rel[:nb], q_rows[:nb].contiguous(), geom, plain)
     if pos_rows.shape[0] > nb:
         # spill side list: a handful of atoms, generic scatter spread
         interp_e = compute_interpolation(pos_rows[nb:], inverse_cell, ns, nodes, method)
         rho = rho + points_to_mesh(interp_e, q_rows[nb:])
     return rho
+
+
+# -- the fused mesh mode: the stencil-start bucketing ----------------------------
+
+
+def supports_fused(interp: TiledInterpolation, dtype) -> bool:
+    """float32 data, a tile capacity that is a multiple of 8, and the
+    bucket→atom indices: what :func:`fused_tiled_density` takes (the JAX
+    package's rule, kept for parity)."""
+    return (
+        dtype == torch.float32
+        and interp.local_x.shape[1] % 8 == 0
+        and interp.atom_of_slot is not None
+    )
+
+
+def _slot_validity(rel: torch.Tensor, interp: TiledInterpolation, sentinel: int):
+    """Staleness flag recomputed from ``(T·K, 3)`` rel, outside autograd:
+    every occupied slot's stencil start must still lie inside its tile (the
+    criterion of
+    :func:`~torchpme_tpu_torch.ops.mesh_tiled.refresh_tiled_interpolation`),
+    and the bucketing dropped no atom.
+
+    :param sentinel: the index empty slots hold in ``atom_of_slot``.
+    """
+    nx, ny, _ = interp.ns
+    n_tiles, capacity = interp.local_x.shape
+    ty_count = ny // TILE
+    with torch.no_grad():
+        base, _ = _axis_offsets(rel[:, :2].reshape(n_tiles, capacity, 2), interp.nodes)
+        n_xy = torch.tensor((nx, ny), device=rel.device)
+        start = torch.remainder(base + 1 - (interp.nodes + 1) // 2, n_xy)
+        tile = torch.arange(n_tiles, device=rel.device)
+        origin = torch.stack((tile // ty_count * TILE, tile % ty_count * TILE), dim=1)
+        local = torch.remainder(start - origin[:, None, :], n_xy)
+        empty = interp.atom_of_slot == sentinel
+        ok = torch.all(local < TILE, dim=-1) | empty
+        return torch.all(ok) & (interp.dropped == 0)
+
+
+def fused_tiled_density(
+    interp: TiledInterpolation,
+    positions: torch.Tensor,
+    inverse_cell: torch.Tensor,
+    charges: torch.Tensor,
+    method: str,
+    plain: bool = False,
+):
+    """Charge density mesh straight from positions, through kernels A and B.
+
+    Takes the place of
+    :func:`~torchpme_tpu_torch.ops.mesh_tiled.refresh_tiled_interpolation` +
+    :func:`~torchpme_tpu_torch.ops.mesh_tiled.tiled_points_to_mesh` where no
+    gather from the mesh follows (the quadratic energy path): one gather of
+    the slots' positions, ``rel = (pos @ cell⁻¹)·ns``, and kernel A; the
+    backward is kernel B and the transposes of the gather and of ``rel``.
+    No per-slot weights reach device memory.
+
+    :param interp: a reusable bucketing with ``atom_of_slot``
+        (:func:`~torchpme_tpu_torch.ops.mesh_tiled.compute_tiled_interpolation`);
+        ``positions`` is in whatever order its ``atom_of_slot`` indexes
+        (atoms, or the bucket rows of an MD state).
+    :param charges: ``(N, C)`` charges in atom order (``slot_of_atom``).
+    :param plain: run the kernels' plain twins on any device; by default CPU
+        tensors take the twins and CUDA tensors the kernels (float32 only).
+    :return: ``(rho (C, nx, ny, nz), mesh_valid)``: the density and a 0-dim
+        bool tensor, False once an occupied slot's stencil start has left its
+        tile or the bucketing dropped atoms (rebucket then).
+    """
+    rel, q_slots, geom = _fused_slots(interp, positions, inverse_cell, charges, method)
+    rho = _Spread.apply(rel, q_slots, geom, plain)
+    return rho, _slot_validity(rel, interp, positions.shape[0])
+
+
+def _fused_slots(interp: TiledInterpolation, positions, inverse_cell, charges, method: str):
+    """``(rel (T·K, 3), q (T·K, C), geometry)`` of a stencil-start bucketing:
+    the slots' positions gathered through ``atom_of_slot`` (a zero row for
+    empty slots), their charges through ``slot_of_atom``."""
+    if interp.atom_of_slot is None:
+        raise ValueError(
+            "This TiledInterpolation does not carry bucket->atom indices; "
+            "build it with compute_tiled_interpolation first."
+        )
+    ns, nodes = interp.ns, interp.nodes
+    n_tiles, capacity = interp.local_x.shape
+    n_ch = charges.shape[-1]
+    padded_pos = torch.cat([positions, positions.new_zeros((1, 3))], dim=0)
+    pos_slots = padded_pos.index_select(0, interp.atom_of_slot.reshape(-1).long())
+    pos_slots = pos_slots.reshape(n_tiles, capacity, 3)
+    # (pos @ cell⁻¹) · ns in this order, as the refresh computes it: the
+    # floor/round stencil starts decide as there
+    ns_t = torch.tensor(ns, dtype=positions.dtype, device=positions.device)
+    rel = (torch.matmul(pos_slots, inverse_cell) * ns_t).reshape(-1, 3)
+    q_slots = charges.new_zeros((n_tiles * capacity + 1, n_ch))
+    q_slots = q_slots.index_copy(0, interp.slot_of_atom.long(), charges)[:-1]
+    geom = SpreadGeometry(ns, nodes, method, TILE + nodes - 1, 0, n_tiles, capacity, 1)
+    return rel, q_slots.contiguous(), geom

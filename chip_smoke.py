@@ -2,9 +2,10 @@
 """Smoke run of the torch port on one CUDA card: python3 chip_smoke.py
 
 Drives the port's main paths at the 102k-atom water-density box (point
-charges: the MD step and the per-atom call; point dipoles: the same two)
-through its hand-written CUDA kernels, and fails (non-zero exit, no result
-line) if any phase fails:
+charges, PME and P3M: the MD step and the per-atom call, also over a cell
+list; point dipoles: the same two; Ewald at 12,000 atoms) through its
+hand-written CUDA kernels, and fails (non-zero exit, no result line) if any
+phase fails:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles ``torchpme_tpu_torch/csrc/*.cu`` with nvcc (sm_90a);
@@ -18,7 +19,9 @@ line) if any phase fails:
    at the dipolar shapes: 6 nodes, D's dipole form for its two launches (the
    spread of the dipoles and of the gather's mesh cotangent), the dipole
    forms of E and F, each slot read once, and E + F from one launch bitwise
-   equal over two launches; the dipolar window G in smeared and direct mode
+   equal over two launches; D, E, F also at P3M's 1 and 2 nodes with the P3M
+   tables, A and B with the P3M tables, and C's unsmeared variant (direct
+   mode) at the 102k window; the dipolar window G in smeared and direct mode
    and with separate i-side dipoles, and on the 3×3×3 cell grid at
    capacities 72 and 250 with and without them, with two launches bitwise
    equal in d_pc, d_mu, d_mui and its outputs against float64), with
@@ -51,7 +54,21 @@ line) if any phase fails:
 9. dipolar accuracy: the 3000-atom oracle of tools/bench_family.py, float32
    mesh PME on the card against the port's float64 dipolar Ewald at
    ``lr_wavelength = smearing / 2``, beside the JAX package's two energies;
+11. the P3M MD step (``MDFastPath`` over ``P3MCalculator``: 5 nodes, the
+    128³ mesh; aligned by ``auto``, then fused and tiled, forced): float32
+    kernels vs the plain float64 step, launch counts and ms/step;
+12. the P3M per-atom call on the tiled mesh (kernels D, E, F) vs the plain
+    float64 call, ms per forward and forward+backward;
+13. Ewald at 12,000 atoms: ``MDFastPathEwald`` (kernel C) and the
+    ``EwaldCalculator`` per-atom call, float32 vs float64;
+14. accuracy at 1536 atoms against tools/ground_truth.npz: float32 P3M
+    (tiled, 64³) and float32 Ewald at the truth's own parameters, and P3M
+    at 1 and 2 nodes against its float64 plain energy;
+15. the per-atom call over a cell list (``calc(..., cell_list=clist)``) vs
+    the neighbor-list call in float64, and the direct-mode energy through
+    kernel C's unsmeared variant vs its float64 plain version;
 10. the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
+Phases 11–15 run between 6 and 7.
 
 With ``--profile`` it also traces the 102k paths (the MD step in aligned,
 fused and tiled mode) with ``torch.profiler``
@@ -126,6 +143,23 @@ GT_JAX_ENERGY = -32.388634
 GT_TILED_NS, GT_MESH_SPACING = (64, 64, 64), 1.2
 GT_TILED_JAX_ENERGY = -32.237873
 GT_FORCE_BAR = 1e-4  # ROADMAP's force accuracy, tools/validate_accuracy.py:113
+
+# P3M (tools/bench_family.py:choose_p3m_parameters gives the 102k box the main
+# path's geometry: 5 nodes, spacing 2·box/(2^7 - 1) = 1.5852, the 128^3 mesh;
+# p3m_spacing below); kernels D, E, F also at its 1 and 2 nodes, against their
+# plain versions at this bar; and the JAX package's float64 P3M force error on
+# the 1536-atom system at 64^3 (5 nodes, tiled), measured on the CPU, printed
+# beside the port's float32
+P3M_SMALL_NODES = (1, 2)
+P3M_MESH_TOL = 1e-6
+P3M_GT_JAX_F64_FORCE = 2.69e-6
+# Ewald at 12,000 atoms (bench.py:build_system(12_000): water density, box
+# 49.32 A) at the main path's smearing and cutoff.  EWALD_LR is the largest
+# lr_wavelength whose error bound (torchpme_tpu.tuning.EwaldErrorBounds) at
+# smearing 1.2826 and cutoff 5 meets 1e-4, rounded down: bisection gave
+# 2.61009 (bound 1.000e-4, 19^3 k extents) on the CPU with
+#   EwaldErrorBounds(q, cell, pos)(smearing=1.2826, lr_wavelength=x, cutoff=5.0)
+EWALD_N, EWALD_SMEARING, EWALD_LR = 12_000, 1.2826, 2.61
 
 # the dipolar system of tools/bench_family.py:177-222: the 102k box with
 # normal dipoles (seed 1) at the monopole-tuned smearing and 128^3 mesh, and
@@ -910,6 +944,456 @@ def fused_md_phase(tpt, kernels, calc, positions, cell, pos32, q32, cell32, smi,
     return {k: counts[k] for k in fused_kernels}
 
 
+def p3m_spacing(cell) -> float:
+    """tools/bench_family.py's P3M mesh spacing for a cubic box, 2·box/(n - 1)
+    for the NS_MESH[0] planes, a hair wider so that get_ns_mesh rounds to n."""
+    return 2 * float(cell[0, 0]) / (NS_MESH[0] - 1) * (1 + 1e-9)
+
+
+def md_step_check(fp, q32, cell32, rows, expect, forbid=()):
+    """One float32 energy + force step of ``fp`` through the kernels and the
+    plain float64 step on the same float32-rounded inputs: the launch counts
+    (each of ``expect`` at least once, none of ``forbid``), energy, force rel
+    RMS and cell gradient errors."""
+    import torchpme_tpu_torch.kernels as kernels
+
+    cell_g = cell32.clone().requires_grad_()
+    rows_g = rows.clone().requires_grad_()
+    kernels.reset_launch_counts()
+    e32 = fp.energy(q32, cell_g, rows_g)
+    g_rows, g_cell = torch.autograd.grad(e32, (rows_g, cell_g))
+    sync()
+    counts = kernels.launch_counts()
+    if min(counts[k] for k in expect) < 1 or any(counts[k] for k in forbid):
+        raise AssertionError(f"the step launched {counts}, expected {expect}, not {forbid}")
+    cell64 = cell32.double().requires_grad_()
+    rows64 = rows.double().requires_grad_()
+    e64 = fp.energy(q32.double(), cell64, rows64, plain=True)
+    g_rows64, g_cell64 = torch.autograd.grad(e64, (rows64, cell64))
+    e32, e64 = float(e32.detach()), float(e64.detach())
+    return {"energy_f32": e32, "energy_f64_plain": e64, "energy_rel": abs(e32 - e64) / abs(e64),
+            "force_rel_rms": rel_rms(fp.unbucket(g_rows), fp.unbucket(g_rows64)),
+            "cell_grad_rel": rel_err(g_cell, g_cell64)[1],
+            "launches": {k: counts[k] for k in (*expect, *forbid)}}
+
+
+def energy_error_split(fp, q32, cell32, rows32) -> dict:
+    """Where an aligned MD step's float32 energy error comes from, each part
+    over |E| of the float64 plain step on the same inputs: the window (kernel
+    C), the density (kernel A's float32 mesh, carried through the float64
+    transform and filter) and the transform and filter in float32 (cuFFT,
+    the k-space filter, the quadratic form)."""
+    from torchpme_tpu_torch.ops.math import inv3
+    from torchpme_tpu_torch.ops.rspace_cells import cell_list_rspace_energy_rows
+    from torchpme_tpu_torch.ops.spread_fused import aligned_tiled_density
+
+    calc, parts = fp.calc, {}
+    with torch.no_grad():
+        for dt, plain in ((torch.float32, False), (torch.float64, True)):
+            rows, cell, q = rows32.to(dt), cell32.to(dt), q32.to(dt)
+            q_rows = q.new_zeros((fp.n_rows, q.shape[-1])).index_copy(0, fp.row_of_atom.long(), q)
+            rho = aligned_tiled_density(rows, q_rows, inv3(cell), fp.ns_mesh,
+                                        calc.interpolation_nodes, calc._method, fp.cell_grid,
+                                        pad_cells=fp.aligned_pad, plain=plain)
+            e_sr = cell_list_rspace_energy_rows(calc.potential, q, rows, cell, fp.clist, plain=plain)
+            parts[dt] = (float(e_sr), rho, float(calc._kspace_energy_from_rho(
+                rho, cell, q, rows, None, fp.ns_mesh)))
+        (sr32, rho32, k32), (sr64, _, k64) = parts[torch.float32], parts[torch.float64]
+        k_mixed = float(calc._kspace_energy_from_rho(
+            rho32.double(), cell32.double(), q32.double(), rows32.double(), None, fp.ns_mesh))
+    e64 = abs(sr64 + k64)
+    return {"window": (sr32 - sr64) / e64, "density": (k_mixed - k64) / e64,
+            "transform_and_filter": (k32 - k_mixed) / e64, "total": (sr32 + k32 - sr64 - k64) / e64}
+
+
+def check_bars(label, out, energy=1e-5, forces=1e-5, cell=1e-4):
+    """PERF.md section 2's float32-vs-float64 bars for point charges."""
+    if not (out["energy_rel"] <= energy and out["force_rel_rms"] <= forces
+            and out["cell_grad_rel"] <= cell):
+        raise AssertionError(
+            f"{label} f32 vs f64: energy {out['energy_rel']:.3e}, forces "
+            f"{out['force_rel_rms']:.3e}, cell {out['cell_grad_rel']:.3e}"
+        )
+
+
+def per_atom_call(calc, pos32, q32, cell32, idx, shifts, dtype, plain, backward=True, **kw):
+    """(potentials, d/dpositions, d/dcharges, d/dcell of sum(pot·q), the sum)
+    of ``calc``'s per-atom call over a neighbor list, or over ``cell_list=``
+    when ``idx`` is None; distances are recomputed inside so the gradients
+    reach positions and cell."""
+    from torchpme_tpu_torch.utils.neighbors import compute_distances
+
+    p = pos32.to(dtype).detach().requires_grad_(backward)
+    q = q32.to(dtype).detach().requires_grad_(backward)
+    c = cell32.to(dtype).detach().requires_grad_(backward)
+    if idx is None:
+        pot_i = calc(q, c, p, plain=plain, **kw)
+    else:
+        pot_i = calc(q, c, p, idx, compute_distances(p, idx, c, shifts), plain=plain, **kw)
+    if not backward:
+        return (pot_i,)
+    total = torch.sum(pot_i * q)
+    return (pot_i.detach(), *torch.autograd.grad(total, (p, q, c)), total.detach())
+
+
+def call_errors(got, ref) -> dict:
+    return {"potential_rel": rel_err(got[0], ref[0])[1], "force_rel_rms": rel_rms(got[1], ref[1]),
+            "charge_grad_rel": rel_err(got[2], ref[2])[1],
+            "cell_grad_rel": rel_err(got[3], ref[3])[1],
+            "energy_rel": abs(float(got[4]) - float(ref[4])) / abs(float(ref[4]))}
+
+
+def check_call(label, errs):
+    if not (errs["energy_rel"] <= 1e-5 and errs["potential_rel"] <= 1e-5
+            and errs["force_rel_rms"] <= 1e-5 and errs["charge_grad_rel"] <= 1e-5
+            and errs["cell_grad_rel"] <= 1e-4):
+        raise AssertionError(f"{label} f32 vs f64: {errs}")
+
+
+def p3m_phases(env) -> dict:
+    """Phases 11 and 12: the P3M MD step at 102k (``MDFastPath`` over
+    ``P3MCalculator``: aligned by ``auto``, then fused and tiled, forced) and
+    the P3M per-atom call on the tiled mesh (kernels D, E, F at 5 nodes),
+    float32 kernels against the plain float64 paths.  Returns the launches of
+    the aligned step and of the call."""
+    tpt, kernels, dev = env.tpt, env.kernels, env.dev
+    from torchpme_tpu_torch.ops.math import inv3
+    from torchpme_tpu_torch.ops.mesh_tiled import compute_tiled_interpolation
+
+    spacing = p3m_spacing(env.cell)
+    calc = tpt.P3MCalculator(tpt.CoulombPotential(smearing=env.smearing), mesh_spacing=spacing,
+                             interpolation_nodes=NODES)
+    if calc.get_ns_mesh(env.cell) != NS_MESH:
+        raise AssertionError(f"P3M mesh of the 102k box: {calc.get_ns_mesh(env.cell)}")
+    pos_np, cell_np = env.positions.astype(np.float32), env.cell.astype(np.float32)
+    t0 = time.perf_counter()
+    modes = {mode: tpt.MDFastPath.create(calc, pos_np, cell_np, CUTOFF, NS_MESH, mesh_impl=mode)
+             for mode in ("auto", "fused", "tiled")}
+    create_s = time.perf_counter() - t0
+    if [fp.mesh_impl for fp in modes.values()] != ["aligned", "fused", "tiled"]:
+        raise AssertionError(f"P3M MD modes {[fp.mesh_impl for fp in modes.values()]}")
+    rows = {mode: fp.bucket(env.pos32) for mode, fp in modes.items()}
+    mesh_k = ("mesh_spread", "mesh_gather", "mesh_wgrad")
+    expect = {"auto": (("spread_fwd", "spread_bwd", "window"), mesh_k),
+              "fused": (("spread_fwd", "spread_bwd", "window"), mesh_k),
+              "tiled": (("mesh_spread", "mesh_wgrad", "window"), ("spread_fwd", "spread_bwd"))}
+    out = {}
+    for mode, fp in modes.items():
+        out[mode] = md_step_check(fp, env.q32, env.cell32, rows[mode], *expect[mode])
+    step_counts = out["auto"]["launches"]
+    # the float32 energy error of the aligned step, P3M beside PME, by part
+    split = {"pme": energy_error_split(env.fp, env.q32, env.cell32, env.fp.bucket(env.pos32)),
+             "p3m": energy_error_split(modes["auto"], env.q32, env.cell32, rows["auto"])}
+    ms = turns_ms({
+        **{mode: (lambda m=mode: md_chain_of(modes[m], env.q32, env.cell32, rows[m], False))
+           for mode in modes},
+        "auto_plain": lambda: md_chain_of(modes["auto"], env.q32, env.cell32, rows["auto"], True),
+    }, 1)
+    ms = {k: v / CHAIN for k, v in ms.items()}
+    if not bool(torch.isfinite(md_chain_of(modes["auto"], env.q32, env.cell32, rows["auto"],
+                                           False)).all()):
+        raise AssertionError("the P3M MD chain left its bucketing")
+    emit({"phase": "p3m_slice", "atoms": N_ATOMS, "smearing": env.smearing, "nodes": NODES,
+          "mesh_spacing": spacing,
+          "ns_mesh": NS_MESH, "create_seconds_three_modes": create_s,
+          **{mode: out[mode] for mode in modes}, "energy_error_split_aligned": split,
+          "ms_per_step": {"aligned": ms["auto"], "fused": ms["fused"], "tiled": ms["tiled"],
+                          "aligned_plain_f32": ms["auto_plain"]},
+          "nvidia_smi": env.smi})
+    for mode in modes:
+        check_bars(f"102k P3M step ({modes[mode].mesh_impl})", out[mode])
+    if not all(math.isfinite(x) for x in ms.values()):
+        raise AssertionError("non-finite P3M step times")
+    if env.profile:
+        profile_path("p3m_md_step_aligned",
+                     lambda: md_chain_of(modes["auto"], env.q32, env.cell32, rows["auto"], False),
+                     calls=2)
+    del modes, rows
+
+    # -- 12. the P3M per-atom call on the tiled mesh (kernels D, E, F) ---------
+    calc = tpt.P3MCalculator(calc.potential, mesh_spacing=spacing, interpolation_nodes=NODES,
+                             mesh_backend="tiled")
+    interp = compute_tiled_interpolation(env.pos32, inv3(env.cell32), NS_MESH, NODES, "P3M")
+    args = (env.pos32, env.q32, env.cell32, env.idx_t, env.shifts_t)
+    kw = dict(ns_mesh=NS_MESH, tiled_interp=interp)
+    kernels.reset_launch_counts()
+    got = per_atom_call(calc, *args, torch.float32, False, **kw)
+    sync()
+    counts = kernels.launch_counts()
+    if min(counts[k] for k in mesh_k) < 1:
+        raise AssertionError(f"a kernel of the P3M per-atom call never launched: {counts}")
+    call_counts = {k: counts[k] for k in mesh_k}
+    errs = call_errors(got, per_atom_call(calc, *args, torch.float64, True, **kw))
+    fwd_ms, fwd_plain_ms = alternate_ms(
+        lambda plain: per_atom_call(calc, *args, torch.float32, plain, backward=False, **kw),
+        CALL_REPEATS)
+    full_ms, full_plain_ms = alternate_ms(
+        lambda plain: per_atom_call(calc, *args, torch.float32, plain, **kw), CALL_REPEATS)
+    emit({"phase": "p3m_per_atom_call", "atoms": N_ATOMS, "pairs": env.n_pairs, **errs,
+          "energy_sum_pot_q_f32": float(got[4]), "launches": call_counts,
+          "forward_ms": fwd_ms, "forward_plain_f32_ms": fwd_plain_ms,
+          "forward_backward_ms": full_ms, "forward_backward_plain_f32_ms": full_plain_ms,
+          "nvidia_smi": env.smi})
+    check_call("102k P3M per-atom call", errs)
+    if env.profile:
+        profile_path("p3m_per_atom_forward_backward",
+                     lambda: per_atom_call(calc, *args, torch.float32, False, **kw))
+    return {"p3m_step": step_counts, "p3m_call": call_counts}
+
+
+def ewald_phases(env) -> dict:
+    """Phase 13: Ewald at 12,000 atoms: ``MDFastPathEwald`` energy + forces
+    (kernel C for the window, the structure factor in PyTorch) and the
+    ``EwaldCalculator`` per-atom call over a neighbor list (no kernel: pair
+    list and structure factor in PyTorch), float32 against float64 plain."""
+    tpt, kernels, dev = env.tpt, env.kernels, env.dev
+    from torchpme_tpu_torch.utils.neighbors import neighbor_list
+
+    positions, charges, cell = water_box(EWALD_N)
+    calc = tpt.EwaldCalculator(tpt.CoulombPotential(smearing=EWALD_SMEARING),
+                               lr_wavelength=EWALD_LR)
+    ns_k = calc.get_ns_kvectors(cell)
+    pos32, q32, cell32 = (torch.tensor(a, **env.f32) for a in (positions, charges, cell))
+    fp = tpt.MDFastPathEwald.create(calc, positions.astype(np.float32), cell.astype(np.float32),
+                                    CUTOFF)
+    rows = fp.bucket(pos32)
+    step = md_step_check(fp, q32, cell32, rows, ("window",),
+                         ("spread_fwd", "spread_bwd", "mesh_spread", "mesh_gather", "mesh_wgrad"))
+    step_ms, step_plain_ms = (t / CHAIN for t in alternate_ms(
+        lambda plain: md_chain_of(fp, q32, cell32, rows, plain), 1))
+    nl_idx, _, nl_shifts = neighbor_list(positions.astype(np.float32), cell, CUTOFF)
+    idx, shifts = torch.as_tensor(nl_idx, device=dev), torch.as_tensor(nl_shifts, device=dev)
+    args = (pos32, q32, cell32, idx, shifts)
+    got = per_atom_call(calc, *args, torch.float32, False, ns_kvectors=ns_k)
+    errs = call_errors(got, per_atom_call(calc, *args, torch.float64, True, ns_kvectors=ns_k))
+    e_step_rel = abs(step["energy_f32"] - float(got[4])) / abs(float(got[4]))
+    fwd_ms = turns_ms({"f": lambda: per_atom_call(calc, *args, torch.float32, False,
+                                                  backward=False, ns_kvectors=ns_k)},
+                      CALL_REPEATS)["f"]
+    full_ms = turns_ms({"f": lambda: per_atom_call(calc, *args, torch.float32, False,
+                                                   ns_kvectors=ns_k)}, CALL_REPEATS)["f"]
+    emit({"phase": "ewald", "atoms": EWALD_N, "box": float(cell[0, 0]), "smearing": EWALD_SMEARING,
+          "lr_wavelength": EWALD_LR, "ns_kvectors": ns_k, "k_vectors": int(np.prod(ns_k)), "pairs": int(nl_idx.shape[0]),
+          "md_step": step, "md_ms_per_step": step_ms, "md_plain_f32_ms_per_step": step_plain_ms,
+          "per_atom_call": errs, "md_step_energy_rel_vs_sum": e_step_rel,
+          "forward_ms": fwd_ms, "forward_backward_ms": full_ms, "nvidia_smi": env.smi})
+    if env.profile:
+        profile_path("ewald_md_step", lambda: md_chain_of(fp, q32, cell32, rows, False), calls=2)
+    check_bars("12k Ewald MD step", step)
+    check_call("12k Ewald per-atom call", errs)
+    if not e_step_rel <= 1e-5:
+        raise AssertionError(f"Ewald MD step vs sum(pot*q): {e_step_rel:.3e}")
+    return {"ewald_step": step["launches"]}
+
+
+def p3m_ewald_accuracy(env) -> None:
+    """Phase 14: the 1536-atom system of tools/validate_accuracy.py against
+    tools/ground_truth.npz (the JAX package's float64 Ewald at
+    lr_wavelength = smearing / 2): float32 P3M at 64^3 in tiled mode (5
+    nodes) and float32 Ewald at the truth's own parameters (the 1e-4 bar);
+    and the float32 P3M calculators at 1 and 2 nodes on the tiled backend
+    against their float64 plain energy."""
+    tpt, kernels = env.tpt, env.kernels
+    gt = np.load(REPO / "tools" / "ground_truth.npz")
+    f_ref = torch.tensor(gt["forces"], device=env.dev)
+    e_truth = float(gt["energy"])
+    gpos, gq, gcell = water_box(GT_N)
+    gpos32, gq32, gcell32 = (torch.tensor(a, **env.f32) for a in (gpos, gq, gcell))
+    pot = tpt.CoulombPotential(smearing=GT_SMEARING)
+    out = {}
+
+    def step(label, fp):
+        grows = fp.bucket(gpos32).requires_grad_()
+        kernels.reset_launch_counts()
+        ge = fp.energy(gq32, gcell32, grows)
+        (gg,) = torch.autograd.grad(ge, grows)
+        sync()
+        ge = float(ge.detach())
+        out[label] = {"energy": ge, "energy_rel_vs_truth": abs(ge - e_truth) / abs(e_truth),
+                      "force_rel_rms_vs_truth": rel_rms(-fp.unbucket(gg), f_ref),
+                      "launches": {k: v for k, v in kernels.launch_counts().items() if v}}
+
+    p3m = tpt.P3MCalculator(pot, mesh_spacing=GT_MESH_SPACING, interpolation_nodes=NODES)
+    step("p3m_tiled", tpt.MDFastPath.create(p3m, gpos32, gcell32, CUTOFF, GT_TILED_NS,
+                                            mesh_impl="tiled"))
+    out["p3m_tiled"]["jax_f64_force_rel_rms_vs_truth"] = P3M_GT_JAX_F64_FORCE
+    ewald = tpt.EwaldCalculator(pot, lr_wavelength=GT_SMEARING / 2)
+    step("ewald", tpt.MDFastPathEwald.create(ewald, gpos32, gcell32, CUTOFF))
+    out["ewald"]["ns_kvectors"] = ewald.get_ns_kvectors(gcell)
+    clist = tpt.ops.compute_cell_list(gpos32, gcell32, CUTOFF)
+    for nodes in P3M_SMALL_NODES:
+        small = tpt.P3MCalculator(pot, mesh_spacing=GT_MESH_SPACING, interpolation_nodes=nodes,
+                                  mesh_backend="tiled")
+        kernels.reset_launch_counts()
+        e32 = float(small.energy(gq32, gcell32, gpos32, cell_list=clist, ns_mesh=GT_TILED_NS))
+        launched = {k: v for k, v in kernels.launch_counts().items() if v}
+        e64 = float(small.energy(gq32.double(), gcell32.double(), gpos32.double(),
+                                 cell_list=clist, ns_mesh=GT_TILED_NS, plain=True))
+        out[f"p3m_{nodes}_nodes"] = {"energy_f32": e32, "energy_f64_plain": e64,
+                                     "energy_rel": abs(e32 - e64) / abs(e64),
+                                     "energy_rel_vs_truth": abs(e64 - e_truth) / abs(e_truth),
+                                     "launches": launched}
+    emit({"phase": "p3m_ewald_accuracy", "atoms": GT_N, "ns_mesh": GT_TILED_NS, **out})
+    for label in ("p3m_tiled", "ewald"):
+        acc = out[label]
+        if not (acc["force_rel_rms_vs_truth"] <= GT_FORCE_BAR
+                and acc["energy_rel_vs_truth"] <= GT_FORCE_BAR):
+            raise AssertionError(f"1536-atom accuracy, {label}: {acc}")
+    if not {"window", "mesh_spread", "mesh_wgrad"} <= set(out["p3m_tiled"]["launches"]):
+        raise AssertionError(f"the P3M tiled step launched {out['p3m_tiled']['launches']}")
+    if set(out["ewald"]["launches"]) != {"window"}:
+        raise AssertionError(f"the Ewald step launched {out['ewald']['launches']}")
+    for nodes in P3M_SMALL_NODES:
+        acc = out[f"p3m_{nodes}_nodes"]
+        if not (acc["energy_rel"] <= 1e-5 and "mesh_spread" in acc["launches"]):
+            raise AssertionError(f"P3M at {nodes} node(s): {acc}")
+
+
+def direct_f64_on_f32_pairs(potential, clist, q32, cell32, pos32):
+    """Float64 reference of the direct-mode (unsmeared) cell-list energy on
+    the pairs that the float32 inputs select.  The truncated 1/r jumps by
+    q_i q_j / r_c at the cutoff, so a pair within float32 rounding of it may
+    count in float32 and not in float64: the masks here come from the
+    float32 window inputs, formed as kernel C's plain twin forms them
+    (``_offset_pairs``, ``_extras_pairs``), and the values and the position
+    gradient from float64.  Returns ``(energy, gradient, energy over the
+    float64 pair set, pairs the two sets hold differently)``."""
+    from torchpme_tpu_torch.ops import rspace_cells as rs
+
+    def window_inputs(dtype, grad):
+        pos = pos32.detach().to(dtype).requires_grad_(grad)
+        q, cell = q32.to(dtype), cell32.to(dtype)
+        pc_t, q_g, mf_g, offs, _ = rs._prepare(q, pos, cell, clist)
+        extras = None
+        if clist.extra_index is not None:
+            extras = rs._prepare_extras(q, pos, cell, clist)[:3]
+        return pos, cell, pc_t, q_g, mf_g, offs, extras
+
+    with torch.no_grad():
+        _, cell_s, pc_s, q_s, mf_s, offs_s, ex_s = window_inputs(torch.float32, False)
+    pos, cell, pc_t, q_g, mf_g, offs, ex = window_inputs(torch.float64, True)
+    dev, cap = pos.device, pc_t.shape[-1]
+    eye = torch.eye(cap, dtype=torch.bool, device=dev)
+    cut_s = torch.tensor(clist.cutoff, dtype=torch.float32, device=dev) ** 2
+    cut = torch.tensor(clist.cutoff, dtype=torch.float64, device=dev) ** 2
+    e = torch.zeros((), dtype=torch.float64, device=dev)
+    e_own, flips = 0.0, 0
+    for k, off in enumerate(rs._window_offsets(cap)):
+        ok_s = rs._offset_pairs(pc_s, mf_s, offs_s, k, off, cut_s, eye)[2]
+        _, d_sq, ok = rs._offset_pairs(pc_t, mf_g, offs, k, off, cut, eye)
+        w = 0.5 if off == (0, 0, 0) else 1.0
+        qq = torch.einsum("...ic,...jc->...ij", q_g,
+                          torch.roll(q_g, tuple(-o for o in off), dims=(0, 1, 2)) * w)
+        e = e + torch.sum(qq * rs._masked_pair_values(potential, d_sq, ok_s))
+        with torch.no_grad():
+            e_own += float(torch.sum(qq * rs._masked_pair_values(potential, d_sq, ok)))
+            flips += int((ok != ok_s).sum())
+    if ex is not None:  # the spill pairs, as _extras_energy sums them
+        pe, pe_abs, qe = ex
+        d2_em, ok_em, rows_q, _, d2_ee, ok_ee = rs._extras_pairs(
+            pc_t, q_g, mf_g, pe, pe_abs, clist, cell)
+        _, ok_em_s, _, _, _, ok_ee_s = rs._extras_pairs(
+            pc_s, q_s, mf_s, ex_s[0], ex_s[1], clist, cell_s)
+        qq_em = (rows_q * qe[:, None, None, :]).sum(-1).reshape(ok_em.shape)
+        qq_ee = qe @ qe.T
+        for em, ee, own in ((ok_em_s, ok_ee_s, False), (ok_em, ok_ee, True)):
+            part = (torch.sum(qq_em * rs._masked_pair_values(potential, d2_em, em))
+                    + 0.5 * torch.sum(qq_ee * rs._masked_pair_values(potential, d2_ee, ee)))
+            if own:
+                e_own += float(part.detach())
+            else:
+                e = e + part
+        flips += int((ok_em != ok_em_s).sum() + (ok_ee != ok_ee_s).sum())
+    (g,) = torch.autograd.grad(e, pos)
+    return float(e.detach()), g, e_own, flips
+
+
+def cell_list_phases(env) -> dict:
+    """Phase 15: the per-atom call over a cell list at 102k
+    (``PMECalculator(...)(charges, cell, positions, cell_list=clist)``:
+    the real space in plain PyTorch, the mesh through kernels D, E, F)
+    against the neighbor-list call in float64, forward and forward+backward;
+    and the direct-mode energy over the same cell list through kernel C's
+    unsmeared variant against its float32 plain version and against float64
+    on the pairs the float32 inputs select (:func:`direct_f64_on_f32_pairs`)."""
+    tpt, kernels = env.tpt, env.kernels
+    clist = tpt.ops.compute_cell_list(env.positions.astype(np.float32), env.cell, CUTOFF,
+                                      device=env.dev)
+    calc = env.calc
+    kw = dict(ns_mesh=NS_MESH, tiled_interp=env.interp)
+    base = (env.pos32, env.q32, env.cell32)
+    kernels.reset_launch_counts()
+    got = per_atom_call(calc, *base, None, None, torch.float32, False, cell_list=clist, **kw)
+    sync()
+    counts = kernels.launch_counts()
+    mesh_k = ("mesh_spread", "mesh_gather", "mesh_wgrad")
+    if min(counts[k] for k in mesh_k) < 1:
+        raise AssertionError(f"the cell-list call launched {counts}")
+    ref = per_atom_call(calc, *base, env.idx_t, env.shifts_t, torch.float64, True, **kw)
+    errs = call_errors(got, ref)
+    same = per_atom_call(calc, *base, None, None, torch.float64, True, cell_list=clist, **kw)
+    errs64 = call_errors(same, ref)
+    del same
+    fwd_ms = turns_ms({"f": lambda: per_atom_call(calc, *base, None, None, torch.float32, False,
+                                                  backward=False, cell_list=clist, **kw)},
+                      CALL_REPEATS)["f"]
+    full_ms = turns_ms({"f": lambda: per_atom_call(calc, *base, None, None, torch.float32, False,
+                                                   cell_list=clist, **kw)}, CALL_REPEATS)["f"]
+    # direct mode: kernel C's unsmeared variant, against its plain version in
+    # float32 and against float64 on the pair set the float32 inputs select
+    direct = tpt.Calculator(tpt.CoulombPotential())
+    direct_counts = {}
+    res = {}
+    for label, plain in (("kernel", False), ("plain_f32", True)):
+        p = env.pos32.detach().requires_grad_()
+        kernels.reset_launch_counts()
+        e = direct.energy(env.q32, env.cell32, p, cell_list=clist, plain=plain)
+        (g,) = torch.autograd.grad(e, p)
+        sync()
+        direct_counts[label] = kernels.launch_counts()["window"]
+        res[label] = (float(e.detach()), g)
+    kernels.reset_launch_counts()
+    e64, g64, e64_own, flips = direct_f64_on_f32_pairs(direct.potential, clist, env.q32,
+                                                       env.cell32, env.pos32)
+    sync()
+    direct_counts["reference_f64"] = kernels.launch_counts()["window"]
+    e32, g32 = res["kernel"]
+    direct_out = {
+        "energy_f32": e32, "energy_f32_plain": res["plain_f32"][0],
+        "energy_f64_on_f32_pairs": e64,
+        "energy_rel_vs_f32_plain": abs(e32 - res["plain_f32"][0]) / abs(res["plain_f32"][0]),
+        "force_rel_rms_vs_f32_plain": rel_rms(g32, res["plain_f32"][1]),
+        "energy_rel_vs_f64": abs(e32 - e64) / abs(e64), "force_rel_rms_vs_f64": rel_rms(g32, g64),
+        # informational: float64's own pair set differs from float32's by
+        # pairs within rounding of the cutoff, each worth q_i q_j / r_c
+        "pairs_held_differently_in_f64": flips, "energy_f64_on_own_pairs": e64_own,
+        "launches": direct_counts,
+        "ms": turns_ms({"f": lambda: direct.energy(env.q32, env.cell32, env.pos32,
+                                                   cell_list=clist)}, CALL_REPEATS)["f"]}
+    del res, g32, g64
+    emit({"phase": "cell_list_per_atom_call", "atoms": N_ATOMS,
+          "capacity": clist.slot_mask.shape[1],
+          "spill_atoms": 0 if clist.extra_mask is None else int(clist.extra_mask.sum()),
+          "f32_vs_neighbor_list_f64": errs, "f64_vs_neighbor_list_f64": errs64,
+          "launches": {k: counts[k] for k in mesh_k}, "forward_ms": fwd_ms,
+          "forward_backward_ms": full_ms, "direct_mode_energy": direct_out,
+          "nvidia_smi": env.smi})
+    if env.profile:
+        profile_path("cell_list_per_atom_forward_backward",
+                     lambda: per_atom_call(calc, *base, None, None, torch.float32, False,
+                                           cell_list=clist, **kw))
+        profile_path("direct_energy_over_cell_list",
+                     lambda: direct.energy(env.q32, env.cell32, env.pos32, cell_list=clist))
+    check_call("102k cell-list call", errs)
+    if not all(v <= 1e-10 for v in errs64.values()):
+        raise AssertionError(f"102k cell-list call vs the neighbor list in float64: {errs64}")
+    d = direct_out
+    if not (direct_counts == {"kernel": 1, "plain_f32": 0, "reference_f64": 0}
+            and d["energy_rel_vs_f32_plain"] <= SUM_TOL and d["force_rel_rms_vs_f32_plain"] <= 1e-5
+            and d["energy_rel_vs_f64"] <= 1e-5 and d["force_rel_rms_vs_f64"] <= 1e-5):
+        raise AssertionError(f"102k direct-mode energy: {direct_out}")
+    return {"direct_energy": {"window": direct_counts["kernel"]}}
+
 def main() -> int:
     # -- 1. device --------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1129,37 +1613,40 @@ def main() -> int:
         finally:
             sf.bwd_z_chunk = rule
     del rel_f, q_f
-    def window_check(ins, n_inside, shape=None):
+    def window_check(ins, n_inside, shape=None, wpot=pot):
         """Kernel C against its plain version on ``ins``; the bound counts
         the half-window work (each pair once), whatever evaluates it: the
         candidate pairs of occupied slots of each home cell against those of
-        its 13 half-window neighbours and itself."""
+        its 13 half-window neighbours and itself.  ``wpot`` without smearing
+        runs the kernel's unsmeared variant (direct mode)."""
         occ = ins[2].sum(-1).double()
         n_cand = sum(float((occ * torch.roll(occ, (-dx, -dy, -dz), dims=(0, 1, 2))).sum())
                      for dx, dy, dz in _window_offsets(ins[0].shape[-1]))
         check_kernel(
             "window", "torchpme_tpu_torch/csrc/window.cu",
             "torchpme_tpu/ops/rspace_cells.py:813",
-            lambda: (lambda e, g: (e, *g))(*window_value_and_grad(pot, CUTOFF, *ins)),
-            lambda: (lambda e, g: (e, *g))(*_we_value_and_grad(pot, CUTOFF, *ins)),
+            lambda: (lambda e, g: (e, *g))(*window_value_and_grad(wpot, CUTOFF, *ins)),
+            lambda: (lambda e, g: (e, *g))(*_we_value_and_grad(wpot, CUTOFF, *ins)),
             # 11 operations to place and test a candidate, 40 more for a pair
-            # inside the cutoff; inputs once, (e, d_pc, d_q, d_offs) once
-            bound(nbytes(*ins, ins[0], ins[1], ins[3]) + 8, 11 * n_cand + 40 * n_inside),
+            # inside the cutoff (26 for the unsmeared pair: no Gaussian, no
+            # erfc polynomial); inputs once, (e, d_pc, d_q, d_offs) once
+            bound(nbytes(*ins, ins[0], ins[1], ins[3]) + 8,
+                  11 * n_cand + (40 if wpot.smearing is not None else 26) * n_inside),
             # d_offs: the plain version's float32 sum of a cancelling total
             # leaves up to ~1e-4 of max in the self row, which is 0 in exact
             # arithmetic and in the kernel; the kernel is held to float64 below
             report, tols=[SUM_TOL, KERNEL_TOL, KERNEL_TOL, D_OFFS_TOL], shape=shape,
         )
         with torch.no_grad():
-            d_offs64 = _we_value_and_grad(pot, CUTOFF, *[t.double() for t in ins])[1][2]
-            d_offs = window_value_and_grad(pot, CUTOFF, *ins)[1][2]
+            d_offs64 = _we_value_and_grad(wpot, CUTOFF, *[t.double() for t in ins])[1][2]
+            d_offs = window_value_and_grad(wpot, CUTOFF, *ins)[1][2]
         d_offs_rel = rel_err(d_offs, d_offs64)[1]
         emit({"phase": "kernel_vs_float64", "name": "window", "shape": shape,
               "d_offs_rel_err": d_offs_rel})
         if not d_offs_rel <= KERNEL_TOL:
             raise AssertionError(f"kernel C's d_offs vs float64 {d_offs_rel:.3e} ({shape})")
         # each row of d_pc and d_q has one writer: launches agree bit for bit
-        first, again = (window_value_and_grad(pot, CUTOFF, *ins)[1] for _ in range(2))
+        first, again = (window_value_and_grad(wpot, CUTOFF, *ins)[1] for _ in range(2))
         sync()
         same = [bool(torch.equal(a, b)) for a, b in zip(first[:2], again[:2])]
         emit({"phase": "kernel_reproducible", "name": "window", "shape": shape,
@@ -1168,6 +1655,9 @@ def main() -> int:
             raise AssertionError(f"kernel C's d_pc, d_q differ between two launches ({shape})")
 
     window_check((pc_t, q_g, mf_g, offs), n_pairs)
+    # the unsmeared variant (V = 1/d: the calculators' direct mode)
+    window_check((pc_t, q_g, mf_g, offs), n_pairs, shape="unsmeared pair (direct mode)",
+                 wpot=tpt.CoulombPotential())
     epos, eq, ecell = dense_grid_box()
     e_pairs = int(neighbor_list(epos, ecell, CUTOFF)[0].shape[0])
     lib = built.lib
@@ -1238,6 +1728,64 @@ def main() -> int:
                 "mesh_wgrad": lambda: mk.mesh_wgrad(*arrays, q_slots, field, NS_MESH, NODES),
                 "mesh_gather_wgrad": both})
     del q_slots, field, values, first, again, split
+
+    # kernels D, E, F at P3M's 1 and 2 nodes (extent 8 and 9) with the P3M
+    # tables, on the 102k atoms' tiles of the 128^3 mesh
+    for nodes in P3M_SMALL_NODES:
+        interp_n = compute_tiled_interpolation(pos32, inv3(cell32), NS_MESH, nodes, "P3M")
+        arrays_n = (interp_n.local_x, interp_n.local_y, interp_n.start_z, interp_n.weights)
+        q_slots = _slot_values(interp_n, q32)
+        shape = f"P3M, {nodes} node(s), T={interp_n.local_x.shape[0]}, K={interp_n.local_x.shape[1]}"
+        n3_n = nodes**3
+        check_kernel(
+            "mesh_spread", mesh_src, f"{mesh_ref}:213",
+            lambda: (mk.mesh_spread(*arrays_n, q_slots, NS_MESH, nodes),),
+            lambda: (mk.mesh_spread_plain(*arrays_n, q_slots, NS_MESH, nodes),),
+            bound(nbytes(*arrays_n, q_slots, ct_rho), N_ATOMS * 2 * n3_n), report,
+            tols=[P3M_MESH_TOL], shape=shape,
+        )
+        check_kernel(
+            "mesh_gather", mesh_src, f"{mesh_ref}:239",
+            lambda: (mk.mesh_gather(*arrays_n, ct_rho, NS_MESH, nodes),),
+            lambda: (mk.mesh_gather_plain(*arrays_n, ct_rho, NS_MESH, nodes),),
+            bound(nbytes(*arrays_n, ct_rho, q_slots), N_ATOMS * 2 * n3_n), report,
+            tols=[P3M_MESH_TOL], shape=shape,
+        )
+        check_kernel(
+            "mesh_wgrad", mesh_src, f"{mesh_ref}:263",
+            lambda: (mk.mesh_wgrad(*arrays_n, q_slots, ct_rho, NS_MESH, nodes),),
+            lambda: (mk.mesh_wgrad_plain(*arrays_n, q_slots, ct_rho, NS_MESH, nodes),),
+            bound(nbytes(*arrays_n, q_slots, ct_rho, interp_n.weights), N_ATOMS * 8 * n3_n),
+            report, tols=[P3M_MESH_TOL], shape=shape,
+        )
+        first, again = (mk.mesh_gather_wgrad(*arrays_n, q_slots, ct_rho, NS_MESH, nodes)
+                        for _ in range(2))
+        split = (mk.mesh_gather(*arrays_n, ct_rho, NS_MESH, nodes),
+                 mk.mesh_wgrad(*arrays_n, q_slots, ct_rho, NS_MESH, nodes))
+        sync()
+        same = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(first, again, split))
+        emit({"phase": "kernel", "name": "mesh_gather_wgrad", "shape": shape,
+              "ms": cuda_ms(lambda: mk.mesh_gather_wgrad(*arrays_n, q_slots, ct_rho, NS_MESH,
+                                                         nodes)),
+              "bitwise_equal_over_two_launches_and_to_e_and_f": same})
+        if not same:
+            raise AssertionError(f"mesh_gather_wgrad ({shape}) differs between launches or from E, F")
+        del interp_n, arrays_n, q_slots, first, again, split
+    # kernels A and B with the P3M tables at the main path's geometry
+    geom_p3m = SpreadGeometry(NS_MESH, NODES, "P3M", extent, lpad, nx_c * ny_c, nz_c * cap, nz_c)
+    check_kernel(
+        "spread_fwd", spread_src, "torchpme_tpu/ops/pallas/spread_fused.py:169",
+        lambda: (fused_spread(rel, q_main, geom_p3m),),
+        lambda: (spread_plain(rel, q_main, geom_p3m),),
+        bound(nbytes(rel, q_main, mesh1), n_main * (2 * n3 + stencil)), report,
+        tols=[SUM_TOL], shape="P3M tables, 5 nodes",
+    )
+    check_kernel(
+        "spread_bwd", spread_src, bwd_ref,
+        lambda: fused_spread_bwd(rel, q_main, ct_rho, geom_p3m),
+        lambda: spread_plain_bwd(rel, q_main, ct_rho, geom_p3m),
+        bwd_bound(rel, q_main, ct_rho, 1, n_main), report, shape="P3M tables, 5 nodes",
+    )
 
     # -- 4. the MD step: energy + forces in aligned mode (kernels A, B, C) --------
     cell_g = cell32.clone().requires_grad_()
@@ -1406,20 +1954,31 @@ def main() -> int:
     if set(accuracy["fused"]["launches"]) != {"window", "spread_fwd", "spread_bwd"}:
         raise AssertionError(f"fused mode launched {accuracy['fused']['launches']}")
 
-    # -- 3 (kernel G; D, E, F at the dipolar shapes), 7, 8, 9: the dipolar paths --
     del gfp, grows, gg, f_ref
     env = SimpleNamespace(
         tpt=tpt, kernels=kernels, dev=dev, f32=f32, smi=smi, positions=positions, cell=cell,
-        pos32=pos32, cell32=cell32, idx_t=idx_t, shifts_t=shifts_t, n_pairs=n_pairs,
-        ct_rho=ct_rho, report=report, counts=counts, profile=profile,
+        pos32=pos32, q32=q32, cell32=cell32, idx_t=idx_t, shifts_t=shifts_t, n_pairs=n_pairs,
+        ct_rho=ct_rho, report=report, counts=counts, profile=profile, smearing=smearing,
+        calc=calc, interp=interp, fp=fp,
     )
+    # -- 11, 12. P3M: the 102k MD step (A, B, C with the P3M tables) and the
+    # per-atom call (D, E, F) -------------------------------------------------------
+    paths = p3m_phases(env)
+    # -- 13. Ewald at 12k: the MD step (C) and the per-atom call -------------------
+    paths.update(ewald_phases(env))
+    # -- 14. P3M and Ewald against the converged Ewald ground truth ----------------
+    p3m_ewald_accuracy(env)
+    # -- 15. the per-atom call over a cell list, and direct mode through C ---------
+    paths.update(cell_list_phases(env))
+
+    # -- 3 (kernel G; D, E, F at the dipolar shapes), 7, 8, 9: the dipolar paths --
     dipole_phases(env)
 
     # -- 10. result ---------------------------------------------------------------
     # launches: of the MD step (A, B, C), the per-atom call (D, E, F) and the
     # dipolar MD step (G); A, B, C's on the fused MD step and D, E, F's on the
     # two dipolar paths beside them
-    paths = {"fused_step": counts_fused,
+    paths = {"fused_step": counts_fused, **paths,
              **{f"dipole_{path}": n for path, n in env.dipole_launches.items()}}
     emit({"kernels": [{k: v for k, v in report[name].items() if k != "max_rel_err"}
                       | {"launches": counts[name]}

@@ -282,10 +282,14 @@ def test_energy_over_a_cell_list_matches_the_neighbor_list(box):
     e_cl = calc.energy(qq, c, p, cell_list=clist, ns_mesh=NS)
     assert abs(float(e_cl.detach()) - float(e_nl)) <= 1e-11 * abs(float(e_nl))
     assert torch.autograd.grad(e_cl, p)[0].abs().max() > 1e-3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        calc(qq, c, p, cell_list=clist, ns_mesh=NS)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpt.Calculator(tpt.CoulombPotential()).energy(qq, c, p, cell_list=clist)
+    # the per-atom call and direct mode take the cell list too
+    pot_cl = calc(qq, c, p.detach(), cell_list=clist, ns_mesh=NS)
+    assert abs(float(torch.sum(pot_cl * qq)) - float(e_nl)) <= 1e-11 * abs(float(e_nl))
+    direct = tpt.Calculator(tpt.CoulombPotential())
+    e_direct = direct.energy(qq, c, p.detach(), cell_list=clist)
+    e_direct_nl = direct.energy(qq, c, p.detach(), torch.tensor(lists["half"]["indices"]),
+                                _port_distances(p.detach(), c, lists["half"]))
+    assert abs(float(e_direct) - float(e_direct_nl)) <= 1e-11 * abs(float(e_direct_nl))
     with pytest.raises(ValueError, match="not both"):
         calc.energy(qq, c, p, torch.tensor(lists["half"]["indices"]),
                     _port_distances(p, c, lists["half"]), cell_list=clist)

@@ -27,6 +27,11 @@ ALL_MODULES = _walk_modules()
 MUST_HAVE_EXAMPLES = [
     "torchpme_tpu_torch.calculators.calculator",
     "torchpme_tpu_torch.calculators.pme",
+    "torchpme_tpu_torch.calculators.p3m",
+    "torchpme_tpu_torch.calculators.ewald",
+    "torchpme_tpu_torch.ops.kspace",
+    "torchpme_tpu_torch.ops.mesh",
+    "torchpme_tpu_torch.ops.rspace_cells",
     "torchpme_tpu_torch.calculators.dipole",
     "torchpme_tpu_torch.calculators.pme_dipole",
     "torchpme_tpu_torch.potentials.dipole",

@@ -884,12 +884,13 @@ def test_gather_wgrad_kernels_stage_any_z_line(device, nz, offset):
 # -- kernel B (and A at lpad = 0): both layouts -----------------------------------
 
 
-def _spread_slots(device, layout, nodes, n_ch, nz, nxy=32, seed=0, capacity=None):
+def _spread_slots(device, layout, nodes, n_ch, nz, nxy=32, seed=0, capacity=None,
+                  method="Lagrange"):
     """float32 slots of kernels A and B on a (nxy, nxy, nz) mesh at about
     0.08 atoms per Å³: the aligned MD state's rows (layout "aligned", cell
     capacity ``capacity``) or a stencil-start bucketing (layout "fused"),
     with empty slots, and with a few occupied slots moved far from their
-    tile and z cell (stale)."""
+    tile and z cell (stale); ``method`` picks the weight tables."""
     rng = np.random.default_rng(seed)
     cell = np.diag([nxy / 2.0, nxy / 2.0, nz / 2.0])
     n = int(0.08 * np.prod(np.diag(cell)))
@@ -898,12 +899,13 @@ def _spread_slots(device, layout, nodes, n_ch, nz, nxy=32, seed=0, capacity=None
     q_atoms = torch.tensor(rng.normal(size=(n, n_ch)), **f32)
     ns = (nxy, nxy, nz)
     if layout == "aligned":
-        calc = tpt.PMECalculator(tpt.CoulombPotential(smearing=1.0), interpolation_nodes=nodes)
+        cls = tpt.P3MCalculator if method == "P3M" else tpt.PMECalculator
+        calc = cls(tpt.CoulombPotential(smearing=1.0), interpolation_nodes=nodes)
         fp = tpt.MDFastPath.create(calc, torch.tensor(pos, **f32), torch.tensor(cell, **f32), 3.0,
                                    ns, mesh_impl="aligned", cell_capacity=capacity)
         nx_c, ny_c, nz_c, cap = fp.cell_grid
         extent, lpad = sf.aligned_geometry(nodes, fp.aligned_pad)
-        geom = sf.SpreadGeometry(ns, nodes, "Lagrange", extent, lpad, nx_c * ny_c, nz_c * cap,
+        geom = sf.SpreadGeometry(ns, nodes, method, extent, lpad, nx_c * ny_c, nz_c * cap,
                                  nz_c)
         nb = geom.n_tiles * geom.slots_per_tile
         rows = fp.bucket(torch.tensor(pos, **f32))
@@ -913,8 +915,8 @@ def _spread_slots(device, layout, nodes, n_ch, nz, nxy=32, seed=0, capacity=None
     else:
         p = torch.tensor(pos, **f32)
         inv = torch.linalg.inv(torch.tensor(cell, **f32))
-        interp = mt.compute_tiled_interpolation(p, inv, ns, nodes, "Lagrange")
-        rel, q, geom = sf._fused_slots(interp, p, inv, q_atoms, "Lagrange")
+        interp = mt.compute_tiled_interpolation(p, inv, ns, nodes, method)
+        rel, q, geom = sf._fused_slots(interp, p, inv, q_atoms, method)
     occupied = torch.nonzero((q != 0).any(dim=1))[:, 0]
     assert occupied.numel() < q.shape[0]  # empty slots too
     stale = occupied[:: max(1, occupied.numel() // 5)][:5]
@@ -1033,3 +1035,228 @@ def test_fused_step_launches_a_b_c_and_matches_plain(device):
         fp.energy(q32.double(), cell32.double(), fp.bucket(pos32.double()))
     assert np.isfinite(float(fp.energy(q32.double(), cell32.double(), fp.bucket(pos32.double()),
                                        plain=True)))
+
+
+# -- P3M: kernels D, E, F at 1 and 2 nodes, A and B with the P3M tables ---------
+
+
+def _p3m_tiled_case(device, nodes, n_ch, nz=40, n=500, seed=0):
+    """A float32 P3M bucketing on a (32, 32, nz) mesh with a quarter of the
+    occupied slots stale (x nodes off the window), per-slot charges and a
+    random mesh field."""
+    rng = np.random.default_rng(seed)
+    ns = (32, 32, nz)
+    f32 = dict(dtype=torch.float32, device=device)
+    pos = torch.tensor(rng.uniform(0, 10.0, (n, 3)), **f32)
+    interp = mt.compute_tiled_interpolation(pos, torch.eye(3, **f32) / 10.0, ns, nodes, "P3M")
+    lx = interp.local_x.clone()
+    occupied = interp.atom_of_slot < n
+    lx[occupied & (torch.arange(lx.shape[1], device=device) % 4 == 0)] = mt.TILE + 1
+    q = mt._slot_values(interp, torch.tensor(rng.normal(size=(n, n_ch)), **f32))
+    field = torch.tensor(rng.normal(size=(n_ch, *ns)), **f32)
+    return (lx, interp.local_y, interp.start_z, interp.weights), q, field, ns
+
+
+@pytest.mark.parametrize("n_ch", [1, 3])
+@pytest.mark.parametrize("nodes", [1, 2, 5])
+def test_p3m_mesh_kernels_match_plain_and_reproduce(device, nodes, n_ch):
+    """Kernels D, E, F and E + F at P3M's 1 and 2 nodes (extent 8 and 9) and
+    at 5, with the P3M tables, stale and empty slots: within 1e-6 of the
+    plain versions; E and F bitwise equal over two launches and to E + F."""
+    a, q, field, ns = _p3m_tiled_case(device, nodes, n_ch)
+    kernels.reset_launch_counts()
+    rho = mk.mesh_spread(*a, q, ns, nodes)
+    vals, wg = mk.mesh_gather_wgrad(*a, q, field, ns, nodes)
+    vals2, wg2 = mk.mesh_gather_wgrad(*a, q, field, ns, nodes)
+    gather, wgrad = mk.mesh_gather(*a, field, ns, nodes), mk.mesh_wgrad(*a, q, field, ns, nodes)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["mesh_spread"], counts["mesh_gather"], counts["mesh_wgrad"]) == (1, 3, 3)
+    assert _rel(rho, mk.mesh_spread_plain(*a, q, ns, nodes)) <= 1e-6
+    assert _rel(vals, mk.mesh_gather_plain(*a, field, ns, nodes)) <= 1e-6
+    assert _rel(wg, mk.mesh_wgrad_plain(*a, q, field, ns, nodes)) <= 1e-6
+    assert torch.equal(vals, vals2) and torch.equal(wg, wg2)
+    assert torch.equal(vals, gather) and torch.equal(wg, wgrad)
+
+
+@pytest.mark.parametrize("nodes", [1, 2])
+def test_p3m_gather_wgrad_thread_per_slot_kernel_matches_plain(device, monkeypatch, nodes):
+    """E and F as one thread a slot reading the mesh (z chunk 0) at 1 and 2
+    nodes ≡ the plain versions."""
+    a, q, field, ns = _p3m_tiled_case(device, nodes, 2)
+    monkeypatch.setattr(mk, "gather_z_chunk", lambda nodes, n_ch: 0)
+    got = mk.mesh_gather_wgrad(*a, q, field, ns, nodes)
+    ref = (mk.mesh_gather_plain(*a, field, ns, nodes), mk.mesh_wgrad_plain(*a, q, field, ns, nodes))
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= 1e-6
+
+
+@pytest.mark.parametrize("nodes", [1, 2, 8])
+def test_mesh_kernels_refuse_nodes_they_are_not_built_for(device, nodes):
+    """The charge forms take 1 to 7 nodes; the dipole forms 3 to 7 (the
+    dipolar mesh is Lagrange-only): a clear ValueError outside."""
+    if nodes == 8:
+        a, q, field, ns = _p3m_tiled_case(device, 5, 1)
+        a = (*a[:3], torch.zeros((*a[3].shape[:3], 8), dtype=torch.float32, device=device))
+        with pytest.raises(ValueError, match="built for 1 to 7 nodes"):
+            mk.mesh_spread(*a, q, ns, 8)
+        return
+    a, q, field, ns = _p3m_tiled_case(device, nodes, 1)
+    nu = q.expand(-1, 3, -1).contiguous()
+    dw = a[3].clone()
+    for call in (lambda: mk.mesh_spread_dipole(*a, dw, nu, ns, nodes),
+                 lambda: mk.mesh_gather_dipole(*a, dw, field, ns, nodes),
+                 lambda: mk.mesh_wgrad_dipole(*a, dw, nu, field, ns, nodes),
+                 lambda: mk.mesh_gather_wgrad_dipole(*a, dw, nu, field, ns, nodes)):
+        with pytest.raises(ValueError, match="dipole forms of the mesh kernels are built for 3 to 7"):
+            call()
+
+
+@pytest.mark.parametrize("layout", ["aligned", "fused"])
+@pytest.mark.parametrize("nodes", [1, 2, 3, 5])
+def test_spread_kernels_with_p3m_tables_match_plain(device, layout, nodes):
+    """Kernels A and B with the P3M weight tables, both layouts, stale and
+    empty slots: ≡ the plain versions; B bitwise equal over two launches."""
+    rel, q, geom = _spread_slots(device, layout, nodes, 1, 40, method="P3M")
+    assert geom.method == "P3M"
+    assert _rel(sf.fused_spread(rel, q, geom), sf.spread_plain(rel, q, geom)) <= 1e-6
+    ct = torch.randn((1, *geom.ns), device=device)
+    got = sf.fused_spread_bwd(rel, q, ct, geom)
+    again = sf.fused_spread_bwd(rel, q, ct, geom)
+    ref = sf.spread_plain_bwd(rel, q, ct, geom)
+    torch.cuda.synchronize()
+    for g, a, r in zip(got, again, ref):
+        # one node: constant weights, so ct_rel is exactly 0 on both sides
+        err, scale = float((g - r).abs().max()), float(r.abs().max())
+        assert err <= 1e-5 * scale or err == scale == 0.0
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("shape", ["clustered", "grid3_cap_gt_32", "grid3_cap250_ch4"])
+def test_window_kernel_unsmeared_variant_matches_plain_and_reproduces(step, shape):
+    """Kernel C's unsmeared pair (direct mode: V = 1/d, V'/d = -1/d^3)
+    against its plain version; d_pc and d_q bitwise equal over two
+    launches, d_offs against float64."""
+    if shape == "clustered":
+        fp, pos, q, cell = step
+        n_cells, cap = fp.clist.slot_mask.shape
+        rows = fp.bucket(pos)[: n_cells * cap].reshape(n_cells, cap, 3)
+        ins = rc._prepare_bucketed(q[fp.clist.atom_index.long()], rows, cell, fp.clist)[:4]
+    else:
+        capacity, n_ch, _ = EDGE_WINDOWS[shape]
+        ins = _dense_window_inputs(step[1].device, capacity, n_ch)
+    pot = tpt.CoulombPotential()
+    kernels.reset_launch_counts()
+    e_a, g_a = rc.window_value_and_grad(pot, 3.0, *ins)
+    e_b, g_b = rc.window_value_and_grad(pot, 3.0, *ins)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["window"] == 2
+    assert torch.equal(g_a[0], g_b[0]) and torch.equal(g_a[1], g_b[1])
+    e_p, g_p = rc._we_value_and_grad(pot, 3.0, *ins)
+    e64, g64 = rc._we_value_and_grad(pot, 3.0, *[t.double() for t in ins])
+    assert abs(float(e_a) - float(e_p)) <= 1e-6 * abs(float(e_p))
+    assert abs(float(e_a) - float(e64)) <= 1e-5 * abs(float(e64))
+    assert _rel(g_a[0], g_p[0]) <= 1e-5 and _rel(g_a[1], g_p[1]) <= 1e-5
+    assert _rel(g_a[2], g64[2]) <= 1e-5
+    # the smeared variant gives another energy on the same inputs
+    e_s, _ = rc.window_value_and_grad(tpt.CoulombPotential(smearing=1.0), 3.0, *ins)
+    assert abs(float(e_s) - float(e_a)) > 1e-3 * abs(float(e_a))
+
+
+def test_direct_energy_over_a_cell_list_launches_the_window(device):
+    """``Calculator(CoulombPotential()).energy(cell_list=)`` on the card runs
+    kernel C's unsmeared variant (one launch) ≡ its plain float32 path and
+    the float64 plain path."""
+    pos, q, cell = _clustered_box()
+    f32 = dict(dtype=torch.float32, device=device)
+    p, qq, c = (torch.tensor(a, **f32) for a in (pos, q, cell))
+    clist = tpt.ops.compute_cell_list(p, c, 3.0)
+    calc = tpt.Calculator(tpt.CoulombPotential())
+    out = {}
+    for plain in (False, True):
+        rows = p.clone().requires_grad_()
+        kernels.reset_launch_counts()
+        e = calc.energy(qq, c, rows, cell_list=clist, plain=plain)
+        (g,) = torch.autograd.grad(e, rows)
+        torch.cuda.synchronize()
+        out[plain] = (float(e.detach()), g, kernels.launch_counts()["window"])
+    assert out[False][2] == 1 and out[True][2] == 0
+    e64 = float(calc.energy(qq.double(), c.double(), p.double(), cell_list=clist, plain=True))
+    assert abs(out[False][0] - out[True][0]) <= 1e-5 * abs(out[True][0])
+    assert abs(out[False][0] - e64) <= 1e-5 * abs(e64)
+    assert _rel(out[False][1], out[True][1]) <= 1e-5
+
+
+def test_p3m_step_and_call_launch_their_kernels_and_match_plain(device):
+    """MDFastPath with P3MCalculator in aligned mode launches A, B, C once a
+    step; the per-atom P3M call at 2 nodes launches D, E, F; both ≡ their
+    plain paths."""
+    pos, q, cell = _clustered_box()
+    f32 = dict(dtype=torch.float32, device=device)
+    p, qq, c = (torch.tensor(a, **f32) for a in (pos, q, cell))
+    calc = tpt.P3MCalculator(tpt.CoulombPotential(smearing=1.0), interpolation_nodes=5)
+    fp = tpt.MDFastPath.create(calc, p, c, 3.0, NS)
+    assert fp.mesh_impl == "aligned"
+    out = {}
+    for plain in (False, True):
+        rows = fp.bucket(p).requires_grad_()
+        kernels.reset_launch_counts()
+        e = fp.energy(qq, c, rows, plain=plain)
+        (g,) = torch.autograd.grad(e, rows)
+        torch.cuda.synchronize()
+        out[plain] = (float(e.detach()), g, kernels.launch_counts())
+    counts = out[False][2]
+    assert (counts["spread_fwd"], counts["spread_bwd"], counts["window"]) == (1, 1, 1), counts
+    assert abs(out[False][0] - out[True][0]) <= 1e-5 * abs(out[True][0])
+    assert _rel(out[False][1], out[True][1]) <= 1e-5
+
+    from torchpme_tpu_torch.utils.neighbors import compute_distances, neighbor_list
+
+    idx, _, shifts = (torch.as_tensor(x, device=device) for x in neighbor_list(pos, cell, 3.0))
+    call = tpt.P3MCalculator(tpt.CoulombPotential(smearing=1.0), interpolation_nodes=2,
+                             mesh_spacing=0.5, mesh_backend="tiled")
+    res = {}
+    for plain in (False, True):
+        pp = p.clone().requires_grad_()
+        kernels.reset_launch_counts()
+        pot = call(qq, c, pp, idx, compute_distances(pp, idx, c, shifts), plain=plain)
+        (g,) = torch.autograd.grad(torch.sum(pot * qq), pp)
+        torch.cuda.synchronize()
+        res[plain] = (pot.detach(), g, kernels.launch_counts())
+    counts = res[False][2]
+    assert min(counts["mesh_spread"], counts["mesh_gather"], counts["mesh_wgrad"]) >= 1, counts
+    assert _rel(res[False][0], res[True][0]) <= 1e-5 and _rel(res[False][1], res[True][1]) <= 1e-5
+
+
+@pytest.mark.parametrize(
+    "name", ["KSpaceFilter", "P3MKSpaceFilter", "MeshInterpolator", "compute_batched_kvectors"]
+)
+def test_power_user_state_from_a_host_cell_lands_on_the_card(device, name):
+    """A host cell and no device: the filters, the interpolator and the
+    batched k-vectors build their state on the card, and a host cell given
+    to ``update`` follows it there."""
+
+    class Unit:
+        def kernel_from_k_sq(self, k_sq):
+            return torch.ones_like(k_sq)
+
+    cell = np.eye(3) * 4.0
+    made = {
+        "KSpaceFilter": lambda: tpt.ops.KSpaceFilter(cell, (4, 4, 4), Unit()),
+        "P3MKSpaceFilter": lambda: tpt.ops.P3MKSpaceFilter(cell, (4, 4, 4), 3, Unit()),
+        "MeshInterpolator": lambda: tpt.ops.MeshInterpolator(cell, (4, 4, 4), 3, "P3M"),
+        "compute_batched_kvectors": lambda: tpt.ops.compute_batched_kvectors(1.3, cell[None]),
+    }[name]()
+    if isinstance(made, torch.Tensor):
+        assert made.device.type == "cuda"
+        return
+    assert made.cell.device.type == "cuda"
+    made.update(cell * 1.1)
+    assert made.cell.device.type == "cuda"
+    if name == "MeshInterpolator":
+        made.compute_weights(torch.tensor([[0.3, 1.7, 2.2]], dtype=torch.float64, device=device))
+        rho = made.points_to_mesh(torch.ones((1, 1), dtype=torch.float64, device=device))
+    else:
+        rho = made(torch.ones((1, 4, 4, 4), dtype=torch.float64, device=device))
+    assert rho.device.type == "cuda"

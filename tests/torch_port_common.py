@@ -122,6 +122,8 @@ def jax_md_state(fp_j) -> dict:
         "cell_grid": fp_j.cell_grid,
         "aligned_pad": fp_j.aligned_pad,
     }
+    if calc._method == "P3M":
+        state.update(mode=int(calc.mode), differential_order=int(calc.differential_order))
     state.update(clist_arrays(fp_j.clist))
     state["tiled"] = None if fp_j.tiled is None else jax_tiled_state(fp_j.tiled)
     return state

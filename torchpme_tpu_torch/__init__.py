@@ -1,11 +1,13 @@
 """torchpme_tpu_torch: the PyTorch + CUDA port of :mod:`torchpme_tpu`.
 
 A second package beside the JAX one, keeping its module paths and public
-names.  It holds the 102k-atom PME MD step (``MDFastPath`` in aligned and
-tiled mode) and the per-atom ``PMECalculator`` call over a neighbor list,
-both over ``CoulombPotential``, and the point-dipole family: ``PotentialDipole``,
-``CalculatorDipole`` (direct and Ewald), ``PMECalculatorDipole`` and
-``MDFastPathDipole``.  The TPU-side kernels on those paths are
+names.  It holds the point-charge calculators over ``CoulombPotential``
+(``Calculator`` for the direct sum, ``EwaldCalculator``, ``PMECalculator``,
+``P3MCalculator``; per atom over a neighbor list or a cell list), their MD
+steps (``MDFastPath`` in aligned, fused and tiled mode for the mesh
+calculators, ``MDFastPathEwald``), and the point-dipole family:
+``PotentialDipole``, ``CalculatorDipole`` (direct and Ewald),
+``PMECalculatorDipole`` and ``MDFastPathDipole``.  The TPU-side kernels on those paths are
 hand-written CUDA C++ for Hopper (``csrc/``), each with a plain PyTorch
 version in the module that wraps it.  Entry points put their state on the
 CUDA device when the caller gave neither a device nor tensors
@@ -15,17 +17,27 @@ for the CPU).  This package imports ``torch``,
 """
 
 from . import calculators, md, ops, potentials, prefactors, utils  # noqa: F401
-from .calculators import Calculator, CalculatorDipole, PMECalculator, PMECalculatorDipole
+from .calculators import (
+    Calculator,
+    CalculatorDipole,
+    EwaldCalculator,
+    P3MCalculator,
+    PMECalculator,
+    PMECalculatorDipole,
+)
 from .device import default_device
-from .md import MDFastPath, MDFastPathDipole
+from .md import MDFastPath, MDFastPathDipole, MDFastPathEwald
 from .potentials import CoulombPotential, Potential, PotentialDipole
 
 __all__ = [
     "Calculator",
     "CalculatorDipole",
     "CoulombPotential",
+    "EwaldCalculator",
     "MDFastPath",
     "MDFastPathDipole",
+    "MDFastPathEwald",
+    "P3MCalculator",
     "PMECalculator",
     "PMECalculatorDipole",
     "Potential",

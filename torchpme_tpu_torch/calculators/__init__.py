@@ -2,7 +2,16 @@
 
 from .calculator import Calculator
 from .dipole import CalculatorDipole
+from .ewald import EwaldCalculator
+from .p3m import P3MCalculator
 from .pme import PMECalculator
 from .pme_dipole import PMECalculatorDipole
 
-__all__ = ["Calculator", "CalculatorDipole", "PMECalculator", "PMECalculatorDipole"]
+__all__ = [
+    "Calculator",
+    "CalculatorDipole",
+    "EwaldCalculator",
+    "P3MCalculator",
+    "PMECalculator",
+    "PMECalculatorDipole",
+]

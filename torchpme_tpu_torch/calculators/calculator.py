@@ -11,17 +11,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.rspace_cells import cell_list_rspace_energy
+from ..ops.rspace_cells import (
+    _pair_values,
+    cell_list_rspace_energy,
+    cell_list_rspace_potentials,
+)
 from ..potentials.potential import Potential
 from ..utils.validation import validate_parameters
 
 __all__ = ["Calculator"]
-
-_CELL_LIST_POTENTIALS = (
-    "the per-atom potentials over a cell list (cell_list_rspace_potentials) are "
-    "not ported yet (ROADMAP.md, section 1, row 7); pass a neighbor list, or "
-    "use `energy(cell_list=...)` for the total energy"
-)
 
 
 class Calculator(nn.Module):
@@ -68,10 +66,7 @@ class Calculator(nn.Module):
         """Pair terms v(r): the full potential (direct mode) or the
         short-range part (the long range is summed in k-space); 0 on masked
         pairs."""
-        if self.potential.smearing is None:
-            values = self.potential.from_dist(neighbor_distances)
-        else:
-            values = self.potential.sr_from_dist(neighbor_distances)
+        values = _pair_values(self.potential, neighbor_distances)
         if pair_mask is not None:
             values = values * pair_mask
         return values
@@ -122,13 +117,18 @@ class Calculator(nn.Module):
     # -- public forward -------------------------------------------------------
 
     def _rspace_from_inputs(
-        self, charges, neighbor_indices, neighbor_distances, pair_mask, cell_list
+        self, charges, cell, positions, neighbor_indices, neighbor_distances, pair_mask,
+        cell_list,
     ) -> torch.Tensor:
-        """Dispatch the real-space sum: neighbor list (or refuse a cell list)."""
+        """Dispatch the real-space sum: neighbor list or cell list (plain
+        PyTorch per-atom windows,
+        :func:`~torchpme_tpu_torch.ops.rspace_cells.cell_list_rspace_potentials`)."""
         if cell_list is not None:
             if neighbor_indices is not None or neighbor_distances is not None:
                 raise ValueError("Pass either a neighbor list or a `cell_list`, not both")
-            raise NotImplementedError(_CELL_LIST_POTENTIALS)
+            return cell_list_rspace_potentials(
+                self.potential, charges, positions, cell, cell_list
+            )
         if neighbor_indices is None or neighbor_distances is None:
             raise ValueError(
                 "Provide `neighbor_indices` and `neighbor_distances`, or a "
@@ -169,8 +169,13 @@ class Calculator(nn.Module):
         :param pair_mask: optional bool mask for padded pairs.
         :param kvectors: precomputed k-vectors (Ewald only; mesh calculators
             refuse them).
-        :param cell_list: not supported on the per-atom path yet
-            (``NotImplementedError``).
+        :param cell_list: a
+            :class:`~torchpme_tpu_torch.ops.rspace_cells.CellList` from
+            :func:`~torchpme_tpu_torch.ops.rspace_cells.compute_cell_list`,
+            instead of a neighbor list: the real-space sum runs over the
+            27-cell windows with distances recomputed from ``positions``
+            (NaN once an atom has left its cell; refresh it like a neighbor
+            list).
         :param kspace_kwargs: forwarded to the k-space part of a subclass
             (``ns_mesh``, ``tiled_interp``).
         :return: ``(n_atoms, n_channels)`` per-atom potentials; multiply by
@@ -188,7 +193,8 @@ class Calculator(nn.Module):
             kvectors=kvectors,
         )
         potential_sr = self._rspace_from_inputs(
-            charges, neighbor_indices, neighbor_distances, pair_mask, cell_list
+            charges, cell, positions, neighbor_indices, neighbor_distances, pair_mask,
+            cell_list,
         )
         if self.potential.smearing is None:
             return potential_sr
@@ -212,6 +218,7 @@ class Calculator(nn.Module):
         neighbor_distances: torch.Tensor | None = None,
         pair_mask: torch.Tensor | None = None,
         cell_list=None,
+        plain: bool = False,
         **kspace_kwargs,
     ) -> torch.Tensor:
         r"""Total energy :math:`E = \sum_i q_i V_i` (scalar).
@@ -223,7 +230,11 @@ class Calculator(nn.Module):
         ``periodic``, ...).  With ``cell_list`` (a
         :class:`~torchpme_tpu_torch.ops.rspace_cells.CellList`, instead of a
         neighbor list) the real-space sum runs over the cell windows in
-        bucket order (kernel C); range-separated potentials only.
+        bucket order: kernel C on a card, its unsmeared variant for a
+        potential without smearing (direct mode).
+
+        :param plain: run the kernels' plain versions on any device (the
+            reference path of the comparisons).
         """
         validate_parameters(
             charges=charges,
@@ -236,13 +247,8 @@ class Calculator(nn.Module):
         if cell_list is not None:
             if neighbor_indices is not None or neighbor_distances is not None:
                 raise ValueError("Pass either a neighbor list or a `cell_list`, not both")
-            if self.potential.smearing is None:
-                raise NotImplementedError(
-                    "the cell-list window of a potential without smearing (direct "
-                    "mode) is not ported yet (ROADMAP.md, section 1, row 7)"
-                )
             e_sr = cell_list_rspace_energy(
-                self.potential, charges, positions, cell, cell_list
+                self.potential, charges, positions, cell, cell_list, plain=plain
             )
         elif neighbor_indices is None or neighbor_distances is None:
             raise ValueError(
@@ -261,9 +267,10 @@ class Calculator(nn.Module):
         if kspace_energy is not None and kspace_kwargs.get("node_mask") is None:
             kspace_kwargs.pop("node_mask", None)
             return e_sr + kspace_energy(
-                charges=charges, cell=cell, positions=positions, **kspace_kwargs
+                charges=charges, cell=cell, positions=positions, plain=plain,
+                **kspace_kwargs,
             )
         pot_lr = self._compute_kspace(
-            charges=charges, cell=cell, positions=positions, **kspace_kwargs
+            charges=charges, cell=cell, positions=positions, plain=plain, **kspace_kwargs
         )
         return e_sr + torch.sum(pot_lr * charges)

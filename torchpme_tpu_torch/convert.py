@@ -1,15 +1,20 @@
 """State carried between the JAX package and the port, as numpy.
 
 The calculators have no learned weights.  Their state is the potential's
-scalars and the calculator's stencil settings (:func:`calculator_state` /
-:func:`calculator_from_state`, enough for the per-atom call), a reusable
+scalars and the calculator's settings (:func:`calculator_state` /
+:func:`calculator_from_state`, enough for the per-atom call: the stencil of
+``PMECalculator`` and ``P3MCalculator``, P3M's influence-function ``mode``
+and ``differential_order``, Ewald's ``lr_wavelength``), a reusable
 tile bucketing (:func:`tiled_interp_state` / :func:`tiled_interp_from_state`)
 and the host-built bucketing of :class:`~torchpme_tpu_torch.md.MDFastPath`
 (the cell list, the row map, the static shapes and, in tiled mode, the tile
 bucketing).  :func:`md_state` writes that state as a flat dict of numpy
 arrays and Python scalars; :func:`md_from_state` builds the port's
 ``CoulombPotential``, ``PMECalculator`` and ``MDFastPath`` from such a dict
-on a given device.  The dipolar family has the same four functions
+on a given device; :func:`md_ewald_state` / :func:`md_ewald_from_state`
+do the same for :class:`~torchpme_tpu_torch.md.MDFastPathEwald` (its cell
+list, row map and k-space extents).  The dipolar family has the same four
+functions
 (:func:`dipole_calculator_state` / :func:`dipole_calculator_from_state`,
 :func:`md_dipole_state` / :func:`md_dipole_from_state`).  A dict filled from the JAX package's objects (same
 keys, arrays via ``np.asarray``) gives the port the identical state, which
@@ -21,9 +26,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .calculators import CalculatorDipole, PMECalculator, PMECalculatorDipole
+from .calculators import (
+    CalculatorDipole,
+    EwaldCalculator,
+    P3MCalculator,
+    PMECalculator,
+    PMECalculatorDipole,
+)
 from .device import resolve_device
-from .md import MDFastPath, MDFastPathDipole
+from .md import MDFastPath, MDFastPathDipole, MDFastPathEwald
 from .ops.mesh_tiled import TiledInterpolation
 from .ops.rspace_cells import CellList
 from .potentials import CoulombPotential, PotentialDipole
@@ -35,6 +46,8 @@ __all__ = [
     "dipole_calculator_state",
     "md_dipole_from_state",
     "md_dipole_state",
+    "md_ewald_from_state",
+    "md_ewald_state",
     "md_from_state",
     "md_state",
     "tiled_interp_from_state",
@@ -59,33 +72,50 @@ _TILED_ARRAYS = (
 _TILED_FLOAT_ARRAYS = ("weights", "dweights")
 
 
-def calculator_state(calc: PMECalculator) -> dict:
-    """The potential's scalars and the calculator's settings."""
+def calculator_state(calc) -> dict:
+    """The potential's scalars and the calculator's settings: the stencil of
+    a mesh calculator (``method`` ``"Lagrange"`` for PME, ``"P3M"`` with
+    ``mode`` and ``differential_order``), or Ewald's ``lr_wavelength``."""
     pot = calc.potential
-    return {
-        "smearing": pot.smearing,
-        "prefactor": pot.prefactor,
-        "interpolation_nodes": calc.interpolation_nodes,
-        "method": calc._method,
-        "mesh_spacing": calc.mesh_spacing,
-    }
+    state = {"smearing": pot.smearing, "prefactor": pot.prefactor}
+    if isinstance(calc, EwaldCalculator):
+        state["lr_wavelength"] = calc.lr_wavelength
+        return state
+    state.update(
+        interpolation_nodes=calc.interpolation_nodes,
+        method=calc._method,
+        mesh_spacing=calc.mesh_spacing,
+    )
+    if isinstance(calc, P3MCalculator):
+        state.update(mode=calc.mode, differential_order=calc.differential_order)
+    return state
 
 
-def calculator_from_state(state: dict, **kwargs) -> PMECalculator:
-    """The port's ``PMECalculator`` over a ``CoulombPotential`` from the keys
-    of :func:`calculator_state`; ``kwargs`` (``full_neighbor_list``,
-    ``mesh_backend``, ``tile_capacity``) go to the calculator."""
-    if state["method"] != "Lagrange":
-        raise ValueError(f"the port's PMECalculator is Lagrange-only, got {state['method']!r}")
+def calculator_from_state(state: dict, **kwargs):
+    """The port's calculator over a ``CoulombPotential`` from the keys of
+    :func:`calculator_state`: ``EwaldCalculator`` where the state has an
+    ``lr_wavelength`` and no ``method``, else ``PMECalculator``
+    (``"Lagrange"``) or ``P3MCalculator`` (``"P3M"``).  ``kwargs``
+    (``full_neighbor_list``, ``mesh_backend``, ``tile_capacity``) go to the
+    calculator."""
     potential = CoulombPotential(
         smearing=float(state["smearing"]), prefactor=float(state["prefactor"])
     )
-    return PMECalculator(
-        potential,
+    method = state.get("method")
+    if method is None and state.get("lr_wavelength") is not None:
+        return EwaldCalculator(potential, lr_wavelength=float(state["lr_wavelength"]), **kwargs)
+    mesh = dict(
         mesh_spacing=float(state["mesh_spacing"]),
         interpolation_nodes=int(state["interpolation_nodes"]),
-        **kwargs,
     )
+    if method == "Lagrange":
+        return PMECalculator(potential, **mesh, **kwargs)
+    if method == "P3M":
+        return P3MCalculator(
+            potential, **mesh, mode=int(state.get("mode", 0)),
+            differential_order=int(state.get("differential_order", 2)), **kwargs,
+        )
+    raise ValueError(f"`method` is {method!r} but must be 'Lagrange' or 'P3M'")
 
 
 def tiled_interp_state(interp: TiledInterpolation) -> dict:
@@ -133,7 +163,8 @@ def _bucketing_state(fp) -> dict:
     for name in _CLIST_ARRAYS + _EXTRA_ARRAYS:
         value = getattr(clist, name)
         state[name] = None if value is None else value.cpu().numpy()
-    state["tiled"] = None if fp.tiled is None else tiled_interp_state(fp.tiled)
+    tiled = getattr(fp, "tiled", None)
+    state["tiled"] = None if tiled is None else tiled_interp_state(tiled)
     return state
 
 
@@ -191,6 +222,31 @@ def md_from_state(state: dict, device=None) -> MDFastPath:
         int(state["aligned_pad"]),
         tiled,
         state.get("mesh_impl"),
+    )
+
+
+def md_ewald_state(fp: MDFastPathEwald) -> dict:
+    """The port's Ewald MD state as numpy arrays and Python scalars."""
+    return {
+        **calculator_state(fp.calc),
+        **_bucketing_state(fp),
+        "ns_kvectors": fp.ns_kvectors,
+    }
+
+
+def md_ewald_from_state(state: dict, device=None) -> MDFastPathEwald:
+    """Port objects (potential, Ewald calculator, MD state) from a numpy
+    state dict with the keys of :func:`md_ewald_state`, on ``device``
+    (default: :func:`torchpme_tpu_torch.default_device`)."""
+    device = resolve_device(device)
+    clist, row_of_atom, _ = _bucketing_from_state(state, device)
+    return MDFastPathEwald(
+        calculator_from_state(state),
+        clist,
+        row_of_atom,
+        tuple(int(n) for n in state["ns_kvectors"]),
+        int(state["n_rows"]),
+        int(state["n_atoms"]),
     )
 
 

@@ -616,8 +616,12 @@ template <int N>
 static int launch_spread(const int* lx, const int* ly, const int* sz, const float* w,
                          const float* dw, const float* q, float* mesh, const MeshParams& p,
                          cudaStream_t stream) {
-  if (dw != nullptr && p.n_ch != 1) return (int)cudaErrorInvalidValue;
-  if (dw != nullptr) return launch_spread_as<N, true>(lx, ly, sz, w, dw, q, mesh, p, stream);
+  if constexpr (N < 3) {
+    if (dw != nullptr) return (int)cudaErrorInvalidValue;
+  } else {
+    if (dw != nullptr && p.n_ch != 1) return (int)cudaErrorInvalidValue;
+    if (dw != nullptr) return launch_spread_as<N, true>(lx, ly, sz, w, dw, q, mesh, p, stream);
+  }
   return launch_spread_as<N, false>(lx, ly, sz, w, dw, q, mesh, p, stream);
 }
 
@@ -666,7 +670,9 @@ template <int N>
 static int launch_gather_wgrad(const int* lx, const int* ly, const int* sz, const float* w,
                                const float* dw, const float* q, const float* mesh, float* vals,
                                float* wg, float* dwg, const MeshParams& p, cudaStream_t stream) {
-  if (dw != nullptr) {
+  if constexpr (N < 3) {
+    if (dw != nullptr) return (int)cudaErrorInvalidValue;
+  } else if (dw != nullptr) {
     if (p.n_ch != 1 || (wg != nullptr && dwg == nullptr)) return (int)cudaErrorInvalidValue;
     if (wg != nullptr)
       return launch_gather_as<N, true, true>(lx, ly, sz, w, dw, q, mesh, vals, wg, dwg, p, stream);
@@ -677,9 +683,13 @@ static int launch_gather_wgrad(const int* lx, const int* ly, const int* sz, cons
   return launch_gather_as<N, false, false>(lx, ly, sz, w, dw, q, mesh, vals, wg, dwg, p, stream);
 }
 
-// the stencil sizes of the Lagrange tables (3 to 7 nodes)
+// the stencil sizes of the P3M tables (1 to 5 nodes) and of the Lagrange
+// tables (3 to 7); the dipole forms only at 3 to 7 (the dipolar mesh is
+// Lagrange-only)
 #define DISPATCH_NODES(CALL)            \
   switch (p->nodes) {                   \
+    case 1: return CALL(1);             \
+    case 2: return CALL(2);             \
     case 3: return CALL(3);             \
     case 4: return CALL(4);             \
     case 5: return CALL(5);             \

@@ -8,7 +8,9 @@
 // d^2 > 0 and an occupied j slot, and the self pair is excluded by identity
 // (its d^2 is 0).  The pair math is CoulombPotential.sr_window_math in
 // float32: V and V'/d from d^2 with one shared Gaussian (Abramowitz & Stegun
-// 7.1.26 erfc) and rsqrt.  Outputs: acc (double, zeroed by the caller: [0]
+// 7.1.26 erfc) and rsqrt; or, in the compile-time DIRECT variant (a
+// potential without smearing, the calculators' direct mode), the unsmeared
+// pair V = prefactor / d, V'/d = -V / d^2 from one rsqrt.  Outputs: acc (double, zeroed by the caller: [0]
 // the energy, [1, 43) the d_offs sums, then a block counter), d_pc (cells,
 // 3, cap), d_q (cells, cap, C) and d_offs (14, 3), written whole by the
 // kernel; the caller's autograd carries them to positions, charges and the
@@ -77,14 +79,21 @@
 struct WindowParams {
   int nx, ny, nz, cap, n_ch, self_k;
   int group;  // neighbour offsets staged per pass: 27, 9, 3 or 1
+  int direct;  // 1: the unsmeared pair (direct mode), 0: the SR part of the Ewald split
   float cutoff_sq, alpha, alpha_sq, prefactor, c_gauss;
   int offsets[3 * N_OFF];
 };
 
 __device__ __forceinline__ int wrap_i(int a, int n) { return (a % n + n) % n; }
 
+template <bool DIRECT>
 __device__ __forceinline__ void window_math(float d2, const WindowParams& p, float* v, float* w) {
   const float rd = rsqrtf(d2);
+  if (DIRECT) {
+    *v = p.prefactor * rd;
+    *w = -*v * (rd * rd);
+    return;
+  }
   const float gauss = expf(-p.alpha_sq * d2);
   const float y = p.alpha * (d2 * rd);
   const float t = 1.0f / (1.0f + 0.3275911f * y);
@@ -107,8 +116,8 @@ __host__ __device__ inline size_t window_smem(int cap, int n_ch, int group) {
 
 // pc (cells, 3, cap), q (cells, cap, C), mf (cells, cap), offs (14, 3).
 // G neighbour offsets a pass; with all 27 in one pass the row sums go
-// straight to d_pc and d_q.
-template <int G>
+// straight to d_pc and d_q.  DIRECT: the unsmeared pair math.
+template <int G, bool DIRECT>
 __global__ void __launch_bounds__(THREADS, 6)
 window_kernel(const float* __restrict__ pc, const float* __restrict__ q, const float* __restrict__ mf,
         const float* __restrict__ offs, double* __restrict__ acc, float* __restrict__ d_pc,
@@ -252,7 +261,7 @@ window_kernel(const float* __restrict__ pc, const float* __restrict__ q, const f
             const float4 b = pj[j];
             const float dx = pi.x - b.x, dy = pi.y - b.y, dz = pi.z - b.z;
             float v, w;
-            window_math(dx * dx + dy * dy + dz * dz, p, &v, &w);
+            window_math<DIRECT>(dx * dx + dy * dy + dz * dz, p, &v, &w);
             float qpair = 0.0f;
             for (int c = 0; c < C; ++c) qpair += qi[c] * qj[j * C + c];
             e_acc += 0.5 * (double)(qpair * v);
@@ -326,7 +335,7 @@ int tpme_window_group(int cap, int n_ch, int device) {
   int optin = 0;
   cudaFuncAttributes attr;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, window_kernel<N_WIN>) != cudaSuccess)
+      cudaFuncGetAttributes(&attr, window_kernel<N_WIN, false>) != cudaSuccess)
     return 0;
   const size_t limit = (size_t)optin - attr.sharedSizeBytes;
   const int groups[4] = {27, 9, 3, 1};
@@ -353,15 +362,17 @@ int tpme_window(const float* pc, const float* q, const float* mf, const float* o
   const int n_cells = p->nx * p->ny * p->nz;
   const size_t smem = window_smem(p->cap, p->n_ch, p->group);
   cudaStream_t st = (cudaStream_t)stream;
-  switch (p->group) {
-#define WINDOW_CASE(G)                                                                      \
-  case G:                                                                                   \
-    if (cudaFuncSetAttribute(window_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
-                             (int)smem) != cudaSuccess)                                     \
-      return (int)cudaGetLastError();                                                       \
-    window_kernel<G><<<n_cells, THREADS, smem, st>>>(pc, q, mf, offs, acc, d_pc, d_q, d_offs, *p); \
+  switch (p->group * 2 + (p->direct != 0)) {
+#define WINDOW_CASE(G, D)                                                                      \
+  case G * 2 + D:                                                                              \
+    if (cudaFuncSetAttribute(window_kernel<G, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                             (int)smem) != cudaSuccess)                                        \
+      return (int)cudaGetLastError();                                                          \
+    window_kernel<G, D><<<n_cells, THREADS, smem, st>>>(pc, q, mf, offs, acc, d_pc, d_q, d_offs, \
+                                                        *p);                                   \
     break;
-    WINDOW_CASE(27) WINDOW_CASE(9) WINDOW_CASE(3) WINDOW_CASE(1)
+    WINDOW_CASE(27, 0) WINDOW_CASE(9, 0) WINDOW_CASE(3, 0) WINDOW_CASE(1, 0)
+    WINDOW_CASE(27, 1) WINDOW_CASE(9, 1) WINDOW_CASE(3, 1) WINDOW_CASE(1, 1)
 #undef WINDOW_CASE
     default: return (int)cudaErrorInvalidValue;
   }

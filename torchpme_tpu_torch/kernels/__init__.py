@@ -122,6 +122,7 @@ class WindowParams(ctypes.Structure):
         ("n_ch", ctypes.c_int),
         ("self_k", ctypes.c_int),
         ("group", ctypes.c_int),
+        ("direct", ctypes.c_int),
         ("cutoff_sq", ctypes.c_float),
         ("alpha", ctypes.c_float),
         ("alpha_sq", ctypes.c_float),

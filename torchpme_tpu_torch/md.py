@@ -1,7 +1,9 @@
 """Bucket-order MD state: the PME energy + force step without per-step gathers.
 
 Counterpart of :class:`torchpme_tpu.md.MDFastPath` in its **aligned**,
-**tiled** and **fused** modes, and of
+**tiled** and **fused** modes (for ``PMECalculator`` and ``P3MCalculator``),
+of :class:`torchpme_tpu.md.MDFastPathEwald` (the window of kernel C plus the
+explicit Ewald sum on charge rows) and of
 :class:`torchpme_tpu.md.MDFastPathDipole` (point dipoles: the window of
 kernel G plus the dipolar Ewald or mesh k-space).  Positions live in
 cell-bucket rows across steps (converted once, at build or rebucket time,
@@ -54,7 +56,7 @@ from .ops.rspace_cells import (
 from .ops.rspace_cells_dipole import cell_list_rspace_dipole_energy_rows
 from .ops.spread_fused import aligned_geometry, aligned_tiled_density
 
-__all__ = ["MDFastPath", "MDFastPathDipole"]
+__all__ = ["MDFastPath", "MDFastPathDipole", "MDFastPathEwald"]
 
 
 def _row_mapping(clist: CellList, n_atoms: int) -> tuple[np.ndarray, int]:
@@ -181,7 +183,8 @@ class MDFastPath(nn.Module):
     ) -> "MDFastPath":
         """Bucket ``positions`` for ``calc`` (host-side, numpy).
 
-        :param calc: a :class:`~torchpme_tpu_torch.PMECalculator`.
+        :param calc: a :class:`~torchpme_tpu_torch.PMECalculator` or
+            :class:`~torchpme_tpu_torch.P3MCalculator`.
         :param cutoff: real-space cutoff of the cell list.
         :param ns_mesh: static mesh shape (``calc.get_ns_mesh(cell)`` when
             omitted).
@@ -410,6 +413,144 @@ class MDFastPath(nn.Module):
         # and tolerance), which poisons e_sr
         e_k = self.calc._kspace_energy_from_rho(
             rho, cell, charges, pos_rows, None, self.ns_mesh
+        )
+        return e_sr + e_k
+
+
+class MDFastPathEwald(nn.Module):
+    r"""Bucket-order MD state for the explicit-k-sum Ewald calculator, the
+    :math:`O(N^2)` counterpart of :class:`MDFastPath` for the small and
+    medium systems where Ewald beats the mesh methods.
+
+    The real-space sum runs through the cell-list window in row layout
+    (kernel C on a card: no per-step gather or force scatter); the k-space
+    term is the structure-factor quadratic form
+    :math:`\tfrac1V\sum_k \hat v(k)|S(k)|^2` on the charge rows, where
+    padded rows carry :math:`q = 0` and drop out of every term and gradient.
+    Only the window NaN-poisons on stale rows.
+
+    Example
+    -------
+    >>> import numpy as np, torch
+    >>> import torchpme_tpu_torch as tpt
+    >>> rng = np.random.default_rng(0)
+    >>> positions = torch.tensor(rng.uniform(0, 8.0, (100, 3)))
+    >>> charges = torch.tensor(np.tile([1.0, -1.0], 50).reshape(-1, 1))
+    >>> cell = torch.eye(3, dtype=torch.float64) * 8.0
+    >>> calc = tpt.EwaldCalculator(tpt.CoulombPotential(smearing=1.0), lr_wavelength=2.0)
+    >>> fp = tpt.MDFastPathEwald.create(calc, positions, cell, cutoff=2.5)
+    >>> rows = fp.bucket(positions).requires_grad_()
+    >>> e = fp.energy(charges, cell, rows)
+    >>> forces = -fp.unbucket(torch.autograd.grad(e, rows)[0])
+    >>> clist = tpt.ops.compute_cell_list(
+    ...     positions, cell, 2.5, capacity=fp.clist.slot_mask.shape[1], spill=False)
+    >>> e_ref = calc.energy(charges, cell, positions, cell_list=clist,
+    ...                     ns_kvectors=fp.ns_kvectors)
+    >>> print(bool(torch.allclose(e, e_ref, rtol=1e-10)))
+    True
+    """
+
+    def __init__(
+        self,
+        calc,
+        clist: CellList,
+        row_of_atom: torch.Tensor,
+        ns_kvectors: tuple[int, int, int],
+        n_rows: int,
+        n_atoms: int,
+    ):
+        super().__init__()
+        self.calc = calc
+        self.clist = clist
+        self.row_of_atom = row_of_atom
+        self.ns_kvectors = tuple(int(n) for n in ns_kvectors)
+        self.n_rows = int(n_rows)
+        self.n_atoms = int(n_atoms)
+
+    @classmethod
+    def create(
+        cls,
+        calc,
+        positions,
+        cell,
+        cutoff: float,
+        cell_capacity: int | None = None,
+        _spill: bool | None = None,
+        device=None,
+    ) -> "MDFastPathEwald":
+        """Bucket ``positions`` for the Ewald ``calc`` (host-side, numpy).
+
+        Same contract as :meth:`MDFastPath.create` without the mesh
+        arguments: the k-space extents come from ``calc.get_ns_kvectors``,
+        so the k-vectors are rebuilt from the cell inside the step (exact
+        stress).  The JAX package's ``window_impl`` has no counterpart: the
+        window runs kernel C on a card and its plain version on the CPU.
+
+        :param device: device of the state (default: that of ``positions``
+            when it is a tensor, else
+            :func:`torchpme_tpu_torch.default_device`).
+        """
+        if not hasattr(calc, "get_ns_kvectors"):
+            raise ValueError(
+                "MDFastPathEwald needs an EwaldCalculator (mesh calculators use MDFastPath)"
+            )
+        device = resolve_device(device, positions, cell)
+        pos_np = _to_numpy(positions)
+        cell_np = np.asarray(_to_numpy(cell), np.float64)
+        clist = compute_cell_list(
+            pos_np, cell_np, cutoff, capacity=cell_capacity, spill=_spill, device=device
+        )
+        row_of_atom, n_rows = _row_mapping(clist, pos_np.shape[0])
+        return cls(
+            calc, clist, torch.from_numpy(row_of_atom).to(device),
+            calc.get_ns_kvectors(cell_np), n_rows, pos_np.shape[0],
+        )
+
+    def bucket(self, positions: torch.Tensor) -> torch.Tensor:
+        """Atom-order ``(N, 3)`` → bucket rows ``(n_rows, 3)`` (padding 0)."""
+        positions = torch.as_tensor(positions, device=self.row_of_atom.device)
+        rows = positions.new_zeros((self.n_rows, 3))
+        return rows.index_copy(0, self.row_of_atom.long(), positions)
+
+    def unbucket(self, pos_rows: torch.Tensor) -> torch.Tensor:
+        """Bucket rows back to atom order."""
+        return pos_rows[self.row_of_atom.long()]
+
+    def rebucket(self, pos_rows, cell, cutoff=None) -> "MDFastPathEwald":
+        """Rebuild the bucketing from drifted rows (like a neighbor-list
+        refresh), keeping the cell capacity and the spill side list."""
+        return type(self).create(
+            self.calc,
+            self.unbucket(pos_rows),
+            cell,
+            cutoff if cutoff is not None else self.clist.cutoff,
+            cell_capacity=self.clist.slot_mask.shape[1],
+            _spill=self.clist.extra_index is not None,
+            device=self.row_of_atom.device,
+        )
+
+    def energy(
+        self,
+        charges: torch.Tensor,
+        cell: torch.Tensor,
+        pos_rows: torch.Tensor,
+        plain: bool = False,
+    ) -> torch.Tensor:
+        r"""Total energy :math:`\sum_i q_i V_i` from bucket rows.
+
+        Autograd with respect to ``pos_rows`` gives minus the forces in row
+        layout.  NaN when the cell-list bucketing is stale.
+
+        :param plain: run the window's plain version on any device.
+        """
+        e_sr = cell_list_rspace_energy_rows(
+            self.calc.potential, charges, pos_rows, cell, self.clist, plain=plain
+        )
+        dtype = pos_rows.dtype
+        q_rows = charges.new_zeros((self.n_rows, charges.shape[-1]), dtype=dtype)
+        q_rows = q_rows.index_copy(0, self.row_of_atom.long(), charges.to(dtype))
+        e_k = self.calc._compute_kspace_energy(
+            q_rows, cell, pos_rows, ns_kvectors=self.ns_kvectors
         )
         return e_sr + e_k
 

@@ -13,14 +13,31 @@ import math
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .math import inv3
 
 __all__ = [
+    "compute_batched_kvectors",
     "generate_kvectors_for_ewald",
     "generate_kvectors_for_mesh",
     "get_ns_ewald",
     "get_ns_mesh",
 ]
+
+
+def _cell_and_ns(cell, ns_mesh, device=None):
+    """Checked ``(3, 3)`` cell tensor on ``device`` (by default, that of a
+    tensor ``cell``, else :func:`~torchpme_tpu_torch.default_device`) and
+    mesh shape as a tuple of 3 ints; ``None`` passes through."""
+    if cell is not None:
+        cell = torch.as_tensor(cell, device=resolve_device(device, cell))
+        if cell.shape != (3, 3):
+            raise ValueError(f"cell of shape {list(cell.shape)} should be of shape (3, 3)")
+    if ns_mesh is not None:
+        ns_mesh = tuple(int(n) for n in np.asarray(ns_mesh).reshape(-1))
+        if len(ns_mesh) != 3:
+            raise ValueError(f"shape {[len(ns_mesh)]} of `ns_mesh` has to be (3,)")
+    return cell, ns_mesh
 
 
 def _basis_norms(cell) -> np.ndarray:
@@ -81,3 +98,26 @@ def generate_kvectors_for_ewald(cell: torch.Tensor, ns) -> torch.Tensor:
     :return: ``(nx · ny · nz, 3)``; entry 0 is the zero vector.
     """
     return _generate_kvectors(cell, ns, last_real=False).reshape(-1, 3)
+
+
+def compute_batched_kvectors(lr_wavelength: float, cells, device=None) -> torch.Tensor:
+    """Zero-padded per-system k-vectors for batched Ewald sums.
+
+    Each cell's full Ewald k-set is generated and the batch right-padded
+    with zero vectors to a common length: the ``k = 0`` entry is masked out
+    of every kernel, so the padding adds nothing.
+
+    :param lr_wavelength: spatial resolution of the reciprocal-space sum.
+    :param cells: ``(B, 3, 3)`` batch of cells (a tensor keeps its dtype).
+    :param device: device of the result (default: that of a tensor
+        ``cells``, else :func:`torchpme_tpu_torch.default_device`).
+    :return: ``(B, max_k, 3)``.
+    """
+    cells = torch.as_tensor(cells, device=resolve_device(device, cells))
+    per_system = [
+        generate_kvectors_for_ewald(cell, get_ns_ewald(cell, lr_wavelength)) for cell in cells
+    ]
+    max_k = max(kv.shape[0] for kv in per_system)
+    return torch.stack(
+        [torch.nn.functional.pad(kv, (0, 0, 0, max_k - kv.shape[0])) for kv in per_system]
+    )

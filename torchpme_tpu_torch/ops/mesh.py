@@ -16,9 +16,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import resolve_device
+from .kvectors import _cell_and_ns
+from .math import inv3
+
 __all__ = [
     "DipoleInterpolationWeights",
     "MeshInterpolationWeights",
+    "MeshInterpolator",
     "compute_1d_weight_derivatives",
     "compute_1d_weights",
     "compute_dipole_interpolation",
@@ -26,6 +31,7 @@ __all__ = [
     "dipoles_to_mesh",
     "mesh_to_dipole_field",
     "mesh_to_points",
+    "mesh_xyz",
     "points_to_mesh",
 ]
 
@@ -314,3 +320,74 @@ def mesh_to_dipole_field(
     Σ_m Q·mesh`` exactly)."""
     gathered = mesh_vals.reshape(-1)[interp.linear_indices]  # (nodes³, N)
     return torch.einsum("sn,snb->nb", gathered, interp.grad_weights)
+
+
+def mesh_xyz(cell: torch.Tensor, ns) -> torch.Tensor:
+    """Cartesian coordinates of the mesh points, ``(nx, ny, nz, 3)``."""
+    fracs = [torch.arange(int(n), dtype=cell.dtype, device=cell.device) / int(n) for n in ns]
+    grid = torch.stack(torch.meshgrid(*fracs, indexing="ij"), dim=-1)
+    return torch.matmul(grid, cell)
+
+
+class MeshInterpolator:
+    """A mesh interpolation kept for repeated use (power users, e.g. LODE
+    features): :meth:`update` the cell or mesh, :meth:`compute_weights` for
+    positions, then :meth:`points_to_mesh` / :meth:`mesh_to_points`.  It
+    takes the scatter route (:func:`compute_interpolation`,
+    :func:`points_to_mesh`, :func:`mesh_to_points`), as the JAX class does.
+    Its cell lives on ``device`` (default: that of a tensor ``cell``, else
+    :func:`~torchpme_tpu_torch.default_device`), a host cell given to
+    :meth:`update` too.
+
+    Example
+    -------
+    Spreading conserves the total charge at every interpolation order:
+
+    >>> import torch
+    >>> mi = MeshInterpolator(torch.eye(3, dtype=torch.float64) * 4.0, (8, 8, 8),
+    ...                       interpolation_nodes=4, method="Lagrange")
+    >>> _ = mi.compute_weights(torch.tensor([[0.3, 1.7, 2.2], [3.1, 0.4, 1.1]],
+    ...                                     dtype=torch.float64))
+    >>> rho = mi.points_to_mesh(torch.tensor([[1.0], [-2.0]], dtype=torch.float64))
+    >>> print(f"{float(torch.sum(rho)):.6f}")
+    -1.000000
+    """
+
+    def __init__(self, cell, ns_mesh, interpolation_nodes: int, method: str, device=None):
+        _weight_coefficients(method, interpolation_nodes)  # validate eagerly
+        self.method = method
+        self.interpolation_nodes = int(interpolation_nodes)
+        self._interp: MeshInterpolationWeights | None = None
+        self.device = resolve_device(device, cell)
+        self.update(cell, ns_mesh)
+
+    def update(self, cell=None, ns_mesh=None) -> None:
+        """Refresh the cell and/or mesh shape this interpolator targets."""
+        cell, ns_mesh = _cell_and_ns(cell, ns_mesh, self.device)
+        if cell is not None:
+            self.cell = cell
+            self.inverse_cell = inv3(cell)
+        if ns_mesh is not None:
+            self.ns_mesh = ns_mesh
+
+    def get_mesh_xyz(self) -> torch.Tensor:
+        """Cartesian positions of the mesh points, ``(nx, ny, nz, 3)``."""
+        return mesh_xyz(self.cell, self.ns_mesh)
+
+    def compute_weights(self, positions: torch.Tensor) -> MeshInterpolationWeights:
+        if positions.ndim != 2 or positions.shape[1] != 3:
+            raise ValueError(f"shape {list(positions.shape)} of `positions` has to be (N, 3)")
+        self._interp = compute_interpolation(
+            positions, self.inverse_cell, self.ns_mesh, self.interpolation_nodes, self.method
+        )
+        return self._interp
+
+    def points_to_mesh(self, particle_weights: torch.Tensor) -> torch.Tensor:
+        if self._interp is None:
+            raise ValueError("Call `compute_weights` before `points_to_mesh`.")
+        return points_to_mesh(self._interp, particle_weights)
+
+    def mesh_to_points(self, mesh_vals: torch.Tensor) -> torch.Tensor:
+        if self._interp is None:
+            raise ValueError("Call `compute_weights` before `mesh_to_points`.")
+        return mesh_to_points(self._interp, mesh_vals)

@@ -220,10 +220,14 @@ def mesh_gather_wgrad_dipole_plain(lx, ly, sz, weights, dweights, nu_slots, mesh
 # -- kernels D, E, F --------------------------------------------------------------
 
 
-def _check(lx, ly, sz, weights, ns, nodes: int) -> tuple[int, int]:
-    """Validate the bucketing arrays for the kernels; returns ``(T, K)``."""
-    if not 3 <= nodes <= 7:
-        raise ValueError(f"the mesh kernels are built for 3 to 7 nodes, got {nodes}")
+def _check(lx, ly, sz, weights, ns, nodes: int, dipole: bool = False) -> tuple[int, int]:
+    """Validate the bucketing arrays for the kernels; returns ``(T, K)``.
+    The charge forms take 1 to 7 nodes (the P3M and Lagrange tables), the
+    dipole forms 3 to 7 (the dipolar mesh is Lagrange-only)."""
+    lo = 3 if dipole else 1
+    if not lo <= nodes <= 7:
+        form = "dipole forms of the mesh kernels are" if dipole else "mesh kernels are"
+        raise ValueError(f"the {form} built for {lo} to 7 nodes, got {nodes}")
     nx, ny, _ = ns
     if nx % TILE or ny % TILE:
         raise ValueError(f"mesh {tuple(ns)} is not a whole number of {TILE}x{TILE} tiles")
@@ -286,7 +290,7 @@ def mesh_spread_dipole(lx, ly, sz, weights, dweights, nu_slots, ns, nodes: int) 
     """
     if weights.device.type == "cpu":
         return mesh_spread_dipole_plain(lx, ly, sz, weights, dweights, nu_slots, ns, nodes)
-    t, k = _check(lx, ly, sz, weights, ns, nodes)
+    t, k = _check(lx, ly, sz, weights, ns, nodes, dipole=True)
     _k.check_cuda_tensor(dweights, "dweights", (t, k, 3, nodes))
     _k.check_cuda_tensor(nu_slots, "nu_slots", (t, 3, k))
     return _launch_spread(lx, ly, sz, weights, dweights, nu_slots, ns, nodes)
@@ -296,8 +300,8 @@ def _launch_gather_wgrad(lx, ly, sz, weights, dweights, q_slots, mesh, ns, nodes
     """Kernels E and/or F in one launch: the charge form, or with
     ``dweights`` the dipole form (``q_slots`` is then ``ν (T, 3, K)``).
     Returns ``(values, ct_w, ct_dw)``, ``None`` where not asked for."""
-    t, k = _check(lx, ly, sz, weights, ns, nodes)
     dipole = dweights is not None
+    t, k = _check(lx, ly, sz, weights, ns, nodes, dipole=dipole)
     n_ch = 1 if dipole else mesh.shape[0]
     _k.check_cuda_tensor(mesh, "mesh", (n_ch, *ns))
     if dipole:

@@ -1,15 +1,20 @@
-"""Cell-list real-space sum of the MD step.
+"""Cell-list real-space sum of the MD step, and per-atom potentials over
+a cell list.
 
-Counterpart of :mod:`torchpme_tpu.ops.rspace_cells` (the bucket-row energy
-path).  Atoms are bucketed on the host, in numpy, into cells of edge ≥
-cutoff (:func:`compute_cell_list`, with overflow balance and a spill side
-list); every pair within the cutoff then lies in the 27-cell torus window
+Counterpart of :mod:`torchpme_tpu.ops.rspace_cells`.  Atoms are bucketed
+on the host, in numpy, into cells of edge ≥ cutoff (:func:`compute_cell_list`,
+with overflow balance and a spill side list); every pair within the cutoff then lies in the 27-cell torus window
 of its home cell.  The energy :math:`\\sum_{i<j} q_iq_jV_{SR}(d_{ij})` is
 summed over the 13 half-window neighbor offsets plus the self cell, and one
 pass returns the energy together with its whole gradient
 (:func:`window_value_and_grad`, kernel C in ``csrc/window.cu``, beside its
 plain twin :func:`_we_value_and_grad`).  The gradient then flows through
-the window inputs (positions, charges, cell) by autograd.
+the window inputs (positions, charges, cell) by autograd.  The pair term
+follows the calculators' convention: the short-range part of a potential
+with smearing, the whole potential without (direct mode; kernel C's
+unsmeared variant).  :func:`cell_list_rspace_potentials` gives the per-atom
+potentials over the same windows in plain PyTorch (XLA code in the JAX
+package too), differentiable by autograd.
 
 Staleness keeps the JAX package's contract: once an atom leaves its cell
 the energy, and every gradient, is NaN.
@@ -33,6 +38,7 @@ __all__ = [
     "CellList",
     "cell_list_rspace_energy",
     "cell_list_rspace_energy_rows",
+    "cell_list_rspace_potentials",
     "compute_cell_list",
     "window_value_and_grad",
 ]
@@ -414,6 +420,73 @@ def _prepare_bucketed(q_raw, pos_raw, cell, clist: CellList):
     return pc_t, q_g, mf_g, offs, valid
 
 
+def _prepare(charges, positions, cell, clist: CellList):
+    """Window inputs from atom-order charges and positions (one gather each
+    into bucket order), as :func:`_prepare_bucketed`.  The gathers are
+    ``index_select``: its backward is one atomic ``index_add`` (advanced
+    indexing's sorts the rows)."""
+    n_cells, cap = clist.slot_mask.shape
+    idx = clist.atom_index.reshape(-1).long()
+    return _prepare_bucketed(
+        charges.to(positions.dtype).index_select(0, idx).reshape(n_cells, cap, -1),
+        positions.index_select(0, idx).reshape(n_cells, cap, 3), cell, clist,
+    )
+
+
+# -- pair terms ------------------------------------------------------------------
+
+
+def _pair_values(potential, dist):
+    """Pair terms ``v(d)`` in the calculators' convention: the whole
+    potential without smearing (direct mode), its short-range part with."""
+    if potential.smearing is None:
+        return potential.from_dist(dist)
+    return potential.sr_from_dist(dist)
+
+
+def _window_math(potential, dist_sq):
+    r"""float32 ``(V(d), V'(d)/d)`` from :math:`d^2`, as kernel C evaluates
+    them: the potential's ``sr_window_math`` with smearing; the unsmeared
+    :math:`V = p/d`, :math:`V'/d = -V/d^2` from one ``rsqrt`` without."""
+    if potential.smearing is None:
+        rd = torch.rsqrt(dist_sq)
+        v = potential.prefactor * rd
+        return v, -v * (rd * rd)
+    return potential.sr_window_math(dist_sq)
+
+
+def _pair_force(potential, dist, vq, pair_e):
+    """Pair-force numerator ``q_i q_j V'(d)`` from the pair energy (the
+    exact float64 path of the window)."""
+    if potential.smearing is None:
+        return -pair_e / dist
+    return potential.sr_pair_force(dist, vq, pair_e)
+
+
+def _masked_pair_values(potential, d_sq, pair_ok):
+    """``v(d)`` on the pairs of ``pair_ok``, 0 elsewhere (a safe ``d`` there,
+    so gradients stay finite)."""
+    d = torch.sqrt(torch.where(pair_ok, d_sq, 1.0))
+    return torch.where(pair_ok, _pair_values(potential, d), 0.0)
+
+
+def _offset_pairs(pc_t, mf_g, offs, k: int, offset, cutoff_sq, eye):
+    """The pairs of window offset ``k`` (cell offset ``offset``): partner
+    coordinates ``pj`` ``(x, y, z, 3, cap)``, ``d²`` and the mask of the
+    pairs inside the cutoff (the self pair excluded on the self cell), each
+    ``(x, y, z, cap, cap)``."""
+    shift = tuple(-o for o in offset)
+    pj = torch.roll(pc_t, shift, dims=(0, 1, 2)) + offs[k][:, None]
+    mj = torch.roll(mf_g, shift, dims=(0, 1, 2))
+    d_sq = sum(
+        (pc_t[..., c, :, None] - pj[..., c, None, :]) ** 2 for c in range(3)
+    )  # (x, y, z, cap, cap)
+    pair_ok = (d_sq > 0.0) & (d_sq < cutoff_sq) & (mj[..., None, :] > 0.5)
+    if tuple(offset) == (0, 0, 0):
+        pair_ok = pair_ok & ~eye  # self-pair excluded by identity
+    return pj, d_sq, pair_ok
+
+
 # -- kernel C and its plain twin ----------------------------------------------
 
 
@@ -424,9 +497,9 @@ def _we_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs):
     ``∂E/∂pc_i = Σ_j s_ij (pc_i − pj_j)`` and ``∂E/∂pj_j = Σ_i s_ij (pj_j −
     pc_i)``; the ``pj`` side rolls back onto its home cell, and its per-offset
     total is the ``offs`` gradient.  The self cell's j-side charges are
-    ½-weighted so each unordered pair counts once.  float32 takes the
-    potential's fused ``sr_window_math`` (one transcendental pass); float64
-    the exact ``sr_from_dist`` + ``sr_pair_force`` path.
+    ½-weighted so each unordered pair counts once.  float32 takes the fused
+    pair math of :func:`_window_math` (kernel C's); float64 the exact
+    :func:`_pair_values` + :func:`_pair_force` path.
 
     :return: ``(e, (d_pc, d_q, d_offs))``.
     """
@@ -443,31 +516,22 @@ def _we_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs):
     d_q = torch.zeros_like(q_g)
     d_offs = torch.zeros_like(offs)
     for k, (dx, dy, dz) in enumerate(_window_offsets(cap)):
-        self_cell = (dx, dy, dz) == (0, 0, 0)
-        w = 0.5 if self_cell else 1.0
-        shift = (-dx, -dy, -dz)
-        pj = torch.roll(pc_t, shift, dims=(0, 1, 2)) + offs[k][:, None]
-        qj = torch.roll(q_g, shift, dims=(0, 1, 2)) * w
-        mj = torch.roll(mf_g, shift, dims=(0, 1, 2))
-        d_sq = sum(
-            (pc_t[..., c, :, None] - pj[..., c, None, :]) ** 2 for c in range(3)
-        )  # (x, y, z, cap, cap)
-        pair_ok = (d_sq > 0.0) & (d_sq < cutoff_sq) & (mj[..., None, :] > 0.5)
-        if self_cell:
-            pair_ok = pair_ok & ~eye  # self-pair excluded by identity
+        w = 0.5 if (dx, dy, dz) == (0, 0, 0) else 1.0
+        pj, d_sq, pair_ok = _offset_pairs(pc_t, mf_g, offs, k, (dx, dy, dz), cutoff_sq, eye)
+        qj = torch.roll(q_g, (-dx, -dy, -dz), dims=(0, 1, 2)) * w
         d_sq_safe = torch.where(pair_ok, d_sq, 1.0)
         okf = pair_ok.to(dtype)
         vq = okf * torch.einsum("...ic,...jc->...ij", q_g, qj)
         if fused:
-            v_raw, w_raw = potential.sr_window_math(d_sq_safe)
+            v_raw, w_raw = _window_math(potential, d_sq_safe)
             e = e + torch.sum(vq * v_raw, dtype=torch.float64)
             s = vq * w_raw
         else:
             d = torch.sqrt(d_sq_safe)
-            v_raw = potential.sr_from_dist(d)
+            v_raw = _pair_values(potential, d)
             pair_e = vq * v_raw
             e = e + torch.sum(pair_e, dtype=torch.float64)
-            s = potential.sr_pair_force(d, vq, pair_e) / d
+            s = _pair_force(potential, d, vq, pair_e) / d
         v = okf * v_raw
         d_q = d_q + torch.matmul(v, qj)
         d_qj = torch.einsum("...ij,...ic->...jc", v, q_g)
@@ -484,9 +548,11 @@ def _we_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs):
 
 def _window_params(potential, cutoff: float, pc_t, q_g) -> _k.WindowParams:
     nx, ny, nz, _, cap = pc_t.shape
-    alpha = 1.0 / (potential.smearing * 2.0**0.5)
+    direct = potential.smearing is None
+    alpha = 0.0 if direct else 1.0 / (potential.smearing * 2.0**0.5)
     p = _k.WindowParams()
     p.nx, p.ny, p.nz, p.cap, p.n_ch = nx, ny, nz, cap, q_g.shape[-1]
+    p.direct = int(direct)
     offsets = _window_offsets(cap)
     p.self_k = offsets.index((0, 0, 0))
     # float32 constants rounded exactly as the plain twin's python scalars
@@ -520,7 +586,8 @@ def window_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs):
     """Kernel C: window energy and ``(d_pc, d_q, d_offs)`` in one launch.
 
     CPU tensors take :func:`_we_value_and_grad`; CUDA tensors launch the
-    kernel (float32, :class:`CoulombPotential`, at most
+    kernel (float32, :class:`CoulombPotential` with smearing, or without
+    it through the kernel's unsmeared variant, at most
     ``kernels.MAX_CHANNELS`` charge channels, a capacity whose one offset
     fits shared memory: ~3000 at one channel, ~1850 at four) or raise.
     """
@@ -602,10 +669,25 @@ def _prepare_extras_bucketed(qe_raw, pe_raw, cell, clist: CellList):
     return pe, pe_abs, qe, valid
 
 
-def _extras_energy(potential, pc_t, q_g, mf_g, pe, pe_abs, qe, clist, cell):
-    """Energy of the spill pairs, by plain autograd: extra ↔ bucketed over
-    the 27-cell window of each extra's home cell (each unordered pair once),
-    extra ↔ extra as dense minimum-image pairs (both directions, hence ½)."""
+def _prepare_extras(charges, positions, cell, clist: CellList):
+    """:func:`_prepare_extras_bucketed` from atom-order charges and positions."""
+    idx = clist.extra_index.long()
+    return _prepare_extras_bucketed(
+        charges.to(positions.dtype).index_select(0, idx), positions.index_select(0, idx),
+        cell, clist,
+    )
+
+
+def _extras_pairs(pc_t, q_g, mf_g, pe, pe_abs, clist, cell):
+    """Pairs of the spill side list, in both directions: extra ↔ bucketed
+    over the 27-cell window of each extra's home cell, extra ↔ extra as
+    dense minimum-image pairs (``compute_cell_list`` spills only where every
+    cell-plane distance is at least 2·cutoff).
+
+    Returns ``(d2_em, ok_em, rows_q, ids, d2_ee, ok_ee)``: ``d²`` and the
+    pair mask ``(E, 27·cap)`` against the bucket rows ``ids (E, 27)`` whose
+    charges are ``rows_q (E, 27, cap, C)``, and ``d²`` and the pair mask
+    ``(E, E)`` of the extras (self excluded, both directions present)."""
     dtype, device = pc_t.dtype, pc_t.device
     nx, ny, nz, _, cap = pc_t.shape
     n_cells = nx * ny * nz
@@ -620,11 +702,14 @@ def _extras_energy(potential, pc_t, q_g, mf_g, pe, pe_abs, qe, clist, cell):
         torch.tensor([nx, ny, nz], device=device),
     )
     ids = (nb3[..., 0] * ny + nb3[..., 1]) * nz + nb3[..., 2]  # (E, 27)
-    rows_p = (
-        pc_t.reshape(n_cells, 3, cap)[ids].transpose(1, 2).reshape(e_pad, 3, w27)
-    )
-    rows_q = q_g.reshape(n_cells, cap, -1)[ids]  # (E, 27, cap, C)
-    rows_m = mf_g.reshape(n_cells, cap)[ids].reshape(e_pad, w27)
+    flat = ids.reshape(-1)
+
+    def rows(x):  # the window rows of every extra (index_select: see _prepare)
+        return x.reshape(n_cells, *x.shape[3:]).index_select(0, flat)
+
+    rows_p = rows(pc_t).reshape(e_pad, 27, 3, cap).transpose(1, 2).reshape(e_pad, 3, w27)
+    rows_q = rows(q_g).reshape(e_pad, 27, cap, -1)  # (E, 27, cap, C)
+    rows_m = rows(mf_g).reshape(e_pad, w27)
     offv = torch.matmul(d27.to(dtype) / n_axis, cell)
     off_flat = offv.T.repeat_interleave(cap, dim=1)  # (3, 27·cap)
     d2 = sum(
@@ -632,10 +717,6 @@ def _extras_energy(potential, pc_t, q_g, mf_g, pe, pe_abs, qe, clist, cell):
         for c in range(3)
     )
     ok_em = (d2 < cut2) & (rows_m > 0.5) & clist.extra_mask[:, None]
-    d_em = torch.sqrt(torch.where(ok_em, d2, 1.0))
-    v_em = torch.where(ok_em, potential.sr_from_dist(d_em), 0.0).reshape(
-        e_pad, 27, cap
-    )
 
     f = torch.matmul(pe_abs, inv3(cell))  # (E, 3)
     g = []
@@ -649,9 +730,24 @@ def _extras_energy(potential, pc_t, q_g, mf_g, pe, pe_abs, qe, clist, cell):
     m_ee = clist.extra_mask[:, None] & clist.extra_mask[None, :]
     eye = torch.eye(e_pad, dtype=torch.bool, device=device)
     ok_ee = (d2e < cut2) & m_ee & ~eye
-    d_ee = torch.sqrt(torch.where(ok_ee, d2e, 1.0))
-    v_ee = torch.where(ok_ee, potential.sr_from_dist(d_ee), 0.0)
+    return d2, ok_em, rows_q, ids, d2e, ok_ee
 
+
+def _extras_potentials(potential, pc_t, q_g, mf_g, pe, pe_abs, clist, cell):
+    """Pair terms of the spill side list (:func:`_extras_pairs`): ``(v_em,
+    rows_q, ids, v_ee)``, the masked pair values ``v_em (E, 27, cap)`` and
+    ``v_ee (E, E)`` in place of the masks and ``d²``."""
+    d2, ok_em, rows_q, ids, d2e, ok_ee = _extras_pairs(pc_t, q_g, mf_g, pe, pe_abs, clist, cell)
+    v_em = _masked_pair_values(potential, d2, ok_em).reshape(rows_q.shape[:3])
+    return v_em, rows_q, ids, _masked_pair_values(potential, d2e, ok_ee)
+
+
+def _extras_energy(potential, pc_t, q_g, mf_g, pe, pe_abs, qe, clist, cell):
+    """Energy of the spill pairs, by plain autograd: each extra ↔ bucketed
+    pair once, extra ↔ extra pairs in both directions (hence ½)."""
+    v_em, rows_q, _, v_ee = _extras_potentials(
+        potential, pc_t, q_g, mf_g, pe, pe_abs, clist, cell
+    )
     e_em = torch.sum(v_em[..., None] * rows_q * qe[:, None, None, :])
     e_ee = 0.5 * torch.sum(v_ee * (qe @ qe.T))
     return e_em + e_ee
@@ -665,7 +761,7 @@ def cell_list_rspace_energy_rows(
     clist: CellList,
     plain: bool = False,
 ) -> torch.Tensor:
-    r"""Short-range energy :math:`\sum_{i<j} q_iq_jV_{SR}(d_{ij})` from
+    r"""Real-space energy :math:`\sum_{i<j} q_iq_jv(d_{ij})` from
     positions in bucket-row order (``(n_cells·cap [+ E_pad], 3)``, the
     :meth:`~torchpme_tpu_torch.md.MDFastPath.bucket` layout).
 
@@ -704,10 +800,108 @@ def cell_list_rspace_energy(
     clist: CellList,
     plain: bool = False,
 ) -> torch.Tensor:
-    r"""Short-range energy from atom-order ``positions``: one gather into
+    r"""Real-space energy from atom-order ``positions``: one gather into
     bucket rows, then :func:`cell_list_rspace_energy_rows` (same value and
     gradients up to the row permutation)."""
     rows = positions.index_select(0, clist.atom_index.reshape(-1).long())
     if clist.extra_index is not None:
         rows = torch.cat([rows, positions.index_select(0, clist.extra_index.long())], dim=0)
     return cell_list_rspace_energy_rows(potential, charges, rows, cell, clist, plain=plain)
+
+
+class _CallablePotential:
+    """Adapter giving a plain ``v(d)`` callable the pair-term interface of
+    a potential: with no smearing, its pair term is the whole potential,
+    here the callable."""
+
+    __slots__ = ("from_dist",)
+    smearing = None
+
+    def __init__(self, fn):
+        self.from_dist = fn
+
+
+def _window_potentials(potential, pc_t, q_g, mf_g, offs, cutoff: float) -> torch.Tensor:
+    r"""Per-slot potentials :math:`\tfrac12\sum_j q_j v(d_{ij})` in bucket
+    order, ``(n_cells, cap, C)``: per half-window offset the pair block
+    against the rolled neighbour cell, and its transpose rolled back onto
+    the neighbour's atoms (the self cell's block holds both directions)."""
+    dtype, device = pc_t.dtype, pc_t.device
+    nx, ny, nz, _, cap = pc_t.shape
+    cutoff_sq = torch.tensor(cutoff, dtype=dtype, device=device) ** 2
+    eye = torch.eye(cap, dtype=torch.bool, device=device)
+    pot_g = torch.zeros_like(q_g)
+    for k, (dx, dy, dz) in enumerate(_window_offsets(cap)):
+        _, d_sq, pair_ok = _offset_pairs(pc_t, mf_g, offs, k, (dx, dy, dz), cutoff_sq, eye)
+        v = _masked_pair_values(potential, d_sq, pair_ok)
+        pot_g = pot_g + torch.matmul(v, torch.roll(q_g, (-dx, -dy, -dz), dims=(0, 1, 2)))
+        if (dx, dy, dz) != (0, 0, 0):
+            # the mirrored half lands on the neighbour cell's atoms
+            tr = torch.einsum("...ij,...ic->...jc", v, q_g)
+            pot_g = pot_g + torch.roll(tr, (dx, dy, dz), dims=(0, 1, 2))
+    # each unordered pair was counted once per member: halve, as the
+    # full-neighbor-list convention of Calculator._compute_rspace does
+    return pot_g.reshape(nx * ny * nz, cap, -1) / 2
+
+
+def cell_list_rspace_potentials(
+    potential, charges: torch.Tensor, positions: torch.Tensor, cell: torch.Tensor,
+    clist: CellList,
+) -> torch.Tensor:
+    r"""Per-atom real-space potentials :math:`\tfrac12\sum_j q_j v(d_{ij})`
+    from a cell list, with no neighbor list.
+
+    The same values as :meth:`~torchpme_tpu_torch.Calculator._compute_rspace`
+    over a complete neighbor list at ``clist.cutoff`` (pairs with ``d <
+    cutoff``), spill side list included.  Differentiable with respect to
+    ``charges``, ``positions`` and ``cell``; NaN (values and gradients) once
+    an atom has left its cell.  Plain PyTorch on every device (the JAX
+    package's is XLA code).
+
+    :param potential: a potential (the calculators' pair-term convention:
+        the short-range part with smearing, the whole potential without) or
+        any elementwise callable ``v(d)``.
+
+    Example
+    -------
+    >>> import torch
+    >>> from torchpme_tpu_torch import CoulombPotential
+    >>> positions = torch.tensor([[0.0, 0.0, 0.0], [0.5, 0.5, 0.5]], dtype=torch.float64)
+    >>> charges = torch.tensor([[-1.0], [1.0]], dtype=torch.float64)
+    >>> cell = torch.eye(3, dtype=torch.float64)
+    >>> clist = compute_cell_list(positions, cell, cutoff=0.49)
+    >>> pot = cell_list_rspace_potentials(
+    ...     CoulombPotential(smearing=0.2), charges, positions, cell, clist)
+    >>> print(tuple(pot.shape))
+    (2, 1)
+    """
+    pot_obj = potential if hasattr(potential, "from_dist") else _CallablePotential(potential)
+    n_atoms, n_channels = charges.shape
+    dtype = positions.dtype
+    pc_t, q_g, mf_g, offs, valid = _prepare(charges, positions, cell, clist)
+    nx, ny, nz, _, cap = pc_t.shape
+    n_cells = nx * ny * nz
+    pot_b = _window_potentials(pot_obj, pc_t, q_g, mf_g, offs, clist.cutoff)
+    mask_b = (mf_g.reshape(n_cells, cap) > 0.5)[..., None].to(dtype)
+    idx = clist.atom_index.reshape(-1).long()
+    out = torch.zeros((n_atoms, n_channels), dtype=dtype, device=positions.device)
+    if clist.extra_index is not None:
+        pe, pe_abs, qe, valid_e = _prepare_extras(charges, positions, cell, clist)
+        valid = valid & valid_e
+        v_em, rows_q, ids, v_ee = _extras_potentials(
+            pot_obj, pc_t, q_g, mf_g, pe, pe_abs, clist, cell
+        )
+        # the extras' own potentials, over both pair classes
+        v_at_e = 0.5 * (torch.sum(v_em[..., None] * rows_q, dim=(1, 2)) + v_ee @ qe)
+        out = out.index_add(
+            0, clist.extra_index.long(),
+            v_at_e * clist.extra_mask[:, None].to(dtype),
+        )
+        # the bucketed side: ½ q_e v onto each window row's slots
+        contrib = 0.5 * v_em[..., None] * qe[:, None, None, :]  # (E, 27, cap, C)
+        buf = torch.zeros((n_cells, cap, n_channels), dtype=dtype, device=positions.device)
+        pot_b = pot_b + buf.index_add(
+            0, ids.reshape(-1), contrib.reshape(-1, cap, n_channels)
+        )
+    out = out.index_add(0, idx, (pot_b * mask_b).reshape(-1, n_channels))
+    return out * torch.where(valid, 1.0, float("nan")).to(dtype)

@@ -74,6 +74,11 @@ class Potential(nn.Module):
             f"lr_from_k_sq is not implemented for {type(self).__name__}"
         )
 
+    def kernel_from_k_sq(self, k_sq: torch.Tensor) -> torch.Tensor:
+        """K-space-kernel protocol: a potential can drive a
+        :class:`~torchpme_tpu_torch.ops.kspace.KSpaceFilter`."""
+        return self.lr_from_k_sq(k_sq)
+
     def self_contribution(self) -> float:
         """Potential a particle's own screening density generates at its
         position; always subtracted from k-space sums."""

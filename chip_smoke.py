@@ -67,8 +67,21 @@ phase fails:
 15. the per-atom call over a cell list (``calc(..., cell_list=clist)``) vs
     the neighbor-list call in float64, and the direct-mode energy through
     kernel C's unsmeared variant vs its float64 plain version;
+16. the potential family at 102k: the MD step (aligned: kernels A, B and
+    C through its pair-term table) over ``InversePowerLawPotential``
+    p = 3 and 6 at the monopole-tuned parameters and over a learnable
+    ``CombinedPotential`` (Coulomb + 1/r^6), float32 kernels vs the plain
+    float64 step (energy, forces, cell gradient, and dE/dw), ms/step of
+    both paths; in phase 3, C's variants (p = 3, p = 6, Combined, direct
+    1/r^6) against their plain versions and float64, with their bounds;
+17. the Combined per-atom call over the neighbor list (D, E, F) with its
+    gradients and dE/dw vs the plain float64 call;
+18. the extras tile table (``MDFastPath.create(extras_impl="tiled")``: the
+    spill rows through a refresh and kernel D, E + F backward) against the
+    scatter, at the main path's spills and at a forced >= 512, wall and
+    device ms per step and agreement;
 10. the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
-Phases 11–15 run between 6 and 7.
+Phases 11–18 run between 6 and 7.
 
 With ``--profile`` it also traces the 102k paths (the MD step in aligned,
 fused and tiled mode) with ``torch.profiler``
@@ -183,6 +196,37 @@ G_D_OFFS_F64_TOL = 1e-4
 # for (B, C, C'/d) with expf and rsqrtf as one each, and 72 for the three
 # contractions, the energy and the twelve i- and j-side cotangent terms
 G_PAIR_FLOP = {"smeared": 118, "direct": 80}
+
+# kernel C's operations per pair inside the cutoff, worked out from its pair
+# math (csrc/window.cu, rsqrtf and expf as one each): 21 beside the pair math
+# (the charge product, the energy in double, the gradient and d_q), and per
+# 1/r^p term the smeared math (p = 1: the shared Gaussian, the A&S erfc
+# polynomial, V and V'/d; even p: no erfc, a polynomial of z) or the direct
+# one (V = P d^-p, V'/d = -p V/d^2), and in a combination 4 more a term (two
+# weight products, the member's energy product and its double add)
+C_PAIR_COMMON = 21
+C_TERM_FLOP = {"smeared": {1: 19, 2: 10, 3: 23, 4: 13, 5: 26, 6: 16},
+               "direct": {1: 5, 2: 5, 3: 6, 4: 6, 5: 7, 6: 7}}
+C_MEMBER_FLOP = 4
+# the potential family at 102k (tools/bench_family.py:159-174: 1/r^3 at the
+# monopole-tuned smearing, 5 nodes, 128^3; the same for 1/r^6), and a
+# learnable CombinedPotential of Coulomb and 1/r^6 (initial weights below);
+# the Combined weights' float32 gradient is held to float64 at this bar
+COMBINED_WEIGHTS = (1.0, -0.5)
+WEIGHT_GRAD_TOL = 1e-5
+# the chained steps of the family phases move the rows by this times the
+# gradient: 0, so the rows stay where they are (forces of 1/r^6 reach 1e14
+# at the closest pairs of the random box, and any step would carry atoms out
+# of their cells), while each step still waits on the last one's gradient
+FAMILY_CHAIN_STEP = 0.0
+# the extras tile table against the scatter: the main path's spills and a
+# forced >= 512 (an unbalanced cell list at a smaller capacity); float32
+# energy and forces agree to EXTRAS_TOL, the float64 plain steps to
+# EXTRAS_F64_TOL (the same function), and each float32 step keeps PERF.md
+# section 2's bars against its float64 step
+EXTRAS_FORCED = 512
+EXTRAS_TOL = 1e-6
+EXTRAS_F64_TOL = 1e-10
 
 
 def emit(obj) -> None:
@@ -1254,19 +1298,19 @@ def direct_f64_on_f32_pairs(potential, clist, q32, cell32, pos32):
     the pairs that the float32 inputs select.  The truncated 1/r jumps by
     q_i q_j / r_c at the cutoff, so a pair within float32 rounding of it may
     count in float32 and not in float64: the masks here come from the
-    float32 window inputs, formed as kernel C's plain twin forms them
-    (``_offset_pairs``, ``_extras_pairs``), and the values and the position
-    gradient from float64.  Returns ``(energy, gradient, energy over the
+    float32 window inputs, formed as the step forms them for kernel C
+    (``_prepare`` with ``window=True``, ``_offset_pairs``, ``_extras_pairs``),
+    and the values and the position gradient from float64.  Returns ``(energy, gradient, energy over the
     float64 pair set, pairs the two sets hold differently)``."""
     from torchpme_tpu_torch.ops import rspace_cells as rs
 
     def window_inputs(dtype, grad):
         pos = pos32.detach().to(dtype).requires_grad_(grad)
         q, cell = q32.to(dtype), cell32.to(dtype)
-        pc_t, q_g, mf_g, offs, _ = rs._prepare(q, pos, cell, clist)
+        pc_t, q_g, mf_g, offs, _ = rs._prepare(q, pos, cell, clist, window=True)
         extras = None
         if clist.extra_index is not None:
-            extras = rs._prepare_extras(q, pos, cell, clist)[:3]
+            extras = rs._prepare_extras(q, pos, cell, clist, window=True)[:3]
         return pos, cell, pc_t, q_g, mf_g, offs, extras
 
     with torch.no_grad():
@@ -1291,9 +1335,9 @@ def direct_f64_on_f32_pairs(potential, clist, q32, cell32, pos32):
     if ex is not None:  # the spill pairs, as _extras_energy sums them
         pe, pe_abs, qe = ex
         d2_em, ok_em, rows_q, _, d2_ee, ok_ee = rs._extras_pairs(
-            pc_t, q_g, mf_g, pe, pe_abs, clist, cell)
+            pc_t, q_g, mf_g, pe, pe_abs, clist, cell, window=True)
         _, ok_em_s, _, _, _, ok_ee_s = rs._extras_pairs(
-            pc_s, q_s, mf_s, ex_s[0], ex_s[1], clist, cell_s)
+            pc_s, q_s, mf_s, ex_s[0], ex_s[1], clist, cell_s, window=True)
         qq_em = (rows_q * qe[:, None, None, :]).sum(-1).reshape(ok_em.shape)
         qq_ee = qe @ qe.T
         for em, ee, own in ((ok_em_s, ok_ee_s, False), (ok_em, ok_ee, True)):
@@ -1393,6 +1437,277 @@ def cell_list_phases(env) -> dict:
             and d["energy_rel_vs_f64"] <= 1e-5 and d["force_rel_rms_vs_f64"] <= 1e-5):
         raise AssertionError(f"102k direct-mode energy: {direct_out}")
     return {"direct_energy": {"window": direct_counts["kernel"]}}
+
+def c_pair_flop(potential) -> int:
+    """Kernel C's operations per pair inside the cutoff for ``potential``'s
+    terms (``C_PAIR_COMMON``, ``C_TERM_FLOP``, ``C_MEMBER_FLOP``)."""
+    from torchpme_tpu_torch.ops.rspace_cells import _window_terms
+
+    terms = _window_terms(potential)
+    form = "smeared" if potential.smearing is not None else "direct"
+    flop = C_PAIR_COMMON + sum(C_TERM_FLOP[form][p] for _, p in terms)
+    if len(terms) > 1 or type(potential).__name__ == "CombinedPotential":
+        flop += C_MEMBER_FLOP * len(terms)
+    return flop
+
+
+def family_potentials(tpt, smearing, device=None) -> dict:
+    """The potentials of the family phases, at the main path's smearing (on
+    ``device``: the Combined weights live on the card, as its gradient)."""
+    pots = {
+        "ipl3": tpt.InversePowerLawPotential(exponent=3, smearing=smearing),
+        "ipl6": tpt.InversePowerLawPotential(exponent=6, smearing=smearing),
+        "combined": tpt.CombinedPotential(
+            [tpt.CoulombPotential(smearing=smearing),
+             tpt.InversePowerLawPotential(exponent=6, smearing=smearing)],
+            initial_weights=torch.tensor(COMBINED_WEIGHTS, dtype=torch.float64),
+            learnable_weights=True, smearing=smearing),
+    }
+    return {k: v.to(device) if device is not None else v for k, v in pots.items()}
+
+
+def wpot_repr(potential) -> str:
+    if type(potential).__name__ == "CombinedPotential":
+        return "Combined(" + ", ".join(wpot_repr(p) for p in potential.potentials) + ")"
+    if type(potential).__name__ == "CoulombPotential":
+        return "Coulomb"
+    return f"1/r^{potential.exponent}"
+
+
+def family_step(fp, q32, cell32, rows32, expect):
+    """One float32 step of ``fp`` through the kernels and the plain float64
+    step on the same inputs, with dE/dw where the potential has learnable
+    weights: errors, launches."""
+    import torchpme_tpu_torch.kernels as kernels
+
+    pot = fp.calc.potential
+    weights = [pot.weights] if isinstance(getattr(pot, "weights", None), torch.nn.Parameter) else []
+    out = {}
+    for label, dtype, plain in (("f32", torch.float32, False), ("f64", torch.float64, True)):
+        cell_g = cell32.to(dtype).detach().requires_grad_()
+        rows_g = rows32.to(dtype).detach().requires_grad_()
+        kernels.reset_launch_counts()
+        e = fp.energy(q32.to(dtype), cell_g, rows_g, plain=plain)
+        grads = torch.autograd.grad(e, [rows_g, cell_g, *weights])
+        sync()
+        out[label] = (float(e.detach()), *grads, kernels.launch_counts())
+    (e32, gr32, gc32, *rest32), (e64, gr64, gc64, *rest64) = out["f32"], out["f64"]
+    counts = rest32[-1]
+    if min(counts[k] for k in expect) < 1 or any(rest64[-1].values()):
+        raise AssertionError(f"the family step launched {counts} (plain: {rest64[-1]})")
+    res = {"energy_f32": e32, "energy_f64_plain": e64, "energy_rel": abs(e32 - e64) / abs(e64),
+           "force_rel_rms": rel_rms(fp.unbucket(gr32), fp.unbucket(gr64)),
+           "cell_grad_rel": rel_err(gc32, gc64)[1],
+           "launches": {k: counts[k] for k in expect}}
+    if weights:
+        res.update(weight_grad_f32=rest32[0].tolist(), weight_grad_f64=rest64[0].tolist(),
+                   weight_grad_rel=rel_err(rest32[0], rest64[0])[1])
+    return res
+
+
+def charge_cell_split(fp, rows32, q32, cell32) -> dict:
+    """The point-charge MD step's cell gradient in its window part (kernel
+    C's image term, the spill pairs and the wrap) and mesh part, float32
+    kernels and the plain float32 step against the plain float64 step on the
+    same inputs (max abs error over max |float64 total|)."""
+    from torchpme_tpu_torch.ops.rspace_cells import cell_list_rspace_energy_rows
+
+    def parts(dtype, plain):
+        r = rows32.to(dtype).detach().requires_grad_()
+        c = cell32.to(dtype).detach().requires_grad_()
+        q = q32.to(dtype)
+        e_sr = cell_list_rspace_energy_rows(fp.calc.potential, q, r, c, fp.clist, plain=plain)
+        e = fp.energy(q, c, r, plain=plain)
+        (g_sr,) = torch.autograd.grad(e_sr, c)
+        (g,) = torch.autograd.grad(e, c)
+        return g_sr.double(), (g - g_sr).double()
+
+    ref = parts(torch.float64, True)
+    total = float((ref[0] + ref[1]).abs().max())
+    out = {"total_max_abs": total}
+    for label, plain in (("kernels", False), ("plain_f32", True)):
+        got = parts(torch.float32, plain)
+        for part, g, r in zip(("window", "mesh"), got, ref):
+            out[f"{part}_{label}_rel"] = float((g - r).abs().max()) / total
+    sync()
+    return out
+
+
+def family_phases(env) -> dict:
+    """Phases 16-18: the 102k MD step over 1/r^3, 1/r^6 and a learnable
+    Combined (Coulomb + 1/r^6) in aligned mode (kernels A, B, C; C through
+    its pair-term table), kernel path and plain path in turns, float32
+    against float64 (and dE/dw); the 102k per-atom Combined PMECalculator
+    call over the neighbor list (D, E, F); the extras tile table against the
+    scatter at the main path's spills and at a forced >= 512."""
+    tpt, kernels = env.tpt, env.kernels
+    launches = {}
+    pos_f32, cell_f32 = env.positions.astype(np.float32), env.cell.astype(np.float32)
+    for label, potential in family_potentials(tpt, env.smearing, env.dev).items():
+        calc = tpt.PMECalculator(potential, interpolation_nodes=NODES)
+        fp = tpt.MDFastPath.create(calc, pos_f32, cell_f32, CUTOFF, NS_MESH)
+        if fp.mesh_impl != "aligned":
+            raise AssertionError(f"{label}: MDFastPath took {fp.mesh_impl}")
+        rows = fp.bucket(env.pos32)
+        res = family_step(fp, env.q32, env.cell32, rows, ("spread_fwd", "spread_bwd", "window"))
+        def chain(plain, fp=fp, rows=rows):
+            return md_chain_of(fp, env.q32, env.cell32, rows, plain, step=FAMILY_CHAIN_STEP)
+
+        ms = turns_ms({"kernel": lambda: chain(False), "plain": lambda: chain(True)}, 1)
+        if not bool(torch.isfinite(chain(False)).all()):
+            raise AssertionError(f"the {label} MD chain left its bucketing")
+        split = charge_cell_split(fp, rows, env.q32, env.cell32)
+        emit({"phase": f"{label}_slice", "potential": wpot_repr(potential), "atoms": N_ATOMS,
+              **res, "cell_grad_split": split, "ms_per_step": ms["kernel"] / CHAIN,
+              "plain_f32_ms_per_step": ms["plain"] / CHAIN, "nvidia_smi": env.smi})
+        if env.profile:
+            profile_path(f"md_step_{label}", lambda: chain(False), calls=2)
+        check_bars(f"102k {label} step", res)
+        if "weight_grad_rel" in res and not res["weight_grad_rel"] <= WEIGHT_GRAD_TOL:
+            raise AssertionError(f"102k {label} step dE/dw: {res}")
+        launches[f"{label}_step"] = res["launches"]
+        del fp, rows
+
+    # the per-atom Combined call over the neighbor list: D, E, F
+    pot = family_potentials(tpt, env.smearing, env.dev)["combined"]
+    calc = tpt.PMECalculator(pot, interpolation_nodes=NODES)
+    kw = dict(ns_mesh=NS_MESH, tiled_interp=env.interp)
+    base = (env.pos32, env.q32, env.cell32)
+
+    def with_weights(dtype, plain):
+        from torchpme_tpu_torch.utils.neighbors import compute_distances
+
+        p = env.pos32.to(dtype).detach().requires_grad_()
+        q = env.q32.to(dtype).detach().requires_grad_()
+        c = env.cell32.to(dtype).detach().requires_grad_()
+        pot_i = calc(q, c, p, env.idx_t, compute_distances(p, env.idx_t, c, env.shifts_t),
+                     plain=plain, **kw)
+        total = torch.sum(pot_i * q)
+        grads = torch.autograd.grad(total, (p, q, c, pot.weights))
+        return (pot_i.detach(), *grads[:3], total.detach()), grads[3]
+
+    kernels.reset_launch_counts()
+    got, w32 = with_weights(torch.float32, False)
+    sync()
+    counts = kernels.launch_counts()
+    mesh_k = ("mesh_spread", "mesh_gather", "mesh_wgrad")
+    if min(counts[k] for k in mesh_k) < 1:
+        raise AssertionError(f"the Combined per-atom call launched {counts}")
+    ref, w64 = with_weights(torch.float64, True)
+    errs = call_errors(got, ref)
+    errs["weight_grad_rel"] = rel_err(w32, w64)[1]
+    del got, ref
+    fwd_ms = turns_ms({"f": lambda: per_atom_call(calc, *base, env.idx_t, env.shifts_t,
+                                                  torch.float32, False, False, **kw)},
+                      CALL_REPEATS)["f"]
+    full_ms = turns_ms({"f": lambda: with_weights(torch.float32, False)}, CALL_REPEATS)["f"]
+    emit({"phase": "combined_per_atom_call", "atoms": N_ATOMS, "potential": wpot_repr(pot),
+          "f32_vs_f64_plain": errs, "weight_grad_f32": w32.tolist(), "weight_grad_f64": w64.tolist(),
+          "launches": {k: counts[k] for k in mesh_k}, "forward_ms": fwd_ms,
+          "forward_backward_with_weights_ms": full_ms, "nvidia_smi": env.smi})
+    if env.profile:
+        profile_path("combined_per_atom_forward_backward",
+                     lambda: with_weights(torch.float32, False))
+    check_call("102k Combined per-atom call", errs)
+    if not errs["weight_grad_rel"] <= WEIGHT_GRAD_TOL:
+        raise AssertionError(f"102k Combined per-atom call dE/dw: {errs}")
+    launches["combined_call"] = {k: counts[k] for k in mesh_k}
+    launches.update(extras_phase(env, pos_f32, cell_f32))
+    return launches
+
+
+def extras_phase(env, pos_f32, cell_f32) -> dict:
+    """The aligned step with the extras tile table (``extras_impl="tiled"``:
+    refresh + kernel D, E + F backward) against the scatter, at the main
+    path's spills and at a forced >= EXTRAS_FORCED (an unbalanced cell list
+    at the largest capacity that spills that many): wall and device ms per
+    step in turns, energy, forces and cell gradient agreement in float32 and
+    in float64 (plain), and each float32 step against its float64 step."""
+    tpt, kernels = env.tpt, env.kernels
+    calc = env.calc
+    out, launches = {}, {}
+    configs = [("main", {})]
+    for capacity in range(26, 16, -1):
+        clist = tpt.ops.compute_cell_list(pos_f32, cell_f32, CUTOFF, capacity=capacity, spill=True,
+                                          xy_cells=(NS_MESH[0] // 8, NS_MESH[1] // 8),
+                                          balance=False, device="cpu")
+        if int(clist.extra_mask.sum()) >= EXTRAS_FORCED:
+            configs.append(("forced", dict(cell_capacity=capacity, balance=False, _spill=True)))
+            break
+    for label, kw in configs:
+        fps = {impl: tpt.MDFastPath.create(calc, pos_f32, cell_f32, CUTOFF, NS_MESH,
+                                           mesh_impl="aligned", extras_impl=impl, **kw)
+               for impl in ("tiled", "scatter")}
+        auto = tpt.MDFastPath.create(calc, pos_f32, cell_f32, CUTOFF, NS_MESH, mesh_impl="aligned",
+                                     extras_impl="auto", **kw).extras_tiled is not None
+        res, res64 = {}, {}
+        for impl, fp in fps.items():
+            for dtype, plain, out in ((torch.float32, False, res), (torch.float64, True, res64)):
+                rows = fp.bucket(env.pos32).to(dtype).requires_grad_()
+                cell_g = env.cell32.to(dtype).requires_grad_()
+                kernels.reset_launch_counts()
+                e = fp.energy(env.q32.to(dtype), cell_g, rows, plain=plain)
+                g_rows, g_cell = torch.autograd.grad(e, (rows, cell_g))
+                sync()
+                out[impl] = (float(e.detach()), fp.unbucket(g_rows).double(), g_cell.double(),
+                             kernels.launch_counts())
+        (e_t, f_t, c_t, n_t), (e_s, f_s, c_s, _) = res["tiled"], res["scatter"]
+        (e_t64, f_t64, c_t64, _), (e_s64, f_s64, c_s64, _) = res64["tiled"], res64["scatter"]
+        vs_f64 = {impl: {"energy_rel": abs(res[impl][0] - res64[impl][0]) / abs(res64[impl][0]),
+                         "force_rel_rms": rel_rms(res[impl][1], res64[impl][1]),
+                         "cell_grad_rel": rel_err(res[impl][2], res64[impl][2])[1]}
+                  for impl in fps}
+        rows_t, rows_s = fps["tiled"].bucket(env.pos32), fps["scatter"].bucket(env.pos32)
+        ms = turns_ms({"tiled": lambda: md_chain_of(fps["tiled"], env.q32, env.cell32, rows_t,
+                                                    False),
+                       "scatter": lambda: md_chain_of(fps["scatter"], env.q32, env.cell32, rows_s,
+                                                      False)}, 1)
+        device = {impl: device_ms_per_call(
+            lambda impl=impl, r=r: md_chain_of(fps[impl], env.q32, env.cell32, r, False)) / CHAIN
+            for impl, r in (("tiled", rows_t), ("scatter", rows_s))}
+        line = {"phase": "extras_tiled", "spills": label,
+                "spill_atoms": int(fps["tiled"].clist.extra_mask.sum()),
+                "cell_capacity": fps["tiled"].clist.slot_mask.shape[1],
+                "energy_rel_tiled_vs_scatter": abs(e_t - e_s) / abs(e_s),
+                "force_rel_rms_tiled_vs_scatter": rel_rms(f_t, f_s),
+                "cell_grad_rel_tiled_vs_scatter": rel_err(c_t, c_s)[1],
+                "f64_tiled_vs_scatter": {"energy_rel": abs(e_t64 - e_s64) / abs(e_s64),
+                                         "force_rel_rms": rel_rms(f_t64, f_s64),
+                                         "cell_grad_rel": rel_err(c_t64, c_s64)[1]},
+                "f32_vs_f64": vs_f64,
+                "tiled_ms_per_step": ms["tiled"] / CHAIN, "scatter_ms_per_step": ms["scatter"] / CHAIN,
+                "tiled_device_ms_per_step": device["tiled"],
+                "scatter_device_ms_per_step": device["scatter"],
+                "auto_takes_table": auto, "launches_tiled": n_t, "nvidia_smi": env.smi}
+        emit(line)
+        if not (line["energy_rel_tiled_vs_scatter"] <= EXTRAS_TOL
+                and line["force_rel_rms_tiled_vs_scatter"] <= EXTRAS_TOL
+                and max(line["f64_tiled_vs_scatter"].values()) <= EXTRAS_F64_TOL
+                and n_t["mesh_spread"] >= 1 and n_t["window"] >= 1):
+            raise AssertionError(f"extras tile table ({label}): {line}")
+        for impl, errs in vs_f64.items():
+            check_bars(f"extras {impl} ({label})", errs)
+        launches[f"extras_{label}_step"] = {k: n_t[k] for k in n_t}
+        del fps
+    if len(configs) < 2:
+        raise AssertionError(f"no capacity from 26 down to 17 spills {EXTRAS_FORCED} atoms")
+    return launches
+
+
+def device_ms_per_call(fn, calls: int = 2) -> float:
+    """Device time per call of ``fn`` by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in on_device) / 1e3 / calls
+
 
 def main() -> int:
     # -- 1. device --------------------------------------------------------------
@@ -1617,8 +1932,10 @@ def main() -> int:
         """Kernel C against its plain version on ``ins``; the bound counts
         the half-window work (each pair once), whatever evaluates it: the
         candidate pairs of occupied slots of each home cell against those of
-        its 13 half-window neighbours and itself.  ``wpot`` without smearing
-        runs the kernel's unsmeared variant (direct mode)."""
+        its 13 half-window neighbours and itself, and the pair math of
+        ``wpot``'s terms (:func:`c_pair_flop`).  ``wpot`` without smearing
+        runs the kernel's unsmeared variant (direct mode); a Combined
+        potential also its per-member energies (dE/dw), held to float64."""
         occ = ins[2].sum(-1).double()
         n_cand = sum(float((occ * torch.roll(occ, (-dx, -dy, -dz), dims=(0, 1, 2))).sum())
                      for dx, dy, dz in _window_offsets(ins[0].shape[-1]))
@@ -1627,24 +1944,41 @@ def main() -> int:
             "torchpme_tpu/ops/rspace_cells.py:813",
             lambda: (lambda e, g: (e, *g))(*window_value_and_grad(wpot, CUTOFF, *ins)),
             lambda: (lambda e, g: (e, *g))(*_we_value_and_grad(wpot, CUTOFF, *ins)),
-            # 11 operations to place and test a candidate, 40 more for a pair
-            # inside the cutoff (26 for the unsmeared pair: no Gaussian, no
-            # erfc polynomial); inputs once, (e, d_pc, d_q, d_offs) once
-            bound(nbytes(*ins, ins[0], ins[1], ins[3]) + 8,
-                  11 * n_cand + (40 if wpot.smearing is not None else 26) * n_inside),
+            # 11 operations to place and test a candidate, c_pair_flop more
+            # for a pair inside the cutoff; inputs once, (e, d_pc, d_q,
+            # d_offs, d_image) once
+            bound(nbytes(*ins, ins[0], ins[1], ins[3]) + 8 + 72,
+                  11 * n_cand + c_pair_flop(wpot) * n_inside),
             # d_offs: the plain version's float32 sum of a cancelling total
             # leaves up to ~1e-4 of max in the self row, which is 0 in exact
             # arithmetic and in the kernel; the kernel is held to float64 below
-            report, tols=[SUM_TOL, KERNEL_TOL, KERNEL_TOL, D_OFFS_TOL], shape=shape,
+            report, tols=[SUM_TOL, KERNEL_TOL, KERNEL_TOL, D_OFFS_TOL, KERNEL_TOL], shape=shape,
         )
         with torch.no_grad():
-            d_offs64 = _we_value_and_grad(wpot, CUTOFF, *[t.double() for t in ins])[1][2]
-            d_offs = window_value_and_grad(wpot, CUTOFF, *ins)[1][2]
-        d_offs_rel = rel_err(d_offs, d_offs64)[1]
-        emit({"phase": "kernel_vs_float64", "name": "window", "shape": shape,
-              "d_offs_rel_err": d_offs_rel})
-        if not d_offs_rel <= KERNEL_TOL:
-            raise AssertionError(f"kernel C's d_offs vs float64 {d_offs_rel:.3e} ({shape})")
+            e64, g64, w64 = _we_value_and_grad(wpot, CUTOFF, *[t.double() for t in ins],
+                                               with_params=True)
+            e32, g32, w32 = window_value_and_grad(wpot, CUTOFF, *ins, with_params=True)
+            ep, _, wp = _we_value_and_grad(wpot, CUTOFF, *ins, with_params=True)
+        d_offs_rel, image_rel = rel_err(g32[2], g64[2])[1], rel_err(g32[3], g64[3])[1]
+        line = {"phase": "kernel_vs_float64", "name": "window", "shape": shape,
+                "d_offs_rel_err": d_offs_rel, "d_image_rel_err": image_rel,
+                "energy_rel_err": abs(float(e32) - float(e64)) / abs(float(e64)),
+                "d_pc_rel_err": rel_err(g32[0], g64[0])[1], "d_q_rel_err": rel_err(g32[1], g64[1])[1]}
+        if w32:
+            # dE/dw: each member's energy, double sums in the kernel
+            line.update(member_energy_rel_err_vs_f64=rel_err(w32[0], w64[0])[1],
+                        member_energy_rel_err_vs_f32_plain=rel_err(w32[0], wp[0])[1],
+                        weights_dot_members_vs_energy=abs(
+                            float(torch.dot(wpot.weights.detach().to(w32[0]), w32[0])) - float(e32))
+                        / abs(float(e32)))
+        emit(line)
+        if not (d_offs_rel <= KERNEL_TOL and image_rel <= KERNEL_TOL):
+            raise AssertionError(f"kernel C's d_offs, d_image vs float64 {d_offs_rel:.3e}, "
+                                 f"{image_rel:.3e} ({shape})")
+        if w32 and not (line["member_energy_rel_err_vs_f64"] <= WEIGHT_GRAD_TOL
+                        and line["member_energy_rel_err_vs_f32_plain"] <= SUM_TOL
+                        and line["weights_dot_members_vs_energy"] <= SUM_TOL):
+            raise AssertionError(f"kernel C's member energies ({shape}): {line}")
         # each row of d_pc and d_q has one writer: launches agree bit for bit
         first, again = (window_value_and_grad(wpot, CUTOFF, *ins)[1] for _ in range(2))
         sync()
@@ -1658,6 +1992,13 @@ def main() -> int:
     # the unsmeared variant (V = 1/d: the calculators' direct mode)
     window_check((pc_t, q_g, mf_g, offs), n_pairs, shape="unsmeared pair (direct mode)",
                  wpot=tpt.CoulombPotential())
+    # the pair-term table: 1/r^3 and 1/r^6 at the main path's smearing, the
+    # Combined (Coulomb + 1/r^6) of the combined phase, direct 1/r^6
+    for label, wpot in family_potentials(tpt, smearing, dev).items():
+        window_check((pc_t, q_g, mf_g, offs), n_pairs, shape=f"{label}: {wpot_repr(wpot)}",
+                     wpot=wpot)
+    window_check((pc_t, q_g, mf_g, offs), n_pairs, shape="direct 1/r^6 (unsmeared)",
+                 wpot=tpt.InversePowerLawPotential(exponent=6))
     epos, eq, ecell = dense_grid_box()
     e_pairs = int(neighbor_list(epos, ecell, CUTOFF)[0].shape[0])
     lib = built.lib
@@ -1970,6 +2311,9 @@ def main() -> int:
     p3m_ewald_accuracy(env)
     # -- 15. the per-atom call over a cell list, and direct mode through C ---------
     paths.update(cell_list_phases(env))
+    # -- 16-18. the potential family: 1/r^3, 1/r^6 and Combined MD steps, the
+    # Combined per-atom call, the extras tile table ----------------------------------
+    paths.update(family_phases(env))
 
     # -- 3 (kernel G; D, E, F at the dipolar shapes), 7, 8, 9: the dipolar paths --
     dipole_phases(env)

@@ -42,6 +42,11 @@ MUST_HAVE_EXAMPLES = [
     "torchpme_tpu_torch.ops.math",
     "torchpme_tpu_torch.potentials.coulomb",
     "torchpme_tpu_torch.prefactors",
+    "torchpme_tpu_torch.potentials.potential",
+    "torchpme_tpu_torch.potentials.inverse_power_law",
+    "torchpme_tpu_torch.potentials.combined",
+    "torchpme_tpu_torch.potentials.spline",
+    "torchpme_tpu_torch.ops.splines",
 ]
 
 

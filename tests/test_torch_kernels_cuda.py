@@ -166,14 +166,17 @@ def test_window_kernel_is_reproducible_and_matches_plain_at_edge_shapes(step, sh
     assert torch.equal(g_a[0], g_b[0]) and torch.equal(g_a[1], g_b[1])
     e_p, g_p = rc._we_value_and_grad(pot, 3.0, *ins)
     assert abs(float(e_a) - float(e_p)) <= 1e-6 * abs(float(e_p))
-    for a, b in zip(g_a, g_p):
+    for a, b in zip(g_a[:3], g_p[:3]):
         assert a.dtype == torch.float32 and a.shape == b.shape
+    assert g_a[3].dtype == torch.float64 and g_a[3].shape == (3, 3)
     assert _rel(g_a[0], g_p[0]) <= 1e-5 and _rel(g_a[1], g_p[1]) <= 1e-5
     # d_offs totals every gradient of an offset; the plain version sums it in
     # float32, which leaves ~1e-4 of max in the self row (0 in exact
-    # arithmetic, and in the kernel): hold it against float64 as well
+    # arithmetic, and in the kernel): hold it against float64 as well, and
+    # the image term (double sums of the boundary pairs' gradients)
     _, g64 = rc._we_value_and_grad(pot, 3.0, *[t.double() for t in ins])
     assert _rel(g_a[2], g_p[2]) <= 5e-4 and _rel(g_a[2], g64[2]) <= 1e-5
+    assert _rel(g_a[3], g_p[3]) <= 1e-5 and _rel(g_a[3], g64[3]) <= 1e-5
 
 
 def test_window_kernel_refuses_what_it_does_not_take(step):
@@ -1158,7 +1161,7 @@ def test_window_kernel_unsmeared_variant_matches_plain_and_reproduces(step, shap
     assert abs(float(e_a) - float(e_p)) <= 1e-6 * abs(float(e_p))
     assert abs(float(e_a) - float(e64)) <= 1e-5 * abs(float(e64))
     assert _rel(g_a[0], g_p[0]) <= 1e-5 and _rel(g_a[1], g_p[1]) <= 1e-5
-    assert _rel(g_a[2], g64[2]) <= 1e-5
+    assert _rel(g_a[2], g64[2]) <= 1e-5 and _rel(g_a[3], g64[3]) <= 1e-5
     # the smeared variant gives another energy on the same inputs
     e_s, _ = rc.window_value_and_grad(tpt.CoulombPotential(smearing=1.0), 3.0, *ins)
     assert abs(float(e_s) - float(e_a)) > 1e-3 * abs(float(e_a))
@@ -1260,3 +1263,149 @@ def test_power_user_state_from_a_host_cell_lands_on_the_card(device, name):
     else:
         rho = made(torch.ones((1, 4, 4, 4), dtype=torch.float64, device=device))
     assert rho.device.type == "cuda"
+
+
+# -- kernel C's pair-term table: 1/r^p, Combined, direct 1/r^p -----------------------
+
+
+def _family_window_pot(name):
+    if name.startswith("ipl"):
+        p = int(name[3])
+        smearing = None if name.endswith("direct") else 1.0
+        return tpt.InversePowerLawPotential(exponent=p, smearing=smearing, prefactor=0.7)
+    if name == "combined":
+        return tpt.CombinedPotential(
+            [tpt.CoulombPotential(smearing=1.0), tpt.InversePowerLawPotential(exponent=6, smearing=0.9)],
+            initial_weights=torch.tensor([0.8, -0.35]), smearing=1.0)
+    if name == "combined4":
+        return tpt.CombinedPotential(
+            [tpt.InversePowerLawPotential(exponent=p, smearing=1.0) for p in (1, 3, 4, 5)],
+            initial_weights=torch.tensor([1.0, 0.5, -0.25, 0.125]), smearing=1.0)
+    if name == "combined_direct":
+        return tpt.CombinedPotential(
+            [tpt.InversePowerLawPotential(exponent=1), tpt.InversePowerLawPotential(exponent=4)],
+            initial_weights=torch.tensor([0.7, -0.4]))
+    raise KeyError(name)
+
+
+FAMILY_WINDOWS = [f"ipl{p}" for p in range(1, 7)] + ["ipl6_direct", "ipl3_direct", "combined",
+                                                     "combined4", "combined_direct"]
+
+
+@pytest.mark.parametrize("shape", ["clustered", "grid3_cap_gt_32", "grid3_cap250_ch4"])
+@pytest.mark.parametrize("name", FAMILY_WINDOWS)
+def test_window_kernel_family_matches_plain_and_reproduces(step, name, shape):
+    """Each pair-term variant of kernel C against its float32 plain version
+    (energy 1e-6, d_pc and d_q 1e-5 of max), d_offs and the image term
+    against float64 (1e-5), d_pc and d_q bitwise equal over two launches;
+    for a Combined potential
+    the per-member energies (dE/dw) against the plain version's float64
+    sums, and Σ w_k E_k = E."""
+    if shape == "clustered":
+        fp, pos, q, cell = step
+        n_cells, cap = fp.clist.slot_mask.shape
+        rows = fp.bucket(pos)[: n_cells * cap].reshape(n_cells, cap, 3)
+        ins = rc._prepare_bucketed(q[fp.clist.atom_index.long()], rows, cell, fp.clist)[:4]
+    else:
+        capacity, n_ch, _ = EDGE_WINDOWS[shape]
+        ins = _dense_window_inputs(step[1].device, capacity, n_ch)
+    pot = _family_window_pot(name)
+    kernels.reset_launch_counts()
+    e_a, g_a, w_a = rc.window_value_and_grad(pot, 3.0, *ins, with_params=True)
+    e_b, g_b, w_b = rc.window_value_and_grad(pot, 3.0, *ins, with_params=True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["window"] == 2
+    assert torch.equal(g_a[0], g_b[0]) and torch.equal(g_a[1], g_b[1])
+    e_p, g_p, w_p = rc._we_value_and_grad(pot, 3.0, *ins, with_params=True)
+    _, g64 = rc._we_value_and_grad(pot, 3.0, *[t.double() for t in ins])
+    assert abs(float(e_a) - float(e_p)) <= 1e-6 * abs(float(e_p))
+    assert _rel(g_a[0], g_p[0]) <= 1e-5 and _rel(g_a[1], g_p[1]) <= 1e-5
+    assert _rel(g_a[2], g64[2]) <= 1e-5 and _rel(g_a[3], g64[3]) <= 1e-5
+    assert len(w_a) == len(w_p) == (1 if name.startswith("combined") else 0)
+    if w_a:
+        (d_w,), (d_w_p,) = w_a, w_p
+        assert d_w.dtype == pot.weights.dtype and _rel(d_w, d_w_p) <= 1e-6
+        total = float(torch.dot(pot.weights.detach().to(d_w), d_w))
+        assert abs(total - float(e_a)) <= 1e-6 * abs(float(e_a))
+
+
+def test_window_kernel_refuses_what_it_cannot_evaluate(step):
+    """No kernel for a spline, an exclusion window or a member outside the
+    table: a TypeError that names plain=True, on the kernel and on the MD
+    step (which never falls back to the plain version by itself)."""
+    fp, pos, q, cell = step
+    ins = _dense_window_inputs(pos.device)
+    r = torch.linspace(0.2, 10.0, 200, dtype=torch.float64)
+    spline = tpt.SplinePotential(r, torch.exp(-r) / r, smearing=1.0)
+    refused = [
+        spline,
+        tpt.CoulombPotential(smearing=1.0, exclusion_radius=1.5),
+        tpt.CombinedPotential([tpt.CoulombPotential(smearing=1.0), spline], smearing=1.0),
+        tpt.CombinedPotential([tpt.InversePowerLawPotential(exponent=p, smearing=1.0)
+                               for p in range(1, 6)], smearing=1.0),
+    ]
+    for pot in refused:
+        with pytest.raises(TypeError, match="plain=True"):
+            rc.window_value_and_grad(pot, 3.0, *ins)
+    calc = tpt.PMECalculator(spline, interpolation_nodes=5)
+    md = tpt.MDFastPath.create(calc, pos, cell, 3.0, NS)
+    with pytest.raises(TypeError, match="plain=True"):
+        md.energy(q, cell, md.bucket(pos))
+    assert np.isfinite(float(md.energy(q, cell, md.bucket(pos), plain=True)))
+
+
+def test_family_md_step_launches_and_matches_plain(step):
+    """A Combined (Coulomb + 1/r^6, learnable weights on the card) MD step:
+    kernels A, B, C launch once each; energy, forces, cell gradient and
+    dE/dw match the plain float32 step, and the cell gradient the float64
+    step (1e-4); the kernel reads the weights where they lie, so an update
+    in place on the card moves the energy."""
+    _, pos, q, cell = step
+    pot = _family_window_pot("combined").to(pos.device)
+    calc = tpt.PMECalculator(pot, interpolation_nodes=5)
+    fp = tpt.MDFastPath.create(calc, pos, cell, 3.0, NS)
+    out = {}
+    for dtype, plain in ((torch.float32, False), (torch.float32, True), (torch.float64, True)):
+        rows = fp.bucket(pos).to(dtype).requires_grad_()
+        cell_g = cell.to(dtype).requires_grad_()
+        kernels.reset_launch_counts()
+        e = fp.energy(q.to(dtype), cell_g, rows, plain=plain)
+        grads = torch.autograd.grad(e, (rows, cell_g, pot.weights))
+        torch.cuda.synchronize()
+        out[dtype, plain] = (float(e.detach()), *grads, kernels.launch_counts())
+    kern, ref, ref64 = out[torch.float32, False], out[torch.float32, True], out[torch.float64, True]
+    assert all(kern[4][k] == 1 for k in ("spread_fwd", "spread_bwd", "window"))
+    assert abs(kern[0] - ref[0]) <= 1e-5 * abs(ref[0])
+    for a, b in zip(kern[1:4], ref[1:4]):
+        assert _rel(a, b) <= 1e-5
+    assert _rel(kern[2], ref64[2]) <= 1e-4
+    with torch.no_grad():
+        pot.weights.mul_(2.0)
+    e2 = float(fp.energy(q, cell, fp.bucket(pos)).detach())
+    assert abs(e2 - 2 * kern[0]) <= 1e-5 * abs(kern[0])  # E is linear in the weights
+
+
+def test_extras_table_step_launches_d_e_f(device):
+    """The aligned step with the extras tile table spreads the spill rows by
+    kernel D (E + F backward) and agrees with the scatter route."""
+    rng = np.random.default_rng(3)
+    pos = rng.uniform(0, 4.0, (48, 3))
+    pos[:14] = rng.uniform(0.1, 0.9, (14, 3))
+    q = rng.normal(size=(48, 1))
+    q -= q.mean()
+    f32 = dict(dtype=torch.float32, device=device)
+    pos32, q32, cell32 = (torch.tensor(a, **f32) for a in (pos, q, np.eye(3) * 4.0))
+    calc = tpt.PMECalculator(tpt.CoulombPotential(smearing=0.35), interpolation_nodes=4)
+    energies = {}
+    for impl in ("tiled", "scatter"):
+        fp = tpt.MDFastPath.create(calc, pos32, cell32, 0.9, (16, 16, 16), mesh_impl="aligned",
+                                   cell_capacity=8, extras_impl=impl, balance=False, _spill=True)
+        rows = fp.bucket(pos32).requires_grad_()
+        kernels.reset_launch_counts()
+        e = fp.energy(q32, cell32, rows)
+        torch.autograd.grad(e, rows)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert (counts["mesh_spread"] >= 1) == (impl == "tiled"), counts
+        energies[impl] = float(e.detach())
+    assert abs(energies["tiled"] - energies["scatter"]) <= 1e-6 * abs(energies["scatter"])

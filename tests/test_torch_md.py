@@ -280,7 +280,7 @@ def test_mesh_modes_and_options_validated():
     for kw, err in (
         (dict(mesh_impl="fused", tile_capacity=100), ValueError),
         (dict(mesh_impl="nope"), ValueError),
-        (dict(extras_impl="tiled"), NotImplementedError),
+        (dict(extras_impl="table"), ValueError),
         (dict(balance="yes"), ValueError),
     ):
         with pytest.raises(err):

@@ -20,6 +20,10 @@ def _port_definitions() -> set[str]:
 def test_ops_exports_every_ported_name_of_the_jax_namespace():
     ported = set(jax_ops.__all__) & _port_definitions()
     assert {"cell_list_rspace_energy", "MeshInterpolationWeights"} <= ported
+    # the scalar math and the spline tier (ops/math.py, ops/splines.py)
+    assert {"exp1", "CustomExp1", "gamma", "gammainc_over_powerlaw", "gammaincc_over_powerlaw",
+            "CubicSpline", "CubicSplineReciprocal", "compute_spline_ft",
+            "compute_second_derivatives", "solve_tridiagonal"} <= ported
     missing = sorted(ported - set(port_ops.__all__))
     assert not missing, f"defined by the port but not exported from its ops: {missing}"
 

@@ -44,8 +44,9 @@ def test_prefactors_match():
 
 
 def test_potential_rejects_exclusion_radius():
+    # the exclusion window is ported: only a radius that is not positive is refused
     with pytest.raises(ValueError, match="exclusion_radius"):
-        tpt.CoulombPotential(smearing=1.0, exclusion_radius=2.0)
+        tpt.CoulombPotential(smearing=1.0, exclusion_radius=0.0)
     with pytest.raises(ValueError, match="smearing"):
         tpt.PMECalculator(tpt.CoulombPotential())
 

@@ -36,6 +36,18 @@ def random_box(n, box, seed, lo=0.0, hi=None, charges="normal"):
     return positions, q, np.eye(3) * box
 
 
+def lattice_box(seed, n_side=7, box=16.0, jitter=0.35):
+    """A jittered cubic lattice (no pair closer than ~1.6 Å, so the steep
+    1/r^p gradients stay well conditioned in float64) with neutral normal
+    charges, as float64 numpy."""
+    rng = np.random.default_rng(seed)
+    grid = (np.stack(np.meshgrid(*[np.arange(n_side)] * 3, indexing="ij"), -1).reshape(-1, 3)
+            + 0.5) * (box / n_side)
+    positions = grid + rng.uniform(-jitter, jitter, grid.shape)
+    q = rng.normal(size=(positions.shape[0], 1))
+    return positions, q - q.mean(), np.eye(3) * box
+
+
 def clustered_box(n, box, seed, n_cluster=40):
     """A box with a dense cluster, so tight cell lists spill."""
     positions, q, cell = random_box(n, box, seed)
@@ -102,6 +114,47 @@ def jax_tiled_state(interp_j) -> dict:
     return state
 
 
+def _opt_float(value):
+    return None if value is None else float(value)
+
+
+def jax_potential_state(pot_j) -> dict:
+    """The numpy state dict of a JAX potential (convert's keys)."""
+    import torchpme_tpu as tpme
+    from torchpme_tpu.ops.splines import CubicSplineReciprocal
+
+    kinds = {
+        tpme.CoulombPotential: "coulomb",
+        tpme.InversePowerLawPotential: "inverse_power_law",
+        tpme.CombinedPotential: "combined",
+        tpme.SplinePotential: "spline",
+    }
+    state = {
+        "kind": kinds[type(pot_j)],
+        "smearing": _opt_float(pot_j.smearing),
+        "exclusion_radius": _opt_float(pot_j.exclusion_radius),
+        "exclusion_degree": int(pot_j.exclusion_degree),
+        "prefactor": float(pot_j.prefactor),
+    }
+    if state["kind"] == "inverse_power_law":
+        state["exponent"] = int(pot_j.exponent)
+    elif state["kind"] == "combined":
+        state.update(
+            members=[jax_potential_state(p) for p in pot_j.potentials],
+            weights=np.asarray(pot_j.weights),
+            learnable_weights=bool(pot_j.learnable_weights),
+        )
+    elif state["kind"] == "spline":
+        state.update({name: np.asarray(getattr(pot_j, name))
+                      for name in ("r_grid", "y_grid", "k_grid", "yhat_grid")})
+        state.update(
+            reciprocal=isinstance(pot_j._spline, CubicSplineReciprocal),
+            y_at_zero=float(pot_j._y_at_zero),
+            yhat_at_zero=float(pot_j._yhat_at_zero),
+        )
+    return state
+
+
 def jax_md_state(fp_j) -> dict:
     """The numpy state dict of a JAX MDFastPath (convert's keys)."""
     calc = fp_j.calc
@@ -124,8 +177,14 @@ def jax_md_state(fp_j) -> dict:
     }
     if calc._method == "P3M":
         state.update(mode=int(calc.mode), differential_order=int(calc.differential_order))
+    pot_state = jax_potential_state(calc.potential)
+    if pot_state["kind"] != "coulomb" or pot_state["exclusion_radius"] is not None:
+        state["potential"] = pot_state
     state.update(clist_arrays(fp_j.clist))
     state["tiled"] = None if fp_j.tiled is None else jax_tiled_state(fp_j.tiled)
+    state["extras_tiled"] = (
+        None if fp_j.extras_tiled is None else jax_tiled_state(fp_j.extras_tiled)
+    )
     return state
 
 

@@ -1,7 +1,10 @@
 """torchpme_tpu_torch: the PyTorch + CUDA port of :mod:`torchpme_tpu`.
 
 A second package beside the JAX one, keeping its module paths and public
-names.  It holds the point-charge calculators over ``CoulombPotential``
+names.  It holds the pair potentials (``CoulombPotential``,
+``InversePowerLawPotential``, ``CombinedPotential`` with trainable weights,
+``SplinePotential``, each with the optional exclusion window), the
+point-charge calculators over them
 (``Calculator`` for the direct sum, ``EwaldCalculator``, ``PMECalculator``,
 ``P3MCalculator``; per atom over a neighbor list or a cell list), their MD
 steps (``MDFastPath`` in aligned, fused and tiled mode for the mesh
@@ -27,13 +30,22 @@ from .calculators import (
 )
 from .device import default_device
 from .md import MDFastPath, MDFastPathDipole, MDFastPathEwald
-from .potentials import CoulombPotential, Potential, PotentialDipole
+from .potentials import (
+    CombinedPotential,
+    CoulombPotential,
+    InversePowerLawPotential,
+    Potential,
+    PotentialDipole,
+    SplinePotential,
+)
 
 __all__ = [
     "Calculator",
     "CalculatorDipole",
+    "CombinedPotential",
     "CoulombPotential",
     "EwaldCalculator",
+    "InversePowerLawPotential",
     "MDFastPath",
     "MDFastPathDipole",
     "MDFastPathEwald",
@@ -42,5 +54,6 @@ __all__ = [
     "PMECalculatorDipole",
     "Potential",
     "PotentialDipole",
+    "SplinePotential",
     "default_device",
 ]

@@ -1,17 +1,21 @@
 """State carried between the JAX package and the port, as numpy.
 
-The calculators have no learned weights.  Their state is the potential's
-scalars and the calculator's settings (:func:`calculator_state` /
+A potential's state is its kind and scalars (``smearing``,
+``exclusion_radius``, ``exclusion_degree``, ``prefactor``) and, by kind,
+the exponent of ``InversePowerLawPotential``, the members and weights of
+``CombinedPotential`` and the grids of ``SplinePotential``
+(:func:`potential_state` / :func:`potential_from_state`).  A calculator's
+state is its potential's and the calculator's settings (:func:`calculator_state` /
 :func:`calculator_from_state`, enough for the per-atom call: the stencil of
 ``PMECalculator`` and ``P3MCalculator``, P3M's influence-function ``mode``
 and ``differential_order``, Ewald's ``lr_wavelength``), a reusable
 tile bucketing (:func:`tiled_interp_state` / :func:`tiled_interp_from_state`)
 and the host-built bucketing of :class:`~torchpme_tpu_torch.md.MDFastPath`
 (the cell list, the row map, the static shapes and, in tiled mode, the tile
-bucketing).  :func:`md_state` writes that state as a flat dict of numpy
+bucketing; in aligned mode the extras tile table, when it has one).  :func:`md_state` writes that state as a flat dict of numpy
 arrays and Python scalars; :func:`md_from_state` builds the port's
-``CoulombPotential``, ``PMECalculator`` and ``MDFastPath`` from such a dict
-on a given device; :func:`md_ewald_state` / :func:`md_ewald_from_state`
+potential, ``PMECalculator`` or ``P3MCalculator`` and ``MDFastPath`` from such a dict
+on a given device (its potential from ``potential``); :func:`md_ewald_state` / :func:`md_ewald_from_state`
 do the same for :class:`~torchpme_tpu_torch.md.MDFastPathEwald` (its cell
 list, row map and k-space extents).  The dipolar family has the same four
 functions
@@ -37,7 +41,13 @@ from .device import resolve_device
 from .md import MDFastPath, MDFastPathDipole, MDFastPathEwald
 from .ops.mesh_tiled import TiledInterpolation
 from .ops.rspace_cells import CellList
-from .potentials import CoulombPotential, PotentialDipole
+from .potentials import (
+    CombinedPotential,
+    CoulombPotential,
+    InversePowerLawPotential,
+    PotentialDipole,
+    SplinePotential,
+)
 
 __all__ = [
     "calculator_from_state",
@@ -50,6 +60,8 @@ __all__ = [
     "md_ewald_state",
     "md_from_state",
     "md_state",
+    "potential_from_state",
+    "potential_state",
     "tiled_interp_from_state",
     "tiled_interp_state",
 ]
@@ -72,12 +84,96 @@ _TILED_ARRAYS = (
 _TILED_FLOAT_ARRAYS = ("weights", "dweights")
 
 
+_POTENTIAL_KINDS = {
+    CoulombPotential: "coulomb",
+    InversePowerLawPotential: "inverse_power_law",
+    CombinedPotential: "combined",
+    SplinePotential: "spline",
+}
+_SPLINE_GRIDS = ("r_grid", "y_grid", "k_grid", "yhat_grid")
+
+
+def _opt_float(value):
+    return None if value is None else float(value)
+
+
+def potential_state(pot) -> dict:
+    """A potential as numpy arrays and Python scalars: ``kind``, its scalars
+    and, by kind, ``exponent``; ``members`` (their states), ``weights`` and
+    ``learnable_weights``; or the spline grids, ``reciprocal`` and the values
+    at zero."""
+    kind = _POTENTIAL_KINDS.get(type(pot))
+    if kind is None:
+        raise TypeError(f"no numpy state for a {type(pot).__name__}")
+    state = {
+        "kind": kind,
+        "smearing": _opt_float(pot.smearing),
+        "exclusion_radius": _opt_float(pot.exclusion_radius),
+        "exclusion_degree": int(pot.exclusion_degree),
+        "prefactor": float(pot.prefactor),
+    }
+    if kind == "inverse_power_law":
+        state["exponent"] = int(pot.exponent)
+    elif kind == "combined":
+        state.update(
+            members=[potential_state(p) for p in pot.potentials],
+            weights=pot.weights.detach().cpu().numpy(),
+            learnable_weights=bool(pot.learnable_weights),
+        )
+    elif kind == "spline":
+        state.update({name: getattr(pot, name).detach().cpu().numpy() for name in _SPLINE_GRIDS})
+        state.update(
+            reciprocal=bool(pot.reciprocal),
+            y_at_zero=float(pot._y_at_zero),
+            yhat_at_zero=float(pot._yhat_at_zero),
+        )
+    return state
+
+
+def potential_from_state(state: dict):
+    """The port's potential from the keys of :func:`potential_state` (a
+    dict filled from the JAX package's potential gives the same one)."""
+    common = dict(
+        smearing=_opt_float(state.get("smearing")),
+        exclusion_radius=_opt_float(state.get("exclusion_radius")),
+        exclusion_degree=int(state.get("exclusion_degree", 1)),
+    )
+    kind = state.get("kind", "coulomb")
+    if kind == "combined":
+        return CombinedPotential(
+            [potential_from_state(m) for m in state["members"]],
+            initial_weights=torch.from_numpy(np.array(state["weights"], dtype=np.float64)),
+            learnable_weights=bool(state.get("learnable_weights", True)),
+            **common,
+        )
+    prefactor = float(state.get("prefactor", 1.0))
+    if kind == "coulomb":
+        return CoulombPotential(**common, prefactor=prefactor)
+    if kind == "inverse_power_law":
+        return InversePowerLawPotential(int(state["exponent"]), **common, prefactor=prefactor)
+    if kind == "spline":
+        grids = {name: torch.from_numpy(np.array(state[name], dtype=np.float64))
+                 for name in _SPLINE_GRIDS}
+        return SplinePotential(
+            **grids, reciprocal=bool(state["reciprocal"]),
+            y_at_zero=float(state["y_at_zero"]), yhat_at_zero=float(state["yhat_at_zero"]),
+            **common, prefactor=prefactor,
+        )
+    raise ValueError(
+        f"`kind` is {kind!r} but must be 'coulomb', 'inverse_power_law', 'combined' or 'spline'"
+    )
+
+
 def calculator_state(calc) -> dict:
-    """The potential's scalars and the calculator's settings: the stencil of
-    a mesh calculator (``method`` ``"Lagrange"`` for PME, ``"P3M"`` with
-    ``mode`` and ``differential_order``), or Ewald's ``lr_wavelength``."""
+    """The potential's ``smearing`` and ``prefactor`` (and, for any potential
+    but a ``CoulombPotential`` without exclusion window, its whole state under
+    ``potential``) and the calculator's settings: the stencil of a mesh
+    calculator (``method`` ``"Lagrange"`` for PME, ``"P3M"`` with ``mode``
+    and ``differential_order``), or Ewald's ``lr_wavelength``."""
     pot = calc.potential
     state = {"smearing": pot.smearing, "prefactor": pot.prefactor}
+    if type(pot) is not CoulombPotential or pot.exclusion_radius is not None:
+        state["potential"] = potential_state(pot)
     if isinstance(calc, EwaldCalculator):
         state["lr_wavelength"] = calc.lr_wavelength
         return state
@@ -92,15 +188,20 @@ def calculator_state(calc) -> dict:
 
 
 def calculator_from_state(state: dict, **kwargs):
-    """The port's calculator over a ``CoulombPotential`` from the keys of
-    :func:`calculator_state`: ``EwaldCalculator`` where the state has an
+    """The port's calculator from the keys of :func:`calculator_state` (its
+    potential from ``potential``, or a ``CoulombPotential`` of the top-level
+    ``smearing`` and ``prefactor`` where the state has none):
+    ``EwaldCalculator`` where the state has an
     ``lr_wavelength`` and no ``method``, else ``PMECalculator``
     (``"Lagrange"``) or ``P3MCalculator`` (``"P3M"``).  ``kwargs``
     (``full_neighbor_list``, ``mesh_backend``, ``tile_capacity``) go to the
     calculator."""
-    potential = CoulombPotential(
-        smearing=float(state["smearing"]), prefactor=float(state["prefactor"])
-    )
+    if state.get("potential") is not None:
+        potential = potential_from_state(state["potential"])
+    else:
+        potential = CoulombPotential(
+            smearing=float(state["smearing"]), prefactor=float(state["prefactor"])
+        )
     method = state.get("method")
     if method is None and state.get("lr_wavelength") is not None:
         return EwaldCalculator(potential, lr_wavelength=float(state["lr_wavelength"]), **kwargs)
@@ -177,6 +278,7 @@ def md_state(fp: MDFastPath) -> dict:
         "ns_mesh": fp.ns_mesh,
         "cell_grid": fp.cell_grid,
         "aligned_pad": fp.aligned_pad,
+        "extras_tiled": None if fp.extras_tiled is None else tiled_interp_state(fp.extras_tiled),
     }
 
 
@@ -211,6 +313,7 @@ def md_from_state(state: dict, device=None) -> MDFastPath:
     :func:`torchpme_tpu_torch.default_device`)."""
     device = resolve_device(device)
     clist, row_of_atom, tiled = _bucketing_from_state(state, device)
+    extras = state.get("extras_tiled")
     return MDFastPath(
         calculator_from_state(state),
         clist,
@@ -222,6 +325,7 @@ def md_from_state(state: dict, device=None) -> MDFastPath:
         int(state["aligned_pad"]),
         tiled,
         state.get("mesh_impl"),
+        None if extras is None else tiled_interp_from_state(extras, device),
     )
 
 

@@ -6,20 +6,29 @@
 // largest phase of the step).  Energy sum_{pairs} q_i q_j V_SR(d_ij) over
 // the cell-list torus window of every home cell; pairs need d^2 < cutoff^2,
 // d^2 > 0 and an occupied j slot, and the self pair is excluded by identity
-// (its d^2 is 0).  The pair math is CoulombPotential.sr_window_math in
-// float32: V and V'/d from d^2 with one shared Gaussian (Abramowitz & Stegun
-// 7.1.26 erfc) and rsqrt; or, in the compile-time DIRECT variant (a
-// potential without smearing, the calculators' direct mode), the unsmeared
-// pair V = prefactor / d, V'/d = -V / d^2 from one rsqrt.  Outputs: acc (double, zeroed by the caller: [0]
-// the energy, [1, 43) the d_offs sums, then a block counter), d_pc (cells,
-// 3, cap), d_q (cells, cap, C) and d_offs (14, 3), written whole by the
-// kernel; the caller's autograd carries them to positions, charges and the
-// cell.
+// (its d^2 is 0).  The pair math is a table of up to four 1/r^p terms
+// (WindowMember): InversePowerLawPotential.sr_window_math in float32 for
+// p = 1..6 (CoulombPotential's is p = 1), V and V'/d from d^2 with one shared
+// Gaussian (Abramowitz & Stegun 7.1.26 erfc for odd p) and rsqrt; or, in the
+// compile-time DIRECT variant (potentials without smearing, the calculators'
+// direct mode), the unsmeared V = P d^-p, V'/d = -p V / d^2.  KIND 0 is one
+// term at p = 1 (compiled for it), KIND 1 one term of any p, KIND 2 a
+// CombinedPotential: V = sum_k w_k V_k over its terms, a loop whose branch
+// on p every warp takes the same way (the table is uniform), and each term's
+// energy sum q_i q_j V_k accumulated in double besides, which is dE/dw_k.
+// The weights are read from device memory (`weights`, float, one a term), so
+// that trainable weights on the card need no copy to the host.
+// Outputs: acc (double, zeroed by the caller: [0] the energy, [1, 43) the
+// d_offs sums, [43] a block counter, [44, 48) the members' energies, [48, 57)
+// the image term of the cell gradient), d_pc (cells, 3, cap), d_q (cells,
+// cap, C) and d_offs (14, 3), written whole by the kernel; the caller's
+// autograd carries them to positions, charges, the cell and the weights.
 //
 // What bounds it on the H100.  At the main path (5120 cells, cap 24) the
 // window is ~80M candidate pairs of occupied slots over 27 offsets, each
 // placed and tested in ~12 instructions, and 5.3M pairs inside the cutoff at
-// ~50 more (one expf, one rsqrtf, one divide): instruction issue and its
+// ~50 more (one expf, one rsqrtf, one divide; per term of a combination, in
+// KIND 2): instruction issue and its
 // latency, with no reuse across blocks.  The first version evaluated each
 // pair once (the 14 half-window offsets) and sent the j side home with warp
 // shuffles and global float atomics: ~7M atomics on rows that 14 blocks hit
@@ -62,6 +71,16 @@
 //   all blocks; the self row is 0 (its pairs cancel).  A block sums them in
 //   double and adds one double atomic per value, as the energy; the last
 //   block to finish writes the float d_offs.
+// * The image term.  The window's cell gradient at fixed positions is
+//   -sum over pairs of m_ij (x) g_ij, where m_ij is the integer image vector
+//   of the pair (1 or -1 on an axis where the neighbour cell lies across the
+//   box's periodic boundary, 0 elsewhere) and g_ij the pair's i-side
+//   gradient.  Pushing d_pc through the cell centres instead (the chain
+//   rule) sums float per-atom gradients of 1e6 and more times centres of up
+//   to the box's edge, and their rounding alone reaches 1e-4 of the result at
+//   102k atoms; this sum has none of it.  A boundary block adds its
+//   -1/2 sum_o m(home, o) (x) S(o) (each pair is met from both ends, with
+//   m and g both negated) by one double atomic per entry.
 //
 // Plain CUDA C++, float32 only; the wrapper
 // (ops/rspace_cells.py:window_value_and_grad) checks shapes and dtypes.
@@ -72,36 +91,81 @@
 #define N_WIN 27
 #define SELF_O 13
 #define MAX_CH 4
+#define MAX_MEMBERS 4
+#define MEMBER_ROW (2 + 3 * N_OFF)  // acc row of the first member's energy
+#define IMAGE_ROW (MEMBER_ROW + MAX_MEMBERS)  // acc rows of the image term, (3, 3)
 #define THREADS 224  // 7 full warps: every shuffle and ballot names 32 live lanes
 #define FULL_MASK 0xffffffffu
 #define FAR 1.0e18f  // where empty slots are parked: (FAR)^2 still fits a float
+
+// One 1/r^p pair term; the constants are rounded to float from the Python
+// expressions of the plain version's pair math (ops/rspace_cells.py:_window_params).
+struct WindowMember {
+  int p;  // exponent, 1..6
+  float alpha, alpha_sq, prefactor, c_gauss;  // c_gauss: the Gaussian term of V'
+};
 
 struct WindowParams {
   int nx, ny, nz, cap, n_ch, self_k;
   int group;  // neighbour offsets staged per pass: 27, 9, 3 or 1
   int direct;  // 1: the unsmeared pair (direct mode), 0: the SR part of the Ewald split
-  float cutoff_sq, alpha, alpha_sq, prefactor, c_gauss;
+  int kind;  // 0: one term, p = 1; 1: one term; 2: a combination of n_members terms
+  int n_members;
+  float cutoff_sq;
+  WindowMember members[MAX_MEMBERS];
   int offsets[3 * N_OFF];
 };
 
 __device__ __forceinline__ int wrap_i(int a, int n) { return (a % n + n) % n; }
 
-template <bool DIRECT>
-__device__ __forceinline__ void window_math(float d2, const WindowParams& p, float* v, float* w) {
-  const float rd = rsqrtf(d2);
+// (V, V'/d) of one term at compile-time exponent P, from d^2, rsqrt(d^2) and its square
+template <int P, bool DIRECT>
+__device__ __forceinline__ float2 term_math(float d2, float rd, float rd2, const WindowMember& m) {
+  float inv_dp;  // d^-p as products of rd and rd2, in the plain version's order
+  if (P == 1) inv_dp = rd;
+  else if (P == 2) inv_dp = rd2;
+  else if (P == 3) inv_dp = rd2 * rd;
+  else if (P == 4) inv_dp = rd2 * rd2;
+  else if (P == 5) inv_dp = (rd2 * rd2) * rd;
+  else inv_dp = (rd2 * rd2) * rd2;
   if (DIRECT) {
-    *v = p.prefactor * rd;
-    *w = -*v * (rd * rd);
-    return;
+    const float v = m.prefactor * inv_dp;
+    return make_float2(v, (-(float)P * v) * rd2);
   }
-  const float gauss = expf(-p.alpha_sq * d2);
-  const float y = p.alpha * (d2 * rd);
-  const float t = 1.0f / (1.0f + 0.3275911f * y);
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  *v = p.prefactor * (poly * gauss) * rd;
-  *w = -(*v + p.c_gauss * gauss) * (rd * rd);
+  const float z = m.alpha_sq * d2;
+  const float gauss = expf(-z);
+  float q_upper;  // regularized upper incomplete gamma Q(p/2, z)
+  if (P % 2) {
+    const float sz = m.alpha * (d2 * rd);
+    const float t = 1.0f / (1.0f + 0.3275911f * sz);
+    const float poly =
+        t * (0.254829592f +
+             t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+    const float erfc = poly * gauss;
+    const float two_rpi = 1.1283791670955126f;  // 2 / sqrt(pi)
+    if (P == 1) q_upper = erfc;
+    else if (P == 3) q_upper = erfc + (two_rpi * sz) * gauss;
+    else q_upper = erfc + ((two_rpi * sz) * (1.0f + (2.0f / 3.0f) * z)) * gauss;
+  } else {
+    if (P == 2) q_upper = gauss;
+    else if (P == 4) q_upper = (1.0f + z) * gauss;
+    else q_upper = (1.0f + z * (1.0f + 0.5f * z)) * gauss;
+  }
+  const float v = (m.prefactor * q_upper) * inv_dp;
+  return make_float2(v, -((float)P * v + m.c_gauss * gauss) * rd2);
+}
+
+// the same with the exponent read from the table (uniform across the block)
+template <bool DIRECT>
+__device__ __forceinline__ float2 term_math_rt(float d2, float rd, float rd2, const WindowMember& m) {
+  switch (m.p) {
+    case 1: return term_math<1, DIRECT>(d2, rd, rd2, m);
+    case 2: return term_math<2, DIRECT>(d2, rd, rd2, m);
+    case 3: return term_math<3, DIRECT>(d2, rd, rd2, m);
+    case 4: return term_math<4, DIRECT>(d2, rd, rd2, m);
+    case 5: return term_math<5, DIRECT>(d2, rd, rd2, m);
+    default: return term_math<6, DIRECT>(d2, rd, rd2, m);
+  }
 }
 
 // Shared memory of one block: the home cell (float4 slots, charges) and its
@@ -116,12 +180,14 @@ __host__ __device__ inline size_t window_smem(int cap, int n_ch, int group) {
 
 // pc (cells, 3, cap), q (cells, cap, C), mf (cells, cap), offs (14, 3).
 // G neighbour offsets a pass; with all 27 in one pass the row sums go
-// straight to d_pc and d_q.  DIRECT: the unsmeared pair math.
-template <int G, bool DIRECT>
-__global__ void __launch_bounds__(THREADS, 6)
+// straight to d_pc and d_q.  DIRECT: the unsmeared pair math.  KIND: the
+// pair-term table's form (WindowParams::kind); KIND 2 holds the members'
+// energies in registers, so it is given more of them.
+template <int G, bool DIRECT, int KIND>
+__global__ void __launch_bounds__(THREADS, KIND == 2 ? 4 : 6)
 window_kernel(const float* __restrict__ pc, const float* __restrict__ q, const float* __restrict__ mf,
-        const float* __restrict__ offs, double* __restrict__ acc, float* __restrict__ d_pc,
-        float* __restrict__ d_q, float* __restrict__ d_offs, WindowParams p) {
+        const float* __restrict__ offs, const float* __restrict__ weights, double* __restrict__ acc,
+        float* __restrict__ d_pc, float* __restrict__ d_q, float* __restrict__ d_offs, WindowParams p) {
   extern __shared__ float4 smem4[];
   const int cap = p.cap, C = p.n_ch, nv = 3 + C;
   float4* s_home = smem4;                                      // (cap) home slots
@@ -132,7 +198,7 @@ window_kernel(const float* __restrict__ pc, const float* __restrict__ q, const f
   float* s_res = s_q + G * cap * C;                            // (G, 3 + C, cap) item sums
   int* s_list = reinterpret_cast<int*>(s_res + G * nv * cap);  // (G cap) item list
   __shared__ int s_nbr[N_WIN], s_sign[N_WIN], s_jend[N_WIN], s_count;
-  __shared__ float s_off[3 * N_WIN], s_box[6 * N_WIN];
+  __shared__ float s_off[3 * N_WIN], s_box[6 * N_WIN], s_w[MAX_MEMBERS];
   __shared__ double s_gsum[3 * N_WIN];  // per offset: the block's i-side gradient sum
   __shared__ double s_e[THREADS / 32 + 1];
   __shared__ bool s_last;
@@ -154,6 +220,7 @@ window_kernel(const float* __restrict__ pc, const float* __restrict__ q, const f
     for (int c = 0; c < 3; ++c) s_off[3 * o + c] = sign * offs[3 * k + c];
     s_jend[o] = 0;
   }
+  if (KIND == 2 && threadIdx.x < p.n_members) s_w[threadIdx.x] = weights[threadIdx.x];
   __syncthreads();
   for (int j = threadIdx.x; j < cap; j += blockDim.x) {
     const float* src = pc + (size_t)home * 3 * cap + j;
@@ -165,6 +232,9 @@ window_kernel(const float* __restrict__ pc, const float* __restrict__ q, const f
     for (int idx = threadIdx.x; idx < nv * cap; idx += blockDim.x) s_sum[idx] = 0.0f;
 
   double e_acc = 0.0;
+  double e_mem[MAX_MEMBERS];  // KIND 2: each member's energy
+#pragma unroll
+  for (int mi = 0; mi < MAX_MEMBERS; ++mi) e_mem[mi] = 0.0;
   for (int g0 = 0; g0 < N_WIN; g0 += G) {
     __syncthreads();  // the previous pass's readers are done
     if (threadIdx.x == 0) s_count = 0;
@@ -260,11 +330,36 @@ window_kernel(const float* __restrict__ pc, const float* __restrict__ q, const f
             mask &= mask - 1;
             const float4 b = pj[j];
             const float dx = pi.x - b.x, dy = pi.y - b.y, dz = pi.z - b.z;
-            float v, w;
-            window_math<DIRECT>(dx * dx + dy * dy + dz * dz, p, &v, &w);
+            const float d2 = dx * dx + dy * dy + dz * dz;
+            const float rd = rsqrtf(d2), rd2 = rd * rd;
+            float v, w, vm[MAX_MEMBERS];
+            if (KIND == 0) {
+              const float2 r = term_math<1, DIRECT>(d2, rd, rd2, p.members[0]);
+              v = r.x, w = r.y;
+            } else if (KIND == 1) {
+              const float2 r = term_math_rt<DIRECT>(d2, rd, rd2, p.members[0]);
+              v = r.x, w = r.y;
+            } else {
+              v = 0.0f, w = 0.0f;
+#pragma unroll
+              for (int mi = 0; mi < MAX_MEMBERS; ++mi) {
+                vm[mi] = 0.0f;
+                if (mi < p.n_members) {
+                  const float2 r = term_math_rt<DIRECT>(d2, rd, rd2, p.members[mi]);
+                  vm[mi] = r.x;
+                  v += s_w[mi] * r.x;
+                  w += s_w[mi] * r.y;
+                }
+              }
+            }
             float qpair = 0.0f;
             for (int c = 0; c < C; ++c) qpair += qi[c] * qj[j * C + c];
             e_acc += 0.5 * (double)(qpair * v);
+            if (KIND == 2) {
+#pragma unroll
+              for (int mi = 0; mi < MAX_MEMBERS; ++mi)
+                if (mi < p.n_members) e_mem[mi] += 0.5 * (double)(qpair * vm[mi]);
+            }
             const float s = qpair * w;
             gx += s * dx;
             gy += s * dy;
@@ -313,6 +408,44 @@ window_kernel(const float* __restrict__ pc, const float* __restrict__ q, const f
     for (int w = 0; w < (blockDim.x + 31) / 32; ++w) e_block += s_e[w];
     atomicAdd(acc, e_block);
   }
+  // the image term, row a (the image axis) and column c: m = floor((h + d) / n)
+  // is -1 on the 9 offsets with d = -1 at h = 0 and +1 on those with d = +1 at
+  // h = n - 1 (both when n = 1), 0 elsewhere; only a block on the box's
+  // boundary has such offsets
+  const bool edge = hx == 0 || hy == 0 || hz == 0 || hx == p.nx - 1 || hy == p.ny - 1 ||
+                    hz == p.nz - 1;
+  if (edge && threadIdx.x < 9) {
+    const int a = threadIdx.x / 3, c = threadIdx.x % 3;
+    const int h = a == 0 ? hx : a == 1 ? hy : hz, n = a == 0 ? p.nx : a == 1 ? p.ny : p.nz;
+    double s = 0.0;
+    for (int side = -1; side <= 1; side += 2) {
+      if (h != (side < 0 ? 0 : n - 1)) continue;
+      for (int t = 0; t < 9; ++t) {  // the offsets whose component a is `side`
+        const int u = t / 3 * (a == 0 ? 3 : 9), v = t % 3 * (a == 2 ? 3 : 1);
+        const int o = u + v + (side + 1) * (a == 0 ? 9 : a == 1 ? 3 : 1);
+        s += side * s_gsum[3 * o + c];
+      }
+    }
+    if (s != 0.0) atomicAdd(acc + IMAGE_ROW + threadIdx.x, -0.5 * s);
+  }
+  if (KIND == 2) {
+    // each member's energy, reduced as the energy is (s_e reused)
+#pragma unroll
+    for (int mi = 0; mi < MAX_MEMBERS; ++mi) {
+      if (mi < p.n_members) {
+        double em = e_mem[mi];
+        for (int m = 16; m > 0; m >>= 1) em += __shfl_xor_sync(FULL_MASK, em, m);
+        __syncthreads();  // s_e's readers are done
+        if (lane == 0) s_e[warp] = em;
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          double e_block = 0.0;
+          for (int w = 0; w < (blockDim.x + 31) / 32; ++w) e_block += s_e[w];
+          atomicAdd(acc + MEMBER_ROW + mi, e_block);
+        }
+      }
+    }
+  }
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -335,7 +468,7 @@ int tpme_window_group(int cap, int n_ch, int device) {
   int optin = 0;
   cudaFuncAttributes attr;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, window_kernel<N_WIN, false>) != cudaSuccess)
+      cudaFuncGetAttributes(&attr, window_kernel<N_WIN, false, 2>) != cudaSuccess)
     return 0;
   const size_t limit = (size_t)optin - attr.sharedSizeBytes;
   const int groups[4] = {27, 9, 3, 1};
@@ -355,24 +488,33 @@ int tpme_window_max_cap(int n_ch, int device) {
   return lo;
 }
 
+// weights: the KIND 2 terms' weights on the device (float, n_members), else unused
 int tpme_window(const float* pc, const float* q, const float* mf, const float* offs,
-                double* acc, float* d_pc, float* d_q, float* d_offs, const WindowParams* p,
-                void* stream) {
-  if (p->n_ch < 1 || p->n_ch > MAX_CH) return (int)cudaErrorInvalidValue;
+                const float* weights, double* acc, float* d_pc, float* d_q, float* d_offs,
+                const WindowParams* p, void* stream) {
+  if (p->n_ch < 1 || p->n_ch > MAX_CH || p->n_members < 1 || p->n_members > MAX_MEMBERS ||
+      p->kind < 0 || p->kind > 2 || (p->kind < 2 && p->n_members != 1) ||
+      (p->kind == 2 && weights == nullptr) ||
+      (p->kind == 0 && p->members[0].p != 1))
+    return (int)cudaErrorInvalidValue;
+  for (int mi = 0; mi < p->n_members; ++mi)
+    if (p->members[mi].p < 1 || p->members[mi].p > 6) return (int)cudaErrorInvalidValue;
   const int n_cells = p->nx * p->ny * p->nz;
   const size_t smem = window_smem(p->cap, p->n_ch, p->group);
   cudaStream_t st = (cudaStream_t)stream;
-  switch (p->group * 2 + (p->direct != 0)) {
-#define WINDOW_CASE(G, D)                                                                      \
-  case G * 2 + D:                                                                              \
-    if (cudaFuncSetAttribute(window_kernel<G, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
-                             (int)smem) != cudaSuccess)                                        \
-      return (int)cudaGetLastError();                                                          \
-    window_kernel<G, D><<<n_cells, THREADS, smem, st>>>(pc, q, mf, offs, acc, d_pc, d_q, d_offs, \
-                                                        *p);                                   \
+  switch ((p->group * 2 + (p->direct != 0)) * 3 + p->kind) {
+#define WINDOW_CASE(G, D, K)                                                                      \
+  case (G * 2 + D) * 3 + K:                                                                       \
+    if (cudaFuncSetAttribute(window_kernel<G, D, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                             (int)smem) != cudaSuccess)                                           \
+      return (int)cudaGetLastError();                                                             \
+    window_kernel<G, D, K><<<n_cells, THREADS, smem, st>>>(pc, q, mf, offs, weights, acc, d_pc,   \
+                                                           d_q, d_offs, *p);                      \
     break;
-    WINDOW_CASE(27, 0) WINDOW_CASE(9, 0) WINDOW_CASE(3, 0) WINDOW_CASE(1, 0)
-    WINDOW_CASE(27, 1) WINDOW_CASE(9, 1) WINDOW_CASE(3, 1) WINDOW_CASE(1, 1)
+#define WINDOW_KINDS(G, D) WINDOW_CASE(G, D, 0) WINDOW_CASE(G, D, 1) WINDOW_CASE(G, D, 2)
+    WINDOW_KINDS(27, 0) WINDOW_KINDS(9, 0) WINDOW_KINDS(3, 0) WINDOW_KINDS(1, 0)
+    WINDOW_KINDS(27, 1) WINDOW_KINDS(9, 1) WINDOW_KINDS(3, 1) WINDOW_KINDS(1, 1)
+#undef WINDOW_KINDS
 #undef WINDOW_CASE
     default: return (int)cudaErrorInvalidValue;
   }

@@ -32,6 +32,7 @@ __all__ = [
     "MeshParams",
     "SpreadParams",
     "WindowDipoleParams",
+    "WindowMember",
     "WindowParams",
     "check_cuda_tensor",
     "check_status",
@@ -58,6 +59,12 @@ NVCC_FLAGS = (
 MAX_NODES = 8  # csrc/spread.cu: coefficient table rows/cols
 N_OFFSETS = 14  # csrc/window.cu, csrc/window_dipole.cu: half-window offsets + the self cell
 MAX_CHANNELS = 4  # csrc/window.cu: per-thread charge-channel registers
+MAX_MEMBERS = 4  # csrc/window.cu: pair terms of a combined potential
+#: csrc/window.cu: first row of the members' energies in the accumulator
+#: (after the energy, the 14 × 3 d_offs sums and the block counter)
+WINDOW_MEMBER_ROW = 2 + 3 * N_OFFSETS
+#: csrc/window.cu: first of the 3 × 3 rows of the image term of the cell gradient
+WINDOW_IMAGE_ROW = WINDOW_MEMBER_ROW + MAX_MEMBERS
 
 
 @dataclass
@@ -111,6 +118,19 @@ class SpreadParams(ctypes.Structure):
     ]
 
 
+class WindowMember(ctypes.Structure):
+    """Mirror of ``struct WindowMember`` in ``csrc/window.cu``: one ``1/r^p``
+    pair term."""
+
+    _fields_ = [
+        ("p", ctypes.c_int),
+        ("alpha", ctypes.c_float),
+        ("alpha_sq", ctypes.c_float),
+        ("prefactor", ctypes.c_float),
+        ("c_gauss", ctypes.c_float),
+    ]
+
+
 class WindowParams(ctypes.Structure):
     """Mirror of ``struct WindowParams`` in ``csrc/window.cu``."""
 
@@ -123,11 +143,10 @@ class WindowParams(ctypes.Structure):
         ("self_k", ctypes.c_int),
         ("group", ctypes.c_int),
         ("direct", ctypes.c_int),
+        ("kind", ctypes.c_int),
+        ("n_members", ctypes.c_int),
         ("cutoff_sq", ctypes.c_float),
-        ("alpha", ctypes.c_float),
-        ("alpha_sq", ctypes.c_float),
-        ("prefactor", ctypes.c_float),
-        ("c_gauss", ctypes.c_float),
+        ("members", WindowMember * MAX_MEMBERS),
         ("offsets", ctypes.c_int * (3 * N_OFFSETS)),
     ]
 
@@ -207,7 +226,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tpme_spread_bwd.argtypes = [p, p, p, p, p, ctypes.POINTER(SpreadParams), p]
     lib.tpme_spread_bwd.restype = ctypes.c_int
     lib.tpme_window.argtypes = [
-        p, p, p, p, p, p, p, p, ctypes.POINTER(WindowParams), p,
+        p, p, p, p, p, p, p, p, p, ctypes.POINTER(WindowParams), p,
     ]
     lib.tpme_window.restype = ctypes.c_int
     lib.tpme_window_group.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]

@@ -83,6 +83,49 @@ def _to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _extras_tile_table(pos_np, cell_np, clist: CellList, ns_mesh, nodes, method, device):
+    """Tile bucketing of the spill side-list rows (host-side): the aligned
+    state spreads its cell rows as tile slots, and with this table its spill
+    rows (``pos_rows[nb:]``) too, by a refresh and kernel D (E + F backward).
+
+    Padded side-list slots are parked along the cell diagonal for the
+    bucketing (so no tile overflows on them) and then emptied: the
+    ``atom_of_slot`` sentinel, a trash ``slot_of_atom`` and zero weights,
+    which exempt them from the refresh's staleness check, as unoccupied
+    tile slots are."""
+    e_idx = clist.extra_index.cpu().numpy()
+    e_msk = clist.extra_mask.cpu().numpy()
+    e_pad = int(e_idx.shape[0])
+    frac = ((np.arange(e_pad) + 0.5) / e_pad).astype(pos_np.dtype)
+    parked = frac[:, None] * cell_np.sum(axis=0)[None, :].astype(pos_np.dtype)
+    ext_pos = np.where(e_msk[:, None], pos_np[e_idx], parked)
+    pos_t = torch.as_tensor(ext_pos, device=device)
+    interp = compute_tiled_interpolation(
+        pos_t, inv3(torch.as_tensor(cell_np, dtype=pos_t.dtype, device=device)),
+        ns_mesh, nodes, method,
+    )
+    dropped = int(interp.dropped)
+    if dropped:
+        raise ValueError(
+            f"{dropped} spill extras exceeded the extras tile capacity "
+            "(unexpected: the capacity counts exact occupancy)"
+        )
+    n_tiles, capacity = interp.local_x.shape
+    aos = interp.atom_of_slot.cpu().numpy()
+    phantom = np.concatenate([~e_msk, [True]])[np.minimum(aos, e_pad)]
+    aos = np.where(phantom, e_pad, aos).astype(np.int32)
+    soa = interp.slot_of_atom.cpu().numpy()
+    soa = np.where(e_msk, soa, n_tiles * capacity).astype(np.int32)
+    weights = interp.weights.cpu().numpy().copy()
+    weights[phantom] = 0.0
+    return replace(
+        interp,
+        atom_of_slot=torch.from_numpy(aos).to(device),
+        slot_of_atom=torch.from_numpy(soa).to(device),
+        weights=torch.from_numpy(weights).to(device),
+    )
+
+
 def _rows_tile_bucketing(
     pos_np, cell_np, ns_mesh, nodes, method, tile_capacity, row_of_atom, n_rows, device,
     derivatives=False,
@@ -143,6 +186,7 @@ class MDFastPath(nn.Module):
         aligned_pad: int = 0,
         tiled: TiledInterpolation | None = None,
         mesh_impl: str | None = None,
+        extras_tiled: TiledInterpolation | None = None,
     ):
         super().__init__()
         #: "aligned" (cell rows are the tile slots), or "tiled" / "fused"
@@ -164,6 +208,9 @@ class MDFastPath(nn.Module):
         self.n_atoms = int(n_atoms)
         self.cell_grid = None if cell_grid is None else tuple(int(n) for n in cell_grid)
         self.aligned_pad = int(aligned_pad)
+        #: extras-only tile bucketing of the spill rows (aligned mode with a
+        #: spill list and ``extras_impl="tiled"``); None: the scatter spreads them
+        self.extras_tiled = extras_tiled
 
     @classmethod
     def create(
@@ -196,8 +243,13 @@ class MDFastPath(nn.Module):
             otherwise fused for state on a CUDA device (on an H100 the fused
             102k step ran faster than the tiled one, in wall and in device
             time: PERF.md), tiled on the CPU.
-        :param extras_impl: ``"auto"`` or ``"scatter"``: spill atoms of the
-            aligned mode spread through the generic scatter.
+        :param extras_impl: how the aligned mode spreads its spill atoms:
+            ``"scatter"`` (the generic scatter, recomputed each step),
+            ``"tiled"`` (an extras-only tile table: refresh + kernel D, E + F
+            backward) or ``"auto"``: the scatter (on an H100 the table took
+            more device time than the scatter at 168 and at 1101 spill atoms
+            of the 102k box, PERF.md; the JAX package's ``"auto"`` takes the
+            table from 512 on, where it saved time on a TPU).
         :param balance: overflow-balance the cell list (``"auto"``: in
             aligned mode, when the widened spread window fits the 2-tile
             fold; tiled mode balances only on ``True``).
@@ -238,14 +290,10 @@ class MDFastPath(nn.Module):
                 "cell-list cell with edge >= cutoff; this cell/mesh/cutoff "
                 "combination does not allow it (use mesh_impl='tiled')"
             )
-        if extras_impl == "tiled":
-            raise NotImplementedError(
-                "extras_impl='tiled' (the extras tile table) is not ported; spill "
-                "atoms spread through the scatter (ROADMAP.md, section 1, row 9)"
-            )
-        if extras_impl not in ("auto", "scatter"):
+        if extras_impl not in ("auto", "tiled", "scatter"):
             raise ValueError(
-                f"`extras_impl` is {extras_impl!r} but must be 'auto' or 'scatter'"
+                f"`extras_impl` is {extras_impl!r} but must be 'auto', 'tiled' or "
+                "'scatter'"
             )
         if balance not in ("auto", True, False):
             raise ValueError(
@@ -287,6 +335,11 @@ class MDFastPath(nn.Module):
         assert aligned_pad <= pad_budget, "balance slack exceeds the spread window"
         _, cap = clist.slot_mask.shape
         row_of_atom, n_rows = _row_mapping(clist, pos_np.shape[0])
+        extras_tiled = None
+        if clist.extra_index is not None and extras_impl == "tiled":
+            extras_tiled = _extras_tile_table(
+                pos_np, cell_np, clist, ns_mesh, calc.interpolation_nodes, calc._method, device,
+            )
         return cls(
             calc,
             clist,
@@ -296,6 +349,7 @@ class MDFastPath(nn.Module):
             pos_np.shape[0],
             (*clist.n_axis, cap),
             aligned_pad,
+            extras_tiled=extras_tiled,
         )
 
     @classmethod
@@ -359,6 +413,7 @@ class MDFastPath(nn.Module):
             cell_capacity=self.clist.slot_mask.shape[1],
             tile_capacity=None if self.tiled is None else self.tiled.local_x.shape[1],
             mesh_impl=self.mesh_impl,
+            extras_impl="scatter" if self.extras_tiled is None else "tiled",
             balance=max(self.clist.slack) > 0.0,
             _spill=self.clist.extra_index is not None,
             device=self.row_of_atom.device,
@@ -406,11 +461,12 @@ class MDFastPath(nn.Module):
             self.calc._method,
             self.cell_grid,
             pad_cells=self.aligned_pad,
+            extras_interp=self.extras_tiled,
             plain=plain,
         )
         # mesh staleness is implied by cell-list staleness (an atom the check
         # accepts keeps its stencil in the tile window: the pad covers slack
-        # and tolerance), which poisons e_sr
+        # and tolerance), which poisons e_sr; a stale extras table poisons rho
         e_k = self.calc._kspace_energy_from_rho(
             rho, cell, charges, pos_rows, None, self.ns_mesh
         )

@@ -380,7 +380,20 @@ def _window_offsets(cap: int) -> list[tuple[int, int, int]]:
     return [o for chunk in _half_window_chunks(cap) for o in chunk]
 
 
-def _prepare_bucketed(q_raw, pos_raw, cell, clist: CellList):
+@functools.lru_cache(maxsize=None)
+def _frame_fractions(n_axis: tuple, cap: int, dtype, device) -> tuple:
+    """The cell grid's frame in fractional coordinates, made once per grid:
+    ``(n, centers, offsets)``, the cells per axis ``(3,)``, each cell's
+    center ``(n_cells, 3)`` and the window offsets ``(14, 3)``."""
+    nx, ny, nz = n_axis
+    n = torch.tensor(n_axis, dtype=dtype, device=device)
+    home = torch.arange(nx * ny * nz, device=device)
+    home3 = torch.stack([home // (ny * nz), (home // nz) % ny, home % nz], dim=-1)
+    flat = torch.tensor(_window_offsets(cap), dtype=dtype, device=device)
+    return n, (home3.to(dtype) + 0.5) / n, flat / n
+
+
+def _prepare_bucketed(q_raw, pos_raw, cell, clist: CellList, window: bool = False):
     """Window inputs from positions/charges already in bucket order.
 
     Returns ``(pc_t, q_g, mf_g, offs, valid)``: cell-center-relative
@@ -388,21 +401,36 @@ def _prepare_bucketed(q_raw, pos_raw, cell, clist: CellList):
     C)``, the occupancy mask ``(nx, ny, nz, cap)``, the ``(14, 3)``
     center-to-center offset vectors (the cell gradient flows through them),
     and the staleness flag as a 0-d bool tensor (no host sync).
+
+    :param window: the inputs of :class:`_WindowEnergy`, which carries the
+        cell gradient of the pair vectors itself (the image term): centers
+        and offsets take no gradient, and float32 coordinates are rounded
+        once from float64 (centers up to a box edge from the origin would
+        round by ~4e-6 Å, 1e-4 of the closest pairs' distance).
     """
     dtype, device = pos_raw.dtype, pos_raw.device
     n_channels = q_raw.shape[-1]
     nx, ny, nz = clist.n_axis
-    n_axis = torch.tensor([nx, ny, nz], dtype=dtype, device=device)
     n_cells, cap = clist.slot_mask.shape
+    n_axis, center_frac, offset_frac = _frame_fractions(clist.n_axis, cap, dtype, device)
     mask = clist.slot_mask[..., None].to(dtype)
-
-    # canonicalize into the cell image the bucketing assigned
-    pos_b = pos_raw - torch.matmul(clist.atom_wrap.to(dtype), cell)
     q_b = q_raw * mask
-    home = torch.arange(n_cells, device=device)
-    home3 = torch.stack([home // (ny * nz), (home // nz) % ny, home % nz], dim=-1)
-    centers = torch.matmul((home3.to(dtype) + 0.5) / n_axis, cell)
-    pc = (pos_b - centers[:, None, :]) * mask  # park padded slots at center
+
+    if window:
+        # one rounding from float64, and no gradient through the frame
+        wide = torch.promote_types(dtype, torch.float64)
+        _, center_wide, offset_wide = _frame_fractions(clist.n_axis, cap, wide, device)
+        frame = cell.detach().to(wide)
+        pos_b = pos_raw.to(wide) - torch.matmul(clist.atom_wrap.to(wide), cell.to(wide))
+        centers = torch.matmul(center_wide, frame)
+        pc = ((pos_b - centers[:, None, :]) * mask.to(wide)).to(dtype)
+        offs = torch.matmul(offset_wide, frame).to(dtype)
+    else:
+        # canonicalize into the cell image the bucketing assigned
+        pos_b = pos_raw - torch.matmul(clist.atom_wrap.to(dtype), cell)
+        centers = torch.matmul(center_frac, cell)
+        pc = (pos_b - centers[:, None, :]) * mask  # park padded slots at center
+        offs = torch.matmul(offset_frac, cell)  # (14, 3)
     pc_t = pc.reshape(nx, ny, nz, cap, 3).transpose(-1, -2).contiguous()
     q_g = q_b.reshape(nx, ny, nz, cap, n_channels).contiguous()
     mf_g = clist.slot_mask.reshape(nx, ny, nz, cap).to(dtype)
@@ -414,13 +442,10 @@ def _prepare_bucketed(q_raw, pos_raw, cell, clist: CellList):
         frac_t = torch.einsum("fe,xyzfa->xyzea", inv_cell * n_axis[None, :], pc_t)
         bound = 0.5 + torch.tensor(clist.slack, dtype=dtype, device=device) + STALE_TOL
         valid = torch.all(torch.abs(frac_t) < bound[:, None])
-
-    flat = torch.tensor(_window_offsets(cap), dtype=dtype, device=device)
-    offs = torch.matmul(flat / n_axis, cell)  # (14, 3)
     return pc_t, q_g, mf_g, offs, valid
 
 
-def _prepare(charges, positions, cell, clist: CellList):
+def _prepare(charges, positions, cell, clist: CellList, window: bool = False):
     """Window inputs from atom-order charges and positions (one gather each
     into bucket order), as :func:`_prepare_bucketed`.  The gathers are
     ``index_select``: its backward is one atomic ``index_add`` (advanced
@@ -429,7 +454,7 @@ def _prepare(charges, positions, cell, clist: CellList):
     idx = clist.atom_index.reshape(-1).long()
     return _prepare_bucketed(
         charges.to(positions.dtype).index_select(0, idx).reshape(n_cells, cap, -1),
-        positions.index_select(0, idx).reshape(n_cells, cap, 3), cell, clist,
+        positions.index_select(0, idx).reshape(n_cells, cap, 3), cell, clist, window=window,
     )
 
 
@@ -438,29 +463,115 @@ def _prepare(charges, positions, cell, clist: CellList):
 
 def _pair_values(potential, dist):
     """Pair terms ``v(d)`` in the calculators' convention: the whole
-    potential without smearing (direct mode), its short-range part with."""
+    potential without smearing (direct mode; times ``1 - f_cut`` with an
+    exclusion window), its short-range part with."""
     if potential.smearing is None:
-        return potential.from_dist(dist)
+        values = potential.from_dist(dist)
+        if getattr(potential, "exclusion_radius", None) is not None:
+            values = values * (1 - potential.f_cutoff(dist))
+        return values
     return potential.sr_from_dist(dist)
 
 
+def _smooth_split(potential) -> bool:
+    """Range-separated without an exclusion window: the pair term is the
+    smooth SR part, which the analytic hooks describe."""
+    return potential.smearing is not None and getattr(potential, "exclusion_radius", None) is None
+
+
+def _trainable(potential) -> tuple:
+    """The potential's parameters that want a gradient (the weights of a
+    learnable ``CombinedPotential``)."""
+    if not isinstance(potential, torch.nn.Module):
+        return ()
+    return tuple(p for p in potential.parameters() if p.requires_grad)
+
+
+def _window_terms(potential):
+    """``[(member, exponent)]``: the ``1/r^p`` pair terms kernel C evaluates
+    for ``potential`` (a ``CoulombPotential`` is p = 1; a
+    ``CombinedPotential`` of up to ``kernels.MAX_MEMBERS`` of them, all
+    smeared or all direct), or ``None`` where it cannot (an exclusion
+    window, a spline, any other member)."""
+    from ..potentials import CombinedPotential, CoulombPotential, InversePowerLawPotential
+
+    def exponent(pot):
+        if getattr(pot, "exclusion_radius", None) is not None:
+            return None
+        if type(pot) is CoulombPotential:
+            return 1
+        if type(pot) is InversePowerLawPotential:
+            return pot.exponent
+        return None
+
+    members = [potential]
+    if type(potential) is CombinedPotential:
+        members = list(potential.potentials)
+        if potential.exclusion_radius is not None or not 1 <= len(members) <= _k.MAX_MEMBERS:
+            return None
+    terms = [(m, exponent(m)) for m in members]
+    return None if any(p is None for _, p in terms) else terms
+
+
+def _term_window_math(member, p: int, dist_sq):
+    """float32 ``(V, V'/d)`` of one ``1/r^p`` term from :math:`d^2`: the
+    member's ``sr_window_math`` with smearing, the unsmeared
+    :math:`V = P d^{-p}`, :math:`V'/d = -pV/d^2` from one ``rsqrt`` without."""
+    if member.smearing is not None:
+        return member.sr_window_math(dist_sq)
+    rd = torch.rsqrt(dist_sq)
+    rd2 = rd * rd
+    inv_dp = rd2 ** ((p - 1) // 2) * rd if p % 2 else rd2 ** (p // 2)
+    v = member.prefactor * inv_dp
+    return v, -p * v * rd2
+
+
 def _window_math(potential, dist_sq):
-    r"""float32 ``(V(d), V'(d)/d)`` from :math:`d^2`, as kernel C evaluates
-    them: the potential's ``sr_window_math`` with smearing; the unsmeared
-    :math:`V = p/d`, :math:`V'/d = -V/d^2` from one ``rsqrt`` without."""
-    if potential.smearing is None:
-        rd = torch.rsqrt(dist_sq)
-        v = potential.prefactor * rd
-        return v, -v * (rd * rd)
-    return potential.sr_window_math(dist_sq)
+    r"""float32 window math ``(V, V'/d, members)`` from :math:`d^2`, as
+    kernel C evaluates it for the pair terms of :func:`_window_terms`: each
+    term's math, combined by the weights of a ``CombinedPotential``
+    (``members`` then holds each term's V, whose energies are dE/dw; else
+    ``None``)."""
+    from ..potentials import CombinedPotential
+
+    parts = [_term_window_math(m, p, dist_sq) for m, p in _window_terms(potential)]
+    if type(potential) is not CombinedPotential:
+        return (*parts[0], None)
+    values = [v for v, _ in parts]
+    return (potential._combine(values), potential._combine([w for _, w in parts]), values)
 
 
-def _pair_force(potential, dist, vq, pair_e):
-    """Pair-force numerator ``q_i q_j V'(d)`` from the pair energy (the
-    exact float64 path of the window)."""
-    if potential.smearing is None:
-        return -pair_e / dist
-    return potential.sr_pair_force(dist, vq, pair_e)
+def _exact_pair_terms(potential, d, vq, params):
+    """The exact route's pair terms ``(v, q_iq_jV'(d), dE/dparams)``: the
+    potential's ``sr_pair_force`` hook, else ``sr_derivative``, else autograd
+    of the pair values (spline potentials, exclusion windows, direct mode);
+    the parameter cotangents by autograd of the pair energy."""
+    smooth = _smooth_split(potential)
+    pair_force = getattr(potential, "sr_pair_force", None) if smooth else None
+    deriv = getattr(potential, "sr_derivative", None) if smooth else None
+    analytic = pair_force is not None or deriv is not None
+    with torch.enable_grad():
+        d_in = d if analytic else d.detach().requires_grad_()
+        v_raw = _pair_values(potential, d_in)
+        pair_e = vq * v_raw
+        targets = list(params) if analytic else [d_in, *params]
+        grads = _grads(pair_e.sum(), targets)
+    v_raw, pair_e = v_raw.detach(), pair_e.detach()
+    if not analytic:
+        return v_raw, grads[0], grads[1:]
+    if pair_force is not None:
+        return v_raw, pair_force(d, vq, pair_e), grads
+    return v_raw, vq * deriv(d, v_raw), grads
+
+
+def _grads(total, targets):
+    """``d total / d targets`` (zeros for a target it does not reach)."""
+    if not targets:
+        return []
+    if not total.requires_grad:  # a pair term that depends on none of them
+        return [torch.zeros_like(t) for t in targets]
+    grads = torch.autograd.grad(total, targets, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g for t, g in zip(targets, grads)]
 
 
 def _masked_pair_values(potential, d_sq, pair_ok):
@@ -490,7 +601,7 @@ def _offset_pairs(pc_t, mf_g, offs, k: int, offset, cutoff_sq, eye):
 # -- kernel C and its plain twin ----------------------------------------------
 
 
-def _we_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs):
+def _we_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs, with_params=False):
     """Plain twin of kernel C: the window energy and its gradient in one pass.
 
     Per offset, with ``s_ij = q_i·q_j·V'(d_ij)/d_ij``:
@@ -498,16 +609,36 @@ def _we_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs):
     pc_i)``; the ``pj`` side rolls back onto its home cell, and its per-offset
     total is the ``offs`` gradient.  The self cell's j-side charges are
     ½-weighted so each unordered pair counts once.  float32 takes the fused
-    pair math of :func:`_window_math` (kernel C's); float64 the exact
-    :func:`_pair_values` + :func:`_pair_force` path.
+    pair math of :func:`_window_math` (kernel C's) where there is one; float64,
+    and float32 without it, the exact route (:func:`_exact_pair_terms`).
 
-    :return: ``(e, (d_pc, d_q, d_offs))``.
+    The image term ``d_image`` (3, 3), in float64, is the window's cell
+    gradient at fixed positions: ``−Σ_pairs m_ij ⊗ g_ij`` with ``g_ij`` the
+    pair's i-side gradient and ``m_ij`` the integer image of the pair, the
+    periodic wrap of the rolled neighbour cell (``floor((h + o) / n)`` per
+    axis).  It equals what ``d_pc`` and ``d_offs`` give through the cell
+    centers and the offsets, without summing per-atom gradients times
+    centers (:func:`_prepare_bucketed` with ``window=True``).
+
+    :param with_params: also return the gradients with respect to the
+        potential's trainable parameters (:func:`_trainable`): on the fused
+        route these are the weights of a ``CombinedPotential`` and their
+        gradient each member's energy, summed in float64 as kernel C sums it.
+    :return: ``(e, (d_pc, d_q, d_offs, d_image))``, and ``d_params`` with
+        ``with_params``; outside autograd (the caller's
+        :class:`_WindowEnergy` carries the gradients).
     """
+    with torch.no_grad():
+        return _we_value_and_grad_impl(potential, cutoff, pc_t, q_g, mf_g, offs, with_params)
+
+
+def _we_value_and_grad_impl(potential, cutoff, pc_t, q_g, mf_g, offs, with_params):
     dtype = pc_t.dtype
     cap = pc_t.shape[-1]
     cutoff_sq = torch.tensor(cutoff, dtype=dtype, device=pc_t.device) ** 2
-    fused = dtype == torch.float32
+    fused = dtype == torch.float32 and _window_terms(potential) is not None
     eye = torch.eye(cap, dtype=torch.bool, device=pc_t.device)
+    params = _trainable(potential) if with_params else ()
 
     # the energy is a sum of terms far larger than their total: accumulate it
     # in float64, as kernel C does
@@ -515,6 +646,8 @@ def _we_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs):
     d_pc = torch.zeros_like(pc_t)
     d_q = torch.zeros_like(q_g)
     d_offs = torch.zeros_like(offs)
+    d_image = torch.zeros((3, 3), dtype=torch.float64, device=pc_t.device)
+    d_params = [torch.zeros_like(p, dtype=torch.float64) for p in params]
     for k, (dx, dy, dz) in enumerate(_window_offsets(cap)):
         w = 0.5 if (dx, dy, dz) == (0, 0, 0) else 1.0
         pj, d_sq, pair_ok = _offset_pairs(pc_t, mf_g, offs, k, (dx, dy, dz), cutoff_sq, eye)
@@ -523,47 +656,96 @@ def _we_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs):
         okf = pair_ok.to(dtype)
         vq = okf * torch.einsum("...ic,...jc->...ij", q_g, qj)
         if fused:
-            v_raw, w_raw = _window_math(potential, d_sq_safe)
+            v_raw, w_raw, members = _window_math(potential, d_sq_safe)
             e = e + torch.sum(vq * v_raw, dtype=torch.float64)
             s = vq * w_raw
+            if params:  # the weights of a CombinedPotential, its only parameters
+                d_params[0] += torch.stack(
+                    [torch.sum(vq * v_m, dtype=torch.float64) for v_m in members]
+                ).to(d_params[0])
         else:
             d = torch.sqrt(d_sq_safe)
-            v_raw = _pair_values(potential, d)
-            pair_e = vq * v_raw
-            e = e + torch.sum(pair_e, dtype=torch.float64)
-            s = _pair_force(potential, d, vq, pair_e) / d
+            v_raw, dd, grads = _exact_pair_terms(potential, d, vq, params)
+            e = e + torch.sum(vq * v_raw, dtype=torch.float64)
+            s = dd / d
+            d_params = [a + g for a, g in zip(d_params, grads)]
         v = okf * v_raw
         d_q = d_q + torch.matmul(v, qj)
         d_qj = torch.einsum("...ij,...ic->...jc", v, q_g)
         cross_i = torch.einsum("...ij,...dj->...di", s, pj)
         cross_j = torch.einsum("...ij,...di->...dj", s, pc_t)
-        d_pc = d_pc + pc_t * s.sum(-1)[..., None, :] - cross_i
+        g_i = pc_t * s.sum(-1)[..., None, :] - cross_i
+        d_pc = d_pc + g_i
+        d_image -= _image_term(g_i.sum(-1, dtype=torch.float64), (dx, dy, dz))
         d_pj = pj * s.sum(-2)[..., None, :] - cross_j  # (x, y, z, 3, cap)
         back = (dx, dy, dz)
         d_pc = d_pc + torch.roll(d_pj, back, dims=(0, 1, 2))
         d_q = d_q + torch.roll(d_qj, back, dims=(0, 1, 2)) * w
         d_offs[k] = d_pj.sum(dim=(0, 1, 2, 4))
-    return e.to(dtype), (d_pc, d_q, d_offs)
+    grads = (d_pc, d_q, d_offs, d_image)
+    if not with_params:
+        return e.to(dtype), grads
+    return e.to(dtype), grads, tuple(g.to(p.dtype) for g, p in zip(d_params, params))
 
 
-def _window_params(potential, cutoff: float, pc_t, q_g) -> _k.WindowParams:
+def _image_term(g_cells, offset) -> torch.Tensor:
+    """``Σ_h m(h) ⊗ g_h`` in float64 for one window offset: ``g_cells``
+    ``(nx, ny, nz, 3)`` holds each home cell's i-side gradient sum over the
+    offset's pairs, and ``m`` the integer image of its neighbour cell."""
+    out = torch.zeros((3, 3), dtype=torch.float64, device=g_cells.device)
+    for a, o in enumerate(offset):
+        if o == 0:
+            continue
+        n = g_cells.shape[a]
+        m = torch.div(torch.arange(n, device=g_cells.device) + o, n, rounding_mode="floor")
+        per_plane = g_cells.sum(dim=tuple(b for b in range(3) if b != a), dtype=torch.float64)
+        out[a] = m.to(torch.float64) @ per_plane
+    return out
+
+
+def _window_params(potential, terms, cutoff: float, pc_t, q_g) -> _k.WindowParams:
+    """Kernel C's parameters: the grid, the offsets and the table of pair
+    terms, each constant rounded to float32 from the same Python expression
+    that the plain twin's pair math uses."""
+    from ..potentials import CombinedPotential, CoulombPotential
+
     nx, ny, nz, _, cap = pc_t.shape
-    direct = potential.smearing is None
-    alpha = 0.0 if direct else 1.0 / (potential.smearing * 2.0**0.5)
     p = _k.WindowParams()
     p.nx, p.ny, p.nz, p.cap, p.n_ch = nx, ny, nz, cap, q_g.shape[-1]
-    p.direct = int(direct)
+    p.direct = int(potential.smearing is None)
+    combined = type(potential) is CombinedPotential
+    # 0: one Coulomb-form term (p = 1), 1: one 1/r^p term, 2: a combination
+    p.kind = 2 if combined else (0 if terms[0][1] == 1 else 1)
+    p.n_members = len(terms)
     offsets = _window_offsets(cap)
     p.self_k = offsets.index((0, 0, 0))
-    # float32 constants rounded exactly as the plain twin's python scalars
     p.cutoff_sq = float(torch.tensor(cutoff, dtype=torch.float32) ** 2)
-    p.alpha = alpha
-    p.alpha_sq = alpha * alpha
-    p.prefactor = potential.prefactor
-    p.c_gauss = potential.prefactor * (2.0 * alpha / np.pi**0.5)
+    for slot, (member, exponent) in enumerate(terms):
+        m = p.members[slot]
+        m.p, m.prefactor = exponent, member.prefactor
+        if member.smearing is None:
+            continue
+        if type(member) is CoulombPotential:
+            alpha = member._alpha()
+            m.alpha, m.alpha_sq = alpha, alpha * alpha
+            m.c_gauss = member.prefactor * (2.0 * alpha / np.pi**0.5)
+        else:
+            alpha_sq = member._alpha_sq()
+            m.alpha, m.alpha_sq = alpha_sq**0.5, alpha_sq
+            m.c_gauss = member._c_gauss()
     for k, o in enumerate(offsets):
         p.offsets[3 * k : 3 * k + 3] = o
     return p
+
+
+def _window_weights(potential, device):
+    """A ``CombinedPotential``'s weights as kernel C reads them: float32 on
+    ``device``, without a copy to the host (``None`` for one term)."""
+    from ..potentials import CombinedPotential
+
+    if type(potential) is not CombinedPotential:
+        return None
+    return potential.weights.detach().to(device=device, dtype=torch.float32).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -582,23 +764,34 @@ def _window_group(cap: int, n_ch: int, device_index: int) -> int:
     return group
 
 
-def window_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs):
-    """Kernel C: window energy and ``(d_pc, d_q, d_offs)`` in one launch.
+def window_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs, with_params=False):
+    """Kernel C: window energy and ``(d_pc, d_q, d_offs, d_image)`` in one
+    launch (the image term as :func:`_we_value_and_grad` defines it).
 
     CPU tensors take :func:`_we_value_and_grad`; CUDA tensors launch the
-    kernel (float32, :class:`CoulombPotential` with smearing, or without
-    it through the kernel's unsmeared variant, at most
-    ``kernels.MAX_CHANNELS`` charge channels, a capacity whose one offset
-    fits shared memory: ~3000 at one channel, ~1850 at four) or raise.
+    kernel or raise.  It takes float32, at most ``kernels.MAX_CHANNELS``
+    charge channels, a capacity whose one offset fits shared memory (~3000
+    at one channel, ~1850 at four), and the pair terms of
+    :func:`_window_terms`: ``CoulombPotential`` and
+    ``InversePowerLawPotential`` (p = 1..6), smeared or direct, and a
+    ``CombinedPotential`` of up to ``kernels.MAX_MEMBERS`` of them, without
+    exclusion windows.  Anything else raises a ``TypeError``.
+
+    :param with_params: also return the gradients with respect to the
+        potential's trainable parameters: for a ``CombinedPotential`` the
+        kernel sums each member's energy in float64, and those are ``dE/dw``.
+        The kernel reads the weights on the card: keep the potential there
+        (``calc.to``), or each launch copies them from the host.
     """
     if pc_t.device.type == "cpu":
-        return _we_value_and_grad(potential, cutoff, pc_t, q_g, mf_g, offs)
-    from ..potentials.coulomb import CoulombPotential  # potentials import ops
-
-    if not isinstance(potential, CoulombPotential):
+        return _we_value_and_grad(potential, cutoff, pc_t, q_g, mf_g, offs, with_params)
+    terms = _window_terms(potential)
+    if terms is None:
         raise TypeError(
-            f"the window kernel evaluates the Coulomb pair math; got "
-            f"{type(potential).__name__}"
+            "the window kernel evaluates CoulombPotential and InversePowerLawPotential "
+            "(p = 1..6) pair terms, and a CombinedPotential of up to "
+            f"{_k.MAX_MEMBERS} of them, without an exclusion window; got "
+            f"{type(potential).__name__}: plain=True runs the plain version"
         )
     if pc_t.ndim != 5 or pc_t.shape[3] != 3:
         raise ValueError(f"pc_t must be (nx, ny, nz, 3, cap), got {tuple(pc_t.shape)}")
@@ -611,39 +804,58 @@ def window_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs):
     _k.check_cuda_tensor(mf_g, "mf_g", (nx, ny, nz, cap))
     _k.check_cuda_tensor(offs, "offs", (_k.N_OFFSETS, 3))
     # the kernel writes every row of its outputs; its double accumulators
-    # (energy, d_offs, a block counter) start at zero
-    acc = torch.zeros(2 + 3 * _k.N_OFFSETS, dtype=torch.float64, device=pc_t.device)
+    # (energy, d_offs, a block counter, the members' energies, the image
+    # term) start at zero
+    acc = torch.zeros(_k.WINDOW_IMAGE_ROW + 9, dtype=torch.float64, device=pc_t.device)
     d_pc = torch.empty_like(pc_t)
     d_q = torch.empty_like(q_g)
     d_offs = torch.empty_like(offs)
-    p = _window_params(potential, cutoff, pc_t, q_g)
+    p = _window_params(potential, terms, cutoff, pc_t, q_g)
     p.group = _window_group(cap, n_ch, pc_t.device.index)
+    weights = _window_weights(potential, pc_t.device)
     status = _k.load_library().lib.tpme_window(
         pc_t.data_ptr(), q_g.data_ptr(), mf_g.data_ptr(), offs.data_ptr(),
+        None if weights is None else weights.data_ptr(),
         acc.data_ptr(), d_pc.data_ptr(), d_q.data_ptr(), d_offs.data_ptr(),
         ctypes.byref(p), _k.stream_handle(pc_t.device),
     )
     _k.check_status(status, "window")
     _k.WINDOW.launches += 1
-    return acc[0].to(torch.float32), (d_pc, d_q, d_offs)
+    d_image = acc[_k.WINDOW_IMAGE_ROW :].reshape(3, 3)
+    e, grads = acc[0].to(torch.float32), (d_pc, d_q, d_offs, d_image)
+    if not with_params:
+        return e, grads
+    params = _trainable(potential)
+    # the only trainable parameters kernel C's potentials have are the
+    # weights of a CombinedPotential (its members hold plain floats)
+    members = acc[_k.WINDOW_MEMBER_ROW : _k.WINDOW_MEMBER_ROW + len(terms)]
+    return e, grads, tuple(members.to(device=w.device, dtype=w.dtype) for w in params)
 
 
 class _WindowEnergy(torch.autograd.Function):
     """Window energy whose forward already holds the whole gradient: the
     energy is a scalar, so every cotangent is ``ē ×`` a fixed array and the
-    backward only scales."""
+    backward only scales.  ``cell`` takes the image term (its inputs come
+    from :func:`_prepare_bucketed` with ``window=True``, whose centers and
+    offsets carry no gradient).  The potential's trainable parameters ride
+    as the trailing inputs, so their gradients (``dE/dw`` of a Combined
+    potential) flow back too."""
 
     @staticmethod
-    def forward(ctx, pc_t, q_g, mf_g, offs, potential, cutoff, plain):
+    def forward(ctx, pc_t, q_g, mf_g, offs, cell, potential, cutoff, plain, *params):
         fn = _we_value_and_grad if plain else window_value_and_grad
-        e, grads = fn(potential, cutoff, pc_t, q_g, mf_g, offs)
-        ctx.save_for_backward(*grads)
+        e, grads, d_params = fn(potential, cutoff, pc_t, q_g, mf_g, offs, with_params=True)
+        d_pc, d_q, _, d_image = grads
+        ctx.save_for_backward(d_pc, d_q, d_image.to(cell.dtype), *d_params)
         return e
 
     @staticmethod
     def backward(ctx, e_bar):
-        d_pc, d_q, d_offs = ctx.saved_tensors
-        return e_bar * d_pc, e_bar * d_q, None, e_bar * d_offs, None, None, None
+        d_pc, d_q, d_image, *d_params = ctx.saved_tensors
+        return (
+            e_bar * d_pc, e_bar * d_q, None, None, e_bar.to(d_image.dtype) * d_image,
+            None, None, None, *(e_bar.to(device=g.device, dtype=g.dtype) * g for g in d_params),
+        )
 
 
 # -- spill side list -------------------------------------------------------------
@@ -651,17 +863,30 @@ class _WindowEnergy(torch.autograd.Function):
 _D27 = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)]
 
 
-def _prepare_extras_bucketed(qe_raw, pe_raw, cell, clist: CellList):
+def _prepare_extras_bucketed(qe_raw, pe_raw, cell, clist: CellList, window: bool = False):
     """Spill atoms in the buckets' center-relative frame: ``(pe, pe_abs,
-    qe, valid)`` (an extra must stay inside its recorded home cell)."""
+    qe, valid)`` (an extra must stay inside its recorded home cell).
+
+    :param window: the frame of :func:`_prepare_bucketed` with ``window=True``
+        (no gradient through the centers, one rounding from float64), for
+        :func:`_extras_pairs` with ``window=True``.
+    """
     dtype, device = pe_raw.dtype, pe_raw.device
     nx, ny, nz = clist.n_axis
     n_axis = torch.tensor([nx, ny, nz], dtype=dtype, device=device)
     mask = clist.extra_mask[:, None].to(dtype)
-    pe_abs = pe_raw - torch.matmul(clist.extra_wrap.to(dtype), cell)
     qe = qe_raw * mask
-    centers = torch.matmul((clist.extra_cell.to(dtype) + 0.5) / n_axis, cell)
-    pe = (pe_abs - centers) * mask  # park padded at 0
+    if window:
+        wide = torch.promote_types(dtype, torch.float64)
+        pe_abs_w = pe_raw.to(wide) - torch.matmul(clist.extra_wrap.to(wide), cell.to(wide))
+        centers = torch.matmul((clist.extra_cell.to(wide) + 0.5) / n_axis.to(wide),
+                               cell.detach().to(wide))
+        pe = ((pe_abs_w - centers) * mask.to(wide)).to(dtype)
+        pe_abs = pe_abs_w.to(dtype)
+    else:
+        pe_abs = pe_raw - torch.matmul(clist.extra_wrap.to(dtype), cell)
+        centers = torch.matmul((clist.extra_cell.to(dtype) + 0.5) / n_axis, cell)
+        pe = (pe_abs - centers) * mask  # park padded at 0
     with torch.no_grad():
         frac = torch.matmul(pe, inv3(cell.detach())) * n_axis
         bound = 0.5 + torch.tensor(clist.slack, dtype=dtype, device=device) + STALE_TOL
@@ -669,16 +894,16 @@ def _prepare_extras_bucketed(qe_raw, pe_raw, cell, clist: CellList):
     return pe, pe_abs, qe, valid
 
 
-def _prepare_extras(charges, positions, cell, clist: CellList):
+def _prepare_extras(charges, positions, cell, clist: CellList, window: bool = False):
     """:func:`_prepare_extras_bucketed` from atom-order charges and positions."""
     idx = clist.extra_index.long()
     return _prepare_extras_bucketed(
         charges.to(positions.dtype).index_select(0, idx), positions.index_select(0, idx),
-        cell, clist,
+        cell, clist, window=window,
     )
 
 
-def _extras_pairs(pc_t, q_g, mf_g, pe, pe_abs, clist, cell):
+def _extras_pairs(pc_t, q_g, mf_g, pe, pe_abs, clist, cell, window: bool = False):
     """Pairs of the spill side list, in both directions: extra ↔ bucketed
     over the 27-cell window of each extra's home cell, extra ↔ extra as
     dense minimum-image pairs (``compute_cell_list`` spills only where every
@@ -687,7 +912,14 @@ def _extras_pairs(pc_t, q_g, mf_g, pe, pe_abs, clist, cell):
     Returns ``(d2_em, ok_em, rows_q, ids, d2_ee, ok_ee)``: ``d²`` and the
     pair mask ``(E, 27·cap)`` against the bucket rows ``ids (E, 27)`` whose
     charges are ``rows_q (E, 27, cap, C)``, and ``d²`` and the pair mask
-    ``(E, E)`` of the extras (self excluded, both directions present)."""
+    ``(E, E)`` of the extras (self excluded, both directions present).
+
+    :param window: the inputs are in the window frame (``window=True`` of
+        :func:`_prepare_bucketed` and :func:`_prepare_extras_bucketed`): the
+        cell reaches each pair vector only as its integer image ``m``,
+        ``−m·cell`` (a zero whose gradient is the pair's image term), as in
+        kernel C.
+    """
     dtype, device = pc_t.dtype, pc_t.device
     nx, ny, nz, _, cap = pc_t.shape
     n_cells = nx * ny * nz
@@ -710,43 +942,61 @@ def _extras_pairs(pc_t, q_g, mf_g, pe, pe_abs, clist, cell):
     rows_p = rows(pc_t).reshape(e_pad, 27, 3, cap).transpose(1, 2).reshape(e_pad, 3, w27)
     rows_q = rows(q_g).reshape(e_pad, 27, cap, -1)  # (E, 27, cap, C)
     rows_m = rows(mf_g).reshape(e_pad, w27)
-    offv = torch.matmul(d27.to(dtype) / n_axis, cell)
-    off_flat = offv.T.repeat_interleave(cap, dim=1)  # (3, 27·cap)
-    d2 = sum(
-        (pe[:, c, None] - rows_p[:, c, :] - off_flat[c][None, :]) ** 2
-        for c in range(3)
-    )
+    if window:
+        wide = torch.promote_types(dtype, torch.float64)
+        frame = cell.detach().to(wide)
+        offv = torch.matmul(d27.to(wide) / n_axis.to(wide), frame).to(dtype)
+        # the image of each window cell: floor((home + d) / n) per axis
+        image = torch.div(clist.extra_cell.long()[:, None, :] + d27[None],
+                          torch.tensor([nx, ny, nz], device=device), rounding_mode="floor")
+        lift = torch.matmul(image.to(dtype), cell - cell.detach())  # (E, 27, 3), zero
+        off_em = offv.T[None] + lift.transpose(1, 2)  # (E, 3, 27)
+    else:
+        off_em = torch.matmul(d27.to(dtype) / n_axis, cell).T[None]  # (1, 3, 27)
+    off_flat = off_em.repeat_interleave(cap, dim=2)  # (E or 1, 3, 27·cap)
+    d2 = sum((pe[:, c, None] - rows_p[:, c, :] - off_flat[:, c, :]) ** 2 for c in range(3))
     ok_em = (d2 < cut2) & (rows_m > 0.5) & clist.extra_mask[:, None]
 
-    f = torch.matmul(pe_abs, inv3(cell))  # (E, 3)
-    g = []
-    for c in range(3):
-        df = f[:, c][:, None] - f[:, c][None, :]
-        g.append(df - torch.round(df))
-    d2e = sum(
-        (g[0] * cell[0, d] + g[1] * cell[1, d] + g[2] * cell[2, d]) ** 2
-        for d in range(3)
-    )
+    if window:
+        # minimum-image vectors in float64 from the extras' positions, the
+        # cell entering as the image term only
+        dp = pe_abs.to(wide)[:, None, :] - pe_abs.to(wide)[None, :, :]  # (E, E, 3)
+        n_img = torch.round(torch.matmul(dp.detach(), inv3(frame)))
+        r_ee = (dp - torch.matmul(n_img, frame)).to(dtype)
+        r_ee = r_ee - torch.matmul(n_img.to(dtype), cell - cell.detach())
+        d2e = (r_ee**2).sum(-1)
+    else:
+        f = torch.matmul(pe_abs, inv3(cell))  # (E, 3)
+        g = []
+        for c in range(3):
+            df = f[:, c][:, None] - f[:, c][None, :]
+            g.append(df - torch.round(df))
+        d2e = sum(
+            (g[0] * cell[0, d] + g[1] * cell[1, d] + g[2] * cell[2, d]) ** 2
+            for d in range(3)
+        )
     m_ee = clist.extra_mask[:, None] & clist.extra_mask[None, :]
     eye = torch.eye(e_pad, dtype=torch.bool, device=device)
     ok_ee = (d2e < cut2) & m_ee & ~eye
     return d2, ok_em, rows_q, ids, d2e, ok_ee
 
 
-def _extras_potentials(potential, pc_t, q_g, mf_g, pe, pe_abs, clist, cell):
+def _extras_potentials(potential, pc_t, q_g, mf_g, pe, pe_abs, clist, cell, window=False):
     """Pair terms of the spill side list (:func:`_extras_pairs`): ``(v_em,
     rows_q, ids, v_ee)``, the masked pair values ``v_em (E, 27, cap)`` and
     ``v_ee (E, E)`` in place of the masks and ``d²``."""
-    d2, ok_em, rows_q, ids, d2e, ok_ee = _extras_pairs(pc_t, q_g, mf_g, pe, pe_abs, clist, cell)
+    d2, ok_em, rows_q, ids, d2e, ok_ee = _extras_pairs(
+        pc_t, q_g, mf_g, pe, pe_abs, clist, cell, window
+    )
     v_em = _masked_pair_values(potential, d2, ok_em).reshape(rows_q.shape[:3])
     return v_em, rows_q, ids, _masked_pair_values(potential, d2e, ok_ee)
 
 
-def _extras_energy(potential, pc_t, q_g, mf_g, pe, pe_abs, qe, clist, cell):
+def _extras_energy(potential, pc_t, q_g, mf_g, pe, pe_abs, qe, clist, cell, window=False):
     """Energy of the spill pairs, by plain autograd: each extra ↔ bucketed
     pair once, extra ↔ extra pairs in both directions (hence ½)."""
     v_em, rows_q, _, v_ee = _extras_potentials(
-        potential, pc_t, q_g, mf_g, pe, pe_abs, clist, cell
+        potential, pc_t, q_g, mf_g, pe, pe_abs, clist, cell, window
     )
     e_em = torch.sum(v_em[..., None] * rows_q * qe[:, None, None, :])
     e_ee = 0.5 * torch.sum(v_ee * (qe @ qe.T))
@@ -777,15 +1027,21 @@ def cell_list_rspace_energy_rows(
     dtype = pos_rows.dtype
     q = charges.to(dtype)
     pc_t, q_g, mf_g, offs, valid = _prepare_bucketed(
-        q[clist.atom_index.long()], pos_rows[:nb].reshape(n_cells, cap, 3), cell, clist
+        q[clist.atom_index.long()], pos_rows[:nb].reshape(n_cells, cap, 3), cell, clist,
+        window=True,
     )
-    e0 = _WindowEnergy.apply(pc_t, q_g, mf_g, offs, potential, clist.cutoff, plain)
+    e0 = _WindowEnergy.apply(
+        pc_t, q_g, mf_g, offs, cell, potential, clist.cutoff, plain, *_trainable(potential)
+    )
     if clist.extra_index is not None:
         pe, pe_abs, qe, valid_e = _prepare_extras_bucketed(
-            q[clist.extra_index.long()], pos_rows[nb:].reshape(-1, 3), cell, clist
+            q[clist.extra_index.long()], pos_rows[nb:].reshape(-1, 3), cell, clist,
+            window=True,
         )
+        # the spill pairs take autograd, in the window's frame: the cell
+        # reaches them as their images only
         e0 = e0 + _extras_energy(
-            potential, pc_t, q_g, mf_g, pe, pe_abs, qe, clist, cell
+            potential, pc_t, q_g, mf_g, pe, pe_abs, qe, clist, cell, window=True
         )
         valid = valid & valid_e
     # NaN-poison through a multiply so gradients are poisoned too

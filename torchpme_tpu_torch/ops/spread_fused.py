@@ -53,7 +53,13 @@ from .mesh import (
     compute_interpolation,
     points_to_mesh,
 )
-from .mesh_tiled import TILE, TiledInterpolation, _fold_tiles_to_mesh
+from .mesh_tiled import (
+    TILE,
+    TiledInterpolation,
+    _fold_tiles_to_mesh,
+    refresh_tiled_interpolation,
+    tiled_points_to_mesh,
+)
 
 __all__ = [
     "SpreadGeometry",
@@ -368,6 +374,7 @@ def aligned_tiled_density(
     cell_grid: tuple[int, int, int, int],
     pad_cells: int = 0,
     plain: bool = False,
+    extras_interp: TiledInterpolation | None = None,
 ) -> torch.Tensor:
     """Charge density mesh straight from tile-aligned bucket rows.
 
@@ -380,8 +387,14 @@ def aligned_tiled_density(
     :param plain: run the plain twins on any device (the reference path of
         the comparisons); by default CPU tensors take the twins and CUDA
         tensors the kernels.
-    :return: ``(C, nx, ny, nz)`` density; the spill rows spread through the
-        generic scatter (:func:`~torchpme_tpu_torch.ops.mesh.points_to_mesh`).
+    :param extras_interp: an extras-only tile bucketing of the spill rows
+        (``pos_rows[nb:]``, :meth:`torchpme_tpu_torch.md.MDFastPath.create`);
+        when given they spread by a refresh and
+        :func:`~torchpme_tpu_torch.ops.mesh_tiled.tiled_points_to_mesh`
+        (kernel D; E + F backward), and a stale table NaN-poisons the density.
+    :return: ``(C, nx, ny, nz)`` density; without ``extras_interp`` the spill
+        rows spread through the generic scatter
+        (:func:`~torchpme_tpu_torch.ops.mesh.points_to_mesh`).
     """
     ns = tuple(int(n) for n in ns)
     nx_c, ny_c, nz_c, cap = cell_grid
@@ -406,6 +419,12 @@ def aligned_tiled_density(
     rel = torch.matmul(pos_rows, inverse_cell) * ns_t
     rho = _Spread.apply(rel[:nb], q_rows[:nb].contiguous(), geom, plain)
     if pos_rows.shape[0] > nb:
+        if extras_interp is not None:
+            refreshed, valid = refresh_tiled_interpolation(
+                extras_interp, pos_rows[nb:], inverse_cell, method
+            )
+            rho_e = tiled_points_to_mesh(refreshed, q_rows[nb:], plain=plain)
+            return rho + rho_e * torch.where(valid, 1.0, float("nan")).to(rho_e.dtype)
         # spill side list: a handful of atoms, generic scatter spread
         interp_e = compute_interpolation(pos_rows[nb:], inverse_cell, ns, nodes, method)
         rho = rho + points_to_mesh(interp_e, q_rows[nb:])

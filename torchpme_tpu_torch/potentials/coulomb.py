@@ -90,6 +90,13 @@ class CoulombPotential(Potential):
         )
         return self.prefactor * result
 
+    def sr_derivative(self, dist: torch.Tensor, sr_values: torch.Tensor) -> torch.Tensor:
+        r"""Analytic :math:`dV_{SR}/dr = -V_{SR}/r - p\,\tfrac{2\alpha}{\sqrt\pi}
+        e^{-\alpha^2r^2}/r` from the already computed ``sr_values``."""
+        alpha = self._alpha()
+        gauss = torch.exp(-((alpha * dist) ** 2))
+        return -sr_values / dist - self.prefactor * (2.0 * alpha / math.pi**0.5) * gauss / dist
+
     def sr_pair_force(
         self, dist: torch.Tensor, vq: torch.Tensor, pair_e: torch.Tensor
     ) -> torch.Tensor:

@@ -80,8 +80,19 @@ phase fails:
     spill rows through a refresh and kernel D, E + F backward) against the
     scatter, at the main path's spills and at a forced >= 512, wall and
     device ms per step and agreement;
+19. the port's tuning module (``torchpme_tpu_torch.tuning``) in float32:
+    ``tune_over_cutoffs(tune_pme)`` on the 102k box (cutoffs 4.5, 5, 5.5 Å,
+    4–6 nodes, 64³–256³ meshes, accuracy 1e-4; every timed candidate with
+    its mesh backend, error bound and seconds per forward+backward, the
+    pick, D, E and F's launches, the tuner's smearing at 5 Å against
+    bench.py's formula, the pick in float32 against float64 plain),
+    ``tune_p3m`` at 102k, ``tune_ewald`` at 12,000 atoms, ``tune_pme`` on
+    the 1536-atom box with its force error against tools/ground_truth.npz,
+    the dipolar tuners at 343 dipoles (D's, E's and F's dipole forms), and
+    one labeled ``atomistic.PMECalculator`` call at 102k against the plain
+    calculator (float32 within the kernel bar, float64 bitwise);
 10. the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
-Phases 11–18 run between 6 and 7.
+Phases 11–18 run between 6 and 7, phase 19 after 9.
 
 With ``--profile`` it also traces the 102k paths (the MD step in aligned,
 fused and tiled mode) with ``torch.profiler``
@@ -167,12 +178,9 @@ P3M_SMALL_NODES = (1, 2)
 P3M_MESH_TOL = 1e-6
 P3M_GT_JAX_F64_FORCE = 2.69e-6
 # Ewald at 12,000 atoms (bench.py:build_system(12_000): water density, box
-# 49.32 A) at the main path's smearing and cutoff.  EWALD_LR is the largest
-# lr_wavelength whose error bound (torchpme_tpu.tuning.EwaldErrorBounds) at
-# smearing 1.2826 and cutoff 5 meets 1e-4, rounded down: bisection gave
-# 2.61009 (bound 1.000e-4, 19^3 k extents) on the CPU with
-#   EwaldErrorBounds(q, cell, pos)(smearing=1.2826, lr_wavelength=x, cutoff=5.0)
-EWALD_N, EWALD_SMEARING, EWALD_LR = 12_000, 1.2826, 2.61
+# 49.32 A) at the main path's smearing and cutoff; its lr_wavelength is
+# ewald_lr(): the largest whose error bound meets ACCURACY, rounded down
+EWALD_N, EWALD_SMEARING = 12_000, 1.2826
 
 # the dipolar system of tools/bench_family.py:177-222: the 102k box with
 # normal dipoles (seed 1) at the monopole-tuned smearing and 128^3 mesh, and
@@ -227,6 +235,14 @@ FAMILY_CHAIN_STEP = 0.0
 EXTRAS_FORCED = 512
 EXTRAS_TOL = 1e-6
 EXTRAS_F64_TOL = 1e-10
+# the tuning phase: tune_over_cutoffs(tune_pme) on the 102k box over these
+# cutoffs and this grid (4-6 nodes, 64^3-256^3 meshes) at ACCURACY; tune_ewald
+# at 12k over ns 16-22 (the bound first meets 1e-4 at 19); the dipolar tuners
+# at DIPOLE_TUNE_SIDE^3 dipoles, cutoff DIPOLE_TUNE_CUTOFF
+TUNE_CUTOFFS = (4.5, 5.0, 5.5)
+TUNE_GRID = dict(nodes_lo=4, nodes_hi=6, mesh_lo=6, mesh_hi=8)
+EWALD_TUNE_GRID = dict(ns_lo=16, ns_hi=22)
+DIPOLE_TUNE_SIDE, DIPOLE_TUNE_CUTOFF = 7, 4.0
 
 
 def emit(obj) -> None:
@@ -243,19 +259,55 @@ def water_box(n_atoms: int, seed: int = 0):
     return positions, base.reshape(-1, 1), np.eye(3) * box
 
 
-def smearing_for(charges, cell, n_atoms: int) -> float:
-    """bench.py:choose_parameters, the real-space bound at ACCURACY."""
-    volume = float(abs(np.linalg.det(cell)))
-    prefac = 2 * float((charges**2).sum()) / math.sqrt(n_atoms)
+def bench_smearing(charges, cell) -> float:
+    """bench.py:choose_parameters in numpy (float64): the smearing whose
+    real-space bound at CUTOFF is ACCURACY / 4."""
+    charges = np.asarray(charges, dtype=np.float64)
+    volume = float(abs(np.linalg.det(np.asarray(cell, dtype=np.float64))))
+    prefac = 2 * float((charges**2).sum()) / math.sqrt(charges.shape[0])
     ratio = math.sqrt(-2 * math.log(ACCURACY / 2 / prefac * math.sqrt(CUTOFF * volume)))
     return CUTOFF / ratio
+
+
+def _cpu(*arrays):
+    """float64 CPU tensors of host arrays: the inputs of the port's error
+    bounds and smearing estimate, which are host arithmetic here."""
+    return [torch.tensor(np.asarray(a, dtype=np.float64)) for a in arrays]
+
+
+def smearing_for(positions, charges, cell) -> float:
+    """The main path's smearing: the port's ``TunerBase.estimate_smearing``
+    at ACCURACY and CUTOFF (the formula of bench.py:choose_parameters)."""
+    from torchpme_tpu_torch import PMECalculator
+    from torchpme_tpu_torch.tuning import TunerBase
+
+    q, c, p = _cpu(charges, cell, positions)
+    return TunerBase(q, c, p, CUTOFF, PMECalculator).estimate_smearing(ACCURACY)
+
+
+def ewald_lr(positions, charges, cell) -> float:
+    """lr_wavelength of the 12k Ewald phases: the largest whose bound by the
+    port's ``EwaldErrorBounds`` at EWALD_SMEARING and CUTOFF meets ACCURACY
+    (bisection; the bound falls as the wavelength does), rounded down to
+    1e-2: 2.61 (19^3 k extents)."""
+    from torchpme_tpu_torch.tuning import EwaldErrorBounds
+
+    bound = EwaldErrorBounds(*_cpu(charges, cell, positions))
+    lo, hi = 0.5, 10.0
+    for _ in range(60):
+        mid = 0.5 * (lo + hi)
+        if float(bound(smearing=EWALD_SMEARING, lr_wavelength=mid, cutoff=CUTOFF)) <= ACCURACY:
+            lo = mid
+        else:
+            hi = mid
+    return math.floor(lo * 100) / 100
 
 
 def dipole_parameters() -> tuple[float, float]:
     """(smearing, mesh spacing) of the dipolar runs: bench.py's values for
     the 102k box, whose spacing 2·box/127 gives the 128³ mesh."""
-    _, charges, cell = water_box(N_ATOMS)
-    return smearing_for(charges, cell, N_ATOMS), 2 * float(cell[0, 0]) / 127
+    positions, charges, cell = water_box(N_ATOMS)
+    return smearing_for(positions, charges, cell), 2 * float(cell[0, 0]) / 127
 
 
 def dipole_oracle_box():
@@ -994,6 +1046,16 @@ def p3m_spacing(cell) -> float:
     return 2 * float(cell[0, 0]) / (NS_MESH[0] - 1) * (1 + 1e-9)
 
 
+def p3m_bound(positions, charges, cell, smearing) -> float:
+    """The port's ``P3MErrorBounds`` at the P3M phases' parameters (5 nodes,
+    p3m_spacing, CUTOFF): the main path's P3M geometry must meet ACCURACY."""
+    from torchpme_tpu_torch.tuning import P3MErrorBounds
+
+    bound = P3MErrorBounds(*_cpu(charges, cell, positions))
+    return float(bound(smearing=smearing, mesh_spacing=p3m_spacing(cell), cutoff=CUTOFF,
+                       interpolation_nodes=NODES))
+
+
 def md_step_check(fp, q32, cell32, rows, expect, forbid=()):
     """One float32 energy + force step of ``fp`` through the kernels and the
     plain float64 step on the same float32-rounded inputs: the launch counts
@@ -1109,6 +1171,9 @@ def p3m_phases(env) -> dict:
                              interpolation_nodes=NODES)
     if calc.get_ns_mesh(env.cell) != NS_MESH:
         raise AssertionError(f"P3M mesh of the 102k box: {calc.get_ns_mesh(env.cell)}")
+    error_bound = p3m_bound(env.positions, env.charges, env.cell, env.smearing)
+    if not error_bound <= ACCURACY:
+        raise AssertionError(f"P3M geometry of the 102k box: error bound {error_bound:.3e}")
     pos_np, cell_np = env.positions.astype(np.float32), env.cell.astype(np.float32)
     t0 = time.perf_counter()
     modes = {mode: tpt.MDFastPath.create(calc, pos_np, cell_np, CUTOFF, NS_MESH, mesh_impl=mode)
@@ -1138,7 +1203,7 @@ def p3m_phases(env) -> dict:
                                            False)).all()):
         raise AssertionError("the P3M MD chain left its bucketing")
     emit({"phase": "p3m_slice", "atoms": N_ATOMS, "smearing": env.smearing, "nodes": NODES,
-          "mesh_spacing": spacing,
+          "mesh_spacing": spacing, "error_bound": error_bound,
           "ns_mesh": NS_MESH, "create_seconds_three_modes": create_s,
           **{mode: out[mode] for mode in modes}, "energy_error_split_aligned": split,
           "ms_per_step": {"aligned": ms["auto"], "fused": ms["fused"], "tiled": ms["tiled"],
@@ -1194,8 +1259,9 @@ def ewald_phases(env) -> dict:
     from torchpme_tpu_torch.utils.neighbors import neighbor_list
 
     positions, charges, cell = water_box(EWALD_N)
+    lr_wavelength = ewald_lr(positions, charges, cell)
     calc = tpt.EwaldCalculator(tpt.CoulombPotential(smearing=EWALD_SMEARING),
-                               lr_wavelength=EWALD_LR)
+                               lr_wavelength=lr_wavelength)
     ns_k = calc.get_ns_kvectors(cell)
     pos32, q32, cell32 = (torch.tensor(a, **env.f32) for a in (positions, charges, cell))
     fp = tpt.MDFastPathEwald.create(calc, positions.astype(np.float32), cell.astype(np.float32),
@@ -1217,7 +1283,7 @@ def ewald_phases(env) -> dict:
     full_ms = turns_ms({"f": lambda: per_atom_call(calc, *args, torch.float32, False,
                                                    ns_kvectors=ns_k)}, CALL_REPEATS)["f"]
     emit({"phase": "ewald", "atoms": EWALD_N, "box": float(cell[0, 0]), "smearing": EWALD_SMEARING,
-          "lr_wavelength": EWALD_LR, "ns_kvectors": ns_k, "k_vectors": int(np.prod(ns_k)), "pairs": int(nl_idx.shape[0]),
+          "lr_wavelength": lr_wavelength, "ns_kvectors": ns_k, "k_vectors": int(np.prod(ns_k)), "pairs": int(nl_idx.shape[0]),
           "md_step": step, "md_ms_per_step": step_ms, "md_plain_f32_ms_per_step": step_plain_ms,
           "per_atom_call": errs, "md_step_energy_rel_vs_sum": e_step_rel,
           "forward_ms": fwd_ms, "forward_backward_ms": full_ms, "nvidia_smi": env.smi})
@@ -1644,7 +1710,8 @@ def extras_phase(env, pos_f32, cell_f32) -> dict:
         for impl, fp in fps.items():
             for dtype, plain, out in ((torch.float32, False, res), (torch.float64, True, res64)):
                 rows = fp.bucket(env.pos32).to(dtype).requires_grad_()
-                cell_g = env.cell32.to(dtype).requires_grad_()
+                # detached: `.to` of the same dtype is env.cell32 itself
+                cell_g = env.cell32.to(dtype).detach().requires_grad_()
                 kernels.reset_launch_counts()
                 e = fp.energy(env.q32.to(dtype), cell_g, rows, plain=plain)
                 g_rows, g_cell = torch.autograd.grad(e, (rows, cell_g))
@@ -1692,6 +1759,321 @@ def extras_phase(env, pos_f32, cell_f32) -> dict:
     if len(configs) < 2:
         raise AssertionError(f"no capacity from 26 down to 17 spills {EXTRAS_FORCED} atoms")
     return launches
+
+
+class TimedCandidates:
+    """Records each candidate that the port's ``TuningTimings`` and the
+    dipolar tuners' timer time (its calculator, the seconds per step and the
+    kernel launches it made), around the timers' own ``__call__``."""
+
+    def __init__(self, kernels):
+        from torchpme_tpu_torch.tuning import dipole, tuner
+
+        self.kernels, self.rows = kernels, []
+        self._timers = (tuner.TuningTimings, dipole._DipoleTimings)
+        self._calls = [t.__call__ for t in self._timers]
+
+    def __enter__(self):
+        def wrap(call):
+            def timed(timer, calculator, **extra):
+                before = self.kernels.launch_counts()
+                seconds = call(timer, calculator, **extra)
+                after = self.kernels.launch_counts()
+                self.rows.append({"calculator": calculator, "extra": extra, "seconds": seconds,
+                                  "n_pairs": int((timer.idx if hasattr(timer, "idx")
+                                                  else timer.neighbor_indices).shape[0]),
+                                  "launches": {k: after[k] - before[k] for k in after
+                                               if after[k] > before[k]}})
+                return seconds
+            return timed
+
+        for t, call in zip(self._timers, self._calls):
+            t.__call__ = wrap(call)
+        return self
+
+    def __exit__(self, *exc):
+        for t, call in zip(self._timers, self._calls):
+            t.__call__ = call
+
+
+def mesh_candidate(row, bounds, cutoff) -> dict:
+    """A timed mesh candidate as printed: its parameters, the backend its
+    mesh took, its error bound and its seconds per forward+backward."""
+    from torchpme_tpu_torch.ops.mesh_tiled import supports_tiling
+
+    calc = row["calculator"]
+    ns = tuple(row["extra"]["ns_mesh"])
+    smearing = float(calc.potential.smearing)
+    return {"cutoff": cutoff, "smearing": smearing, "nodes": calc.interpolation_nodes,
+            "mesh_spacing": calc.mesh_spacing, "ns_mesh": ns,
+            "mesh_backend": "tiled" if supports_tiling(ns, calc.interpolation_nodes) else "scatter",
+            "error_bound": float(bounds(smearing=smearing, mesh_spacing=calc.mesh_spacing,
+                                        cutoff=cutoff,
+                                        interpolation_nodes=calc.interpolation_nodes)),
+            "seconds": row["seconds"], "launches": row["launches"]}
+
+
+def _filtered(idx, dist, cutoff):
+    """The pairs of a neighbor list (indices, distances) closer than ``cutoff``."""
+    keep = dist < cutoff
+    return idx[keep], dist[keep]
+
+
+def abs_rms_force(forces, ref) -> float:
+    """Absolute RMS of the force error per atom, sqrt(mean |F - F_ref|^2)."""
+    return float(torch.sqrt(torch.mean(torch.sum((forces.double() - ref.double()) ** 2, -1))))
+
+
+def dipole_tuning_box():
+    """``(positions, dipoles, cell)`` of the dipolar tuners' system: 7^3
+    dipoles on a cubic lattice at density 0.1, each moved by up to 0.3 Å
+    (seed 11, no pair closer than ~1.5 Å: float32 forces of a few units),
+    normal dipoles."""
+    rng = np.random.default_rng(11)
+    box = float((DIPOLE_TUNE_SIDE**3 / 0.1) ** (1 / 3))
+    grid = np.stack(np.meshgrid(*[np.arange(DIPOLE_TUNE_SIDE)] * 3, indexing="ij"), -1)
+    positions = (grid.reshape(-1, 3) + 0.5) * (box / DIPOLE_TUNE_SIDE)
+    positions += rng.uniform(-0.3, 0.3, positions.shape)
+    return positions, rng.normal(size=positions.shape), np.eye(3) * box
+
+
+def tuning_phases(env) -> dict:
+    """Phase 19: the port's tuning module on the card, float32.  (a) The
+    main path's parameters chosen by the port: ``tune_over_cutoffs(tune_pme)``
+    on the 102k box over one 5.5 Å neighbor list, every timed candidate with
+    its backend and bound, the pick run in float32 against float64 plain;
+    (b) ``tune_p3m`` at 102k, ``tune_ewald`` at 12k and ``tune_pme`` on the
+    1536-atom truth box (its force error against tools/ground_truth.npz);
+    (c) the dipolar tuners at 343 dipoles; (d) one labeled
+    ``atomistic.PMECalculator`` call at 102k against the plain calculator.
+    Returns the launches of the PME tuning and of ``tune_pme_dipole``."""
+    tpt, kernels, dev, f32 = env.tpt, env.kernels, env.dev, env.f32
+    from torchpme_tpu_torch import atomistic
+    from torchpme_tpu_torch.tuning import (
+        P3MErrorBounds,
+        PMEErrorBounds,
+        tune_ewald,
+        tune_ewald_dipole,
+        tune_over_cutoffs,
+        tune_p3m,
+        tune_pme,
+        tune_pme_dipole,
+    )
+    from torchpme_tpu_torch.utils.neighbors import compute_distances, neighbor_list
+
+    t_phase = time.perf_counter()
+    cpu_inputs = _cpu(env.charges, env.cell, env.positions)
+
+    # -- (a) tune_over_cutoffs(tune_pme) at 102k ----------------------------------
+    cut_max = max(TUNE_CUTOFFS)
+    t0 = time.perf_counter()
+    nl_idx, _, nl_shifts = neighbor_list(env.positions.astype(np.float32), env.cell, cut_max)
+    nl_s = time.perf_counter() - t0
+    idx = torch.as_tensor(nl_idx, device=dev)
+    shifts = torch.as_tensor(nl_shifts, device=dev)
+    with torch.no_grad():
+        dist = compute_distances(env.pos32, idx, env.cell32, shifts)
+    dist_host = dist.cpu().numpy()
+    cutoff_of = {int((dist_host < c).sum()): c for c in TUNE_CUTOFFS}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with TimedCandidates(kernels) as rec:
+        pick = tune_over_cutoffs(tune_pme, env.q32, env.cell32, env.pos32, TUNE_CUTOFFS, idx, dist,
+                                 accuracy=ACCURACY, **TUNE_GRID)
+    sync()
+    tune_s = time.perf_counter() - t0
+    tune_counts = kernels.launch_counts()
+    bounds = PMEErrorBounds(*cpu_inputs)
+    timed = [mesh_candidate(row, bounds, cutoff_of[row["n_pairs"]]) for row in rec.rows]
+    cutoff, smearing, params, seconds = pick
+    # the tuner's smearing at the main path's cutoff against bench.py's
+    # formula on the same (float32-rounded) charges and cell, and against the
+    # main path's smearing from the float64 ones
+    at_main = {c["smearing"] for c in timed if c["cutoff"] == CUTOFF}
+    tuned_main = at_main.pop() if len(at_main) == 1 else float("nan")
+    formula = bench_smearing(env.q32.cpu().numpy(), env.cell32.cpu().numpy())
+    smearing_rel = abs(tuned_main - formula) / formula
+    smearing_rel_main = abs(tuned_main - env.smearing) / env.smearing
+    # the pick in float32 (kernels) against float64 (plain) on the same inputs
+    # and the mesh the tuner timed: the candidates' spacing 2·box/(2^m - 1)
+    # puts 2·box/spacing + 1 at 2^m up to rounding, so get_ns_mesh of the
+    # float64 cell may round to 2^(m+1) where the float32 cell gives 2^m
+    keep = torch.as_tensor(dist_host < cutoff, device=dev)
+    calc = tpt.PMECalculator(tpt.CoulombPotential(smearing=smearing), **params)
+    ns_pick = calc.get_ns_mesh(env.cell32)
+    args = (env.pos32, env.q32, env.cell32, idx[keep], shifts[keep])
+    got = per_atom_call(calc, *args, torch.float32, False, ns_mesh=ns_pick)
+    pick_errs = call_errors(got, per_atom_call(calc, *args, torch.float64, True, ns_mesh=ns_pick))
+    # the pick against the main path's parameters (5 A, 5 nodes, 128^3), timed
+    # by the tuner's own timer in turns (pick, main, main, pick, twice)
+    from torchpme_tpu_torch.tuning import TuningTimings
+
+    rivals = {"pick": (cutoff, calc, ns_pick),
+              "main_path": (CUTOFF, tpt.PMECalculator(tpt.CoulombPotential(smearing=tuned_main),
+                                                      interpolation_nodes=NODES,
+                                                      mesh_spacing=2 * float(env.cell[0, 0]) / 127),
+                            NS_MESH)}
+    turns = {name: [] for name in rivals}
+    timers = {name: TuningTimings(env.q32, env.cell32, env.pos32, *_filtered(idx, dist, c))
+              for name, (c, _, _) in rivals.items()}
+    for name in ["pick", "main_path", "main_path", "pick"] * 2:
+        _, rival, ns = rivals[name]
+        turns[name].append(timers[name](rival, ns_mesh=ns))
+    del timers
+    emit({"phase": "tune_pme_102k", "atoms": N_ATOMS, "cutoffs": TUNE_CUTOFFS,
+          "grid": TUNE_GRID, "accuracy": ACCURACY, "pairs_at_max_cutoff": int(nl_idx.shape[0]),
+          "neighbor_list_seconds": nl_s, "tuning_seconds": tune_s, "timed": timed,
+          "pick": {"cutoff": cutoff, "smearing": smearing, **params, "seconds": seconds,
+                   "ns_mesh": ns_pick, "ns_mesh_of_the_float64_cell": calc.get_ns_mesh(env.cell)},
+          "main_path": {"cutoff": CUTOFF, "smearing": env.smearing, "nodes": NODES,
+                        "ns_mesh": NS_MESH},
+          "smearing_at_5A": tuned_main, "smearing_rel_vs_formula": smearing_rel,
+          "smearing_rel_vs_main_path_f64_charges": smearing_rel_main,
+          "pick_f32_vs_f64": pick_errs,
+          "pick_vs_main_path_in_turns_seconds": turns,
+          "launches": {k: v for k, v in tune_counts.items() if v}, "nvidia_smi": env.smi})
+    if not timed or max(c["error_bound"] for c in timed) > ACCURACY:
+        raise AssertionError(f"a timed candidate is above {ACCURACY}: {timed}")
+    if not smearing_rel <= 1e-12:
+        raise AssertionError(f"the tuner's smearing at {CUTOFF} A: {tuned_main} vs {formula}")
+    if min(tune_counts[k] for k in ("mesh_spread", "mesh_gather", "mesh_wgrad")) < 1:
+        raise AssertionError(f"the PME tuning did not launch D, E and F: {tune_counts}")
+    if not (pick_errs["energy_rel"] <= 1e-5 and pick_errs["force_rel_rms"] <= 1e-5):
+        raise AssertionError(f"the pick's float32 call vs float64: {pick_errs}")
+    del got, dist, idx, shifts, keep
+
+    # -- (b) tune_p3m at 102k, tune_ewald at 12k, tune_pme on the truth box -------
+    with torch.no_grad():
+        dist5 = compute_distances(env.pos32, env.idx_t, env.cell32, env.shifts_t)
+    with TimedCandidates(kernels) as rec:
+        t0 = time.perf_counter()
+        p3m_pick = tune_p3m(env.q32, env.cell32, env.pos32, CUTOFF, env.idx_t, dist5,
+                            accuracy=ACCURACY)
+        sync()
+        p3m_s = time.perf_counter() - t0
+    p3m_timed = [mesh_candidate(row, P3MErrorBounds(*cpu_inputs), CUTOFF) for row in rec.rows]
+    del dist5
+    epos, eq, ecell = water_box(EWALD_N)
+    e_idx, _, e_shifts = neighbor_list(epos.astype(np.float32), ecell, CUTOFF)
+    epos32, eq32, ecell32 = (torch.tensor(a, **f32) for a in (epos, eq, ecell))
+    e_idx = torch.as_tensor(e_idx, device=dev)
+    with torch.no_grad():
+        e_dist = compute_distances(epos32, e_idx, ecell32, torch.as_tensor(e_shifts, device=dev))
+    with TimedCandidates(kernels) as rec:
+        t0 = time.perf_counter()
+        ewald_pick = tune_ewald(eq32, ecell32, epos32, CUTOFF, e_idx, e_dist, accuracy=ACCURACY,
+                                **EWALD_TUNE_GRID)
+        sync()
+        ewald_s = time.perf_counter() - t0
+    ewald_timed = [{"lr_wavelength": row["calculator"].lr_wavelength,
+                    "ns_kvectors": tuple(row["extra"]["ns_kvectors"]), "seconds": row["seconds"]}
+                   for row in rec.rows]
+    gpos, gq, gcell = water_box(GT_N)
+    g_idx, _, g_shifts = neighbor_list(gpos.astype(np.float32), gcell, CUTOFF)
+    gpos32, gq32, gcell32 = (torch.tensor(a, **f32) for a in (gpos, gq, gcell))
+    g_idx, g_shifts = torch.as_tensor(g_idx, device=dev), torch.as_tensor(g_shifts, device=dev)
+    with torch.no_grad():
+        g_dist = compute_distances(gpos32, g_idx, gcell32, g_shifts)
+    t0 = time.perf_counter()
+    g_smearing, g_params, g_seconds = tune_pme(gq32, gcell32, gpos32, CUTOFF, g_idx, g_dist,
+                                               accuracy=ACCURACY)
+    sync()
+    g_s = time.perf_counter() - t0
+    g_calc = tpt.PMECalculator(tpt.CoulombPotential(smearing=g_smearing), **g_params)
+    g_ns = g_calc.get_ns_mesh(gcell32)
+    f_truth = torch.tensor(np.load(REPO / "tools" / "ground_truth.npz")["forces"], device=dev)
+    g_args = (gpos32, gq32, gcell32, g_idx, g_shifts)
+    truth_err = {}
+    for label, dtype, plain in (("f32", torch.float32, False), ("f64_plain", torch.float64, True)):
+        grad_positions = per_atom_call(g_calc, *g_args, dtype, plain, ns_mesh=g_ns)[1]
+        truth_err[label] = abs_rms_force(-grad_positions, f_truth)
+    emit({"phase": "tune_others", "accuracy": ACCURACY,
+          "p3m_102k": {"cutoff": CUTOFF, "pick": {"smearing": p3m_pick[0], **p3m_pick[1],
+                                                  "seconds": p3m_pick[2]},
+                       "timed": p3m_timed, "tuning_seconds": p3m_s},
+          "ewald_12k": {"cutoff": CUTOFF, "pick": {"smearing": ewald_pick[0], **ewald_pick[1],
+                                                   "seconds": ewald_pick[2]},
+                        "grid": EWALD_TUNE_GRID, "timed": ewald_timed, "tuning_seconds": ewald_s},
+          "pme_1536": {"cutoff": CUTOFF, "pick": {"smearing": g_smearing, **g_params,
+                                                  "seconds": g_seconds,
+                                                  "ns_mesh": g_ns},
+                       "tuning_seconds": g_s,
+                       "abs_rms_force_error_vs_truth": truth_err,
+                       "ratio_to_accuracy": {k: v / ACCURACY for k, v in truth_err.items()}},
+          "nvidia_smi": env.smi})
+    for label, timed_list in (("P3M", p3m_timed), ("Ewald", ewald_timed)):
+        if not timed_list:
+            raise AssertionError(f"the {label} tuner timed no candidate")
+    if max(c["error_bound"] for c in p3m_timed) > ACCURACY:
+        raise AssertionError(f"a timed P3M candidate is above {ACCURACY}: {p3m_timed}")
+    if not all(math.isfinite(x) for x in (p3m_pick[2], ewald_pick[2], g_seconds,
+                                          *truth_err.values())):
+        raise AssertionError("a tuner returned no timed candidate, or a non-finite error")
+
+    # -- (c) the dipolar tuners at 343 dipoles ------------------------------------
+    dpos, dmu, dcell = dipole_tuning_box()
+    d_idx, _, d_shifts = neighbor_list(dpos.astype(np.float32), dcell, DIPOLE_TUNE_CUTOFF)
+    dpos32, dmu32, dcell32 = (torch.tensor(a, **f32) for a in (dpos, dmu, dcell))
+    d_idx, d_shifts = torch.as_tensor(d_idx, device=dev), torch.as_tensor(d_shifts, device=dev)
+    d_vec = dpos32[d_idx[:, 1]] - dpos32[d_idx[:, 0]] + d_shifts.to(torch.float32) @ dcell32
+    dipole_out, dipole_counts = {}, {}
+    for name, tune in (("ewald", tune_ewald_dipole), ("pme", tune_pme_dipole)):
+        kernels.reset_launch_counts()
+        with TimedCandidates(kernels) as rec:
+            t0 = time.perf_counter()
+            d_smearing, d_params, d_seconds = tune(dmu32, dcell32, dpos32, DIPOLE_TUNE_CUTOFF,
+                                                   d_idx, d_vec, d_shifts, accuracy=1e-3)
+            sync()
+            d_s = time.perf_counter() - t0
+        dipole_counts[name] = {k: v for k, v in kernels.launch_counts().items() if v}
+        dipole_out[name] = {"pick": {"smearing": d_smearing, **d_params, "seconds": d_seconds},
+                            "timed": [{"seconds": r["seconds"], "launches": r["launches"]}
+                                      for r in rec.rows],
+                            "tuning_seconds": d_s, "launches": dipole_counts[name]}
+    emit({"phase": "tune_dipoles", "dipoles": int(dpos.shape[0]), "box": float(dcell[0, 0]),
+          "cutoff": DIPOLE_TUNE_CUTOFF, "accuracy": 1e-3, **dipole_out, "nvidia_smi": env.smi})
+    if not all(math.isfinite(v["pick"]["seconds"]) for v in dipole_out.values()):
+        raise AssertionError(f"a dipolar tuner met no candidate: {dipole_out}")
+    if min(dipole_counts["pme"].get(k, 0) for k in ("mesh_spread", "mesh_gather",
+                                                     "mesh_wgrad")) < 1:
+        raise AssertionError(f"tune_pme_dipole did not launch D, E and F: {dipole_counts}")
+
+    # -- (d) one labeled atomistic.PMECalculator call at 102k ---------------------
+    system = atomistic.System(torch.zeros(N_ATOMS, dtype=torch.int32, device=dev), env.pos32,
+                              env.cell32).add_data("charge", env.q32)
+    vectors = (env.pos32[env.idx_t[:, 1]] - env.pos32[env.idx_t[:, 0]]
+               + env.shifts_t.to(torch.float32) @ env.cell32)
+    neighbors = atomistic.NeighborList(torch.cat([env.idx_t, env.shifts_t], dim=1), vectors)
+    labeled_calc = atomistic.PMECalculator(env.calc.potential, interpolation_nodes=NODES)
+    kw = dict(ns_mesh=NS_MESH, tiled_interp=env.interp)
+    kernels.reset_launch_counts()
+    labeled = labeled_calc(system, neighbors, **kw).values
+    sync()
+    labeled_counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    plain = env.calc(env.q32, env.cell32, env.pos32, neighbors.indices, neighbors.distances, **kw)
+    f32_rel = rel_err(labeled, plain)[1]
+    # bitwise: the same call in float64 through the plain versions, with
+    # PyTorch's deterministic algorithms (the kernels' float atomics and
+    # index_add's sum in another order each run)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        sys64 = atomistic.System(system.types, env.pos32.double(), env.cell32.double()).add_data(
+            "charge", env.q32.double())
+        nb64 = atomistic.NeighborList(neighbors.samples, vectors.double())
+        labeled64 = labeled_calc(sys64, nb64, plain=True, **kw).values
+        plain64 = env.calc(sys64.get_data("charge"), sys64.cell, sys64.positions, nb64.indices,
+                           nb64.distances, plain=True, **kw)
+        bitwise = bool(torch.equal(labeled64, plain64))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    emit({"phase": "labeled_call", "atoms": N_ATOMS, "f32_rel_vs_plain_calculator": f32_rel,
+          "f64_bitwise_equal": bitwise, "launches": labeled_counts,
+          "phase_seconds": time.perf_counter() - t_phase, "nvidia_smi": env.smi})
+    if not (bitwise and f32_rel <= KERNEL_TOL and "mesh_spread" in labeled_counts):
+        raise AssertionError(f"labeled call: f32 {f32_rel:.3e}, f64 bitwise {bitwise}, "
+                             f"launches {labeled_counts}")
+    return {"tuning_pme": {k: v for k, v in tune_counts.items() if v},
+            "tuning_pme_dipole": dipole_counts["pme"]}
 
 
 def device_ms_per_call(fn, calls: int = 2) -> float:
@@ -1769,7 +2151,7 @@ def main() -> int:
 
     # -- the 102k system (host build; the state lands on the card by default) ---
     positions, charges, cell = water_box(N_ATOMS)
-    smearing = smearing_for(charges, cell, N_ATOMS)
+    smearing = smearing_for(positions, charges, cell)
     calc = tpt.PMECalculator(tpt.CoulombPotential(smearing=smearing), interpolation_nodes=NODES)
     f32 = dict(dtype=torch.float32, device=dev)
     pos32 = torch.tensor(positions, **f32)
@@ -2300,7 +2682,7 @@ def main() -> int:
         tpt=tpt, kernels=kernels, dev=dev, f32=f32, smi=smi, positions=positions, cell=cell,
         pos32=pos32, q32=q32, cell32=cell32, idx_t=idx_t, shifts_t=shifts_t, n_pairs=n_pairs,
         ct_rho=ct_rho, report=report, counts=counts, profile=profile, smearing=smearing,
-        calc=calc, interp=interp, fp=fp,
+        calc=calc, interp=interp, fp=fp, charges=charges,
     )
     # -- 11, 12. P3M: the 102k MD step (A, B, C with the P3M tables) and the
     # per-atom call (D, E, F) -------------------------------------------------------
@@ -2317,6 +2699,9 @@ def main() -> int:
 
     # -- 3 (kernel G; D, E, F at the dipolar shapes), 7, 8, 9: the dipolar paths --
     dipole_phases(env)
+
+    # -- 19. the port's tuning module and a labeled call on the card ----------------
+    paths.update(tuning_phases(env))
 
     # -- 10. result ---------------------------------------------------------------
     # launches: of the MD step (A, B, C), the per-atom call (D, E, F) and the

@@ -162,9 +162,15 @@ def _jax_call(calc, positions, q, cell, lst, **kw):
         return calc(qq, c, p, jnp.asarray(lst["indices"]), _jax_distances(p, c, lst),
                     pair_mask=mask, **kw)
 
-    args = (jnp.asarray(positions), jnp.asarray(q), jnp.asarray(cell))
-    grads = jax.grad(lambda p, qq, c: jnp.sum(pot(p, qq, c) * qq), argnums=(0, 1, 2))(*args)
-    return (np.asarray(pot(*args)), *(np.asarray(g) for g in grads))
+    def value_and_grads(p, qq, c):
+        values = pot(p, qq, c)
+        return values, jax.grad(lambda *a: jnp.sum(pot(*a) * a[1]), argnums=(0, 1, 2))(p, qq, c)
+
+    # one trace and compile of the whole call: eager JAX compiles every
+    # operation on its own, seconds per test
+    values, grads = jax.jit(value_and_grads)(
+        jnp.asarray(positions), jnp.asarray(q), jnp.asarray(cell))
+    return (np.asarray(values), *(np.asarray(g) for g in grads))
 
 
 def _port_call(calc, positions, q, cell, lst, **kw):

@@ -154,6 +154,9 @@ def test_plain_spread_and_gather_match_jax_pallas_f32(nodes, n_channels, nz):
 
 
 def _jax_loss(impl, inv, ns, nodes):
+    """The JAX package's loss; its gradient is taken under ``jax.jit``: one
+    compile of the whole graph instead of one per operation (~5x faster)."""
+
     def loss(positions, charges):  # tests/ops/test_mesh_pallas.py:55-62
         interp = jmt.compute_tiled_interpolation(positions, inv, ns, nodes, "Lagrange")
         rho = jmt.tiled_points_to_mesh(interp, charges, impl=impl)
@@ -181,7 +184,7 @@ def test_plain_backward_matches_jax_grad_f64(nodes, n_channels, nz):
     ns = (16, 16, nz)
     positions, charges = make_system(48, n_channels)
     inv = jnp.asarray(np.linalg.inv(CELL))
-    g_j = jax.grad(_jax_loss("xla", inv, ns, nodes), argnums=(0, 1))(
+    g_j = jax.jit(jax.grad(_jax_loss("xla", inv, ns, nodes), argnums=(0, 1)))(
         jnp.asarray(positions), jnp.asarray(charges)
     )
     g_t = _port_loss_grads(positions, charges, ns, nodes, torch.float64)
@@ -198,7 +201,7 @@ def test_plain_backward_matches_jax_pallas_vjp_f32(n_channels, nz):
     positions, charges = make_system(48, n_channels)
     p32, q32 = positions.astype(np.float32), charges.astype(np.float32)
     inv = jnp.asarray(np.linalg.inv(CELL), jnp.float32)
-    g_j = jax.grad(_jax_loss("pallas", inv, ns, nodes), argnums=(0, 1))(
+    g_j = jax.jit(jax.grad(_jax_loss("pallas", inv, ns, nodes), argnums=(0, 1)))(
         jnp.asarray(p32), jnp.asarray(q32)
     )
     g_t = _port_loss_grads(p32, q32, ns, nodes, torch.float32)

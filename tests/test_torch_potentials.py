@@ -177,7 +177,7 @@ def test_kspace_energy_from_rho_f64():
             jnp.asarray(rho), c, jnp.asarray(q), jnp.asarray(pos), None, ns
         )
 
-    ej, gj = jax.value_and_grad(e_j)(jnp.asarray(cell))
+    ej, gj = jax.jit(jax.value_and_grad(e_j))(jnp.asarray(cell))
     c_t = torch.tensor(cell, requires_grad=True)
     et = calc_t._kspace_energy_from_rho(
         torch.tensor(rho), c_t, torch.tensor(q), torch.tensor(pos), None, ns
@@ -200,7 +200,7 @@ def test_scatter_spread_f64(method, nodes):
         interp = jax_mesh.compute_interpolation(p, jnp.asarray(inv), ns, nodes, method)
         return jnp.sum(jax_mesh.points_to_mesh(interp, c) * jnp.asarray(w))
 
-    lj, gj = jax.value_and_grad(loss_j, argnums=(0, 1))(jnp.asarray(pos), jnp.asarray(q))
+    lj, gj = jax.jit(jax.value_and_grad(loss_j, argnums=(0, 1)))(jnp.asarray(pos), jnp.asarray(q))
     p_t = torch.tensor(pos, requires_grad=True)
     q_t = torch.tensor(q, requires_grad=True)
     interp = mesh.compute_interpolation(p_t, torch.tensor(inv), ns, nodes, method)

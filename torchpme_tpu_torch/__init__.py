@@ -10,7 +10,9 @@ point-charge calculators over them
 steps (``MDFastPath`` in aligned, fused and tiled mode for the mesh
 calculators, ``MDFastPathEwald``), and the point-dipole family:
 ``PotentialDipole``, ``CalculatorDipole`` (direct and Ewald),
-``PMECalculatorDipole`` and ``MDFastPathDipole``.  The TPU-side kernels on those paths are
+``PMECalculatorDipole`` and ``MDFastPathDipole``; the parameter tuners of
+:mod:`~torchpme_tpu_torch.tuning`, and the labeled calculators of
+:mod:`~torchpme_tpu_torch.atomistic`.  The TPU-side kernels on those paths are
 hand-written CUDA C++ for Hopper (``csrc/``), each with a plain PyTorch
 version in the module that wraps it.  Entry points put their state on the
 CUDA device when the caller gave neither a device nor tensors
@@ -19,7 +21,7 @@ for the CPU).  This package imports ``torch``,
 ``numpy`` and ``scipy``, never ``jax``.
 """
 
-from . import calculators, md, ops, potentials, prefactors, utils  # noqa: F401
+from . import calculators, md, ops, potentials, prefactors, tuning, utils  # noqa: F401
 from .calculators import (
     Calculator,
     CalculatorDipole,

@@ -20,7 +20,10 @@ do the same for :class:`~torchpme_tpu_torch.md.MDFastPathEwald` (its cell
 list, row map and k-space extents).  The dipolar family has the same four
 functions
 (:func:`dipole_calculator_state` / :func:`dipole_calculator_from_state`,
-:func:`md_dipole_state` / :func:`md_dipole_from_state`).  A dict filled from the JAX package's objects (same
+:func:`md_dipole_state` / :func:`md_dipole_from_state`).  A labeled wrapper
+of :mod:`~torchpme_tpu_torch.atomistic` is its class name and its inner
+calculator's state (:func:`labeled_calculator_state` /
+:func:`labeled_calculator_from_state`).  A dict filled from the JAX package's objects (same
 keys, arrays via ``np.asarray``) gives the port the identical state, which
 is how the tests hold the two packages against each other.
 """
@@ -54,6 +57,8 @@ __all__ = [
     "calculator_state",
     "dipole_calculator_from_state",
     "dipole_calculator_state",
+    "labeled_calculator_from_state",
+    "labeled_calculator_state",
     "md_dipole_from_state",
     "md_dipole_state",
     "md_ewald_from_state",
@@ -217,6 +222,32 @@ def calculator_from_state(state: dict, **kwargs):
             differential_order=int(state.get("differential_order", 2)), **kwargs,
         )
     raise ValueError(f"`method` is {method!r} but must be 'Lagrange' or 'P3M'")
+
+
+def labeled_calculator_state(calc) -> dict:
+    """A labeled wrapper (:class:`~torchpme_tpu_torch.atomistic.Calculator`
+    and its subclasses): ``class``, the wrapper's class name, and
+    ``calculator``, the :func:`calculator_state` of the calculator it wraps."""
+    return {"class": type(calc).__name__, "calculator": calculator_state(calc._calculator)}
+
+
+def labeled_calculator_from_state(state: dict, **kwargs):
+    """The port's labeled wrapper from the keys of
+    :func:`labeled_calculator_state`; ``kwargs`` go to the inner calculator."""
+    from . import atomistic
+
+    inner = calculator_from_state(state["calculator"], **kwargs)
+    cls = getattr(atomistic, state["class"], None)
+    if cls is None or type(inner) is not cls._base_calculator:
+        raise ValueError(
+            f"`class` is {state['class']!r}, which does not wrap a {type(inner).__name__}"
+        )
+    # the wrapper's own two attributes, around the inner calculator built above
+    wrapper = cls.__new__(cls)
+    torch.nn.Module.__init__(wrapper)
+    wrapper._calculator = inner
+    wrapper.potential = inner.potential
+    return wrapper
 
 
 def tiled_interp_state(interp: TiledInterpolation) -> dict:

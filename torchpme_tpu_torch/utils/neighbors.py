@@ -12,7 +12,9 @@ arrays:
   non-periodic systems (small systems / tests).
 
 :func:`compute_distances` recomputes the distances from tensors, so that
-gradients reach the positions and the cell.
+gradients reach the positions and the cell; :func:`compute_distances_dense`
+and :func:`compute_distances_dense_symmetric` do the same for the dense
+per-atom layout of :func:`dense_neighbor_format`.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import torch
 
 __all__ = [
     "compute_distances",
+    "compute_distances_dense",
+    "compute_distances_dense_symmetric",
     "dense_neighbor_format",
     "neighbor_list",
 ]
@@ -267,3 +271,100 @@ def dense_neighbor_format(
         shifts[i, rank] = s
         out["shifts"] = shifts
     return out
+
+
+def _dense_vectors(positions, neighbor_indices, cell, neighbor_shifts) -> torch.Tensor:
+    """``(N, C, 3)`` pair vectors of the dense layout."""
+    n_atoms, capacity = neighbor_indices.shape
+    vectors = positions.index_select(0, neighbor_indices.reshape(-1).long()).reshape(
+        n_atoms, capacity, 3
+    ) - positions[:, None, :]
+    if cell is not None:
+        vectors = vectors + torch.matmul(neighbor_shifts.to(cell.dtype), cell)
+    return vectors
+
+
+def _safe_norm(vectors: torch.Tensor) -> torch.Tensor:
+    """Lengths of ``vectors``, 1 where a vector is zero: padded slots may point
+    at the atom itself, and the double ``where`` keeps the square root's
+    infinite slope at zero out of the backward pass."""
+    sq = torch.sum(vectors**2, dim=-1)
+    zero = sq == 0.0
+    return torch.where(zero, 1.0, torch.sqrt(torch.where(zero, 1.0, sq)))
+
+
+class _SymmetricDenseDistances(torch.autograd.Function):
+    """Dense distances whose position cotangent is the dense half of the
+    gather's, doubled (see :func:`compute_distances_dense_symmetric`)."""
+
+    @staticmethod
+    def forward(ctx, positions, cell, neighbor_indices, neighbor_shifts):
+        vectors = _dense_vectors(positions, neighbor_indices, cell, neighbor_shifts)
+        distances = _safe_norm(vectors)
+        ctx.save_for_backward(vectors, distances, neighbor_shifts)
+        ctx.with_cell = cell is not None
+        return distances
+
+    @staticmethod
+    def backward(ctx, g):
+        vectors, distances, shifts = ctx.saved_tensors
+        r_hat = vectors / distances[..., None]
+        # mirrored-pair identity: scatter half == dense half, hence the 2
+        grad_positions = -2.0 * torch.sum(g[..., None] * r_hat, dim=1)
+        grad_cell = None
+        if ctx.with_cell:
+            # exact: each dense row counts its own pair once
+            grad_cell = torch.einsum("nc,nci,ncj->ij", g, shifts.to(r_hat.dtype), r_hat)
+        return grad_positions, grad_cell, None, None
+
+
+def compute_distances_dense_symmetric(
+    positions, neighbor_indices, cell=None, neighbor_shifts=None
+):
+    r"""Dense-format distances with a backward pass free of scatters.
+
+    The forward equals :func:`compute_distances_dense`; the position
+    cotangent uses the mirrored-pair identity of a *symmetric* dense neighbor
+    list (every pair ``(i, j, S)`` also appears as ``(j, i, -S)``, as
+    :func:`dense_neighbor_format` produces): the scatter half of the gather's
+    backward equals the dense half, so
+
+    .. math:: \partial E/\partial p_i = -2 \sum_s g_{is}\,\hat r_{is}
+
+    with :math:`g` the distance cotangent: a dense reduction instead of an
+    ``index_add`` over all slots.
+
+    **Correctness requires** (a) a symmetric dense list and (b) a
+    pair-symmetric cotangent, true for any pair energy
+    :math:`\sum m_{is} f(d_{is})\,q_i q_{j_s}` such as the calculators'
+    real-space sums, where masked slots carry zero cotangent.  Otherwise use
+    :func:`compute_distances_dense`.  The cell cotangent (stress) is exact.
+
+    Example
+    -------
+    >>> import torch
+    >>> f64 = torch.float64
+    >>> positions = torch.tensor([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0]], dtype=f64,
+    ...                          requires_grad=True)
+    >>> dense = dense_neighbor_format(torch.tensor([[0, 1]]), torch.tensor([1.0], dtype=f64), 2)
+    >>> d = compute_distances_dense_symmetric(positions, torch.as_tensor(dense["indices"]))
+    >>> mask = torch.as_tensor(dense["mask"])
+    >>> energy = torch.sum(torch.where(mask, d**2, 0.0)) / 2  # (1/2) sum over both rows
+    >>> torch.autograd.grad(energy, positions)[0][:, 0].tolist()
+    [-2.0, 2.0]
+    """
+    if (cell is None) != (neighbor_shifts is None):
+        raise ValueError(
+            "Provide `cell` and `neighbor_shifts` together (or neither)."
+        )
+    return _SymmetricDenseDistances.apply(positions, cell, neighbor_indices, neighbor_shifts)
+
+
+def compute_distances_dense(positions, neighbor_indices, cell=None, neighbor_shifts=None):
+    """Differentiable distances for the dense ``(N, C)`` neighbor format
+    (1 in the slots whose vector is zero)."""
+    if cell is not None and neighbor_shifts is None:
+        raise ValueError("Provided `cell` but no `neighbor_shifts`.")
+    if neighbor_shifts is not None and cell is None:
+        raise ValueError("Provided `neighbor_shifts` but no `cell`.")
+    return _safe_norm(_dense_vectors(positions, neighbor_indices, cell, neighbor_shifts))

@@ -91,8 +91,21 @@ phase fails:
     the dipolar tuners at 343 dipoles (D's, E's and F's dipole forms), and
     one labeled ``atomistic.PMECalculator`` call at 102k against the plain
     calculator (float32 within the kernel bar, float64 bitwise);
+20. a padded batch of 32 water-density boxes (1026–1536 atoms, each its own
+    cubic cell, padded to 1536 with zero-charge atoms and ``node_mask``, half
+    neighbor lists padded with ``pair_mask``, one shared ``ns_mesh``) through
+    ``torch.func.vmap`` of the per-atom calls with their gradients
+    (positions, charges, cell), float32: PME and P3M through kernels D, E, F
+    launched once per batch, against the plain float64 batch and against a
+    loop of 32 unbatched kernel calls, the padded rows exactly 0, D's, E's and
+    F's launches against one unbatched call's, ms per batched forward +
+    backward beside the loop's; ``PMECalculatorDipole`` on the same batch as
+    dipoles; direct and Ewald (``compute_batched_kvectors``) float32 against
+    float64.  Phase 3's batched launches run with it: D, E, F (charge and
+    dipole forms) over the 32 systems in one launch each against their plain
+    versions, with their bounds;
 10. the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
-Phases 11–18 run between 6 and 7, phase 19 after 9.
+Phases 11–18 run between 6 and 7, phase 19 after 9, phase 20 after 19.
 
 With ``--profile`` it also traces the 102k paths (the MD step in aligned,
 fused and tiled mode) with ``torch.profiler``
@@ -239,6 +252,19 @@ EXTRAS_F64_TOL = 1e-10
 # cutoffs and this grid (4-6 nodes, 64^3-256^3 meshes) at ACCURACY; tune_ewald
 # at 12k over ns 16-22 (the bound first meets 1e-4 at 19); the dipolar tuners
 # at DIPOLE_TUNE_SIDE^3 dipoles, cutoff DIPOLE_TUNE_CUTOFF
+# phase 20: a padded batch of water-density boxes (bench.py:build_system's
+# box) of multiples of 3 atoms in BATCH_ATOMS, each padded to the largest
+# count, through torch.func.vmap at tools/validate_accuracy.py's parameters
+# (GT_SMEARING, NODES, GT_MESH_SPACING)
+BATCH = 32
+BATCH_ATOMS = (1026, 1536)
+# the batched float32 call against a loop of unbatched kernel calls: the same
+# per-slot sums in E and F, but D adds into the mesh with global float atomics
+# in another order on each launch, so the two differ by float32 rounding of
+# the mesh (~1e-7 of its largest value), carried through the transform; the
+# cell gradient sums every atom's force, and takes ten times that
+BATCH_LOOP_TOL = 1e-6
+BATCH_LOOP_CELL_TOL = 1e-5
 TUNE_CUTOFFS = (4.5, 5.0, 5.5)
 TUNE_GRID = dict(nodes_lo=4, nodes_hi=6, mesh_lo=6, mesh_hi=8)
 EWALD_TUNE_GRID = dict(ns_lo=16, ns_hi=22)
@@ -2076,6 +2102,298 @@ def tuning_phases(env) -> dict:
             "tuning_pme_dipole": dipole_counts["pme"]}
 
 
+def batch_box(b: int):
+    """System ``b`` of phase 20's batch (seed 100 + b): ``(n, positions,
+    charges, cell)``, a water-density box of ``n`` atoms (a multiple of 3 in
+    BATCH_ATOMS, water charges as bench.py:build_system), padded to the
+    largest count with zero-charge atoms uniform in its cell."""
+    rng = np.random.default_rng(100 + b)
+    lo, hi = BATCH_ATOMS
+    n = 3 * int(rng.integers(lo // 3, hi // 3 + 1))
+    box = float((n / 0.1) ** (1 / 3))
+    positions = rng.uniform(0.0, box, (hi, 3))
+    charges = np.zeros((hi, 1))
+    base = np.tile([-0.84, 0.42, 0.42], n // 3)
+    charges[:n, 0] = base - base.mean()
+    return n, positions, charges, np.eye(3) * box
+
+
+def batch_inputs():
+    """Phase 20's padded batch as numpy: ``(sizes, dict)`` with ``q``,
+    ``mu`` (normal dipoles of seed 1, 0 on padding), ``cell``,
+    ``positions``, the half neighbor lists at CUTOFF (``idx``, ``shifts``)
+    padded to the longest with ``pair_mask``, and ``node_mask``.  A padded
+    pair is the last atom (padding in every system) with its image one cell
+    away: a nonzero distance between two zero charges (and zero dipoles,
+    whose pair list no mask reaches)."""
+    from torchpme_tpu_torch.utils.neighbors import neighbor_list
+
+    systems = [batch_box(b) for b in range(BATCH)]
+    n_pad = BATCH_ATOMS[1]
+    sizes = [s[0] for s in systems]
+    if max(sizes) >= n_pad:
+        raise AssertionError(f"a system of the batch has no padding atom: {max(sizes)}")
+    lists = [neighbor_list(p[:n], c, CUTOFF) for n, p, _, c in systems]
+    width = max(x[0].shape[0] for x in lists)
+    idx = np.full((BATCH, width, 2), n_pad - 1, dtype=np.int64)
+    shifts = np.zeros((BATCH, width, 3))
+    shifts[:, :, 0] = 1.0
+    for b, (i, _, s) in enumerate(lists):
+        idx[b, : i.shape[0]], shifts[b, : i.shape[0]] = i, s
+    mu = np.random.default_rng(1).normal(size=(BATCH, n_pad, 3))
+    node_mask = np.arange(n_pad)[None, :] < np.asarray(sizes)[:, None]
+    mu[~node_mask] = 0.0
+    return sizes, dict(
+        q=np.stack([s[2] for s in systems]), mu=mu, cell=np.stack([s[3] for s in systems]),
+        positions=np.stack([s[1] for s in systems]), idx=idx, shifts=shifts,
+        node_mask=node_mask,
+        pair_mask=np.arange(width)[None, :] < np.asarray([x[0].shape[0] for x in lists])[:, None],
+    )
+
+
+def batch_phases(env) -> dict:
+    """Phase 20: a padded batch of BATCH water-density boxes (1026–1536
+    atoms, their own cubic cells, one shared ``ns_mesh``) through
+    ``torch.func.vmap`` of the per-atom calls with their gradients, the
+    training user's path.  Phase 3's batched launches: D, E and F (charge and
+    dipole forms) over the whole batch against their plain versions, with
+    their bounds.  Then PME and P3M forward + backward (positions, charges,
+    cell) through the batched D, E, F against the plain float64 batch (the
+    per-atom call's bars) and against a loop of unbatched kernel calls, the
+    padded rows, and D's, E's and F's launches against one unbatched call's;
+    ``PMECalculatorDipole`` on the same batch as dipoles; direct and Ewald
+    (``compute_batched_kvectors``) float32 against float64.  Returns the
+    launches of the batched PME and dipolar calls."""
+    tpt, kernels, dev, f32 = env.tpt, env.kernels, env.dev, env.f32
+    from torchpme_tpu_torch.ops import compute_batched_kvectors
+    from torchpme_tpu_torch.ops import mesh_kernels as mk
+    from torchpme_tpu_torch.ops.math import inv3
+    from torchpme_tpu_torch.ops.mesh_tiled import _slot_values, compute_tiled_interpolation
+    from torchpme_tpu_torch.utils.neighbors import compute_distances
+
+    t_phase = time.perf_counter()
+    sizes, batch = batch_inputs()
+    ns = tpt.ops.get_ns_mesh(batch["cell"][int(np.argmax(sizes))], GT_MESH_SPACING)
+    n_real = int(sum(sizes))
+
+    def tensors(dtype, names):
+        """The batch's arrays on the card, floating ones in ``dtype``."""
+        return [torch.as_tensor(batch[k], device=dev).to(dtype) if batch[k].dtype.kind == "f"
+                else torch.as_tensor(batch[k], device=dev) for k in names]
+
+    # -- phase 3 at the batch's shapes: one launch of each kernel for all systems
+    mesh_src, mesh_ref = "torchpme_tpu_torch/csrc/mesh.cu", "torchpme_tpu/ops/pallas/mesh_pallas.py"
+    q32, cell32, pos32, mu32 = tensors(torch.float32, ("q", "cell", "positions", "mu"))
+    gen = torch.Generator(device=dev).manual_seed(20)
+    replaces = {"mesh_spread": 213, "mesh_gather": 239, "mesh_wgrad": 263}
+    launches = {}
+    for label, nodes, derivatives in (("charges", NODES, False), ("dipoles", DIPOLE_NODES, True)):
+        interp = torch.func.vmap(lambda p, c: compute_tiled_interpolation(
+            p, inv3(c), ns, nodes, "Lagrange", derivatives=derivatives))(pos32, cell32)
+        if int(interp.dropped.max()):
+            raise AssertionError(f"the batch's bucketing dropped atoms: {interp.dropped.tolist()}")
+        # vmap returns the batch axis moved to the front: the kernels take
+        # contiguous operands
+        arrays = tuple(a.contiguous() for a in (interp.local_x, interp.local_y, interp.start_z,
+                                                interp.weights))
+        n_t, cap = arrays[0].shape[1:]
+        shape = f"{label}, batch of {BATCH}: T={n_t}, K={cap}, {nodes} nodes, mesh {ns}"
+        n3 = nodes**3
+        field = torch.randn((BATCH, 1, *ns), generator=gen, **f32)
+        if label == "charges":
+            slots = torch.func.vmap(_slot_values)(interp, q32).contiguous()
+            calls = {
+                "mesh_spread": (lambda: (mk.mesh_spread(*arrays, slots, ns, nodes),),
+                                lambda: (mk.mesh_spread_plain(*arrays, slots, ns, nodes),),
+                                bound(nbytes(*arrays, slots, field), n_real * 2 * n3), None),
+                "mesh_gather": (lambda: (mk.mesh_gather(*arrays, field, ns, nodes),),
+                                lambda: (mk.mesh_gather_plain(*arrays, field, ns, nodes),),
+                                bound(nbytes(*arrays, field, slots), n_real * 2 * n3), None),
+                "mesh_wgrad": (lambda: (mk.mesh_wgrad(*arrays, slots, field, ns, nodes),),
+                               lambda: (mk.mesh_wgrad_plain(*arrays, slots, field, ns, nodes),),
+                               bound(nbytes(*arrays, slots, field, arrays[3]),
+                                     n_real * 8 * n3), None),
+            }
+        else:
+            arrays = (*arrays, interp.dweights.contiguous())
+            slots = torch.func.vmap(_slot_values)(interp, mu32).contiguous()
+            calls = {
+                "mesh_spread": (
+                    lambda: (mk.mesh_spread_dipole(*arrays, slots, ns, nodes),),
+                    lambda: (mk.mesh_spread_dipole_plain(*arrays, slots, ns, nodes),),
+                    bound(nbytes(*arrays, slots, field), n_real * 8 * n3), None),
+                "mesh_gather": (
+                    lambda: mk.mesh_gather_wgrad_dipole(*arrays, slots, field, ns, nodes),
+                    lambda: mk.mesh_gather_wgrad_dipole_plain(*arrays, slots, field, ns, nodes),
+                    bound(nbytes(*arrays, slots, field, slots, arrays[3], arrays[4]),
+                          n_real * 20 * n3), "E + F in one launch"),
+            }
+        for name, (run, plain, cost, note) in calls.items():
+            kernels.reset_launch_counts()
+            run()
+            sync()
+            launches[f"{label}_{name}"] = {k: v for k, v in kernels.launch_counts().items() if v}
+            check_kernel(name, mesh_src, f"{mesh_ref}:{replaces[name]}", run, plain, cost,
+                         env.report, shape=shape if note is None else f"{shape}, {note}")
+        del interp, arrays, slots, field
+    emit({"phase": "batched_kernel_launches", "per_batched_call": launches})
+    if not all(set(v.values()) == {1} for v in launches.values()):
+        raise AssertionError(f"a batched kernel call did not launch once: {launches}")
+
+    # -- PME and P3M: vmap of the per-atom call with its gradients -------------------
+    names = ("q", "cell", "positions", "idx", "shifts", "node_mask", "pair_mask")
+
+    def charge_energy(calc, plain, **kw):
+        def energy(q, c, p, i, s, nm, pm):
+            d = torch.where(pm, compute_distances(p, i, c, s), 1.0)
+            pot = calc(q, c, p, i, d, node_mask=nm, pair_mask=pm, plain=plain, **kw)
+            return torch.sum(pot * q), pot
+        return torch.func.grad_and_value(energy, argnums=(0, 1, 2), has_aux=True)
+
+    # float64 takes the float32-rounded inputs: the comparison measures
+    # float32 arithmetic, not input rounding
+    args = {torch.float32: tensors(torch.float32, names)}
+    args[torch.float64] = [t.double() if t.is_floating_point() else t for t in args[torch.float32]]
+
+    def batched(fn, dtype):
+        def run():
+            (g_q, g_c, g_p), (e, pot) = torch.func.vmap(fn)(*args[dtype])
+            return pot, g_p, g_q, g_c, e
+        return run
+
+    def single(fn, b):
+        def run():
+            (g_q, g_c, g_p), (e, pot) = fn(*[t[b] for t in args[torch.float32]])
+            return pot, g_p, g_q, g_c, e
+        return run
+
+    def errors(got, ref, weights):
+        """The per-atom call's errors over the batch.  ``energy_rel`` is the
+        largest per-system energy error over that system's sum of |w_i V_i|
+        (``weights`` the charges or dipoles): random boxes have energies
+        that cancel far below their terms (one of these, 3700-fold), and
+        float32 resolves a sum only to its terms' size; the error over |E|
+        itself and the largest cancellation are printed beside it."""
+        d_e = (got[4].double() - ref[4].double()).abs()
+        terms = (ref[0].double() * weights.double()).abs().flatten(1).sum(1)
+        return {"potential_rel": rel_err(got[0], ref[0])[1], "force_rel_rms": rel_rms(got[1], ref[1]),
+                "charge_grad_rel": rel_err(got[2], ref[2])[1],
+                "cell_grad_rel": rel_err(got[3], ref[3])[1],
+                "energy_rel": float((d_e / terms).max()),
+                "energy_rel_over_own_energy": float((d_e / ref[4].double().abs()).max()),
+                "largest_cancellation": float((terms / ref[4].double().abs()).max())}
+
+    calls = {"PME": tpt.PMECalculator, "P3M": tpt.P3MCalculator}
+    out, key_counts = {}, ("mesh_spread", "mesh_gather", "mesh_wgrad")
+    for name, cls in calls.items():
+        calc = cls(tpt.CoulombPotential(smearing=GT_SMEARING), mesh_spacing=GT_MESH_SPACING,
+                   interpolation_nodes=NODES)
+        fn32 = charge_energy(calc, False, ns_mesh=ns)
+        kernels.reset_launch_counts()
+        got = batched(fn32, torch.float32)()
+        sync()
+        counts_b = {k: kernels.launch_counts()[k] for k in key_counts}
+        ref = batched(charge_energy(calc, True, ns_mesh=ns), torch.float64)()
+        kernels.reset_launch_counts()
+        loop = [single(fn32, b)() for b in range(BATCH)]
+        sync()
+        counts_1 = {k: kernels.launch_counts()[k] // BATCH for k in key_counts}
+        loop = [torch.stack([x[k] for x in loop]) for k in range(5)]
+        padded = [bool((got[k][b, n:] == 0).all()) for k in (0, 1) for b, n in enumerate(sizes)]
+        q_b = args[torch.float32][0]
+        line = {"vs_plain_f64": errors(got, ref, q_b),
+                "vs_loop_of_unbatched_calls": errors(got, loop, q_b),
+                "padded_rows_exactly_zero": all(padded), "launches_batched": counts_b,
+                "launches_one_unbatched_call": counts_1}
+        ms = turns_ms({"batched": batched(fn32, torch.float32),
+                       "loop": lambda: [single(fn32, b)() for b in range(BATCH)]}, 1)
+        line.update(batched_forward_backward_ms=ms["batched"], loop_forward_backward_ms=ms["loop"],
+                    batched_device_ms=device_ms_per_call(batched(fn32, torch.float32)),
+                    loop_device_ms=device_ms_per_call(
+                        lambda: [single(fn32, b)() for b in range(BATCH)], calls=1))
+        out[name] = line
+        if name == "PME":
+            pme_counts = counts_b
+        check_call(f"phase 20 batched {name}", line["vs_plain_f64"])
+        loop_errs = line["vs_loop_of_unbatched_calls"]
+        if not (loop_errs["potential_rel"] <= BATCH_LOOP_TOL
+                and loop_errs["force_rel_rms"] <= BATCH_LOOP_TOL
+                and loop_errs["charge_grad_rel"] <= BATCH_LOOP_TOL
+                and loop_errs["energy_rel"] <= BATCH_LOOP_TOL
+                and loop_errs["cell_grad_rel"] <= BATCH_LOOP_CELL_TOL):
+            raise AssertionError(f"phase 20 batched {name} vs the loop: {loop_errs}")
+        if not all(padded):
+            raise AssertionError(f"phase 20 batched {name}: a padded row is not 0")
+        if counts_b != counts_1 or min(counts_b.values()) < 1:
+            raise AssertionError(f"phase 20 batched {name} launches {counts_b}, one call {counts_1}")
+        del got, ref, loop
+
+    # -- the same batch as dipoles -----------------------------------------------
+    dcalc = tpt.PMECalculatorDipole(tpt.PotentialDipole(smearing=GT_SMEARING),
+                                    mesh_spacing=GT_MESH_SPACING, interpolation_nodes=DIPOLE_NODES)
+    dargs = tensors(torch.float32, ("mu", "cell", "positions", "idx", "shifts"))
+
+    def dipole_energy(plain):
+        def energy(mu, c, p, i, s):
+            vec = p.index_select(0, i[:, 1]) - p.index_select(0, i[:, 0]) + s @ c
+            pot = dcalc(mu, c, p, i, vec, ns_kvectors=ns, plain=plain)
+            return torch.sum(pot * mu), pot
+        fn = torch.func.grad_and_value(energy, argnums=(0, 1, 2), has_aux=True)
+
+        def run(dtype):
+            inputs = [t.to(dtype) if t.is_floating_point() else t for t in dargs]
+            (g_mu, g_c, g_p), (e, pot) = torch.func.vmap(fn)(*inputs)
+            return pot, g_p, g_mu, g_c, e
+        return run
+
+    kernels.reset_launch_counts()
+    got = dipole_energy(False)(torch.float32)
+    sync()
+    dipole_counts = {k: kernels.launch_counts()[k] for k in key_counts}
+    derrs = errors(got, dipole_energy(True)(torch.float64), dargs[0])
+    out["dipoles"] = {"vs_plain_f64": derrs, "launches_batched": dipole_counts,
+                      "forward_backward_ms": turns_ms(
+                          {"b": lambda: dipole_energy(False)(torch.float32)}, 1)["b"],
+                      "device_ms": device_ms_per_call(lambda: dipole_energy(False)(torch.float32))}
+    del got
+    if not (derrs["energy_rel"] <= 1e-5 and derrs["potential_rel"] <= 1e-5
+            and derrs["force_rel_rms"] <= 1e-5 and derrs["charge_grad_rel"] <= 1e-5
+            and derrs["cell_grad_rel"] <= DIPOLE_CELL_TOL and min(dipole_counts.values()) >= 1):
+        raise AssertionError(f"phase 20 batched dipoles: {derrs}, launches {dipole_counts}")
+
+    # -- direct and Ewald: no kernel, the batch held to float64 -------------------
+    def kv_energy(calc):
+        def energy(q, c, p, i, s, nm, pm, k):
+            d = torch.where(pm, compute_distances(p, i, c, s), 1.0)
+            pot = calc(q, c, p, i, d, node_mask=nm, pair_mask=pm, kvectors=k)
+            return torch.sum(pot * q), pot
+        return torch.func.grad_and_value(energy, argnums=(0, 1, 2), has_aux=True)
+
+    big = int(np.argmax(sizes))
+    lr = ewald_lr(*(batch[k][big][: sizes[big]] for k in ("positions", "q", "cell")))
+    for name, calc, lr_k in (
+        ("direct", tpt.Calculator(tpt.CoulombPotential()), None),
+        ("ewald", tpt.EwaldCalculator(tpt.CoulombPotential(smearing=GT_SMEARING),
+                                      lr_wavelength=lr), lr),
+    ):
+        res = {}
+        for dtype, a in args.items():
+            kvs = None if lr_k is None else compute_batched_kvectors(lr_k, a[1])
+            in_dims = (0,) * 7 + (None if kvs is None else 0,)
+            (g_q, g_c, g_p), (e, pot) = torch.func.vmap(kv_energy(calc), in_dims=in_dims)(*a, kvs)
+            res[dtype] = (pot, g_p, g_q, g_c, e)
+        errs = errors(res[torch.float32], res[torch.float64], args[torch.float32][0])
+        out[name] = {"vs_f64": errs}
+        if lr_k is not None:
+            out[name].update(lr_wavelength=lr, k_vectors_padded_to=int(kvs.shape[1]))
+        check_call(f"phase 20 batched {name}", errs)
+        del res
+    emit({"phase": "batched_call", "systems": BATCH, "atoms": sizes, "padded_to": BATCH_ATOMS[1],
+          "ns_mesh": ns, "pairs_padded_to": int(batch["idx"].shape[1]), **out,
+          "phase_seconds": time.perf_counter() - t_phase, "nvidia_smi": env.smi})
+    return {"batched_call": pme_counts, "batched_dipole_call": dipole_counts}
+
+
 def device_ms_per_call(fn, calls: int = 2) -> float:
     """Device time per call of ``fn`` by ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
@@ -2702,6 +3020,9 @@ def main() -> int:
 
     # -- 19. the port's tuning module and a labeled call on the card ----------------
     paths.update(tuning_phases(env))
+
+    # -- 20 (and phase 3's batched launches): a padded batch under vmap ------------
+    paths.update(batch_phases(env))
 
     # -- 10. result ---------------------------------------------------------------
     # launches: of the MD step (A, B, C), the per-atom call (D, E, F) and the

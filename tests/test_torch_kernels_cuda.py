@@ -1409,3 +1409,143 @@ def test_extras_table_step_launches_d_e_f(device):
         assert (counts["mesh_spread"] >= 1) == (impl == "tiled"), counts
         energies[impl] = float(e.detach())
     assert abs(energies["tiled"] - energies["scatter"]) <= 1e-6 * abs(energies["scatter"])
+
+
+# -- kernels D, E, F over a batch of systems in one launch ----------------------
+
+
+def _batched_case(device, nodes, n_ch, n_sys, dipole=False, nz=64, seed=10):
+    """Bucketings of ``n_sys`` random systems on one (32, 32, nz) mesh at one
+    capacity, stacked on a leading axis, with per-slot values (charges, or
+    effective dipoles) and mesh fields."""
+    rng = np.random.default_rng(seed)
+    ns = (32, 32, nz)
+    f32 = dict(dtype=torch.float32, device=device)
+    its, vals = [], []
+    for _ in range(n_sys):
+        pos = torch.tensor(rng.uniform(0, 10.0, (400, 3)), **f32)
+        it = mt.compute_tiled_interpolation(pos, torch.eye(3, **f32) / 10.0, ns, nodes,
+                                            "Lagrange" if nodes >= 3 else "P3M",
+                                            capacity=128, derivatives=dipole)
+        its.append(it)
+        vals.append(mt._slot_values(it, torch.tensor(rng.normal(size=(400, 3 if dipole else n_ch)), **f32)))
+    names = ("local_x", "local_y", "start_z", "weights", *(("dweights",) if dipole else ()))
+    arrays = tuple(torch.stack([getattr(it, n) for it in its]) for n in names)
+    field = torch.tensor(rng.normal(size=(n_sys, 1 if dipole else n_ch, *ns)), **f32)
+    return arrays, torch.stack(vals), field, ns
+
+
+BATCH_FORMS = [("charges", 1, n) for n in (1, 2, 3, 5, 7)] + [("charges", 3, 4)] + [
+    ("dipoles", 1, n) for n in (3, 6, 7)]
+
+
+@pytest.mark.parametrize("form,n_ch,nodes", BATCH_FORMS)
+def test_batched_launch_equals_one_launch_per_system(device, form, n_ch, nodes):
+    """One launch over a batch of 4 systems ≡ 4 launches of one system: E
+    and F bitwise (each slot has one owner, the same sums in the same
+    order), D within float32 rounding (its global atomics add in another
+    order on each launch); each batched call counts one launch a kernel."""
+    dipole = form == "dipoles"
+    arrays, vals, field, ns = _batched_case(device, nodes, n_ch, 4, dipole)
+    ops = ((mk.mesh_spread_dipole, mk.mesh_gather_wgrad_dipole) if dipole
+           else (mk.mesh_spread, mk.mesh_gather_wgrad))
+    kernels.reset_launch_counts()
+    mesh = ops[0](*arrays, vals, ns, nodes)
+    both = ops[1](*arrays, vals, field, ns, nodes)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["mesh_spread"], counts["mesh_gather"], counts["mesh_wgrad"]) == (1, 1, 1)
+    for b in range(4):
+        one = [a[b] for a in arrays]
+        assert _rel(mesh[b], ops[0](*one, vals[b], ns, nodes)) <= 1e-6
+        for got, ref in zip(both, ops[1](*one, vals[b], field[b], ns, nodes)):
+            assert torch.equal(got[b], ref)
+    # a batch of one is the launch of one system
+    one = [a[:1] for a in arrays]
+    for got, ref in zip(ops[1](*one, vals[:1], field[:1], ns, nodes),
+                        ops[1](*[a[0] for a in arrays], vals[0], field[0], ns, nodes)):
+        assert torch.equal(got[0], ref)
+
+
+def test_batched_launch_refuses_mismatched_batches(device):
+    arrays, vals, field, ns = _batched_case(device, 4, 1, 2)
+    with pytest.raises(ValueError, match="shape"):
+        mk.mesh_gather(*arrays[:3], arrays[3][:1].contiguous(), field, ns, 4)
+    with pytest.raises(ValueError, match="shape"):
+        mk.mesh_wgrad(*arrays, vals[:1].contiguous(), field, ns, 4)
+    with pytest.raises(ValueError, match="shape"):
+        mk.mesh_spread(*arrays, vals.transpose(0, 1).contiguous(), ns, 4)
+
+
+@pytest.mark.parametrize("name", ["PME", "P3M", "dipole"])
+def test_vmap_of_the_calculator_launches_each_kernel_once(device, name):
+    """``torch.func.vmap`` of the per-atom call with its gradients over 4
+    padded systems: D, E and F launch as often as for one system, and the
+    batch equals the loop over the systems (float32) and the plain float64
+    batch within the per-atom bars."""
+    from torchpme_tpu_torch.utils.neighbors import compute_distances, neighbor_list
+
+    rng = np.random.default_rng(7)
+    n_sys, n_pad, box = 4, 200, 12.0
+    f32 = dict(dtype=torch.float32, device=device)
+    pos = rng.uniform(0, box, (n_sys, n_pad, 3))
+    sizes = (198, 180, 162, 150)
+    if name == "dipole":
+        q = rng.normal(size=(n_sys, n_pad, 3))
+    else:  # water charges, neutral in each system
+        q = np.stack([np.tile([-0.84, 0.42, 0.42], n_pad // 3 + 1)[:n_pad, None]] * n_sys)
+    for b, n in enumerate(sizes):
+        q[b, n:] = 0.0
+    lists = [neighbor_list(pos[b, :n], np.eye(3) * box, cutoff=3.0) for b, n in enumerate(sizes)]
+    width = max(x[0].shape[0] for x in lists)
+    idx = np.stack([np.concatenate([x[0], np.tile([0, 1], (width - x[0].shape[0], 1))]) for x in lists])
+    shifts = np.stack([np.concatenate([x[2], np.zeros((width - x[0].shape[0], 3))]) for x in lists])
+    pair_mask = np.stack([np.arange(width) < x[0].shape[0] for x in lists])
+    node_mask = np.stack([np.arange(n_pad) < n for n in sizes])
+    cell = np.stack([np.eye(3) * box] * n_sys)
+    if name == "dipole":
+        calc = tpt.PMECalculatorDipole(tpt.PotentialDipole(smearing=1.0), mesh_spacing=0.8)
+    else:
+        cls = tpt.PMECalculator if name == "PME" else tpt.P3MCalculator
+        calc = cls(tpt.CoulombPotential(smearing=1.0), mesh_spacing=0.8, interpolation_nodes=4)
+    ns = calc.get_ns_mesh(cell[0])
+
+    def energy(qq, c, p, i, s, nm, pm, plain):
+        if name == "dipole":
+            vec = p[i[:, 1]] - p[i[:, 0]] + s @ c
+            vec = torch.where(pm[:, None], vec, 1.0)
+            return torch.sum(calc(qq, c, p, i, vec, ns_kvectors=ns, plain=plain) * qq)
+        d = torch.where(pm, compute_distances(p, i, c, s), 1.0)
+        return torch.sum(calc(qq, c, p, i, d, node_mask=nm, pair_mask=pm, ns_mesh=ns,
+                              plain=plain) * qq)
+
+    def run(dtype, plain, batch=None):
+        opts = dict(dtype=dtype, device=device)
+        args = [torch.tensor(a, **opts) for a in (q, cell, pos)] + [
+            torch.as_tensor(idx, device=device), torch.tensor(shifts, **opts),
+            torch.as_tensor(node_mask, device=device), torch.as_tensor(pair_mask, device=device)]
+        grad = torch.func.grad_and_value(energy, argnums=(0, 1, 2))
+        if batch is not None:
+            return grad(*[a[batch] for a in args], plain)
+        return torch.func.vmap(grad, in_dims=(0,) * 7 + (None,))(*args, plain)
+
+    kernels.reset_launch_counts()
+    got = run(torch.float32, False)
+    torch.cuda.synchronize()
+    batched = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    run(torch.float32, False, batch=0)
+    torch.cuda.synchronize()
+    single = kernels.launch_counts()
+    keys = ("mesh_spread", "mesh_gather", "mesh_wgrad")
+    assert [batched[k] for k in keys] == [single[k] for k in keys]
+    assert min(batched[k] for k in keys) >= 1
+    ref = run(torch.float64, True)
+    (g_q, g_cell, g_pos), e = got
+    (r_q, r_cell, r_pos), r_e = ref
+    assert float((e.double() - r_e).abs().max()) <= 1e-5 * float(r_e.abs().max())
+    assert _rel(g_pos, r_pos) <= 1e-5 and _rel(g_q, r_q) <= 1e-5 and _rel(g_cell, r_cell) <= 1e-4
+    for b in range(n_sys):
+        (l_q, l_cell, l_pos), l_e = run(torch.float32, False, batch=b)
+        assert abs(float(e[b] - l_e)) <= 1e-5 * abs(float(l_e))
+        assert _rel(g_pos[b], l_pos) <= 1e-5 and _rel(g_cell[b], l_cell) <= 1e-5

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import kernels as _k
 from ..ops.kspace import apply_kspace_filter, compute_kspace_filter, kspace_filter_quadratic
 from ..ops.kvectors import get_ns_mesh
 from ..ops.math import det3, inv3
@@ -162,7 +163,10 @@ class PMECalculator(Calculator):
         is the on-device validity flag of a reused tiled bucketing (``None``
         on the scatter path and for a fresh bucketing).  ``check_stale``
         reads the flag and raises (one device sync); without it the caller
-        poisons its result with NaN instead, as an MD loop wants.  With
+        poisons its result with NaN instead, as an MD loop wants.  Under
+        ``torch.func.vmap`` nothing is read on the host (the JAX package's
+        traced branch): a fresh bucketing's flag is "no atom dropped", and
+        the caller poisons each system whose flag is false.  With
         ``energy_only`` (no gather from the mesh follows) the fused backend
         spreads a reused bucketing through
         :func:`~torchpme_tpu_torch.ops.spread_fused.fused_tiled_density`."""
@@ -192,12 +196,15 @@ class PMECalculator(Calculator):
             return points_to_mesh(interp, charges), interp, None, ns_mesh
 
         mesh_valid = None
+        batched = _k.is_batched(charges, cell, positions)
         if (
             tiled_interp is not None
             and energy_only
             and self.mesh_backend == "fused"
             and supports_fused(tiled_interp, positions.dtype)
         ):
+            _k.refuse_batched("mesh_backend='fused' with a reused `tiled_interp` (kernels A, B)",
+                              charges, cell, positions)
             # positions → density in kernels A (and B backward): no per-slot
             # weights in device memory
             rho_mesh, mesh_valid = fused_tiled_density(
@@ -212,18 +219,20 @@ class PMECalculator(Calculator):
             interp, mesh_valid = refresh_tiled_interpolation(
                 tiled_interp, positions, inv3(cell), self._method
             )
-            if check_stale and not bool(mesh_valid):
+            if check_stale and not batched and not bool(mesh_valid):
                 raise ValueError(_STALE)
         else:
             interp = compute_tiled_interpolation(
                 positions, inv3(cell), ns_mesh, self.interpolation_nodes,
                 self._method, capacity=self.tile_capacity,
             )
-            # tile overflow would silently drop atoms: fail loudly
-            dropped = int(interp.dropped)
-            if dropped:
+            if batched:
+                # under vmap the count stays on the device: poison, not raise
+                mesh_valid = interp.dropped == 0
+            elif int(interp.dropped):
+                # tile overflow would silently drop atoms: fail loudly
                 raise ValueError(
-                    f"{dropped} atoms exceeded the tile capacity "
+                    f"{int(interp.dropped)} atoms exceeded the tile capacity "
                     "of the tiled mesh backend; pass a larger `tile_capacity` "
                     "(e.g. for slab/vacuum systems) or mesh_backend='scatter'."
                 )
@@ -356,6 +365,11 @@ class PMECalculator(Calculator):
         call, so gradients stay exact).  If atoms have drifted out of their
         tile's stencil window, or the bucketing overflowed its tile
         capacity, the call raises; rebucket like refreshing a neighbor list.
+
+        Under ``torch.func.vmap`` over a padded batch (``node_mask``,
+        ``pair_mask``, one shared ``ns_mesh``) the tiled mesh launches each
+        of kernels D, E, F once per batch, and a system whose bucketing
+        overflowed, or went stale, gives NaN instead of an error.
 
         :param plain: run the plain versions of the mesh kernels on any
             device (the reference path of the comparisons).

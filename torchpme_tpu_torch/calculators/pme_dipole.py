@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import kernels as _k
 from ..ops.kspace import apply_kspace_filter, compute_kspace_filter, kspace_filter_quadratic
 from ..ops.kvectors import get_ns_mesh
 from ..ops.math import det3, inv3
@@ -175,7 +176,10 @@ class PMECalculatorDipole(CalculatorDipole):
         :class:`TiledInterpolation` on the tiled backend; ``mesh_valid`` is the
         on-device validity flag of a reused bucketing (``None`` otherwise).
         ``check_stale`` reads the flag and raises (one device sync); without
-        it the caller poisons its result with NaN instead.
+        it the caller poisons its result with NaN instead.  Under
+        ``torch.func.vmap`` nothing is read on the host: a fresh bucketing's
+        flag is "no atom dropped", and each system whose flag is false is
+        poisoned, as in the JAX package.
         """
         if kvectors is not None:
             raise ValueError(
@@ -206,22 +210,25 @@ class PMECalculatorDipole(CalculatorDipole):
             return dipoles_to_mesh(interp, dipoles), interp, None, ns
 
         mesh_valid = None
+        batched = _k.is_batched(dipoles, cell, positions)
         if tiled_interp is not None:
             # bucket reuse (MD): refresh only the per-slot geometry
             interp, mesh_valid = refresh_tiled_interpolation(
                 tiled_interp, positions, inverse_cell, self._method
             )
-            if check_stale and not bool(mesh_valid):
+            if check_stale and not batched and not bool(mesh_valid):
                 raise ValueError(_STALE)
         else:
             interp = compute_tiled_interpolation(
                 positions, inverse_cell, ns, self.interpolation_nodes, self._method,
                 capacity=self.tile_capacity, derivatives=True,
             )
-            dropped = int(interp.dropped)
-            if dropped:
+            if batched:
+                # under vmap the count stays on the device: poison, not raise
+                mesh_valid = interp.dropped == 0
+            elif int(interp.dropped):
                 raise ValueError(
-                    f"{dropped} atoms exceeded the tile capacity "
+                    f"{int(interp.dropped)} atoms exceeded the tile capacity "
                     "of the tiled dipolar mesh backend; pass a larger "
                     "`tile_capacity` or mesh_backend='scatter'."
                 )

@@ -64,6 +64,13 @@
 // The stencil size is a template parameter so the per-thread weight and
 // accumulator arrays stay in registers.
 //
+// A batch of systems (torch.func.vmap over the per-atom calculators, which
+// the TPU kernels got from pallas_call's batching rule) runs in one launch of
+// each kernel: the system is the grid's z index (the flat grid of the
+// one-thread-a-slot variant counts slots system-major), and each block
+// offsets its pointers by its system's strides in MeshParams.  A single
+// system is a batch of 1, the same blocks and the same arithmetic.
+//
 // Plain CUDA C++, no TMA / wgmma.  float32 only; the wrapper
 // (ops/mesh_kernels.py) checks shapes, dtypes and the shared-memory size.
 
@@ -76,6 +83,12 @@ struct MeshParams {
   int nodes, extent, ty_count;
   int n_tiles, cap, n_ch;
   int z_chunk;  // kernels E and F: z cells a block takes
+  // a batch of systems in one launch: system s reads and writes its arrays
+  // at s times these strides (in elements); a single system is n_sys 1
+  int n_sys;
+  long long slot_stride;  // lx, ly, sz: T K (the weights and their cotangents: 3 n of these)
+  long long val_stride;   // q and vals: T C K (dipole form: T 3 K)
+  long long mesh_stride;  // the mesh: C nx ny nz
 };
 
 #define SPREAD_THREADS 256
@@ -118,8 +131,9 @@ __device__ __forceinline__ void spread_node_column(const float* __restrict__ ws,
   }
 }
 
-// Kernel D.  grid (T, C * z chunks).  Charges: q (T, C, K) with dw null;
-// dipole form: nu = q (T, 3, K) with dw (T, K, 3, n) and C = 1.
+// Kernel D.  grid (T, C * z chunks, systems).  Charges: q (T, C, K) with dw
+// null; dipole form: nu = q (T, 3, K) with dw (T, K, 3, n) and C = 1; each
+// system's arrays at its offsets (MeshParams).
 template <int N, bool DIPOLE>
 __global__ void __launch_bounds__(SPREAD_THREADS)
 mesh_spread_kernel(const int* __restrict__ lx, const int* __restrict__ ly,
@@ -127,6 +141,14 @@ mesh_spread_kernel(const int* __restrict__ lx, const int* __restrict__ ly,
                    const float* __restrict__ dw, const float* __restrict__ q,
                    float* __restrict__ mesh, MeshParams p) {
   extern __shared__ float field[];  // (E, E, zn): the tile's window
+  const long long sys = blockIdx.z;
+  lx += sys * p.slot_stride;
+  ly += sys * p.slot_stride;
+  sz += sys * p.slot_stride;
+  w += sys * p.slot_stride * 3 * N;
+  if (DIPOLE) dw += sys * p.slot_stride * 3 * N;
+  q += sys * p.val_stride;
+  mesh += sys * p.mesh_stride;
   const int tile = blockIdx.x;
   const int n_chunks = (p.nz + SPREAD_Z_CHUNK - 1) / SPREAD_Z_CHUNK;
   const int ch = blockIdx.y / n_chunks;
@@ -406,7 +428,8 @@ __device__ __forceinline__ void contract_slot(const Window& win, int x0, int y0,
   }
 }
 
-// Kernels E and F, staged.  grid (T, z chunks): the block stages its tile's
+// Kernels E and F, staged.  grid (T, z chunks, systems; each system's arrays
+// at its offsets, MeshParams): the block stages its tile's
 // z starts and its (E, E, zn + N - 1) window of every channel, wrapping
 // modulo the mesh, with asynchronous copies (16 bytes a lane where the mesh
 // and the slot arrays allow it), and contracts the slots whose z start lies
@@ -423,6 +446,19 @@ mesh_gather_wgrad_kernel(const int* __restrict__ lx, const int* __restrict__ ly,
                          const float* __restrict__ dw, const float* __restrict__ q,
                          const float* __restrict__ mesh, float* __restrict__ vals,
                          float* __restrict__ wg, float* __restrict__ dwg, MeshParams p) {
+  const long long sys = blockIdx.z;
+  lx += sys * p.slot_stride;
+  ly += sys * p.slot_stride;
+  sz += sys * p.slot_stride;
+  w += sys * p.slot_stride * 3 * N;
+  if (DIPOLE) dw += sys * p.slot_stride * 3 * N;
+  if (WGRAD) {
+    q += sys * p.val_stride;
+    wg += sys * p.slot_stride * 3 * N;
+    if (DIPOLE) dwg += sys * p.slot_stride * 3 * N;
+  }
+  if (vals != nullptr) vals += sys * p.val_stride;
+  mesh += sys * p.mesh_stride;
   constexpr int E = TILE + N - 1;
   constexpr int ROW = 3 * N, STRIDE = 3 * N + 1;  // a slot's weights; its shared row
   constexpr int N_ROWS = DIPOLE ? 2 : 1;           // weights (and derivatives)
@@ -570,15 +606,31 @@ mesh_gather_wgrad_kernel(const int* __restrict__ lx, const int* __restrict__ ly,
 
 // Kernels E and F, one thread a slot reading its window from the mesh in
 // device memory: where the staged block does not fit shared memory (many
-// channels, a large capacity), or z_chunk 0.
+// channels, a large capacity), or z_chunk 0.  The flat grid covers the slots
+// of every system, system-major.
 template <int N, bool DIPOLE, bool WGRAD>
 __global__ void mesh_gather_wgrad_direct_kernel(
     const int* __restrict__ lx, const int* __restrict__ ly, const int* __restrict__ sz,
     const float* __restrict__ w, const float* __restrict__ dw, const float* __restrict__ q,
     const float* __restrict__ mesh, float* __restrict__ vals, float* __restrict__ wg,
     float* __restrict__ dwg, MeshParams p) {
-  const size_t slot = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot >= (size_t)p.n_tiles * p.cap) return;
+  const size_t n_slots = (size_t)p.n_tiles * p.cap;
+  const size_t flat = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (flat >= n_slots * p.n_sys) return;
+  const long long sys = (long long)(flat / n_slots);
+  const size_t slot = flat - (size_t)sys * n_slots;
+  lx += sys * p.slot_stride;
+  ly += sys * p.slot_stride;
+  sz += sys * p.slot_stride;
+  w += sys * p.slot_stride * 3 * N;
+  if (DIPOLE) dw += sys * p.slot_stride * 3 * N;
+  if (WGRAD) {
+    q += sys * p.val_stride;
+    wg += sys * p.slot_stride * 3 * N;
+    if (DIPOLE) dwg += sys * p.slot_stride * 3 * N;
+  }
+  if (vals != nullptr) vals += sys * p.val_stride;
+  mesh += sys * p.mesh_stride;
   const int tile = (int)(slot / p.cap), k = (int)(slot % p.cap);
   const int x0 = lx[slot], y0 = ly[slot];
   MeshWindow<N> win;
@@ -606,7 +658,7 @@ static int launch_spread_as(const int* lx, const int* ly, const int* sz, const f
   // at most 14 x 14 x 32 floats and the lists: 27 KB, under the default 48 KB
   const size_t smem = (size_t)p.extent * p.extent * SPREAD_Z_CHUNK * sizeof(float) +
                       (SPREAD_THREADS / 32) * SPREAD_PEND * sizeof(int);
-  const dim3 grid(p.n_tiles, p.n_ch * ((p.nz + SPREAD_Z_CHUNK - 1) / SPREAD_Z_CHUNK));
+  const dim3 grid(p.n_tiles, p.n_ch * ((p.nz + SPREAD_Z_CHUNK - 1) / SPREAD_Z_CHUNK), p.n_sys);
   mesh_spread_kernel<N, DIPOLE><<<grid, SPREAD_THREADS, smem, stream>>>(lx, ly, sz, w, dw, q,
                                                                         mesh, p);
   return (int)cudaGetLastError();
@@ -645,7 +697,7 @@ static int launch_gather_as(const int* lx, const int* ly, const int* sz, const f
   while (zc > 1 && smem(zc) > (size_t)optin) zc = (zc + 1) / 2;
   if (zc == 0 || smem(zc) > (size_t)optin) {
     // one thread a slot, the window read from the mesh in device memory
-    const size_t n_slots = (size_t)p.n_tiles * p.cap;
+    const size_t n_slots = (size_t)p.n_tiles * p.cap * p.n_sys;
     const unsigned blocks = (unsigned)((n_slots + GATHER_THREADS - 1) / GATHER_THREADS);
     mesh_gather_wgrad_direct_kernel<N, DIPOLE, WGRAD><<<blocks, GATHER_THREADS, 0, stream>>>(
         lx, ly, sz, w, dw, q, mesh, vals, wg, dwg, p);
@@ -660,7 +712,7 @@ static int launch_gather_as(const int* lx, const int* ly, const int* sz, const f
       return (int)cudaGetLastError();
     granted = (int)smem(zc);
   }
-  const dim3 grid(p.n_tiles, (p.nz + zc - 1) / zc);
+  const dim3 grid(p.n_tiles, (p.nz + zc - 1) / zc, p.n_sys);
   mesh_gather_wgrad_kernel<N, DIPOLE, WGRAD><<<grid, GATHER_THREADS, smem(zc), stream>>>(
       lx, ly, sz, w, dw, q, mesh, vals, wg, dwg, p);
   return (int)cudaGetLastError();
@@ -702,9 +754,10 @@ extern "C" {
 
 // Kernel D: q (T, C, K) -> mesh (C, nx, ny, nz), or with dw the dipole form
 // nu (T, 3, K) -> mesh (1, nx, ny, nz), added into the mesh (zeroed by the
-// caller).
+// caller); p->n_sys systems in one launch, at the strides of p.
 int tpme_mesh_spread(const int* lx, const int* ly, const int* sz, const float* w, const float* dw,
                      const float* q, float* mesh, const MeshParams* p, void* stream) {
+  if (p->n_sys < 1 || p->n_sys > 65535) return (int)cudaErrorInvalidValue;
 #define SPREAD_CALL(N) launch_spread<N>(lx, ly, sz, w, dw, q, mesh, *p, (cudaStream_t)stream)
   DISPATCH_NODES(SPREAD_CALL)
 #undef SPREAD_CALL
@@ -714,10 +767,12 @@ int tpme_mesh_spread(const int* lx, const int* ly, const int* sz, const float* w
 // q (T, C, K) unless wg is null.  With dw (T, K, 3, n) the dipole form (one
 // channel): vals (T, 3, K), and from nu = q (T, 3, K) the cotangents wg of w
 // and dwg of dw.  p->z_chunk: the z cells a block takes (halved until the
-// staged windows fit shared memory).
+// staged windows fit shared memory).  p->n_sys systems in one launch, at the
+// strides of p.
 int tpme_mesh_gather_wgrad(const int* lx, const int* ly, const int* sz, const float* w,
                            const float* dw, const float* q, const float* mesh, float* vals,
                            float* wg, float* dwg, const MeshParams* p, void* stream) {
+  if (p->n_sys < 1 || p->n_sys > 65535) return (int)cudaErrorInvalidValue;
   if (vals == nullptr && wg == nullptr) return (int)cudaErrorInvalidValue;
   if (wg != nullptr && q == nullptr) return (int)cudaErrorInvalidValue;
 #define GATHER_CALL(N) \

@@ -10,6 +10,11 @@ CUDA at import time: the CPU tests import every module.
 Each kernel has a :class:`LaunchCounter` that its wrapper (beside the
 kernel's plain PyTorch twin, in ``ops/``) bumps by one per launch and
 nowhere else, so a run can show that the main path went through it.
+
+Kernels D, E and F take a batch of systems in one launch (the vmap rules of
+their custom ops in ``ops/mesh_kernels.py``); A, B, C and G have no vmap
+rule yet, and their entry points refuse batched tensors
+(:func:`refuse_batched`).
 """
 
 from __future__ import annotations
@@ -36,8 +41,11 @@ __all__ = [
     "WindowParams",
     "check_cuda_tensor",
     "check_status",
+    "host_values",
+    "is_batched",
     "launch_counts",
     "load_library",
+    "refuse_batched",
     "reset_launch_counts",
     "stream_handle",
 ]
@@ -185,6 +193,10 @@ class MeshParams(ctypes.Structure):
         ("cap", ctypes.c_int),
         ("n_ch", ctypes.c_int),
         ("z_chunk", ctypes.c_int),
+        ("n_sys", ctypes.c_int),
+        ("slot_stride", ctypes.c_longlong),
+        ("val_stride", ctypes.c_longlong),
+        ("mesh_stride", ctypes.c_longlong),
     ]
 
 
@@ -326,6 +338,49 @@ def check_cuda_tensor(t: torch.Tensor, name: str, shape, dtype=torch.float32):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def is_batched(*tensors) -> bool:
+    """Whether any of ``tensors`` carries a ``torch.func.vmap`` batch
+    dimension (at any level of nested transforms).  Inside ``vmap`` a tensor
+    looks unbatched to shape queries, and its values cannot be read on the
+    host, so code that reads values (a tile capacity, a validity flag, a mesh
+    size) asks this first."""
+    from torch._C import _functorch
+
+    for t in tensors:
+        while isinstance(t, torch.Tensor) and _functorch.is_functorch_wrapped_tensor(t):
+            if _functorch.is_batchedtensor(t):
+                return True
+            t = _functorch.get_unwrapped(t)
+    return False
+
+
+def host_values(t: torch.Tensor):
+    """The values of ``t`` as a numpy array, read through any
+    ``torch.func.grad``-style wrappers (not through ``vmap``, whose batch has
+    no single value: that raises)."""
+    from torch._C import _functorch
+
+    while _functorch.is_functorch_wrapped_tensor(t):
+        if _functorch.is_batchedtensor(t):
+            raise ValueError("a batched tensor has no single value to read")
+        t = _functorch.get_unwrapped(t)
+    with torch._C._DisableFuncTorch():
+        return t.detach().cpu().numpy()
+
+
+def refuse_batched(what: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when ``what`` (a path through kernel A,
+    B, C or G) is called under ``torch.func.vmap``: those kernels have no vmap
+    rule yet, and no other route stands in for them."""
+    if is_batched(*tensors):
+        raise NotImplementedError(
+            f"{what} does not run under torch.func.vmap yet: kernels A, B, C and G "
+            "have no vmap rule (ROADMAP.md §2, column 'vmap rule'). Batch the "
+            "per-atom calculators over a neighbor list instead (the tiled or "
+            "scatter mesh, kernels D, E, F)."
+        )
 
 
 def stream_handle(device: torch.device) -> int:

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import kernels as _k
 from .device import resolve_device
 from .ops.math import inv3
 from .ops.mesh_tiled import (
@@ -437,6 +438,7 @@ class MDFastPath(nn.Module):
             reference path of the comparisons).  By default CPU tensors take
             the twins and CUDA tensors the kernels.
         """
+        _k.refuse_batched("MDFastPath (kernels A, B, C)", charges, cell, pos_rows)
         e_sr = cell_list_rspace_energy_rows(
             self.calc.potential, charges, pos_rows, cell, self.clist, plain=plain
         )
@@ -599,6 +601,7 @@ class MDFastPathEwald(nn.Module):
 
         :param plain: run the window's plain version on any device.
         """
+        _k.refuse_batched("MDFastPathEwald (kernel C)", charges, cell, pos_rows)
         e_sr = cell_list_rspace_energy_rows(
             self.calc.potential, charges, pos_rows, cell, self.clist, plain=plain
         )
@@ -757,6 +760,7 @@ class MDFastPathDipole(nn.Module):
         :param plain: run the kernels' plain versions on any device (the
             reference path of the comparisons).
         """
+        _k.refuse_batched("MDFastPathDipole (kernels G, D, E, F)", dipoles, cell, pos_rows)
         potential = self.calc.potential
         e_sr = cell_list_rspace_dipole_energy_rows(
             potential, dipoles, pos_rows, cell, self.clist, plain=plain

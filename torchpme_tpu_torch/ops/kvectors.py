@@ -13,6 +13,7 @@ import math
 import numpy as np
 import torch
 
+from .. import kernels as _k
 from ..device import resolve_device
 from .math import inv3
 
@@ -40,9 +41,18 @@ def _cell_and_ns(cell, ns_mesh, device=None):
     return cell, ns_mesh
 
 
-def _basis_norms(cell) -> np.ndarray:
+def _basis_norms(cell, static: str) -> np.ndarray:
+    """Row norms of a cell whose values can be read on the host; under
+    ``torch.func.vmap`` a batch of cells has none, and the error names the
+    static argument that the caller passes instead (``static``)."""
     if isinstance(cell, torch.Tensor):
-        cell = cell.detach().cpu().numpy()
+        if _k.is_batched(cell):
+            raise ValueError(
+                "Mesh and k-vector sizes must be static under torch.func.vmap: they "
+                "cannot depend on a batched `cell`. Compute them outside the vmapped "
+                f"function (e.g. from the largest cell) and pass them as {static}."
+            )
+        cell = _k.host_values(cell)
     return np.linalg.norm(np.asarray(cell, dtype=np.float64), axis=1)
 
 
@@ -56,7 +66,8 @@ def get_ns_mesh(cell, mesh_spacing: float) -> tuple[int, int, int]:
     >>> get_ns_mesh(np.eye(3) * 10.0, mesh_spacing=1.0)
     (32, 32, 32)
     """
-    ns_approx = 2 * _basis_norms(cell) / mesh_spacing + 1
+    norms = _basis_norms(cell, "`ns_mesh=` (`ns_kvectors=` for PMECalculatorDipole)")
+    ns_approx = 2 * norms / mesh_spacing + 1
     return tuple(int(2 ** math.ceil(math.log2(n))) for n in ns_approx)
 
 
@@ -65,7 +76,8 @@ def get_ns_ewald(cell, lr_wavelength: float) -> tuple[int, int, int]:
     ``k_cutoff = 2π / lr_wavelength``, and each axis keeps
     ``ceil(k_cutoff · |a_i| / 2π)`` harmonics."""
     k_cutoff = 2 * math.pi / lr_wavelength
-    return tuple(int(math.ceil(k_cutoff * n / (2 * math.pi))) for n in _basis_norms(cell))
+    norms = _basis_norms(cell, "`ns_kvectors=`")
+    return tuple(int(math.ceil(k_cutoff * n / (2 * math.pi))) for n in norms)
 
 
 def _generate_kvectors(cell: torch.Tensor, ns, last_real: bool) -> torch.Tensor:

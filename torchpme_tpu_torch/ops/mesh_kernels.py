@@ -36,13 +36,23 @@ form's over every slot three times (copy ``a`` with the axis-``a``
 derivative, the JAX package's three stencils).  A wrapper takes the plain
 version only for a tensor that lies on the CPU; for a CUDA tensor it
 launches the kernel or raises (float32 only).
+
+The wrappers are ``torch.library`` custom ops in the ``tpme`` namespace
+(``torch.ops.tpme.mesh_spread``, ...) with fake, autograd and vmap
+registrations.  Each takes one system or a batch with leading axes: under
+``torch.func.vmap`` (the JAX package's kernels get it from ``pallas_call``'s
+batching rule) the whole batch goes through one launch of each kernel, and
+the plain versions take the same leading axes on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from collections.abc import Sequence
 
 import torch
+from torch import Tensor
 
 from .. import kernels as _k
 from .mesh_tiled import (
@@ -91,6 +101,15 @@ def gather_z_chunk(nodes: int, n_ch: int) -> int:
 
 
 # -- plain versions -------------------------------------------------------------
+# Each takes the bucketing arrays of one system, ``lx (T, K)``, or of a batch
+# with any leading axes, ``lx (..., T, K)``, with every other operand carrying
+# the same leading axes: the tiles of all systems go through one batched
+# matmul, and the fold (or the window extraction) keeps the systems apart.
+
+
+def _flat(x: torch.Tensor, lead: int) -> torch.Tensor:
+    """Merge ``lead`` leading batch axes into the tile axis."""
+    return x.reshape(-1, *x.shape[lead + 1 :])
 
 
 def _charge_z(wz: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -99,40 +118,51 @@ def _charge_z(wz: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return (wz[..., None] * q.transpose(1, 2)[:, :, None, :]).flatten(2)
 
 
+def _xy_factors(lx, ly, sz, weights, ns, nodes: int):
+    """Dense ``wxy (T', K, E²)`` and ``wz (T', K, nz)`` of the tiles of all
+    systems (``T' = T·B``)."""
+    lead = lx.dim() - 2
+    e, k = TILE + nodes - 1, lx.shape[-1]
+    wx, wy, wz = _dense_factors(
+        _flat(lx, lead), _flat(ly, lead), _flat(sz, lead), _flat(weights, lead), ns, nodes
+    )
+    return (wx[:, :, :, None] * wy[:, :, None, :]).reshape(-1, k, e * e), wz
+
+
 def mesh_spread_plain(lx, ly, sz, weights, q_slots, ns, nodes: int) -> torch.Tensor:
-    """Plain version of kernel D: ``(T, C, K)`` per-slot charges →
-    ``(C, nx, ny, nz)`` mesh."""
-    t, k = lx.shape
-    e, nz, n_ch = TILE + nodes - 1, ns[2], q_slots.shape[1]
-    wx, wy, wz = _dense_factors(lx, ly, sz, weights, ns, nodes)
-    wxy = (wx[:, :, :, None] * wy[:, :, None, :]).reshape(t, k, e * e)
-    tiles = torch.bmm(wxy.transpose(1, 2), _charge_z(wz, q_slots))  # (T, E², nz·C)
-    return _fold_tiles_to_mesh(tiles.reshape(t, e, e, nz, n_ch), ns, e)
+    """Plain version of kernel D: ``(..., T, C, K)`` per-slot charges →
+    ``(..., C, nx, ny, nz)`` mesh."""
+    lead, (t, _) = lx.shape[:-2], lx.shape[-2:]
+    e, nz, n_ch = TILE + nodes - 1, ns[2], q_slots.shape[-2]
+    wxy, wz = _xy_factors(lx, ly, sz, weights, ns, nodes)
+    q = _flat(q_slots, len(lead))
+    tiles = torch.bmm(wxy.transpose(1, 2), _charge_z(wz, q))  # (T', E², nz·C)
+    return _fold_tiles_to_mesh(tiles.reshape(*lead, t, e, e, nz, n_ch), ns, e).contiguous()
 
 
 def mesh_spread_dipole_plain(
     lx, ly, sz, weights, dweights, nu_slots, ns, nodes: int
 ) -> torch.Tensor:
-    """Plain version of kernel D's dipole form: ``(T, 3, K)`` per-slot
-    effective dipoles → ``(1, nx, ny, nz)`` gradient density, the charge form
-    over every slot three times (copy ``a`` with the axis-``a`` derivative)."""
-    t, _, k = nu_slots.shape
+    """Plain version of kernel D's dipole form: ``(..., T, 3, K)`` per-slot
+    effective dipoles → ``(..., 1, nx, ny, nz)`` gradient density, the charge
+    form over every slot three times (copy ``a`` with the axis-``a``
+    derivative)."""
+    *lead, t, _, k = nu_slots.shape
     return mesh_spread_plain(
-        *_dipole_triple(lx, ly, sz, weights, dweights), nu_slots.reshape(t, 1, 3 * k), ns,
-        nodes,
+        *_dipole_triple(lx, ly, sz, weights, dweights), nu_slots.reshape(*lead, t, 1, 3 * k),
+        ns, nodes,
     )
 
 
 def mesh_gather_plain(lx, ly, sz, weights, mesh, ns, nodes: int) -> torch.Tensor:
-    """Plain version of kernel E: ``(C, nx, ny, nz)`` mesh → ``(T, C, K)``
-    per-slot values."""
-    t, k = lx.shape
-    e, nz, n_ch = TILE + nodes - 1, ns[2], mesh.shape[0]
-    wx, wy, wz = _dense_factors(lx, ly, sz, weights, ns, nodes)
-    wxy = (wx[:, :, :, None] * wy[:, :, None, :]).reshape(t, k, e * e)
-    tiles = _extract_tiles_from_mesh(mesh, ns, nodes).reshape(t, e * e, nz * n_ch)
-    partial = torch.bmm(wxy, tiles).reshape(t, k, nz, n_ch)  # xy contracted
-    return torch.einsum("tkz,tkzc->tck", wz, partial)
+    """Plain version of kernel E: ``(..., C, nx, ny, nz)`` mesh → ``(..., T,
+    C, K)`` per-slot values."""
+    lead, (t, k) = lx.shape[:-2], lx.shape[-2:]
+    e, nz, n_ch = TILE + nodes - 1, ns[2], mesh.shape[-4]
+    wxy, wz = _xy_factors(lx, ly, sz, weights, ns, nodes)
+    tiles = _extract_tiles_from_mesh(mesh, ns, nodes).reshape(-1, e * e, nz * n_ch)
+    partial = torch.bmm(wxy, tiles).reshape(-1, k, nz, n_ch)  # xy contracted
+    return torch.einsum("tkz,tkzc->tck", wz, partial).reshape(*lead, t, n_ch, k).contiguous()
 
 
 def _select_nodes(values: torch.Tensor, start: torch.Tensor, nodes: int, wrap: int | None):
@@ -148,61 +178,64 @@ def _select_nodes(values: torch.Tensor, start: torch.Tensor, nodes: int, wrap: i
 
 
 def mesh_wgrad_plain(lx, ly, sz, weights, q_slots, mesh, ns, nodes: int) -> torch.Tensor:
-    r"""Plain version of kernel F: :math:`\partial S/\partial w`, ``(T, K, 3, n)``,
-    for ``q (T, C, K)`` and the ``(C, nx, ny, nz)`` field."""
-    t, k = lx.shape
-    e, nz, n_ch = TILE + nodes - 1, ns[2], mesh.shape[0]
-    wx, wy, wz = _dense_factors(lx, ly, sz, weights, ns, nodes)
-    tiles = _extract_tiles_from_mesh(mesh, ns, nodes).reshape(t, e * e, nz * n_ch)
+    r"""Plain version of kernel F: :math:`\partial S/\partial w`, ``(..., T, K,
+    3, n)``, for ``q (..., T, C, K)`` and the ``(..., C, nx, ny, nz)`` field."""
+    lead, (t, k) = lx.shape[:-2], lx.shape[-2:]
+    e, nz, n_ch = TILE + nodes - 1, ns[2], mesh.shape[-4]
+    wx, wy, wz = _dense_factors(*(_flat(a, len(lead)) for a in (lx, ly, sz, weights)), ns, nodes)
+    q = _flat(q_slots, len(lead))
+    tiles = _extract_tiles_from_mesh(mesh, ns, nodes).reshape(-1, e * e, nz * n_ch)
     # Fz[xy, k] = Σ_zc F[xy, zc] wz[k, z] q[c, k]
-    fz = torch.bmm(tiles, _charge_z(wz, q_slots).transpose(1, 2)).reshape(t, e, e, k)
-    a_x = (fz * wy.transpose(1, 2)[:, None, :, :]).sum(2)  # (T, E, K), y contracted
-    b_y = (fz * wx.transpose(1, 2)[:, :, None, :]).sum(1)  # (T, E, K), x contracted
+    fz = torch.bmm(tiles, _charge_z(wz, q).transpose(1, 2)).reshape(-1, e, e, k)
+    a_x = (fz * wy.transpose(1, 2)[:, None, :, :]).sum(2)  # (T', E, K), y contracted
+    b_y = (fz * wx.transpose(1, 2)[:, :, None, :]).sum(1)  # (T', E, K), x contracted
     # H[k, z] = Σ_c q[c, k] Σ_xy wxy[k, xy] F[xy, z, c]
-    wxy = (wx[:, :, :, None] * wy[:, :, None, :]).reshape(t, k, e * e)
-    h = torch.bmm(wxy, tiles).reshape(t, k, nz, n_ch)
-    hq = torch.einsum("tkzc,tck->tkz", h, q_slots)
+    wxy = (wx[:, :, :, None] * wy[:, :, None, :]).reshape(-1, k, e * e)
+    h = torch.bmm(wxy, tiles).reshape(-1, k, nz, n_ch)
+    hq = torch.einsum("tkzc,tck->tkz", h, q)
+    flat = (_flat(lx, len(lead)), _flat(ly, len(lead)), _flat(sz, len(lead)))
     return torch.stack(
         [
-            _select_nodes(a_x.transpose(1, 2), lx, nodes, None),
-            _select_nodes(b_y.transpose(1, 2), ly, nodes, None),
-            _select_nodes(hq, sz, nodes, nz),
+            _select_nodes(a_x.transpose(1, 2), flat[0], nodes, None),
+            _select_nodes(b_y.transpose(1, 2), flat[1], nodes, None),
+            _select_nodes(hq, flat[2], nodes, nz),
         ],
         dim=2,
-    )
+    ).reshape(*lead, t, k, 3, nodes)
 
 
 def _untriple(ct_w3: torch.Tensor, capacity: int):
     """Cotangents of ``(weights, dweights)`` from those of the tripled slots'
-    weights ``(T, 3K, 3, n)``: copy ``a`` carries the derivative on axis
+    weights ``(..., T, 3K, 3, n)``: copy ``a`` carries the derivative on axis
     ``a`` and the weights on the other two."""
-    parts = ct_w3.reshape(ct_w3.shape[0], 3, capacity, 3, -1)  # (T, copy, K, axis, n)
-    ct_dw = torch.stack([parts[:, a, :, a] for a in range(3)], dim=2)
+    *lead, t, _, _, n = ct_w3.shape
+    parts = ct_w3.reshape(*lead, t, 3, capacity, 3, n)  # (..., T, copy, K, axis, n)
+    ct_dw = torch.stack([parts[..., a, :, a, :] for a in range(3)], dim=-2)
     ct_w = torch.stack(
-        [sum(parts[:, b, :, a] for b in range(3) if b != a) for a in range(3)], dim=2
+        [sum(parts[..., b, :, a, :] for b in range(3) if b != a) for a in range(3)], dim=-2
     )
     return ct_w, ct_dw
 
 
 def mesh_gather_dipole_plain(lx, ly, sz, weights, dweights, mesh, ns, nodes: int):
-    """Plain version of kernel E's dipole form: ``(1, nx, ny, nz)`` mesh →
-    ``(T, 3, K)`` per-slot gradient-stencil values, the charge form over
-    every slot three times."""
-    t, k = lx.shape
+    """Plain version of kernel E's dipole form: ``(..., 1, nx, ny, nz)`` mesh
+    → ``(..., T, 3, K)`` per-slot gradient-stencil values, the charge form
+    over every slot three times."""
+    *lead, t, k = lx.shape
     vals = mesh_gather_plain(*_dipole_triple(lx, ly, sz, weights, dweights), mesh, ns, nodes)
-    return vals.reshape(t, 3, k)
+    return vals.reshape(*lead, t, 3, k)
 
 
 def mesh_wgrad_dipole_plain(lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes: int):
     """Plain version of kernel F's dipole form: the cotangents ``(ct_w,
-    ct_dw)``, each ``(T, K, 3, n)``, of the weights and their derivatives for
-    per-slot ``ν (T, 3, K)`` and the ``(1, nx, ny, nz)`` field, the charge
-    form over every slot three times with the copies' cotangents folded
-    back."""
-    t, _, k = nu_slots.shape
+    ct_dw)``, each ``(..., T, K, 3, n)``, of the weights and their derivatives
+    for per-slot ``ν (..., T, 3, K)`` and the ``(..., 1, nx, ny, nz)`` field,
+    the charge form over every slot three times with the copies' cotangents
+    folded back."""
+    *lead, t, _, k = nu_slots.shape
     ct_w3 = mesh_wgrad_plain(
-        *_dipole_triple(lx, ly, sz, weights, dweights), nu_slots.reshape(t, 1, 3 * k), mesh,
-        ns, nodes,
+        *_dipole_triple(lx, ly, sz, weights, dweights), nu_slots.reshape(*lead, t, 1, 3 * k),
+        mesh, ns, nodes,
     )
     return _untriple(ct_w3, k)
 
@@ -220,10 +253,12 @@ def mesh_gather_wgrad_dipole_plain(lx, ly, sz, weights, dweights, nu_slots, mesh
 # -- kernels D, E, F --------------------------------------------------------------
 
 
-def _check(lx, ly, sz, weights, ns, nodes: int, dipole: bool = False) -> tuple[int, int]:
-    """Validate the bucketing arrays for the kernels; returns ``(T, K)``.
-    The charge forms take 1 to 7 nodes (the P3M and Lagrange tables), the
-    dipole forms 3 to 7 (the dipolar mesh is Lagrange-only)."""
+def _check(lx, ly, sz, weights, ns, nodes: int, dipole: bool = False):
+    """Validate the bucketing arrays for the kernels; returns ``(lead, T,
+    K)``, ``lead`` the batch axes (``()`` for one system; a batch of systems
+    runs in one launch).  The charge forms take 1 to 7 nodes (the P3M and
+    Lagrange tables), the dipole forms 3 to 7 (the dipolar mesh is
+    Lagrange-only)."""
     lo = 3 if dipole else 1
     if not lo <= nodes <= 7:
         form = "dipole forms of the mesh kernels are" if dipole else "mesh kernels are"
@@ -231,33 +266,45 @@ def _check(lx, ly, sz, weights, ns, nodes: int, dipole: bool = False) -> tuple[i
     nx, ny, _ = ns
     if nx % TILE or ny % TILE:
         raise ValueError(f"mesh {tuple(ns)} is not a whole number of {TILE}x{TILE} tiles")
-    t, k = lx.shape
+    if lx.dim() < 2:
+        raise ValueError(f"local_x has shape {tuple(lx.shape)}, expected (..., T, K)")
+    lead, (t, k) = tuple(lx.shape[:-2]), lx.shape[-2:]
     if t != (nx // TILE) * (ny // TILE):
         raise ValueError(f"{t} tiles do not cover the {tuple(ns)} mesh")
+    if not 1 <= math.prod(lead) <= _MAX_SYSTEMS:
+        raise ValueError(f"a launch takes 1 to {_MAX_SYSTEMS} systems, got batch axes {lead}")
     for name, arr in (("local_x", lx), ("local_y", ly), ("start_z", sz)):
-        _k.check_cuda_tensor(arr, name, (t, k), torch.int32)
-    _k.check_cuda_tensor(weights, "weights", (t, k, 3, nodes))
-    return t, k
+        _k.check_cuda_tensor(arr, name, (*lead, t, k), torch.int32)
+    _k.check_cuda_tensor(weights, "weights", (*lead, t, k, 3, nodes))
+    return lead, t, k
 
 
-def _params(ns, nodes: int, t: int, k: int, n_ch: int) -> _k.MeshParams:
+_MAX_SYSTEMS = 65535  # the grid's z extent: one system a z index
+
+
+def _params(ns, nodes: int, lead, t: int, k: int, n_ch: int, n_vals: int) -> _k.MeshParams:
     p = _k.MeshParams()
     p.nx, p.ny, p.nz = ns
     p.nodes, p.extent, p.ty_count = nodes, TILE + nodes - 1, ns[1] // TILE
     p.n_tiles, p.cap, p.n_ch = t, k, n_ch
     p.z_chunk = gather_z_chunk(nodes, n_ch)
+    p.n_sys = math.prod(lead)
+    p.slot_stride, p.val_stride = t * k, t * n_vals * k
+    p.mesh_stride = n_ch * ns[0] * ns[1] * ns[2]
     return p
 
 
 def _launch_spread(lx, ly, sz, weights, dweights, values, ns, nodes: int) -> torch.Tensor:
-    """Kernel D over checked operands: ``values (T, C, K)`` charges, or with
-    ``dweights`` the dipole form's ``ν (T, 3, K)`` (one output channel)."""
-    t, k = lx.shape
-    n_ch = 1 if dweights is not None else values.shape[1]
+    """Kernel D over checked operands: ``values (..., T, C, K)`` charges, or
+    with ``dweights`` the dipole form's ``ν (..., T, 3, K)`` (one output
+    channel); all systems of the batch in one launch."""
+    lead, (t, k) = lx.shape[:-2], lx.shape[-2:]
+    dipole = dweights is not None
+    n_ch = 1 if dipole else values.shape[-2]
     dev = weights.device
     # the kernel adds into the mesh
-    mesh = torch.zeros((n_ch, *ns), dtype=torch.float32, device=dev)
-    p = _params(ns, nodes, t, k, n_ch)
+    mesh = torch.zeros((*lead, n_ch, *ns), dtype=torch.float32, device=dev)
+    p = _params(ns, nodes, lead, t, k, n_ch, values.shape[-2])
     status = _k.load_library().lib.tpme_mesh_spread(
         lx.data_ptr(), ly.data_ptr(), sz.data_ptr(), weights.data_ptr(),
         None if dweights is None else dweights.data_ptr(), values.data_ptr(),
@@ -268,55 +315,28 @@ def _launch_spread(lx, ly, sz, weights, dweights, values, ns, nodes: int) -> tor
     return mesh
 
 
-def mesh_spread(lx, ly, sz, weights, q_slots, ns, nodes: int) -> torch.Tensor:
-    """Kernel D: ``(T, C, K)`` per-slot charges → ``(C, nx, ny, nz)`` mesh.
-
-    CPU tensors take :func:`mesh_spread_plain`; CUDA tensors launch the
-    kernel (float32 only) or raise.
-    """
-    if weights.device.type == "cpu":
-        return mesh_spread_plain(lx, ly, sz, weights, q_slots, ns, nodes)
-    t, k = _check(lx, ly, sz, weights, ns, nodes)
-    _k.check_cuda_tensor(q_slots, "q_slots", (t, q_slots.shape[1], k))
-    return _launch_spread(lx, ly, sz, weights, None, q_slots, ns, nodes)
-
-
-def mesh_spread_dipole(lx, ly, sz, weights, dweights, nu_slots, ns, nodes: int) -> torch.Tensor:
-    """Kernel D's dipole form: ``(T, 3, K)`` per-slot effective dipoles →
-    ``(1, nx, ny, nz)`` gradient density, each slot read once.
-
-    CPU tensors take :func:`mesh_spread_dipole_plain`; CUDA tensors launch
-    the kernel (float32 only) or raise.
-    """
-    if weights.device.type == "cpu":
-        return mesh_spread_dipole_plain(lx, ly, sz, weights, dweights, nu_slots, ns, nodes)
-    t, k = _check(lx, ly, sz, weights, ns, nodes, dipole=True)
-    _k.check_cuda_tensor(dweights, "dweights", (t, k, 3, nodes))
-    _k.check_cuda_tensor(nu_slots, "nu_slots", (t, 3, k))
-    return _launch_spread(lx, ly, sz, weights, dweights, nu_slots, ns, nodes)
-
-
 def _launch_gather_wgrad(lx, ly, sz, weights, dweights, q_slots, mesh, ns, nodes, gather, wgrad):
     """Kernels E and/or F in one launch: the charge form, or with
-    ``dweights`` the dipole form (``q_slots`` is then ``ν (T, 3, K)``).
-    Returns ``(values, ct_w, ct_dw)``, ``None`` where not asked for."""
+    ``dweights`` the dipole form (``q_slots`` is then ``ν (..., T, 3, K)``);
+    all systems of the batch in one launch.  Returns ``(values, ct_w,
+    ct_dw)``, ``None`` where not asked for."""
     dipole = dweights is not None
-    t, k = _check(lx, ly, sz, weights, ns, nodes, dipole=dipole)
-    n_ch = 1 if dipole else mesh.shape[0]
-    _k.check_cuda_tensor(mesh, "mesh", (n_ch, *ns))
+    lead, t, k = _check(lx, ly, sz, weights, ns, nodes, dipole=dipole)
+    n_ch = 1 if dipole else mesh.shape[-4]
+    _k.check_cuda_tensor(mesh, "mesh", (*lead, n_ch, *ns))
     if dipole:
-        _k.check_cuda_tensor(dweights, "dweights", (t, k, 3, nodes))
+        _k.check_cuda_tensor(dweights, "dweights", (*lead, t, k, 3, nodes))
     n_vals = 3 if dipole else n_ch
     dev = weights.device
     vals = wg = dwg = None
     if wgrad:
-        _k.check_cuda_tensor(q_slots, "nu_slots" if dipole else "q_slots", (t, n_vals, k))
-        wg = torch.empty((t, k, 3, nodes), dtype=torch.float32, device=dev)
+        _k.check_cuda_tensor(q_slots, "nu_slots" if dipole else "q_slots", (*lead, t, n_vals, k))
+        wg = torch.empty((*lead, t, k, 3, nodes), dtype=torch.float32, device=dev)
         if dipole:
             dwg = torch.empty_like(wg)
     if gather:
-        vals = torch.empty((t, n_vals, k), dtype=torch.float32, device=dev)
-    p = _params(ns, nodes, t, k, n_ch)
+        vals = torch.empty((*lead, t, n_vals, k), dtype=torch.float32, device=dev)
+    p = _params(ns, nodes, lead, t, k, n_ch, n_vals)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -334,79 +354,149 @@ def _launch_gather_wgrad(lx, ly, sz, weights, dweights, q_slots, mesh, ns, nodes
     return vals, wg, dwg
 
 
-def mesh_gather(lx, ly, sz, weights, mesh, ns, nodes: int) -> torch.Tensor:
-    """Kernel E: ``(C, nx, ny, nz)`` mesh → ``(T, C, K)`` per-slot values.
+# -- the kernels as custom ops ------------------------------------------------------
+# Each of D, E, F, E + F (charge and dipole forms) is a ``tpme::`` custom op
+# whose implementation is the kernel on CUDA tensors (float32 only; it
+# launches or raises) and the plain version on CPU tensors or with
+# ``plain=True``.  Every op takes the ``(T, K)`` arrays of one system or the
+# ``(..., T, K)`` arrays of a batch, which its vmap rule builds: the batch
+# dimension moves to the front (an unbatched operand is expanded to it) and
+# the op runs once, so a ``torch.func.vmap`` over systems launches each
+# kernel once.  ``register_fake`` gives the shapes (``torch.export``),
+# ``register_autograd`` the VJPs of the differentiable ones: the spread's is
+# the gather and the weight gradient, the gather's the spread and the weight
+# gradient, as in the JAX package.
 
-    CPU tensors take :func:`mesh_gather_plain`; CUDA tensors launch the
-    kernel (float32 only) or raise.
-    """
-    if weights.device.type == "cpu":
+def _vmap_rule(op, n_out: int):
+    """Register ``op``'s vmap rule: one call on the batch-leading operands."""
+
+    def rule(info, in_dims, *args):
+        moved = []
+        for arg, dim in zip(args, in_dims):
+            if isinstance(arg, torch.Tensor):
+                arg = (arg.movedim(dim, 0) if dim is not None
+                       else arg.expand(info.batch_size, *arg.shape)).contiguous()
+            moved.append(arg)
+        return op(*moved), (0,) * n_out if n_out > 1 else 0
+
+    op.register_vmap(rule)
+
+
+@torch.library.custom_op("tpme::mesh_spread", mutates_args=())
+def mesh_spread(
+    lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, q_slots: Tensor, ns: Sequence[int],
+    nodes: int, plain: bool = False,
+) -> Tensor:
+    """Kernel D: ``(T, C, K)`` per-slot charges → ``(C, nx, ny, nz)`` mesh."""
+    ns = tuple(ns)
+    if plain or weights.device.type == "cpu":
+        return mesh_spread_plain(lx, ly, sz, weights, q_slots, ns, nodes)
+    lead, t, k = _check(lx, ly, sz, weights, ns, nodes)
+    _k.check_cuda_tensor(q_slots, "q_slots", (*lead, t, q_slots.shape[-2], k))
+    return _launch_spread(lx, ly, sz, weights, None, q_slots, ns, nodes)
+
+
+@torch.library.custom_op("tpme::mesh_spread_dipole", mutates_args=())
+def mesh_spread_dipole(
+    lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, dweights: Tensor, nu_slots: Tensor,
+    ns: Sequence[int], nodes: int, plain: bool = False,
+) -> Tensor:
+    """Kernel D's dipole form: ``(T, 3, K)`` per-slot effective dipoles →
+    ``(1, nx, ny, nz)`` gradient density, each slot read once."""
+    ns = tuple(ns)
+    if plain or weights.device.type == "cpu":
+        return mesh_spread_dipole_plain(lx, ly, sz, weights, dweights, nu_slots, ns, nodes)
+    lead, t, k = _check(lx, ly, sz, weights, ns, nodes, dipole=True)
+    _k.check_cuda_tensor(dweights, "dweights", (*lead, t, k, 3, nodes))
+    _k.check_cuda_tensor(nu_slots, "nu_slots", (*lead, t, 3, k))
+    return _launch_spread(lx, ly, sz, weights, dweights, nu_slots, ns, nodes)
+
+
+@torch.library.custom_op("tpme::mesh_gather", mutates_args=())
+def mesh_gather(
+    lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, mesh: Tensor, ns: Sequence[int],
+    nodes: int, plain: bool = False,
+) -> Tensor:
+    """Kernel E: ``(C, nx, ny, nz)`` mesh → ``(T, C, K)`` per-slot values."""
+    ns = tuple(ns)
+    if plain or weights.device.type == "cpu":
         return mesh_gather_plain(lx, ly, sz, weights, mesh, ns, nodes)
     return _launch_gather_wgrad(lx, ly, sz, weights, None, None, mesh, ns, nodes, True, False)[0]
 
 
-def mesh_wgrad(lx, ly, sz, weights, q_slots, mesh, ns, nodes: int) -> torch.Tensor:
+@torch.library.custom_op("tpme::mesh_wgrad", mutates_args=())
+def mesh_wgrad(
+    lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, q_slots: Tensor, mesh: Tensor,
+    ns: Sequence[int], nodes: int, plain: bool = False,
+) -> Tensor:
     """Kernel F: the weight cotangent ``(T, K, 3, n)`` of the trilinear form
-    for ``q (T, C, K)`` and the ``(C, nx, ny, nz)`` field.
-
-    CPU tensors take :func:`mesh_wgrad_plain`; CUDA tensors launch the
-    kernel (float32 only) or raise.
-    """
-    if weights.device.type == "cpu":
+    for ``q (T, C, K)`` and the ``(C, nx, ny, nz)`` field."""
+    ns = tuple(ns)
+    if plain or weights.device.type == "cpu":
         return mesh_wgrad_plain(lx, ly, sz, weights, q_slots, mesh, ns, nodes)
     return _launch_gather_wgrad(
         lx, ly, sz, weights, None, q_slots, mesh, ns, nodes, False, True
     )[1]
 
 
-def mesh_gather_wgrad(lx, ly, sz, weights, q_slots, mesh, ns, nodes: int):
+@torch.library.custom_op("tpme::mesh_gather_wgrad", mutates_args=())
+def mesh_gather_wgrad(
+    lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, q_slots: Tensor, mesh: Tensor,
+    ns: Sequence[int], nodes: int, plain: bool = False,
+) -> tuple[Tensor, Tensor]:
     """Kernels E and F from one pass over the mesh windows: ``(values
-    (T, C, K), weight cotangent (T, K, 3, n))``.  On CUDA tensors this is one
-    launch, counted once for each of the two kernels."""
-    if weights.device.type == "cpu":
-        return (
-            mesh_gather_plain(lx, ly, sz, weights, mesh, ns, nodes),
-            mesh_wgrad_plain(lx, ly, sz, weights, q_slots, mesh, ns, nodes),
-        )
+    (T, C, K), weight cotangent (T, K, 3, n))``; one launch, counted once
+    for each of the two kernels."""
+    ns = tuple(ns)
+    if plain or weights.device.type == "cpu":
+        return (mesh_gather_plain(lx, ly, sz, weights, mesh, ns, nodes),
+                mesh_wgrad_plain(lx, ly, sz, weights, q_slots, mesh, ns, nodes))
     return _launch_gather_wgrad(
         lx, ly, sz, weights, None, q_slots, mesh, ns, nodes, True, True
     )[:2]
 
 
-def mesh_gather_dipole(lx, ly, sz, weights, dweights, mesh, ns, nodes: int) -> torch.Tensor:
+@torch.library.custom_op("tpme::mesh_gather_dipole", mutates_args=())
+def mesh_gather_dipole(
+    lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, dweights: Tensor, mesh: Tensor,
+    ns: Sequence[int], nodes: int, plain: bool = False,
+) -> Tensor:
     """Kernel E's dipole form: ``(1, nx, ny, nz)`` mesh → ``(T, 3, K)``
-    per-slot values ``Σ ∂_a[W_x W_y W_z] F``, each slot read once.
-
-    CPU tensors take :func:`mesh_gather_dipole_plain`; CUDA tensors launch
-    the kernel (float32 only) or raise.
-    """
-    if weights.device.type == "cpu":
+    per-slot values ``Σ ∂_a[W_x W_y W_z] F``, each slot read once."""
+    ns = tuple(ns)
+    if plain or weights.device.type == "cpu":
         return mesh_gather_dipole_plain(lx, ly, sz, weights, dweights, mesh, ns, nodes)
     return _launch_gather_wgrad(
         lx, ly, sz, weights, dweights, None, mesh, ns, nodes, True, False
     )[0]
 
 
-def mesh_wgrad_dipole(lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes: int):
+@torch.library.custom_op("tpme::mesh_wgrad_dipole", mutates_args=())
+def mesh_wgrad_dipole(
+    lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, dweights: Tensor, nu_slots: Tensor,
+    mesh: Tensor, ns: Sequence[int], nodes: int, plain: bool = False,
+) -> tuple[Tensor, Tensor]:
     """Kernel F's dipole form: the cotangents ``(ct_w, ct_dw)``, each ``(T,
     K, 3, n)``, of the weights and their derivatives for ``ν (T, 3, K)`` and
-    the ``(1, nx, ny, nz)`` field, each slot read once.
-
-    CPU tensors take :func:`mesh_wgrad_dipole_plain`; CUDA tensors launch
-    the kernel (float32 only) or raise.
-    """
-    if weights.device.type == "cpu":
+    the ``(1, nx, ny, nz)`` field, each slot read once."""
+    ns = tuple(ns)
+    if plain or weights.device.type == "cpu":
         return mesh_wgrad_dipole_plain(lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes)
     return _launch_gather_wgrad(
         lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes, False, True
     )[1:]
 
 
-def mesh_gather_wgrad_dipole(lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes: int):
+@torch.library.custom_op("tpme::mesh_gather_wgrad_dipole", mutates_args=())
+def mesh_gather_wgrad_dipole(
+    lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, dweights: Tensor, nu_slots: Tensor,
+    mesh: Tensor, ns: Sequence[int], nodes: int, plain: bool = False,
+) -> tuple[Tensor, Tensor, Tensor]:
     """The dipole forms of kernels E and F from one pass over the mesh
-    windows: ``(values (T, 3, K), ct_w, ct_dw)``.  On CUDA tensors this is
-    one launch, counted once for each of the two kernels."""
-    if weights.device.type == "cpu":
+    windows: ``(values (T, 3, K), ct_w, ct_dw)``; one launch, counted once
+    for each of the two kernels."""
+    ns = tuple(ns)
+    if plain or weights.device.type == "cpu":
         return mesh_gather_wgrad_dipole_plain(
             lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes
         )
@@ -415,178 +505,207 @@ def mesh_gather_wgrad_dipole(lx, ly, sz, weights, dweights, nu_slots, mesh, ns, 
     )
 
 
-# -- differentiable entry points --------------------------------------------------
+# fake implementations: shapes and dtypes only; a batch keeps its leading axes
+
+
+def _mesh_like(weights, lx, n_ch, ns):
+    return weights.new_empty((*lx.shape[:-2], n_ch, *ns))
+
+
+def _slots_like(weights, lx, n_vals):
+    *lead, t, k = lx.shape
+    return weights.new_empty((*lead, t, n_vals, k))
+
+
+mesh_spread.register_fake(
+    lambda lx, ly, sz, weights, q_slots, ns, nodes, plain=False:
+    _mesh_like(weights, lx, q_slots.shape[-2], ns))
+mesh_spread_dipole.register_fake(
+    lambda lx, ly, sz, weights, dweights, nu_slots, ns, nodes, plain=False:
+    _mesh_like(weights, lx, 1, ns))
+mesh_gather.register_fake(
+    lambda lx, ly, sz, weights, mesh, ns, nodes, plain=False:
+    _slots_like(weights, lx, mesh.shape[-4]))
+mesh_wgrad.register_fake(
+    lambda lx, ly, sz, weights, q_slots, mesh, ns, nodes, plain=False:
+    torch.empty_like(weights))
+mesh_gather_wgrad.register_fake(
+    lambda lx, ly, sz, weights, q_slots, mesh, ns, nodes, plain=False:
+    (_slots_like(weights, lx, mesh.shape[-4]), torch.empty_like(weights)))
+mesh_gather_dipole.register_fake(
+    lambda lx, ly, sz, weights, dweights, mesh, ns, nodes, plain=False:
+    _slots_like(weights, lx, 3))
+mesh_wgrad_dipole.register_fake(
+    lambda lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes, plain=False:
+    (torch.empty_like(weights), torch.empty_like(weights)))
+mesh_gather_wgrad_dipole.register_fake(
+    lambda lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes, plain=False:
+    (_slots_like(weights, lx, 3), torch.empty_like(weights), torch.empty_like(weights)))
+
+for _op, _n_out in ((mesh_spread, 1), (mesh_spread_dipole, 1), (mesh_gather, 1),
+                    (mesh_wgrad, 1), (mesh_gather_wgrad, 2), (mesh_gather_dipole, 1),
+                    (mesh_wgrad_dipole, 2), (mesh_gather_wgrad_dipole, 3)):
+    _vmap_rule(_op, _n_out)
+
+
+# -- VJPs ---------------------------------------------------------------------------
 # The integer arrays get no cotangent; the VJP structure is that of the JAX
 # package: spread's backward is gather + wgrad, gather's is spread + wgrad.
+# Each backward takes its op's saved tensors and static arguments, and the
+# flags of the inputs that want a cotangent (in the op's argument order).
 
 
-def _spread_vjp(args, q_slots, ct_mesh, ns, nodes, plain, want_w, want_q):
-    """``(ct_q, ct_w)`` of the charge-form spread over ``args = (lx, ly, sz,
-    weights)``: kernels E and F (one launch when both are wanted)."""
+def _spread_bwd(saved, static, needs, ct_mesh):
+    """``(ct_w, ct_q)`` of the charge-form spread: kernels E and F (one
+    launch when both are wanted)."""
+    lx, ly, sz, weights, q_slots = saved
+    ns, nodes, plain = static
+    args = (lx, ly, sz, weights)
+    want_w, want_q = needs
+    ct_mesh = ct_mesh.contiguous()
     ct_w = ct_q = None
-    if plain:
-        if want_q:
-            ct_q = mesh_gather_plain(*args, ct_mesh, ns, nodes)
-        if want_w:
-            ct_w = mesh_wgrad_plain(*args, q_slots, ct_mesh, ns, nodes)
-    elif want_w and want_q:
-        ct_q, ct_w = mesh_gather_wgrad(*args, q_slots, ct_mesh, ns, nodes)
+    if want_w and want_q:
+        ct_q, ct_w = mesh_gather_wgrad(*args, q_slots, ct_mesh, ns, nodes, plain)
     elif want_q:
-        ct_q = mesh_gather(*args, ct_mesh, ns, nodes)
+        ct_q = mesh_gather(*args, ct_mesh, ns, nodes, plain)
     elif want_w:
-        ct_w = mesh_wgrad(*args, q_slots, ct_mesh, ns, nodes)
-    return ct_q, ct_w
+        ct_w = mesh_wgrad(*args, q_slots, ct_mesh, ns, nodes, plain)
+    return ct_w, ct_q
 
 
-class _TileSpread(torch.autograd.Function):
-    """``(weights, q_slots) → mesh`` over kernel D (or, with ``plain``, the
-    plain versions on any device)."""
-
-    @staticmethod
-    def forward(ctx, weights, q_slots, lx, ly, sz, ns, nodes, plain):
-        ctx.save_for_backward(weights, q_slots, lx, ly, sz)
-        ctx.static = (ns, nodes, plain)
-        spread = mesh_spread_plain if plain else mesh_spread
-        return spread(lx, ly, sz, weights, q_slots, ns, nodes)
-
-    @staticmethod
-    def backward(ctx, ct_mesh):
-        weights, q_slots, lx, ly, sz = ctx.saved_tensors
-        ns, nodes, plain = ctx.static
-        want_w, want_q = ctx.needs_input_grad[:2]
-        ct_q, ct_w = _spread_vjp(
-            (lx, ly, sz, weights), q_slots, ct_mesh.contiguous(), ns, nodes, plain, want_w, want_q
-        )
-        return ct_w, ct_q, None, None, None, None, None, None
-
-
-def _dipole_spread_vjp(args, nu_slots, ct_mesh, ns, nodes, plain, want_w, want_nu):
-    """``(ct_nu, ct_w, ct_dw)`` of the dipole-form spread over ``args = (lx,
-    ly, sz, weights, dweights)``: the dipole forms of kernels E and F (one
-    launch when both are wanted), each slot read once."""
+def _spread_dipole_bwd(saved, static, needs, ct_mesh):
+    """``(ct_w, ct_dw, ct_nu)`` of the dipole-form spread: the dipole forms
+    of kernels E and F (one launch when both are wanted), each slot read
+    once."""
+    lx, ly, sz, weights, dweights, nu_slots = saved
+    ns, nodes, plain = static
+    args = (lx, ly, sz, weights, dweights)
+    want_w, want_dw, want_nu = needs
+    ct_mesh = ct_mesh.contiguous()
     ct_nu = ct_w = ct_dw = None
-    if plain:
-        if want_nu:
-            ct_nu = mesh_gather_dipole_plain(*args, ct_mesh, ns, nodes)
-        if want_w:
-            ct_w, ct_dw = mesh_wgrad_dipole_plain(*args, nu_slots, ct_mesh, ns, nodes)
-    elif want_w and want_nu:
-        ct_nu, ct_w, ct_dw = mesh_gather_wgrad_dipole(*args, nu_slots, ct_mesh, ns, nodes)
+    if (want_w or want_dw) and want_nu:
+        ct_nu, ct_w, ct_dw = mesh_gather_wgrad_dipole(*args, nu_slots, ct_mesh, ns, nodes, plain)
     elif want_nu:
-        ct_nu = mesh_gather_dipole(*args, ct_mesh, ns, nodes)
-    elif want_w:
-        ct_w, ct_dw = mesh_wgrad_dipole(*args, nu_slots, ct_mesh, ns, nodes)
-    return ct_nu, ct_w, ct_dw
+        ct_nu = mesh_gather_dipole(*args, ct_mesh, ns, nodes, plain)
+    elif want_w or want_dw:
+        ct_w, ct_dw = mesh_wgrad_dipole(*args, nu_slots, ct_mesh, ns, nodes, plain)
+    return (ct_w if want_w else None), (ct_dw if want_dw else None), ct_nu
 
 
-class _TileDipoleSpread(torch.autograd.Function):
-    """``(weights, dweights, ν (T, 3, K)) → (1, nx, ny, nz)`` over kernel D's
-    dipole form (or, with ``plain``, its plain version on any device).  The
-    backward runs the dipole forms of kernels E and F."""
-
-    @staticmethod
-    def forward(ctx, weights, dweights, nu_slots, lx, ly, sz, ns, nodes, plain):
-        ctx.save_for_backward(weights, dweights, nu_slots, lx, ly, sz)
-        ctx.static = (ns, nodes, plain)
-        spread = mesh_spread_dipole_plain if plain else mesh_spread_dipole
-        return spread(lx, ly, sz, weights, dweights, nu_slots, ns, nodes)
-
-    @staticmethod
-    def backward(ctx, ct_mesh):
-        weights, dweights, nu_slots, lx, ly, sz = ctx.saved_tensors
-        ns, nodes, plain = ctx.static
-        want_w, want_dw, want_nu = ctx.needs_input_grad[:3]
-        ct_nu, ct_w, ct_dw = _dipole_spread_vjp(
-            (lx, ly, sz, weights, dweights), nu_slots, ct_mesh.contiguous(), ns, nodes, plain,
-            want_w or want_dw, want_nu,
-        )
-        return (ct_w if want_w else None, ct_dw if want_dw else None, ct_nu,
-                None, None, None, None, None, None)
+def _gather_bwd(saved, static, needs, ct_out):
+    """``(ct_w, ct_mesh)`` of the charge-form gather: kernel D spreads the
+    cotangent, kernel F gives the weights'."""
+    lx, ly, sz, weights, mesh = saved
+    ns, nodes, plain = static
+    args = (lx, ly, sz, weights)
+    want_w, want_mesh = needs
+    ct_out = ct_out.contiguous()
+    ct_w = ct_mesh = None
+    if want_mesh:
+        ct_mesh = mesh_spread(*args, ct_out, ns, nodes, plain)
+    if want_w:
+        ct_w = mesh_wgrad(*args, ct_out, mesh, ns, nodes, plain)
+    return ct_w, ct_mesh
 
 
-class _TileGather(torch.autograd.Function):
-    """``(weights, mesh) → per-slot values`` over kernel E (or, with
-    ``plain``, the plain versions on any device)."""
+def _gather_dipole_bwd(saved, static, needs, ct_out):
+    """``(ct_w, ct_dw, ct_mesh)`` of the dipole-form gather: kernel D's
+    dipole form spreads the cotangent, kernel F's gives the weights' and the
+    derivatives'."""
+    lx, ly, sz, weights, dweights, mesh = saved
+    ns, nodes, plain = static
+    args = (lx, ly, sz, weights, dweights)
+    want_w, want_dw, want_mesh = needs
+    ct_out = ct_out.contiguous()
+    ct_w = ct_dw = ct_mesh = None
+    if want_mesh:
+        ct_mesh = mesh_spread_dipole(*args, ct_out, ns, nodes, plain)
+    if want_w or want_dw:
+        ct_w, ct_dw = mesh_wgrad_dipole(*args, ct_out, mesh, ns, nodes, plain)
+    return (ct_w if want_w else None), (ct_dw if want_dw else None), ct_mesh
 
-    @staticmethod
-    def forward(ctx, weights, mesh, lx, ly, sz, ns, nodes, plain):
-        mesh = mesh.contiguous()
-        ctx.save_for_backward(weights, mesh, lx, ly, sz)
-        ctx.static = (ns, nodes, plain)
-        gather = mesh_gather_plain if plain else mesh_gather
-        return gather(lx, ly, sz, weights, mesh, ns, nodes)
 
-    @staticmethod
-    def backward(ctx, ct_out):
-        weights, mesh, lx, ly, sz = ctx.saved_tensors
-        ns, nodes, plain = ctx.static
-        ct_out = ct_out.contiguous()
-        want_w, want_mesh = ctx.needs_input_grad[:2]
-        args = (lx, ly, sz, weights)
-        ct_w = ct_mesh = None
-        if want_mesh:
-            spread = mesh_spread_plain if plain else mesh_spread
-            ct_mesh = spread(*args, ct_out, ns, nodes)
-        if want_w:
-            wgrad = mesh_wgrad_plain if plain else mesh_wgrad
-            ct_w = wgrad(*args, ct_out, mesh, ns, nodes)
-        return ct_w, ct_mesh, None, None, None, None, None, None
+def _autograd(op, backward, n_saved: int, diff: tuple[int, ...]):
+    """Register ``op``'s autograd: the first ``n_saved`` inputs are saved,
+    the three after them are ``(ns, nodes, plain)``; ``diff`` are the
+    positions of the inputs that take a cotangent."""
+
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:n_saved])
+        ns, nodes, plain = inputs[n_saved:]
+        ctx.static = (tuple(ns), nodes, plain)
+
+    def bwd(ctx, ct):
+        grads = backward(ctx.saved_tensors, ctx.static,
+                         [ctx.needs_input_grad[i] for i in diff], ct)
+        out = [None] * (n_saved + 3)
+        for i, g in zip(diff, grads):
+            out[i] = g
+        return tuple(out)
+
+    op.register_autograd(bwd, setup_context=setup_context)
+    return setup_context, bwd
+
+
+_SPREAD = _autograd(mesh_spread, _spread_bwd, 5, (3, 4))
+_SPREAD_DIPOLE = _autograd(mesh_spread_dipole, _spread_dipole_bwd, 6, (3, 4, 5))
+_GATHER = _autograd(mesh_gather, _gather_bwd, 5, (3, 4))
+_GATHER_DIPOLE = _autograd(mesh_gather_dipole, _gather_dipole_bwd, 6, (3, 4, 5))
+
+
+# -- differentiable entry points ----------------------------------------------------
+# torch.func.grad (and vmap over it) refuses the autograd that custom ops
+# register (torch 2.13 builds it as an autograd.Function without
+# ``setup_context``), so the entry points wrap each differentiable op in an
+# autograd.Function of the ``setup_context`` form that runs the op and its
+# registered VJP; its vmap rule is generated, so under vmap the op's own vmap
+# rule makes the one batched launch, forward and backward.
+
+
+def _function(name: str, op, vjp):
+    setup_context, bwd = vjp
+
+    def forward(*inputs):
+        # the Function records the graph; the op must not record its own
+        with torch.no_grad():
+            return op(*inputs)
+
+    return type(name, (torch.autograd.Function,), {
+        "generate_vmap_rule": True,
+        "forward": staticmethod(forward),
+        "setup_context": staticmethod(setup_context),
+        "backward": staticmethod(torch.autograd.function.once_differentiable(bwd)),
+    })
+
+
+_TileSpread = _function("_TileSpread", mesh_spread, _SPREAD)
+_TileDipoleSpread = _function("_TileDipoleSpread", mesh_spread_dipole, _SPREAD_DIPOLE)
+_TileGather = _function("_TileGather", mesh_gather, _GATHER)
+_TileDipoleGather = _function("_TileDipoleGather", mesh_gather_dipole, _GATHER_DIPOLE)
+
+
+def _arrays(interp: TiledInterpolation):
+    return interp.local_x, interp.local_y, interp.start_z, interp.weights.contiguous()
 
 
 def spread_tiles(
     interp: TiledInterpolation, q_slots: torch.Tensor, plain: bool = False
 ) -> torch.Tensor:
-    """Per-slot charges ``(T, C, K)`` → mesh ``(C, nx, ny, nz)``.
+    """Per-slot charges ``(T, C, K)`` → mesh ``(C, nx, ny, nz)`` (kernel D).
 
     Differentiable with respect to the charges and the stencil weights (and
     therefore, through the bucketing's refresh, the positions).
     """
-    return _TileSpread.apply(
-        interp.weights.contiguous(), q_slots.contiguous(), interp.local_x, interp.local_y, interp.start_z,
-        interp.ns, interp.nodes, plain,
-    )
+    return _TileSpread.apply(*_arrays(interp), q_slots.contiguous(), interp.ns, interp.nodes,
+                             plain)
 
 
 def gather_tiles(
     interp: TiledInterpolation, mesh: torch.Tensor, plain: bool = False
 ) -> torch.Tensor:
-    """Mesh ``(C, nx, ny, nz)`` → per-slot values ``(T, C, K)``."""
-    return _TileGather.apply(
-        interp.weights.contiguous(), mesh, interp.local_x, interp.local_y, interp.start_z,
-        interp.ns, interp.nodes, plain,
-    )
-
-
-class _TileDipoleGather(torch.autograd.Function):
-    """``(weights, dweights, mesh (1, nx, ny, nz)) → (T, 3, K)`` per-slot
-    gradient fields over kernel E's dipole form (or, with ``plain``, the
-    plain versions on any device).  The backward spreads the cotangent with
-    kernel D's dipole form and runs kernel F's."""
-
-    @staticmethod
-    def forward(ctx, weights, dweights, mesh, lx, ly, sz, ns, nodes, plain):
-        mesh = mesh.contiguous()
-        ctx.save_for_backward(weights, dweights, mesh, lx, ly, sz)
-        ctx.static = (ns, nodes, plain)
-        gather = mesh_gather_dipole_plain if plain else mesh_gather_dipole
-        return gather(lx, ly, sz, weights, dweights, mesh, ns, nodes)
-
-    @staticmethod
-    def backward(ctx, ct_out):
-        weights, dweights, mesh, lx, ly, sz = ctx.saved_tensors
-        ns, nodes, plain = ctx.static
-        want_w, want_dw, want_mesh = ctx.needs_input_grad[:3]
-        ct_out = ct_out.contiguous()
-        args = (lx, ly, sz, weights, dweights)
-        ct_w = ct_dw = ct_mesh = None
-        if want_mesh:
-            spread = mesh_spread_dipole_plain if plain else mesh_spread_dipole
-            ct_mesh = spread(*args, ct_out, ns, nodes)
-        if want_w or want_dw:
-            wgrad = mesh_wgrad_dipole_plain if plain else mesh_wgrad_dipole
-            ct_w, ct_dw = wgrad(*args, ct_out, mesh, ns, nodes)
-        return (ct_w if want_w else None, ct_dw if want_dw else None, ct_mesh,
-                None, None, None, None, None, None)
+    """Mesh ``(C, nx, ny, nz)`` → per-slot values ``(T, C, K)`` (kernel E)."""
+    return _TileGather.apply(*_arrays(interp), mesh.contiguous(), interp.ns, interp.nodes,
+                             plain)
 
 
 def spread_dipoles(
@@ -597,8 +716,8 @@ def spread_dipoles(
     ``nu_slots``, the weights and their derivatives (the dipole forms of
     kernels E and F)."""
     return _TileDipoleSpread.apply(
-        interp.weights.contiguous(), interp.dweights.contiguous(), nu_slots.contiguous(),
-        interp.local_x, interp.local_y, interp.start_z, interp.ns, interp.nodes, plain,
+        *_arrays(interp), interp.dweights.contiguous(), nu_slots.contiguous(), interp.ns,
+        interp.nodes, plain,
     )
 
 
@@ -609,6 +728,6 @@ def gather_dipole_fields(
     (kernel E's dipole form; the backward spreads with kernel D's dipole form
     and runs kernel F's)."""
     return _TileDipoleGather.apply(
-        interp.weights.contiguous(), interp.dweights.contiguous(), mesh,
-        interp.local_x, interp.local_y, interp.start_z, interp.ns, interp.nodes, plain,
+        *_arrays(interp), interp.dweights.contiguous(), mesh.contiguous(), interp.ns,
+        interp.nodes, plain,
     )

@@ -17,16 +17,25 @@ batched matmul per tile, the parity-class fold) for CPU tensors or with
 :mod:`~torchpme_tpu_torch.ops.mesh` gives, in another summation order.
 
 Each tile has a static atom capacity; atoms beyond it are counted in
-``TiledInterpolation.dropped`` and the calculators raise when it is nonzero.
+``TiledInterpolation.dropped`` and the calculators raise when it is nonzero
+(under ``torch.func.vmap`` they poison that system's result with NaN
+instead, as the JAX package does under tracing).
+
+Everything here runs under ``torch.func.vmap`` over a padded batch of
+systems that share ``ns``: the bucketing reads no value on the host there,
+and :class:`TiledInterpolation` is a pytree node, so a batched bucketing can
+be built once (``vmap(compute_tiled_interpolation)``) and passed back in.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
+from torch.utils import _pytree
 
+from .. import kernels as _k
 from .mesh import _axis_offsets, compute_1d_weight_derivatives, compute_1d_weights
 
 __all__ = [
@@ -77,6 +86,28 @@ class TiledInterpolation:
     dweights: torch.Tensor | None = None
 
 
+# A pytree node, as the JAX package's ``register_dataclass``: the tensors are
+# the leaves and ``ns``, ``nodes`` and which optional fields are absent the
+# context, so ``torch.func.vmap`` maps a bucketing in and out of a function.
+_TENSORS = tuple(f.name for f in fields(TiledInterpolation) if f.name not in ("ns", "nodes"))
+
+
+def _flatten_interp(interp: TiledInterpolation):
+    present = tuple(n for n in _TENSORS if getattr(interp, n) is not None)
+    return [getattr(interp, n) for n in present], (present, interp.ns, interp.nodes)
+
+
+def _unflatten_interp(leaves, context) -> TiledInterpolation:
+    present, ns, nodes = context
+    return TiledInterpolation(**dict(zip(present, leaves)), ns=ns, nodes=nodes)
+
+
+_pytree.register_pytree_node(
+    TiledInterpolation, _flatten_interp, _unflatten_interp,
+    serialized_type_name="torchpme_tpu_torch.ops.mesh_tiled.TiledInterpolation",
+)
+
+
 def _start_indices(rel: torch.Tensor, ns, nodes: int):
     """(wrapped stencil start ``(..., 3)`` int64, offsets) of scaled
     fractional coordinates."""
@@ -87,11 +118,12 @@ def _start_indices(rel: torch.Tensor, ns, nodes: int):
 
 
 def _max_tile_occupancy(positions, inverse_cell, ns, nodes) -> int:
-    """Exact max atoms per xy tile of a configuration (host-side)."""
+    """Exact max atoms per xy tile of a configuration (host-side; under
+    ``torch.func.grad`` the values are read through its wrappers)."""
     nx, ny, nz = (int(n) for n in ns)
     ty_count = ny // TILE
-    pos = positions.detach().cpu().numpy()
-    rel = (pos @ inverse_cell.detach().cpu().numpy()) * np.asarray(ns, dtype=pos.dtype)
+    pos = _k.host_values(positions)
+    rel = (pos @ _k.host_values(inverse_cell)) * np.asarray(ns, dtype=pos.dtype)
     if nodes % 2 == 0:
         base = np.floor(rel).astype(np.int64)
     else:
@@ -121,7 +153,11 @@ def compute_tiled_interpolation(
 
     :param capacity: slots per tile; by default the true maximum tile
         occupancy plus 8 (room for small drift across refreshes), rounded up
-        to a multiple of 64.
+        to a multiple of 64.  Under ``torch.func.vmap`` the occupancy cannot
+        be read, and the default is the JAX package's static capacity under
+        tracing, ``min(N, 2·⌈N/T⌉ + 32)`` rounded up to a multiple of 64:
+        an inhomogeneous batch passes ``capacity``, and a system that
+        overflows it counts its atoms in ``dropped``.
     :param derivatives: also keep the weight derivatives (``dweights``), which
         the dipolar spread and gather need; a refresh keeps whichever the
         bucketing carries.
@@ -148,8 +184,15 @@ def compute_tiled_interpolation(
     n_tiles = (nx // TILE) * ty_count
     device = positions.device
     if capacity is None:
-        max_count = _max_tile_occupancy(positions, inverse_cell, ns, nodes)
-        capacity = int(-(-min(n_atoms, max_count + 8) // 64) * 64)
+        if _k.is_batched(positions, inverse_cell):
+            # under vmap each system's occupancy lives on the device and the
+            # capacity must be one static number for the batch: 2x the mean
+            # occupancy plus slack (torchpme_tpu/ops/mesh_tiled.py:163-168)
+            mean = -(-n_atoms // n_tiles)
+            capacity = int(-(-min(n_atoms, 2 * mean + 32) // 64) * 64)
+        else:
+            max_count = _max_tile_occupancy(positions, inverse_cell, ns, nodes)
+            capacity = int(-(-min(n_atoms, max_count + 8) // 64) * 64)
     capacity = int(capacity)
 
     ns_t = torch.tensor(ns, dtype=positions.dtype, device=device)
@@ -169,14 +212,16 @@ def compute_tiled_interpolation(
     # bucket by tile: one stable sort of N keys, then rank within the tile
     order = torch.argsort(tile_id, stable=True)
     tid_sorted = tile_id[order]
-    tile_starts = torch.searchsorted(tid_sorted, torch.arange(n_tiles, device=device))
-    rank = torch.arange(n_atoms, device=device) - tile_starts[tid_sorted]
+    # each sorted atom's tile starts at the first of its tile id
+    rank = torch.arange(n_atoms, device=device) - torch.searchsorted(tid_sorted, tid_sorted)
     valid = rank < capacity
     dropped = torch.sum(~valid).to(torch.int32)
     # flat slot per sorted atom; dropped atoms land in a trash slot
     slot_sorted = torch.where(valid, tid_sorted * capacity + rank, n_tiles * capacity)
-    slot_of_atom = torch.zeros(n_atoms, dtype=torch.int64, device=device)
-    slot_of_atom[order] = slot_sorted
+    # out of place, so that it batches under vmap
+    slot_of_atom = torch.zeros(n_atoms, dtype=torch.int64, device=device).scatter(
+        0, order, slot_sorted
+    )
 
     def bucketize(values, fill=0):
         flat = torch.full(
@@ -310,9 +355,10 @@ def _dense_factors(local_x, local_y, start_z, weights, ns, nodes: int):
 
 
 def _fold_tiles_to_mesh(tile_fields: torch.Tensor, ns, extent: int) -> torch.Tensor:
-    """Assemble per-tile local fields ``(T, E, E, nz, C)`` into
-    ``(C, nx, ny, nz)``; local cell ``e`` of tile ``(tx, ty)`` lands on mesh
-    cell ``tx·TILE + e`` (mod ``nx``).
+    """Assemble per-tile local fields ``(..., T, E, E, nz, C)`` into
+    ``(..., C, nx, ny, nz)`` (leading axes: a batch of systems); local cell
+    ``e`` of tile ``(tx, ty)`` lands on mesh cell ``tx·TILE + e`` (mod
+    ``nx``).
 
     Tiles of equal (x, y) parity are disjoint, so each parity class folds
     with a pad + transpose + reshape; the four classes and the x/y wraps
@@ -320,43 +366,45 @@ def _fold_tiles_to_mesh(tile_fields: torch.Tensor, ns, extent: int) -> torch.Ten
     """
     nx, ny, nz = ns
     tx_count, ty_count = nx // TILE, ny // TILE
+    lead = tile_fields.shape[:-5]
     n_ch = tile_fields.shape[-1]
     window = 2 * TILE
     pad = window - extent
     tiles = torch.nn.functional.pad(
-        tile_fields.reshape(tx_count, ty_count, extent, extent, nz, n_ch),
+        tile_fields.reshape(*lead, tx_count, ty_count, extent, extent, nz, n_ch),
         (0, 0, 0, 0, 0, pad, 0, pad),
     )
-    padded = tile_fields.new_zeros((nx + window, ny + window, nz, n_ch))
+    padded = tile_fields.new_zeros((*lead, nx + window, ny + window, nz, n_ch))
+    axis = len(lead)
     for px in range(2):
         for py in range(2):
-            cls = tiles[px::2, py::2]  # (tx/2, ty/2, W, W, nz, C), disjoint
-            ntx, nty = cls.shape[0], cls.shape[1]
-            block = cls.permute(0, 2, 1, 3, 4, 5).reshape(
-                ntx * window, nty * window, nz, n_ch
+            cls = tiles[..., px::2, py::2, :, :, :, :]  # (..., tx/2, ty/2, W, W, nz, C), disjoint
+            ntx, nty = cls.shape[axis], cls.shape[axis + 1]
+            block = cls.transpose(axis + 1, axis + 2).reshape(
+                *lead, ntx * window, nty * window, nz, n_ch
             )
             x0, y0 = px * TILE, py * TILE
-            padded[x0 : x0 + ntx * window, y0 : y0 + nty * window] += block
-    mesh = padded[:nx, :ny].clone()
-    mesh[:window, :] += padded[nx:, :ny]
-    mesh[:, :window] += padded[:nx, ny:]
-    mesh[:window, :window] += padded[nx:, ny:]
-    return mesh.permute(3, 0, 1, 2)
+            padded[..., x0 : x0 + ntx * window, y0 : y0 + nty * window, :, :] += block
+    mesh = padded[..., :nx, :ny, :, :].clone()
+    mesh[..., :window, :, :, :] += padded[..., nx:, :ny, :, :]
+    mesh[..., :, :window, :, :] += padded[..., :nx, ny:, :, :]
+    mesh[..., :window, :window, :, :] += padded[..., nx:, ny:, :, :]
+    return mesh.movedim(-1, -4)
 
 
 def _extract_tiles_from_mesh(mesh: torch.Tensor, ns, nodes: int) -> torch.Tensor:
-    """Cut the ``(T, E, E, nz, C)`` local windows out of ``(C, nx, ny, nz)``
-    (transpose of :func:`_fold_tiles_to_mesh`): window cell ``e`` of tile
-    ``(tx, ty)`` is mesh cell ``tx·TILE + e`` (mod ``nx``)."""
+    """Cut the ``(..., T, E, E, nz, C)`` local windows out of ``(..., C, nx,
+    ny, nz)`` (transpose of :func:`_fold_tiles_to_mesh`): window cell ``e``
+    of tile ``(tx, ty)`` is mesh cell ``tx·TILE + e`` (mod ``nx``)."""
     nx, ny, _ = ns
     extent = TILE + nodes - 1
     dev = mesh.device
     e = torch.arange(extent, device=dev)
     xi = torch.remainder(torch.arange(nx // TILE, device=dev)[:, None] * TILE + e, nx)
     yi = torch.remainder(torch.arange(ny // TILE, device=dev)[:, None] * TILE + e, ny)
-    field = mesh.permute(1, 2, 3, 0)  # (nx, ny, nz, C)
-    tiles = field[xi[:, None, :, None], yi[None, :, None, :]]  # (tx, ty, E, E, nz, C)
-    return tiles.reshape(-1, extent, extent, *field.shape[2:])
+    field = mesh.movedim(-4, -1)  # (..., nx, ny, nz, C)
+    tiles = field[..., xi[:, None, :, None], yi[None, :, None, :], :, :]  # (..., tx, ty, E, E, nz, C)
+    return tiles.reshape(*mesh.shape[:-4], -1, extent, extent, *field.shape[-2:])
 
 
 # -- spread and gather ----------------------------------------------------------
@@ -421,18 +469,19 @@ def _dipole_triple(local_x, local_y, start_z, weights, dweights):
     """``(lx, ly, sz, weights)`` of every slot three times along the capacity
     axis, copy ``a`` with the weight triple whose axis-``a`` stencil is the
     derivative, ``(dw_x, w_y, w_z)``, ``(w_x, dw_y, w_z)``, ``(w_x, w_y,
-    dw_z)`` (differentiable tensor ops): the charge-form argument through
-    which the plain versions of the dipole forms of kernels D, E and F do
-    the JAX package's concatenated three-stencil arithmetic."""
+    dw_z)`` (differentiable tensor ops; any leading batch axes): the
+    charge-form argument through which the plain versions of the dipole forms
+    of kernels D, E and F do the JAX package's concatenated three-stencil
+    arithmetic."""
     variants = []
     for a in range(3):
-        picked = [dweights[:, :, c] if c == a else weights[:, :, c] for c in range(3)]
-        variants.append(torch.stack(picked, dim=2))  # (T, K, 3, n)
+        picked = [dweights[..., c, :] if c == a else weights[..., c, :] for c in range(3)]
+        variants.append(torch.stack(picked, dim=-2))  # (..., T, K, 3, n)
 
     def triple(t):
-        return torch.cat([t, t, t], dim=1).contiguous()
+        return torch.cat([t, t, t], dim=-1).contiguous()
 
-    return (triple(local_x), triple(local_y), triple(start_z), torch.cat(variants, dim=1))
+    return (triple(local_x), triple(local_y), triple(start_z), torch.cat(variants, dim=-3))
 
 
 def tiled_dipoles_to_mesh(

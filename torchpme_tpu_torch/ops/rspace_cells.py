@@ -1022,6 +1022,7 @@ def cell_list_rspace_energy_rows(
         path of the comparisons); by default CPU tensors take the twin and
         CUDA tensors kernel C.
     """
+    _k.refuse_batched("the cell-list window (kernel C)", charges, pos_rows, cell)
     n_cells, cap = clist.slot_mask.shape
     nb = n_cells * cap
     dtype = pos_rows.dtype

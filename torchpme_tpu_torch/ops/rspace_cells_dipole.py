@@ -340,6 +340,7 @@ def _dipole_window_energy(potential, pc_t, mu_g, mf_g, offs, cutoff, plain, mui_
     ``plain=True`` it raises, as the JAX package's ``window_impl="pallas"``
     does for such a potential.
     """
+    _k.refuse_batched("the dipolar cell-list window (kernel G)", pc_t, mu_g, mui_g)
     if _can_use_analytic_dipole(potential):
         return _DipoleWindowEnergy.apply(
             pc_t, mu_g, mf_g, offs, mui_g, potential, cutoff, plain

@@ -396,6 +396,7 @@ def aligned_tiled_density(
         rows spread through the generic scatter
         (:func:`~torchpme_tpu_torch.ops.mesh.points_to_mesh`).
     """
+    _k.refuse_batched("aligned_tiled_density (kernels A, B)", pos_rows, q_rows, inverse_cell)
     ns = tuple(int(n) for n in ns)
     nx_c, ny_c, nz_c, cap = cell_grid
     if nx_c != ns[0] // TILE or ny_c != ns[1] // TILE:
@@ -498,6 +499,7 @@ def fused_tiled_density(
         bool tensor, False once an occupied slot's stencil start has left its
         tile or the bucketing dropped atoms (rebucket then).
     """
+    _k.refuse_batched("fused_tiled_density (kernels A, B)", positions, inverse_cell, charges)
     rel, q_slots, geom = _fused_slots(interp, positions, inverse_cell, charges, method)
     rho = _Spread.apply(rel, q_slots, geom, plain)
     return rho, _slot_validity(rel, interp, positions.shape[0])

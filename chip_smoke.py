@@ -104,8 +104,20 @@ phase fails:
     float64.  Phase 3's batched launches run with it: D, E, F (charge and
     dipole forms) over the 32 systems in one launch each against their plain
     versions, with their bounds;
+21. deploy (``torchpme_tpu_torch.deploy``): the 102k aligned MD step
+    exported with ``torch.export`` with its gradients (rows and cell), saved
+    to bytes and loaded, against the eager kernel step and the plain float64
+    step, one launch each of A, B and C per exported step, the artifact's
+    bytes, the export's seconds and the exported ms/step beside the eager
+    one; a fresh process that cannot import the calculator, MD, potential,
+    tuning or atomistic modules runs DEPLOY_STEPS MD steps from the bytes
+    (examples/19_deployment_md_loop.py's loop) against the parent's; the
+    dipolar MD step (G, D, E + F), the tiled per-atom energy (D, E, F) and
+    the fused MD step exported at 3000 and 1536 atoms against their eager
+    runs; ``torch.library.opcheck`` of the ops of A, B, C and G;
 10. the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
-Phases 11–18 run between 6 and 7, phase 19 after 9, phase 20 after 19.
+Phases 11–18 run between 6 and 7, phase 19 after 9, phase 20 after 19, phase
+21 after 20.
 
 With ``--profile`` it also traces the 102k paths (the MD step in aligned,
 fused and tiled mode) with ``torch.profiler``
@@ -265,6 +277,16 @@ BATCH_ATOMS = (1026, 1536)
 # cell gradient sums every atom's force, and takes ten times that
 BATCH_LOOP_TOL = 1e-6
 BATCH_LOOP_CELL_TOL = 1e-5
+# phase 21: the 102k MD step exported (torchpme_tpu_torch.deploy) drives
+# DEPLOY_STEPS steps of examples/19_deployment_md_loop.py's loop at DEPLOY_DT
+# in a fresh process that cannot import these modules of the port; its
+# trajectory is the parent's run of the same program to DEPLOY_TRAJ_ULPS
+# float32 ulps of the largest coordinate (the two processes launch the same
+# kernels on the same inputs; only the order of float atomics may differ)
+DEPLOY_STEPS = 5
+DEPLOY_DT = 1e-4
+DEPLOY_TRAJ_ULPS = 4
+DEPLOY_BANNED = ("calculators", "md", "potentials", "tuning", "atomistic")
 TUNE_CUTOFFS = (4.5, 5.0, 5.5)
 TUNE_GRID = dict(nodes_lo=4, nodes_hi=6, mesh_lo=6, mesh_hi=8)
 EWALD_TUNE_GRID = dict(ns_lo=16, ns_hi=22)
@@ -1391,7 +1413,7 @@ def direct_f64_on_f32_pairs(potential, clist, q32, cell32, pos32):
     q_i q_j / r_c at the cutoff, so a pair within float32 rounding of it may
     count in float32 and not in float64: the masks here come from the
     float32 window inputs, formed as the step forms them for kernel C
-    (``_prepare`` with ``window=True``, ``_offset_pairs``, ``_extras_pairs``),
+    (``_prepare`` with ``window=True``, ``_WindowPairs``, ``_extras_pairs``),
     and the values and the position gradient from float64.  Returns ``(energy, gradient, energy over the
     float64 pair set, pairs the two sets hold differently)``."""
     from torchpme_tpu_torch.ops import rspace_cells as rs
@@ -1408,22 +1430,17 @@ def direct_f64_on_f32_pairs(potential, clist, q32, cell32, pos32):
     with torch.no_grad():
         _, cell_s, pc_s, q_s, mf_s, offs_s, ex_s = window_inputs(torch.float32, False)
     pos, cell, pc_t, q_g, mf_g, offs, ex = window_inputs(torch.float64, True)
-    dev, cap = pos.device, pc_t.shape[-1]
-    eye = torch.eye(cap, dtype=torch.bool, device=dev)
-    cut_s = torch.tensor(clist.cutoff, dtype=torch.float32, device=dev) ** 2
-    cut = torch.tensor(clist.cutoff, dtype=torch.float64, device=dev) ** 2
-    e = torch.zeros((), dtype=torch.float64, device=dev)
-    e_own, flips = 0.0, 0
-    for k, off in enumerate(rs._window_offsets(cap)):
-        ok_s = rs._offset_pairs(pc_s, mf_s, offs_s, k, off, cut_s, eye)[2]
-        _, d_sq, ok = rs._offset_pairs(pc_t, mf_g, offs, k, off, cut, eye)
-        w = 0.5 if off == (0, 0, 0) else 1.0
-        qq = torch.einsum("...ic,...jc->...ij", q_g,
-                          torch.roll(q_g, tuple(-o for o in off), dims=(0, 1, 2)) * w)
-        e = e + torch.sum(qq * rs._masked_pair_values(potential, d_sq, ok_s))
-        with torch.no_grad():
-            e_own += float(torch.sum(qq * rs._masked_pair_values(potential, d_sq, ok)))
-            flips += int((ok != ok_s).sum())
+    dev = pos.device
+    pairs_s = rs._WindowPairs(pc_s, mf_s, offs_s, clist.cutoff)
+    pairs = rs._WindowPairs(pc_t, mf_g, offs, clist.cutoff)
+    w = torch.tensor([0.5 if o == (0, 0, 0) else 1.0 for o in pairs.offsets],
+                     dtype=torch.float64, device=dev).reshape(-1, 1, 1, 1, 1, 1)
+    qq = torch.matmul(q_g, (pairs.partners(q_g) * w).transpose(-1, -2))
+    e = torch.sum(qq * rs._masked_pair_values(potential, pairs.d_sq, pairs_s.pair_ok))
+    with torch.no_grad():
+        e_own = float(torch.sum(qq * rs._masked_pair_values(potential, pairs.d_sq,
+                                                            pairs.pair_ok)))
+        flips = int((pairs.pair_ok != pairs_s.pair_ok).sum())
     if ex is not None:  # the spill pairs, as _extras_energy sums them
         pe, pe_abs, qe = ex
         d2_em, ok_em, rows_q, _, d2_ee, ok_ee = rs._extras_pairs(
@@ -2394,6 +2411,292 @@ def batch_phases(env) -> dict:
     return {"batched_call": pme_counts, "batched_dipole_call": dipole_counts}
 
 
+#: examples/19_deployment_md_loop.py's engine loop, run alike by the parent
+#: and by the fresh process of phase 21: velocity from minus the gradient,
+#: positions from the velocity; returns the rows and the energies
+DEPLOY_LOOP = """
+def md_loop(step, rows, cell, n_steps, dt):
+    velocity = torch.zeros_like(rows)
+    energies = []
+    for _ in range(n_steps):
+        e, (g, _) = step(rows, cell)
+        energies.append(e)
+        velocity = velocity - dt * g
+        rows = rows + dt * velocity
+    return rows, torch.stack(energies)
+"""
+
+#: phase 21's fresh process: argv = repo, work directory, banned modules,
+#: steps, dt, device
+DEPLOY_ENGINE = """
+import importlib.abc, json, sys, time
+t0 = time.perf_counter()
+BANNED = tuple("torchpme_tpu_torch." + m for m in sys.argv[3].split(","))
+class Ban(importlib.abc.MetaPathFinder):
+    def find_spec(self, fullname, path=None, target=None):
+        if any(fullname == b or fullname.startswith(b + ".") for b in BANNED):
+            raise ImportError(fullname + " is banned at deployment")
+        return None
+sys.meta_path.insert(0, Ban())
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from torchpme_tpu_torch import kernels
+from torchpme_tpu_torch.deploy import load_step
+t_import = time.perf_counter() - t0
+work = sys.argv[2]
+step = load_step(open(work + "/step.pt2", "rb").read())
+t_load = time.perf_counter() - t0 - t_import
+rows = torch.tensor(np.load(work + "/rows.npy"), device=sys.argv[6])
+cell = torch.tensor(np.load(work + "/cell.npy"), device=sys.argv[6])
+""" + DEPLOY_LOOP + """
+kernels.reset_launch_counts()
+rows, energies = md_loop(step, rows, cell, int(sys.argv[4]), float(sys.argv[5]))
+torch.cuda.synchronize()
+np.save(work + "/rows_final.npy", rows.cpu().numpy())
+np.save(work + "/energies.npy", energies.cpu().numpy())
+print(json.dumps({"launches": kernels.launch_counts(), "port_modules": sorted(
+    m for m in sys.modules if m.startswith("torchpme_tpu_torch")), "import_seconds": t_import,
+    "load_seconds": t_load, "steps_seconds": time.perf_counter() - t0 - t_import - t_load}))
+"""
+
+
+def exported_check(label, deploy, kernels, fn, args, with_grad, tol=1e-5, cell_tol=1e-4):
+    """Export ``fn`` at ``args`` with its gradient, load it, and hold one
+    exported call against the eager call: value and gradients (the last
+    gradient at ``cell_tol`` when it is a cell's) within the kernel bars, and
+    the same kernel launches.  Returns (bytes, loaded step, record)."""
+    t0 = time.perf_counter()
+    blob = deploy.export_step(fn, *args, with_grad=with_grad)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step = deploy.load_step(blob)
+    load_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    e_x, g_x = step(*args)
+    sync()
+    counts_x = kernels.launch_counts()
+    leaves = [a.detach().clone().requires_grad_(i in with_grad) for i, a in enumerate(args)]
+    kernels.reset_launch_counts()
+    e = fn(*leaves)
+    g = torch.autograd.grad(e, [leaves[i] for i in with_grad])
+    sync()
+    counts = kernels.launch_counts()
+    e_rel = abs(float(e_x) - float(e.detach())) / abs(float(e.detach()))
+    grad_rel = [rel_rms(a, b) for a, b in zip(g_x, g)]
+    rec = {"bytes": len(blob), "export_seconds": export_s, "load_seconds": load_s,
+           "energy": float(e_x), "energy_rel_vs_eager": e_rel,
+           "grad_rel_rms_vs_eager": grad_rel,
+           "launches": {k: v for k, v in counts_x.items() if v},
+           "eager_launches": {k: v for k, v in counts.items() if v}}
+    emit({"phase": "deploy_check", "path": label, **rec})
+    bars = [tol] * len(grad_rel)
+    if cell_tol is not None and len(bars) > 1:
+        bars[-1] = cell_tol
+    if not (e_rel <= tol and all(r <= b for r, b in zip(grad_rel, bars))):
+        raise AssertionError(f"exported {label} vs eager: {rec}")
+    if counts_x != counts or not any(counts_x.values()):
+        raise AssertionError(f"exported {label} launched {counts_x}, eager {counts}")
+    return blob, step, rec
+
+
+def deploy_phases(env) -> dict:
+    """Phase 21: the port deployed through ``torch.export``
+    (:mod:`torchpme_tpu_torch.deploy`).  (a) The 102k aligned MD step
+    (kernels A, B, C) exported with its gradients in rows and cell, saved to
+    bytes and loaded: one exported step against the eager kernel step (phase
+    4's kernel bars) and the plain float64 step (phase 4's bars), one launch
+    each of A, B and C, the artifact's bytes, the export's and load's
+    seconds and the exported step's ms/step beside the eager step's (CUDA
+    events over chains of CHAIN steps, in turns); (b) a fresh process that
+    cannot import the calculators, MD, potentials, tuning or atomistic
+    modules loads the bytes and runs DEPLOY_STEPS steps of the loop of
+    examples/19_deployment_md_loop.py, against the same steps of the parent;
+    (c) every other kernel in an exported program: the dipolar MD step (G, D,
+    E + F) on the 3000-atom oracle, the tiled per-atom call's energy with
+    its position gradient (D, E, F) on the 1536-atom system and the fused
+    MD step (A, B, C at the stencil-start geometry) on it; (d)
+    ``torch.library.opcheck`` of the ops of kernels A, B, C and G.  Returns
+    the launches of the exported 102k step."""
+    tpt, kernels, dev, f32, fp = env.tpt, env.kernels, env.dev, env.f32, env.fp
+    import tempfile
+
+    from torchpme_tpu_torch import deploy
+    from torchpme_tpu_torch.ops import spread_fused as sf
+    from torchpme_tpu_torch.ops.math import inv3
+    from torchpme_tpu_torch.ops.mesh_tiled import compute_tiled_interpolation
+    from torchpme_tpu_torch.ops.rspace_cells import _prepare_bucketed, window_table
+    from torchpme_tpu_torch.utils.neighbors import compute_distances, neighbor_list
+
+    t_phase = time.perf_counter()
+    q32, cell32 = env.q32, env.cell32
+    rows = fp.bucket(env.pos32)
+    if fp.mesh_impl != "aligned":
+        raise AssertionError(f"phase 21 exports the aligned step, got {fp.mesh_impl!r}")
+
+    # -- (a) the 102k aligned step ----------------------------------------------
+    def energy(r, c):
+        return fp.energy(q32, c, r)
+
+    blob, step, rec = exported_check("md_step_aligned_102k", deploy, kernels, energy,
+                                     (rows, cell32), (0, 1))
+    counts = rec["launches"]
+    md_kernels = ("spread_fwd", "spread_bwd", "window")
+    if counts != {k: 1 for k in md_kernels}:
+        raise AssertionError(f"one exported 102k step launched {counts}")
+    if deploy._calls_tpme(blob) is not True:
+        raise AssertionError("the CUDA artifact holds no tpme:: op")
+    e_x, (g_x, gc_x) = step(rows, cell32)
+    cell64 = cell32.double().requires_grad_()
+    rows64 = rows.double().requires_grad_()
+    e64 = fp.energy(q32.double(), cell64, rows64, plain=True)
+    g64, gc64 = torch.autograd.grad(e64, (rows64, cell64))
+    vs64 = {"energy_rel": abs(float(e_x) - float(e64.detach())) / abs(float(e64.detach())),
+            "force_rel_rms": rel_rms(fp.unbucket(g_x), fp.unbucket(g64)),
+            "cell_grad_rel": rel_err(gc_x, gc64)[1]}
+    del rows64, g64
+    if not (vs64["energy_rel"] <= 1e-5 and vs64["force_rel_rms"] <= 1e-5
+            and vs64["cell_grad_rel"] <= 1e-4):
+        raise AssertionError(f"exported 102k step vs f64 plain: {vs64}")
+
+    def eager_step(r, c):
+        r, c = r.detach().requires_grad_(), c.detach().requires_grad_()
+        e = fp.energy(q32, c, r)
+        return e.detach(), torch.autograd.grad(e, (r, c))
+
+    def chain(fn):
+        p = rows
+        for _ in range(CHAIN):
+            _, (g, _) = fn(p, cell32)
+            p = p - 1e-7 * g
+        return p
+
+    ms = {k: v / CHAIN for k, v in turns_ms({"exported": lambda: chain(step),
+                                              "eager": lambda: chain(eager_step)}, 1).items()}
+    if not bool(torch.isfinite(chain(step)).all()):
+        raise AssertionError("the exported MD chain left its bucketing")
+
+    # -- (b) the fresh process ----------------------------------------------------
+    loop_ns = {"torch": torch}
+    exec(DEPLOY_LOOP, loop_ns)
+    with tempfile.TemporaryDirectory() as work:
+        Path(work, "step.pt2").write_bytes(blob)
+        np.save(Path(work, "rows.npy"), rows.cpu().numpy())
+        np.save(Path(work, "cell.npy"), cell32.cpu().numpy())
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", DEPLOY_ENGINE, str(REPO), work, ",".join(DEPLOY_BANNED),
+             str(DEPLOY_STEPS), repr(DEPLOY_DT), str(dev)],
+            capture_output=True, text=True, timeout=600,
+        )
+        engine_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"the deployment engine failed:\n{run.stderr[-3000:]}")
+        engine = json.loads(run.stdout.strip().splitlines()[-1])
+        rows_engine = np.load(Path(work, "rows_final.npy"))
+        e_engine = np.load(Path(work, "energies.npy"))
+    rows_here, e_here = loop_ns["md_loop"](step, rows, cell32, DEPLOY_STEPS, DEPLOY_DT)
+    rows_here, e_here = rows_here.cpu().numpy(), e_here.cpu().numpy()
+    traj_err = float(np.max(np.abs(rows_engine - rows_here)))
+    traj_bar = DEPLOY_TRAJ_ULPS * float(np.finfo(np.float32).eps) * float(np.abs(rows_here).max())
+    e_err = float(np.max(np.abs(e_engine - e_here) / np.abs(e_here)))
+    banned = [m for m in engine["port_modules"]
+              if m.split(".")[1:2] and m.split(".")[1] in DEPLOY_BANNED]
+    engine_counts = {k: v for k, v in engine["launches"].items() if v}
+    fresh = {"steps": DEPLOY_STEPS, "dt": DEPLOY_DT, "max_abs_rows_diff": traj_err,
+             "rows_bar": traj_bar, "energy_max_rel_diff": e_err,
+             "energies": [float(x) for x in e_engine], "launches": engine_counts,
+             "port_modules_loaded": engine["port_modules"], "seconds": engine_s,
+             **{k: engine[k] for k in ("import_seconds", "load_seconds", "steps_seconds")}}
+    if banned or engine_counts != {k: DEPLOY_STEPS for k in md_kernels}:
+        raise AssertionError(f"the deployment engine: {fresh}")
+    if not (traj_err <= traj_bar and e_err <= 1e-6 and np.all(np.isfinite(e_engine))):
+        raise AssertionError(f"the engine's trajectory differs from the parent's: {fresh}")
+    emit({"phase": "deploy", "atoms": N_ATOMS, "mesh_impl": fp.mesh_impl,
+          "artifact_bytes": rec["bytes"], "export_seconds": rec["export_seconds"],
+          "load_seconds": rec["load_seconds"], "launches_per_exported_step": counts,
+          "vs_eager": {"energy_rel": rec["energy_rel_vs_eager"],
+                       "grad_rel_rms": rec["grad_rel_rms_vs_eager"]},
+          "vs_f64_plain": vs64, "exported_ms_per_step": ms["exported"],
+          "eager_ms_per_step": ms["eager"], "fresh_process": fresh,
+          "torch": torch.__version__, "nvidia_smi": env.smi})
+    del blob, step
+
+    # -- (c) the other kernels in exported programs ---------------------------------
+    smearing, spacing = dipole_parameters()
+    dcalc = tpt.PMECalculatorDipole(tpt.PotentialDipole(smearing=smearing), mesh_spacing=spacing)
+    dpos, dmu, dcell = (torch.tensor(a, **f32) for a in dipole_oracle_box())
+    dfp = tpt.MDFastPathDipole.create(dcalc, dpos, dcell, CUTOFF)
+    _, _, rec_d = exported_check(
+        "dipole_md_step_3000", deploy, kernels, lambda r, mu: dfp.energy(mu, dcell, r),
+        (dfp.bucket(dpos), dmu), (0, 1), cell_tol=None)
+    gpos, gq, gcell = water_box(GT_N)
+    gpos32, gq32, gcell32 = (torch.tensor(a, **f32) for a in (gpos, gq, gcell))
+    gcalc = tpt.PMECalculator(tpt.CoulombPotential(smearing=GT_SMEARING),
+                              mesh_spacing=GT_MESH_SPACING, interpolation_nodes=NODES)
+    idx, _, shifts = neighbor_list(gpos, gcell, CUTOFF)
+    idx, shifts = torch.tensor(idx, device=dev), torch.tensor(shifts, device=dev)
+    interp = compute_tiled_interpolation(gpos32, inv3(gcell32), GT_TILED_NS, NODES,
+                                         gcalc._method)
+
+    def call_energy(p):
+        d = compute_distances(p, idx, gcell32, shifts)
+        pot = gcalc(gq32, gcell32, p, idx, d, ns_mesh=GT_TILED_NS, tiled_interp=interp)
+        return torch.sum(pot * gq32)
+
+    _, _, rec_t = exported_check("per_atom_tiled_1536", deploy, kernels, call_energy,
+                                 (gpos32,), (0,))
+    ffp = tpt.MDFastPath.create(gcalc, gpos32, gcell32, CUTOFF, GT_TILED_NS, mesh_impl="fused")
+    _, _, rec_f = exported_check(
+        "md_step_fused_1536", deploy, kernels, lambda r, c: ffp.energy(gq32, c, r),
+        (ffp.bucket(gpos32), gcell32), (0, 1))
+    want = {"dipole_md_step_3000": {"window_dipole", "mesh_spread", "mesh_gather", "mesh_wgrad"},
+            "per_atom_tiled_1536": {"mesh_spread", "mesh_gather", "mesh_wgrad"},
+            "md_step_fused_1536": {"spread_fwd", "spread_bwd", "window"}}
+    for label, r in (("dipole_md_step_3000", rec_d), ("per_atom_tiled_1536", rec_t),
+                     ("md_step_fused_1536", rec_f)):
+        if set(r["launches"]) != want[label]:
+            raise AssertionError(f"exported {label} launched {r['launches']}")
+
+    # -- (d) opcheck of the four ops at the aligned 1536-atom state ------------------
+    afp = tpt.MDFastPath.create(gcalc, gpos32, gcell32, CUTOFF, GT_NS, mesh_impl="aligned")
+    nx_c, ny_c, nz_c, cap = afp.cell_grid
+    extent, lpad = sf.aligned_geometry(NODES, afp.aligned_pad)
+    geom = sf.SpreadGeometry(GT_NS, NODES, gcalc._method, extent, lpad, nx_c * ny_c,
+                             nz_c * cap, nz_c)
+    nb = geom.n_tiles * geom.slots_per_tile
+    arows = afp.bucket(gpos32)
+    rel = (arows @ inv3(gcell32) * torch.tensor(GT_NS, **f32))[:nb].contiguous()
+    q_rows = torch.zeros((afp.n_rows, 1), **f32).index_copy(
+        0, afp.row_of_atom.long(), gq32)[:nb].contiguous()
+    ct_rho = torch.randn((1, *GT_NS), generator=torch.Generator(dev).manual_seed(21), **f32)
+    aidx = afp.clist.atom_index.long()
+    brows = arows[:nb].reshape(aidx.shape[0], cap, 3)
+    win = _prepare_bucketed(gq32[aidx], brows, gcell32, afp.clist, window=True)[:4]
+    gmu32 = torch.randn((GT_N, 3), generator=torch.Generator(dev).manual_seed(22), **f32)
+    dwin = _prepare_bucketed(gmu32[aidx], brows, gcell32, afp.clist)[:4]
+
+    def grad_leaf(t):
+        return t.detach().clone().requires_grad_()
+
+    geometry, method = geom.as_args()
+    checks = {
+        "spread_fwd": (grad_leaf(rel), grad_leaf(q_rows), geometry, method),
+        "spread_bwd": (rel, q_rows, ct_rho, geometry, method),
+        "window": (grad_leaf(win[0]), grad_leaf(win[1]), win[2], win[3], grad_leaf(gcell32),
+                   *window_table(gcalc.potential), CUTOFF),
+        "window_dipole": (grad_leaf(dwin[0]), grad_leaf(dwin[1]), dwin[2], grad_leaf(dwin[3]),
+                          None, float(smearing), 1.0, CUTOFF),
+    }
+    opcheck = {}
+    for name, args in checks.items():
+        torch.library.opcheck(getattr(torch.ops.tpme, name), args)
+        opcheck[name] = "passed"
+    emit({"phase": "deploy_smaller", "dipole_md_step_3000": rec_d,
+          "per_atom_tiled_1536": rec_t, "md_step_fused_1536": rec_f, "opcheck": opcheck,
+          "phase_seconds": time.perf_counter() - t_phase, "nvidia_smi": env.smi})
+    return {"exported_step": counts}
+
+
 def device_ms_per_call(fn, calls: int = 2) -> float:
     """Device time per call of ``fn`` by ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
@@ -3023,6 +3326,9 @@ def main() -> int:
 
     # -- 20 (and phase 3's batched launches): a padded batch under vmap ------------
     paths.update(batch_phases(env))
+
+    # -- 21. deploy: the 102k step exported, loaded, and run in a fresh process ----
+    paths.update(deploy_phases(env))
 
     # -- 10. result ---------------------------------------------------------------
     # launches: of the MD step (A, B, C), the per-atom call (D, E, F) and the

@@ -1549,3 +1549,139 @@ def test_vmap_of_the_calculator_launches_each_kernel_once(device, name):
         (l_q, l_cell, l_pos), l_e = run(torch.float32, False, batch=b)
         assert abs(float(e[b] - l_e)) <= 1e-5 * abs(float(l_e))
         assert _rel(g_pos[b], l_pos) <= 1e-5 and _rel(g_cell[b], l_cell) <= 1e-5
+
+
+# -- kernels A, B, C, G as tpme:: custom ops, and the exported step --------------
+
+
+def _op_operands(fp, pos, q, cell):
+    """Operands of the ops of A, B, C and G at the aligned state (none of
+    them requires grad)."""
+    pos, q, cell = pos.detach(), q.detach(), cell.detach()
+    rel, q_rows, geom = _slots(fp, pos, q, cell)
+    n_cells, cap = fp.clist.slot_mask.shape
+    idx = fp.clist.atom_index.long()
+    rows = fp.bucket(pos)[: n_cells * cap].reshape(n_cells, cap, 3)
+    win = rc._prepare_bucketed(q[idx], rows, cell, fp.clist, window=True)[:4]
+    mu = torch.randn((pos.shape[0], 3), generator=torch.Generator(pos.device).manual_seed(3),
+                     device=pos.device)
+    dwin = rc._prepare_bucketed(mu[idx], rows, cell, fp.clist)[:4]
+    mui = torch.flip(dwin[1], dims=(-1,)).contiguous() * dwin[2][..., None]
+    ct_rho = torch.randn((1, *NS), generator=torch.Generator(pos.device).manual_seed(4),
+                         device=pos.device)
+    return rel, q_rows, geom, ct_rho, win, dwin, mui
+
+
+def test_ops_pass_opcheck(step):
+    fp, pos, q, cell = step
+    rel, q_rows, geom, ct_rho, win, dwin, mui = _op_operands(fp, pos, q, cell)
+    geometry, method = geom.as_args()
+
+    def leaf(t):
+        return t.detach().clone().requires_grad_()
+
+    table = rc.window_table(fp.calc.potential)
+    cases = {
+        "spread_fwd": (leaf(rel), leaf(q_rows), geometry, method),
+        "spread_bwd": (rel, q_rows, ct_rho, geometry, method),
+        "window": (leaf(win[0]), leaf(win[1]), win[2], win[3], leaf(cell), *table, 3.0),
+        "window_dipole": (leaf(dwin[0]), leaf(dwin[1]), dwin[2], leaf(dwin[3]), leaf(mui),
+                          1.0, 1.0, 3.0),
+    }
+    for name, args in cases.items():
+        torch.library.opcheck(getattr(torch.ops.tpme, name), args)
+
+
+def test_op_launch_equals_the_direct_launch(step):
+    """Each op's CUDA body against the ctypes launch it wraps: C's d_pc, d_q
+    and G's d_pc, d_mu, d_mui bit for bit, A and B within the kernel bar."""
+    fp, pos, q, cell = step
+    cell = cell.detach()
+    rel, q_rows, geom, ct_rho, win, dwin, mui = _op_operands(fp, pos, q, cell)
+    assert _rel(sf.fused_spread(rel, q_rows, geom), sf._launch_fwd(rel, q_rows, geom)) <= 1e-5
+    for a, b in zip(sf.fused_spread_bwd(rel, q_rows, ct_rho, geom),
+                    sf._launch_bwd(rel, q_rows, ct_rho, geom)):
+        assert _rel(a, b) <= 1e-5
+    table = rc.window_table(fp.calc.potential)
+    got = torch.ops.tpme.window(*win, cell, *table, 3.0)
+    direct = rc._launch_window(table, 3.0, *win)
+    assert torch.equal(got[1], direct[1]) and torch.equal(got[2], direct[2])
+    assert abs(float(got[0]) - float(direct[0])) <= 1e-6 * abs(float(direct[0]))
+    got = torch.ops.tpme.window_dipole(*dwin, mui, 1.0, 1.0, 3.0)
+    direct = rcd._launch_window_dipole(1.0, 1.0, 3.0, *dwin, mui)
+    for i in (1, 2, 4):
+        assert torch.equal(got[i], direct[i])
+
+
+def test_ops_refuse_vmap_on_the_card(step):
+    fp, pos, q, cell = step
+    rel, q_rows, geom, ct_rho, win, dwin, mui = _op_operands(fp, pos, q, cell)
+    geometry, method = geom.as_args()
+    table = rc.window_table(fp.calc.potential)
+    calls = {
+        "spread_fwd": (lambda r: torch.ops.tpme.spread_fwd(r, q_rows, geometry, method), rel),
+        "spread_bwd": (lambda r: torch.ops.tpme.spread_bwd(r, q_rows, ct_rho, geometry, method),
+                       rel),
+        "window": (lambda p: torch.ops.tpme.window(p, *win[1:], cell, *table, 3.0), win[0]),
+        "window_dipole": (lambda p: torch.ops.tpme.window_dipole(p, *dwin[1:], None, 1.0, 1.0,
+                                                                 3.0), dwin[0]),
+    }
+    for fn, x in calls.values():
+        with pytest.raises(NotImplementedError, match="no vmap rule"):
+            torch.func.vmap(fn)(torch.stack([x, x]))
+
+
+def test_exported_aligned_step_launches_a_b_c_once(step):
+    """``export_step`` → bytes → ``load_step`` of the aligned MD step with
+    its gradients: the program keeps the ops (one launch each of A, B and C
+    per step) and reproduces the eager step."""
+    from torchpme_tpu_torch.deploy import _calls_tpme, export_step, load_step
+
+    fp, pos, q, cell = (x if i == 0 else x.detach() for i, x in enumerate(step))
+    rows = fp.bucket(pos)
+
+    def energy(r, c):
+        return fp.energy(q, c, r)
+
+    blob = export_step(energy, rows, cell, with_grad=(0, 1))
+    assert _calls_tpme(blob)
+    restored = load_step(blob)
+    kernels.reset_launch_counts()
+    e, (g_rows, g_cell) = restored(rows, cell)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {"spread_fwd": 1, "spread_bwd": 1,
+                                                      "window": 1}
+    r, c = rows.clone().requires_grad_(), cell.clone().requires_grad_()
+    e_ref = energy(r, c)
+    g_ref = torch.autograd.grad(e_ref, (r, c))
+    assert abs(float(e) - float(e_ref.detach())) <= 1e-5 * abs(float(e_ref.detach()))
+    assert _rel(g_rows, g_ref[0]) <= 1e-5 and _rel(g_cell, g_ref[1]) <= 1e-4
+
+
+def test_export_step_for_two_platforms(device):
+    """One artifact, one program per platform: each runs on its device, the
+    CPU program through the plain versions, the CUDA one through the ops."""
+    from torchpme_tpu_torch.deploy import export_step, load_step
+    from torchpme_tpu_torch.utils.neighbors import neighbor_list
+
+    rng = np.random.default_rng(7)
+    positions = torch.tensor(rng.uniform(0, 9.0, (40, 3)))
+    charges = torch.tensor(np.tile([1.0, -1.0], 20).reshape(-1, 1))
+    cell = torch.eye(3, dtype=torch.float64) * 9.0
+    idx, dist, _ = (torch.as_tensor(a) for a in neighbor_list(positions, cell, 3.0))
+    calc = tpt.EwaldCalculator(tpt.CoulombPotential(smearing=1.0), lr_wavelength=2.0)
+    ns_k = calc.get_ns_kvectors(cell)
+
+    def potentials(q, c, p, d):  # the closure's pairs follow the arguments
+        return calc(q, c, p, idx.to(q.device), d, ns_kvectors=ns_k)
+
+    args = (charges, cell, positions, dist)
+    blob = export_step(potentials, *args, platforms=("cpu", "cuda"))
+    restored = load_step(blob)
+    ref = potentials(*args)
+    np.testing.assert_allclose(restored(*args).numpy(), ref.numpy(), rtol=0, atol=1e-12)
+    on_card = restored(*[a.to(device) for a in args])
+    np.testing.assert_allclose(on_card.cpu().numpy(), ref.numpy(), rtol=0, atol=1e-12)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        restored(*[a.to(device) for a in (charges[:-2], cell, positions[:-2], dist)])

@@ -134,6 +134,88 @@ def test_wrapper_raises_off_cpu(case):
         port_rc.window_value_and_grad(Potential(smearing=SMEARING), CUTOFF, *ins32)
 
 
+def _offset_loop(pot, pc_t, q_g, mf_g, offs):
+    """The plain window offset by offset, each neighbour cell by a roll: the
+    reference of ``_we_value_and_grad``, which takes the 14 offsets on one
+    axis.  Returns ``(e, (d_pc, d_q, d_offs, d_image), member energies)``."""
+    dtype, cap = pc_t.dtype, pc_t.shape[-1]
+    f64 = torch.float64
+    cutoff_sq = torch.tensor(CUTOFF, dtype=dtype) ** 2
+    eye = torch.eye(cap, dtype=torch.bool)
+    terms = port_rc._window_terms(pot)
+    e, member_e = torch.zeros((), dtype=f64), torch.zeros(len(terms), dtype=f64)
+    d_pc, d_q, d_offs = torch.zeros_like(pc_t), torch.zeros_like(q_g), torch.zeros_like(offs)
+    d_image = torch.zeros((3, 3), dtype=f64)
+    for k, off in enumerate(port_rc._window_offsets(cap)):
+        w = 0.5 if off == (0, 0, 0) else 1.0
+        shift = tuple(-o for o in off)
+        pj = torch.roll(pc_t, shift, dims=(0, 1, 2)) + offs[k][:, None]
+        mj = torch.roll(mf_g, shift, dims=(0, 1, 2))
+        d_sq = sum((pc_t[..., c, :, None] - pj[..., c, None, :]) ** 2 for c in range(3))
+        ok = (d_sq > 0.0) & (d_sq < cutoff_sq) & (mj[..., None, :] > 0.5)
+        if off == (0, 0, 0):
+            ok = ok & ~eye
+        qj = torch.roll(q_g, shift, dims=(0, 1, 2)) * w
+        d_sq_safe, okf = torch.where(ok, d_sq, 1.0), ok.to(dtype)
+        vq = okf * torch.einsum("...ic,...jc->...ij", q_g, qj)
+        if dtype == torch.float32:
+            v_raw, w_raw, members = port_rc._window_math(pot, d_sq_safe)
+            s = vq * w_raw
+        else:
+            d = torch.sqrt(d_sq_safe)
+            v_raw, dd, members = port_rc._table_pair_terms(pot, terms, d, vq)
+            s = dd / d
+        e = e + torch.sum(vq * v_raw, dtype=f64)
+        if members is not None:
+            member_e = member_e + torch.stack([torch.sum(vq * m, dtype=f64) for m in members])
+        v = okf * v_raw
+        g_i = pc_t * s.sum(-1)[..., None, :] - torch.einsum("...ij,...dj->...di", s, pj)
+        d_pj = pj * s.sum(-2)[..., None, :] - torch.einsum("...ij,...di->...dj", s, pc_t)
+        d_pc = d_pc + g_i + torch.roll(d_pj, off, dims=(0, 1, 2))
+        d_qj = torch.einsum("...ij,...ic->...jc", v, q_g)
+        d_q = d_q + torch.matmul(v, qj) + torch.roll(d_qj, off, dims=(0, 1, 2)) * w
+        d_offs[k] = d_pj.sum(dim=(0, 1, 2, 4))
+        g_cells = g_i.sum(-1, dtype=f64)
+        for a, o in enumerate(off):
+            if o:
+                n = g_cells.shape[a]
+                m = torch.div(torch.arange(n) + o, n, rounding_mode="floor").to(f64)
+                d_image[a] -= m @ g_cells.sum(dim=tuple(b for b in range(3) if b != a))
+    return e.to(dtype), (d_pc, d_q, d_offs, d_image), member_e
+
+
+@pytest.mark.parametrize("passes", ["stacked", "one_offset_a_pass"])
+@pytest.mark.parametrize("pot_name", ["coulomb", "combined_direct"])
+def test_plain_window_equals_the_offset_loop(case, pot_name, passes, monkeypatch):
+    """The plain window with its offsets on one axis (in one pass here, or
+    with a pair budget that forces one offset a pass) ≡ the loop over them,
+    energy, the four gradients and the terms' energies (dE/dw), within the
+    reordered sums' rounding: 1e-12 in float64, 1e-5 in float32."""
+    import torchpme_tpu_torch as tpt
+
+    if passes == "one_offset_a_pass":
+        monkeypatch.setattr(port_rc, "_PAIR_BUDGET", 1)
+    n_cells, cap = case["clist"].slot_mask.shape
+    assert len(port_rc._offset_chunks(n_cells, cap)) == (1 if passes == "stacked" else 14)
+
+    pot = {
+        "coulomb": CoulombPotential(smearing=SMEARING),
+        "combined_direct": tpt.CombinedPotential(
+            [CoulombPotential(), tpt.InversePowerLawPotential(exponent=6)],
+            initial_weights=torch.tensor([1.0, -0.5], dtype=torch.float64)),
+    }[pot_name]
+    ins = _window_inputs(case)
+    tol = 1e-12 if case["dt"] == "float64" else 1e-5
+    e, grads, member_e, _ = port_rc._we_plain(pot, CUTOFF, *ins, ())
+    with torch.no_grad():
+        e_ref, grads_ref, member_ref = _offset_loop(pot, *ins)
+    assert abs(float(e) - float(e_ref)) <= tol * abs(float(e_ref))
+    for got, ref in zip(grads, grads_ref):
+        assert rel(got.numpy(), ref.numpy()) <= tol
+    if pot_name == "combined_direct":
+        assert rel(member_e.numpy(), member_ref.numpy()) <= tol
+
+
 def test_half_window_offsets():
     assert port_rc._half_window_chunks(24) == jax_rc._half_window_chunks(24)
     flat = port_rc._window_offsets(24)

@@ -222,18 +222,18 @@ def test_kernel_table_constants():
     pot = _pots(tpt, "combined4")
     pc_t = torch.zeros((3, 3, 3, 3, 8))
     q_g = torch.zeros((3, 3, 3, 8, 1))
-    p = port_rc._window_params(pot, port_rc._window_terms(pot), CUTOFF, pc_t, q_g)
+    p = port_rc._table_params(port_rc.window_table(pot), CUTOFF, pc_t, q_g)
     assert (p.kind, p.n_members, p.direct) == (2, 4, 0)
     coul, ipl = p.members[0], p.members[3]
     assert [p.members[i].p for i in range(4)] == [1, 3, 5, 6]
-    weights = port_rc._window_weights(pot, "cpu")
+    weights = port_rc._kernel_weights(port_rc.window_table(pot)[0], "cpu")
     assert weights.dtype == torch.float32
     np.testing.assert_array_equal(weights.numpy(), W4.astype(np.float32))
-    assert port_rc._window_weights(_pots(tpt, "ipl3"), "cpu") is None
+    assert port_rc._kernel_weights(port_rc.window_table(_pots(tpt, "ipl3"))[0], "cpu") is None
     assert ipl.alpha_sq == np.float32(0.5 / 0.9**2)
     assert coul.c_gauss == np.float32(1.0 * 2.0 / (1.0 * 2**0.5) / np.pi**0.5)
     single = _pots(tpt, "ipl3")
-    p1 = port_rc._window_params(single, port_rc._window_terms(single), CUTOFF, pc_t, q_g)
+    p1 = port_rc._table_params(port_rc.window_table(single), CUTOFF, pc_t, q_g)
     assert (p1.kind, p1.n_members, p1.members[0].p) == (1, 1, 3)
     coul1 = tpt.CoulombPotential(smearing=1.0)
-    assert port_rc._window_params(coul1, [(coul1, 1)], CUTOFF, pc_t, q_g).kind == 0
+    assert port_rc._table_params(port_rc._table(coul1, [(coul1, 1)]), CUTOFF, pc_t, q_g).kind == 0

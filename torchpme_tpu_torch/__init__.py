@@ -19,43 +19,48 @@ CUDA device when the caller gave neither a device nor tensors
 (:func:`default_device`, which raises without a card: ``device="cpu"`` asks
 for the CPU).  This package imports ``torch``,
 ``numpy`` and ``scipy``, never ``jax``.
+
+The package imports its modules at first use (PEP 562), so a process that
+only loads an exported CUDA program (:mod:`~torchpme_tpu_torch.deploy`)
+imports the kernel library and the modules registering the ``tpme::`` ops,
+and no calculator, potential or MD module.
 """
 
-from . import calculators, md, ops, potentials, prefactors, tuning, utils  # noqa: F401
-from .calculators import (
-    Calculator,
-    CalculatorDipole,
-    EwaldCalculator,
-    P3MCalculator,
-    PMECalculator,
-    PMECalculatorDipole,
-)
-from .device import default_device
-from .md import MDFastPath, MDFastPathDipole, MDFastPathEwald
-from .potentials import (
-    CombinedPotential,
-    CoulombPotential,
-    InversePowerLawPotential,
-    Potential,
-    PotentialDipole,
-    SplinePotential,
-)
+import importlib
 
-__all__ = [
-    "Calculator",
-    "CalculatorDipole",
-    "CombinedPotential",
-    "CoulombPotential",
-    "EwaldCalculator",
-    "InversePowerLawPotential",
-    "MDFastPath",
-    "MDFastPathDipole",
-    "MDFastPathEwald",
-    "P3MCalculator",
-    "PMECalculator",
-    "PMECalculatorDipole",
-    "Potential",
-    "PotentialDipole",
-    "SplinePotential",
-    "default_device",
-]
+_SUBMODULES = frozenset({
+    "atomistic", "calculators", "convert", "deploy", "device", "kernels", "md", "ops",
+    "potentials", "prefactors", "tuning", "utils",
+})
+_EXPORTS = {
+    "Calculator": "calculators",
+    "CalculatorDipole": "calculators",
+    "EwaldCalculator": "calculators",
+    "P3MCalculator": "calculators",
+    "PMECalculator": "calculators",
+    "PMECalculatorDipole": "calculators",
+    "default_device": "device",
+    "MDFastPath": "md",
+    "MDFastPathDipole": "md",
+    "MDFastPathEwald": "md",
+    "CombinedPotential": "potentials",
+    "CoulombPotential": "potentials",
+    "InversePowerLawPotential": "potentials",
+    "Potential": "potentials",
+    "PotentialDipole": "potentials",
+    "SplinePotential": "potentials",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    if name in _SUBMODULES:
+        return importlib.import_module(f"{__name__}.{name}")
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted({*globals(), *_SUBMODULES, *_EXPORTS})

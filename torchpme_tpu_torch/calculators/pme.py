@@ -196,7 +196,8 @@ class PMECalculator(Calculator):
             return points_to_mesh(interp, charges), interp, None, ns_mesh
 
         mesh_valid = None
-        batched = _k.is_batched(charges, cell, positions)
+        # under vmap, or while a graph is traced, nothing is read on the host
+        batched = _k.is_batched(charges, cell, positions) or _k.is_tracing()
         if (
             tiled_interp is not None
             and energy_only
@@ -210,7 +211,7 @@ class PMECalculator(Calculator):
             rho_mesh, mesh_valid = fused_tiled_density(
                 tiled_interp, positions, inv3(cell), charges, self._method, plain=plain
             )
-            if check_stale and not bool(mesh_valid):
+            if check_stale and not batched and not bool(mesh_valid):
                 raise ValueError(_STALE)
             return rho_mesh, tiled_interp, mesh_valid, ns_mesh
         if tiled_interp is not None:

@@ -210,7 +210,8 @@ class PMECalculatorDipole(CalculatorDipole):
             return dipoles_to_mesh(interp, dipoles), interp, None, ns
 
         mesh_valid = None
-        batched = _k.is_batched(dipoles, cell, positions)
+        # under vmap, or while a graph is traced, nothing is read on the host
+        batched = _k.is_batched(dipoles, cell, positions) or _k.is_tracing()
         if tiled_interp is not None:
             # bucket reuse (MD): refresh only the per-slot geometry
             interp, mesh_valid = refresh_tiled_interpolation(

@@ -99,7 +99,7 @@
 #define FAR 1.0e18f  // where empty slots are parked: (FAR)^2 still fits a float
 
 // One 1/r^p pair term; the constants are rounded to float from the Python
-// expressions of the plain version's pair math (ops/rspace_cells.py:_window_params).
+// expressions of the plain version's pair math (ops/rspace_cells.py:_table_params).
 struct WindowMember {
   int p;  // exponent, 1..6
   float alpha, alpha_sq, prefactor, c_gauss;  // c_gauss: the Gaussian term of V'

@@ -11,10 +11,17 @@ Each kernel has a :class:`LaunchCounter` that its wrapper (beside the
 kernel's plain PyTorch twin, in ``ops/``) bumps by one per launch and
 nowhere else, so a run can show that the main path went through it.
 
-Kernels D, E and F take a batch of systems in one launch (the vmap rules of
-their custom ops in ``ops/mesh_kernels.py``); A, B, C and G have no vmap
-rule yet, and their entry points refuse batched tensors
-(:func:`refuse_batched`).
+Every kernel is a ``tpme::`` custom op (``torch.ops.tpme.*``) with fake and
+vmap registrations, and autograd where its output is differentiated, so
+:mod:`torch.export` traces the paths through them
+(:mod:`torchpme_tpu_torch.deploy`).  Kernels D, E and F take a
+batch of systems in one launch (the vmap rules of their ops in
+``ops/mesh_kernels.py``); A, B, C and G have no vmap rule yet: their entry
+points refuse batched tensors (:func:`refuse_batched`), and so do their ops'
+vmap registrations (:func:`refuse_vmap`).
+
+The launch counters are bumped inside the ops' CUDA bodies, so a launch made
+from an exported program counts too.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import inspect
 import os
 import shutil
 import subprocess
@@ -33,6 +41,7 @@ import torch
 
 __all__ = [
     "COUNTERS",
+    "PLAIN_VERSIONS",
     "LaunchCounter",
     "MeshParams",
     "SpreadParams",
@@ -41,11 +50,15 @@ __all__ = [
     "WindowParams",
     "check_cuda_tensor",
     "check_status",
+    "custom_op",
     "host_values",
     "is_batched",
+    "is_tracing",
     "launch_counts",
     "load_library",
+    "op_function",
     "refuse_batched",
+    "refuse_vmap",
     "reset_launch_counts",
     "stream_handle",
 ]
@@ -356,6 +369,16 @@ def is_batched(*tensors) -> bool:
     return False
 
 
+def is_tracing() -> bool:
+    """Whether ``make_fx`` traces a graph (as :mod:`torchpme_tpu_torch.deploy`
+    does): values cannot be read on the host then, so a check that would
+    read one (a stale bucketing, a tile overflow) poisons the result with
+    NaN instead, as under ``vmap``."""
+    from torch.fx.experimental.proxy_tensor import get_proxy_mode
+
+    return get_proxy_mode() is not None
+
+
 def host_values(t: torch.Tensor):
     """The values of ``t`` as a numpy array, read through any
     ``torch.func.grad``-style wrappers (not through ``vmap``, whose batch has
@@ -370,17 +393,80 @@ def host_values(t: torch.Tensor):
         return t.detach().cpu().numpy()
 
 
+def _refusal(what: str) -> str:
+    return (
+        f"{what} does not run under torch.func.vmap yet: kernels A, B, C and G "
+        "have no vmap rule (ROADMAP.md §2, column 'vmap rule'). Batch the "
+        "per-atom calculators over a neighbor list instead (the tiled or "
+        "scatter mesh, kernels D, E, F)."
+    )
+
+
 def refuse_batched(what: str, *tensors) -> None:
     """Raise ``NotImplementedError`` when ``what`` (a path through kernel A,
     B, C or G) is called under ``torch.func.vmap``: those kernels have no vmap
     rule yet, and no other route stands in for them."""
     if is_batched(*tensors):
-        raise NotImplementedError(
-            f"{what} does not run under torch.func.vmap yet: kernels A, B, C and G "
-            "have no vmap rule (ROADMAP.md §2, column 'vmap rule'). Batch the "
-            "per-atom calculators over a neighbor list instead (the tiled or "
-            "scatter mesh, kernels D, E, F)."
-        )
+        raise NotImplementedError(_refusal(what))
+
+
+def refuse_vmap(op, what: str) -> None:
+    """Register ``op``'s vmap rule as the refusal of :func:`refuse_batched`,
+    so a batch reaching the op by any entry point raises the same error."""
+
+    def rule(info, in_dims, *args):
+        raise NotImplementedError(_refusal(what))
+
+    op.register_vmap(rule)
+
+
+#: The plain version of every ``tpme::`` op, by op name: its body with
+#: ``plain=True``, which :func:`torchpme_tpu_torch.deploy.export_step` puts
+#: in place of the op in a CPU program.
+PLAIN_VERSIONS: dict = {}
+
+
+def custom_op(name: str):
+    """``torch.library.custom_op("tpme::<name>")`` for a function whose last
+    argument is ``plain: bool`` (its plain version on any device), which is
+    also recorded in :data:`PLAIN_VERSIONS`."""
+
+    def wrap(fn):
+        op = torch.library.custom_op(f"tpme::{name}", mutates_args=())(fn)
+        signature = inspect.signature(fn)
+
+        def plain_version(*args, **kwargs):
+            bound = signature.bind(*args, **kwargs)
+            bound.arguments["plain"] = True
+            return fn(*bound.args, **bound.kwargs)
+
+        PLAIN_VERSIONS[name] = plain_version
+        return op
+
+    return wrap
+
+
+def op_function(name: str, op, setup_context, backward) -> type:
+    """The differentiable entry to a custom op: an ``autograd.Function`` of
+    the ``setup_context`` form that runs the op under ``no_grad`` and the
+    same VJP (``setup_context``, ``backward``: the functions given to the
+    op's ``register_autograd``).  ``torch.func.grad`` refuses the autograd
+    that custom ops register (torch builds it as an ``autograd.Function``
+    without ``setup_context``) and takes this one; ``make_fx`` traces it into
+    the op and its VJP's ops (:mod:`torchpme_tpu_torch.deploy`).  Its vmap
+    rule is generated, so under ``vmap`` the op's own rule applies."""
+
+    def forward(*inputs):
+        # the Function records the graph; the op must not record its own
+        with torch.no_grad():
+            return op(*inputs)
+
+    return type(name, (torch.autograd.Function,), {
+        "generate_vmap_rule": True,
+        "forward": staticmethod(forward),
+        "setup_context": staticmethod(setup_context),
+        "backward": staticmethod(torch.autograd.function.once_differentiable(backward)),
+    })
 
 
 def stream_handle(device: torch.device) -> int:

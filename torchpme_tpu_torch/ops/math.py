@@ -31,6 +31,29 @@ __all__ = [
 ]
 
 
+def coulomb_alpha(smearing) -> float:
+    r""":math:`\alpha = 1/(\sigma\sqrt2)` of the Coulomb range split."""
+    return 1.0 / (smearing * 2.0**0.5)
+
+
+def coulomb_c_gauss(prefactor, smearing) -> float:
+    r""":math:`P\,2\alpha/\sqrt\pi`, the Gaussian term of the Coulomb
+    :math:`V'_{SR}`."""
+    return prefactor * (2.0 * coulomb_alpha(smearing) / math.pi**0.5)
+
+
+def power_law_alpha_sq(smearing) -> float:
+    r""":math:`\alpha^2 = 1/(2\sigma^2)` of the :math:`1/r^p` range split."""
+    return 0.5 / smearing**2
+
+
+def power_law_c_gauss(prefactor, exponent: int, smearing) -> float:
+    r""":math:`P\,2\alpha^p/\Gamma(p/2)`, the Gaussian term of the
+    :math:`1/r^p` :math:`V'_{SR}`."""
+    alpha_sq = power_law_alpha_sq(smearing)
+    return prefactor * 2.0 * alpha_sq ** (exponent / 2) / math.gamma(exponent / 2)
+
+
 def inv3(cell: torch.Tensor) -> torch.Tensor:
     r"""Closed-form inverse of a 3×3 matrix (adjugate over determinant).
 

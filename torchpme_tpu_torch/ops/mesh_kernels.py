@@ -382,7 +382,7 @@ def _vmap_rule(op, n_out: int):
     op.register_vmap(rule)
 
 
-@torch.library.custom_op("tpme::mesh_spread", mutates_args=())
+@_k.custom_op("mesh_spread")
 def mesh_spread(
     lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, q_slots: Tensor, ns: Sequence[int],
     nodes: int, plain: bool = False,
@@ -396,7 +396,7 @@ def mesh_spread(
     return _launch_spread(lx, ly, sz, weights, None, q_slots, ns, nodes)
 
 
-@torch.library.custom_op("tpme::mesh_spread_dipole", mutates_args=())
+@_k.custom_op("mesh_spread_dipole")
 def mesh_spread_dipole(
     lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, dweights: Tensor, nu_slots: Tensor,
     ns: Sequence[int], nodes: int, plain: bool = False,
@@ -412,7 +412,7 @@ def mesh_spread_dipole(
     return _launch_spread(lx, ly, sz, weights, dweights, nu_slots, ns, nodes)
 
 
-@torch.library.custom_op("tpme::mesh_gather", mutates_args=())
+@_k.custom_op("mesh_gather")
 def mesh_gather(
     lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, mesh: Tensor, ns: Sequence[int],
     nodes: int, plain: bool = False,
@@ -424,7 +424,7 @@ def mesh_gather(
     return _launch_gather_wgrad(lx, ly, sz, weights, None, None, mesh, ns, nodes, True, False)[0]
 
 
-@torch.library.custom_op("tpme::mesh_wgrad", mutates_args=())
+@_k.custom_op("mesh_wgrad")
 def mesh_wgrad(
     lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, q_slots: Tensor, mesh: Tensor,
     ns: Sequence[int], nodes: int, plain: bool = False,
@@ -439,7 +439,7 @@ def mesh_wgrad(
     )[1]
 
 
-@torch.library.custom_op("tpme::mesh_gather_wgrad", mutates_args=())
+@_k.custom_op("mesh_gather_wgrad")
 def mesh_gather_wgrad(
     lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, q_slots: Tensor, mesh: Tensor,
     ns: Sequence[int], nodes: int, plain: bool = False,
@@ -456,7 +456,7 @@ def mesh_gather_wgrad(
     )[:2]
 
 
-@torch.library.custom_op("tpme::mesh_gather_dipole", mutates_args=())
+@_k.custom_op("mesh_gather_dipole")
 def mesh_gather_dipole(
     lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, dweights: Tensor, mesh: Tensor,
     ns: Sequence[int], nodes: int, plain: bool = False,
@@ -471,7 +471,7 @@ def mesh_gather_dipole(
     )[0]
 
 
-@torch.library.custom_op("tpme::mesh_wgrad_dipole", mutates_args=())
+@_k.custom_op("mesh_wgrad_dipole")
 def mesh_wgrad_dipole(
     lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, dweights: Tensor, nu_slots: Tensor,
     mesh: Tensor, ns: Sequence[int], nodes: int, plain: bool = False,
@@ -487,7 +487,7 @@ def mesh_wgrad_dipole(
     )[1:]
 
 
-@torch.library.custom_op("tpme::mesh_gather_wgrad_dipole", mutates_args=())
+@_k.custom_op("mesh_gather_wgrad_dipole")
 def mesh_gather_wgrad_dipole(
     lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, dweights: Tensor, nu_slots: Tensor,
     mesh: Tensor, ns: Sequence[int], nodes: int, plain: bool = False,
@@ -655,33 +655,16 @@ _GATHER_DIPOLE = _autograd(mesh_gather_dipole, _gather_dipole_bwd, 6, (3, 4, 5))
 
 # -- differentiable entry points ----------------------------------------------------
 # torch.func.grad (and vmap over it) refuses the autograd that custom ops
-# register (torch 2.13 builds it as an autograd.Function without
-# ``setup_context``), so the entry points wrap each differentiable op in an
+# register, so the entry points wrap each differentiable op in an
 # autograd.Function of the ``setup_context`` form that runs the op and its
-# registered VJP; its vmap rule is generated, so under vmap the op's own vmap
-# rule makes the one batched launch, forward and backward.
+# registered VJP (``kernels.op_function``); its vmap rule is generated, so
+# under vmap the op's own vmap rule makes the one batched launch, forward and
+# backward.
 
-
-def _function(name: str, op, vjp):
-    setup_context, bwd = vjp
-
-    def forward(*inputs):
-        # the Function records the graph; the op must not record its own
-        with torch.no_grad():
-            return op(*inputs)
-
-    return type(name, (torch.autograd.Function,), {
-        "generate_vmap_rule": True,
-        "forward": staticmethod(forward),
-        "setup_context": staticmethod(setup_context),
-        "backward": staticmethod(torch.autograd.function.once_differentiable(bwd)),
-    })
-
-
-_TileSpread = _function("_TileSpread", mesh_spread, _SPREAD)
-_TileDipoleSpread = _function("_TileDipoleSpread", mesh_spread_dipole, _SPREAD_DIPOLE)
-_TileGather = _function("_TileGather", mesh_gather, _GATHER)
-_TileDipoleGather = _function("_TileDipoleGather", mesh_gather_dipole, _GATHER_DIPOLE)
+_TileSpread = _k.op_function("_TileSpread", mesh_spread, *_SPREAD)
+_TileDipoleSpread = _k.op_function("_TileDipoleSpread", mesh_spread_dipole, *_SPREAD_DIPOLE)
+_TileGather = _k.op_function("_TileGather", mesh_gather, *_GATHER)
+_TileDipoleGather = _k.op_function("_TileDipoleGather", mesh_gather_dipole, *_GATHER_DIPOLE)
 
 
 def _arrays(interp: TiledInterpolation):

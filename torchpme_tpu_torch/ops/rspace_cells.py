@@ -24,14 +24,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections.abc import Sequence
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
+from torch import Tensor
 
 from .. import kernels as _k
 from ..device import resolve_device
-from .math import inv3
+from .math import coulomb_alpha, coulomb_c_gauss, inv3, power_law_alpha_sq, power_law_c_gauss
 
 __all__ = [
     "STALE_TOL",
@@ -380,17 +383,27 @@ def _window_offsets(cap: int) -> list[tuple[int, int, int]]:
     return [o for chunk in _half_window_chunks(cap) for o in chunk]
 
 
-@functools.lru_cache(maxsize=None)
 def _frame_fractions(n_axis: tuple, cap: int, dtype, device) -> tuple:
     """The cell grid's frame in fractional coordinates, made once per grid:
     ``(n, centers, offsets)``, the cells per axis ``(3,)``, each cell's
-    center ``(n_cells, 3)`` and the window offsets ``(14, 3)``."""
+    center ``(n_cells, 3)`` and the window offsets ``(14, 3)``.  Made anew
+    while a graph is traced (its tensors may be fake there, and must not be
+    kept)."""
+    if _k.is_tracing():
+        return _frame_fractions_uncached(n_axis, cap, dtype, device)
+    return _frame_fractions_cached(n_axis, cap, dtype, device)
+
+
+def _frame_fractions_uncached(n_axis: tuple, cap: int, dtype, device) -> tuple:
     nx, ny, nz = n_axis
     n = torch.tensor(n_axis, dtype=dtype, device=device)
     home = torch.arange(nx * ny * nz, device=device)
     home3 = torch.stack([home // (ny * nz), (home // nz) % ny, home % nz], dim=-1)
     flat = torch.tensor(_window_offsets(cap), dtype=dtype, device=device)
     return n, (home3.to(dtype) + 0.5) / n, flat / n
+
+
+_frame_fractions_cached = functools.lru_cache(maxsize=None)(_frame_fractions_uncached)
 
 
 def _prepare_bucketed(q_raw, pos_raw, cell, clist: CellList, window: bool = False):
@@ -564,6 +577,25 @@ def _exact_pair_terms(potential, d, vq, params):
     return v_raw, vq * deriv(d, v_raw), grads
 
 
+def _table_pair_terms(potential, terms, d, vq):
+    """float64 ``(v, q_iq_jV'(d), members)`` for the pair terms of
+    :func:`_window_terms`, without autograd (the body of the ``tpme::window``
+    op runs below it): the smooth split's hooks with smearing, :math:`V' =
+    -pV/d` per term without; ``members`` holds each term's ``v`` for a
+    ``CombinedPotential`` (their energies are dE/dw), else ``None``."""
+    from ..potentials import CombinedPotential
+
+    combined = type(potential) is CombinedPotential
+    if potential.smearing is not None:
+        v_raw, dd, _ = _exact_pair_terms(potential, d, vq, ())
+        return v_raw, dd, [_pair_values(m, d) for m, _ in terms] if combined else None
+    parts = [_pair_values(m, d) for m, _ in terms]
+    slopes = [-p * v / d for (_, p), v in zip(terms, parts)]
+    if not combined:
+        return parts[0], vq * slopes[0], None
+    return potential._combine(parts), vq * potential._combine(slopes), parts
+
+
 def _grads(total, targets):
     """``d total / d targets`` (zeros for a target it does not reach)."""
     if not targets:
@@ -581,21 +613,74 @@ def _masked_pair_values(potential, d_sq, pair_ok):
     return torch.where(pair_ok, _pair_values(potential, d), 0.0)
 
 
-def _offset_pairs(pc_t, mf_g, offs, k: int, offset, cutoff_sq, eye):
-    """The pairs of window offset ``k`` (cell offset ``offset``): partner
-    coordinates ``pj`` ``(x, y, z, 3, cap)``, ``d²`` and the mask of the
-    pairs inside the cutoff (the self pair excluded on the self cell), each
-    ``(x, y, z, cap, cap)``."""
-    shift = tuple(-o for o in offset)
-    pj = torch.roll(pc_t, shift, dims=(0, 1, 2)) + offs[k][:, None]
-    mj = torch.roll(mf_g, shift, dims=(0, 1, 2))
-    d_sq = sum(
-        (pc_t[..., c, :, None] - pj[..., c, None, :]) ** 2 for c in range(3)
-    )  # (x, y, z, cap, cap)
-    pair_ok = (d_sq > 0.0) & (d_sq < cutoff_sq) & (mj[..., None, :] > 0.5)
-    if tuple(offset) == (0, 0, 0):
-        pair_ok = pair_ok & ~eye  # self-pair excluded by identity
-    return pj, d_sq, pair_ok
+@functools.lru_cache(maxsize=None)
+def _window_neighbours(n_axis: tuple, cap: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per window offset ``o`` (:func:`_window_offsets`), the flat index of
+    each cell's periodic neighbour at ``h + o`` (the cell its pairs read) and
+    at ``h - o`` (the cell a j-side sum goes home from): two ``(14,
+    n_cells)`` arrays."""
+    home = np.indices(n_axis).reshape(3, 1, -1)
+    offsets = np.array(_window_offsets(cap)).T[:, :, None]  # (3, 14, 1)
+    n = np.array(n_axis)[:, None, None]
+    return tuple(
+        np.ravel_multi_index(tuple((home + sign * offsets) % n), n_axis) for sign in (1, -1)
+    )
+
+
+#: pairs (cells × cap² per offset) the plain window forms at once: more
+#: offsets a pass cost memory, fewer cost launches and graph nodes
+_PAIR_BUDGET = 1 << 24
+
+
+def _offset_chunks(n_cells: int, cap: int) -> list[slice]:
+    """The window offsets in passes of at most :data:`_PAIR_BUDGET` pairs
+    (one offset a pass where one offset alone exceeds it)."""
+    n_off = len(_window_offsets(cap))
+    per = max(1, _PAIR_BUDGET // (n_cells * cap * cap))
+    return [slice(i, min(i + per, n_off)) for i in range(0, n_off, per)]
+
+
+class _WindowPairs:
+    """The pairs of the window offsets ``ks`` (a slice of
+    :func:`_window_offsets`, all by default) at once, stacked on a leading
+    axis ``k``: partner coordinates ``pj`` ``(k, x, y, z, 3, cap)``, ``d²``
+    and the mask of the pairs inside the cutoff (the self pair excluded on
+    the self cell), each ``(k, x, y, z, cap, cap)``; :meth:`partners` reads a
+    per-cell array at each offset's neighbour, and :meth:`home` brings a
+    per-offset j-side array back to its cells."""
+
+    def __init__(self, pc_t, mf_g, offs, cutoff: float, ks: slice = slice(None)):
+        nx, ny, nz, _, cap = pc_t.shape
+        device = pc_t.device
+        self.offsets = _window_offsets(cap)[ks]
+        reads, homes = _window_neighbours((nx, ny, nz), cap)
+        self._reads = torch.as_tensor(reads[ks], device=device)
+        self._homes = torch.as_tensor(homes[ks], device=device)
+        self._k = torch.arange(len(self.offsets), device=device)[:, None]
+        self.pj = self.partners(pc_t) + offs[ks, None, None, None, :, None]
+        cutoff_sq = torch.tensor(cutoff, dtype=pc_t.dtype, device=device) ** 2
+        self.d_sq = sum(
+            (pc_t[..., c, :, None] - self.pj[..., c, None, :]) ** 2 for c in range(3)
+        )
+        mj = self.partners(mf_g)
+        ok = (self.d_sq > 0.0) & (self.d_sq < cutoff_sq) & (mj[..., None, :] > 0.5)
+        # the self pair, excluded by identity on the self cell
+        eye = torch.eye(cap, dtype=torch.bool, device=device)
+        self_cell = torch.tensor([o == (0, 0, 0) for o in self.offsets], device=device)
+        self.pair_ok = ok & ~(eye & self_cell.reshape(-1, 1, 1, 1, 1, 1))
+
+    def _flat(self, t, lead: int):
+        return t.reshape(*t.shape[:lead], -1, *t.shape[lead + 3:])
+
+    def partners(self, t):
+        """``t`` ``(x, y, z, ...)`` at each offset's neighbour cell:
+        ``(k, x, y, z, ...)``."""
+        return self._flat(t, 0)[self._reads].reshape(len(self.offsets), *t.shape)
+
+    def home(self, t):
+        """``t`` ``(k, x, y, z, ...)``, each offset's slice moved from the
+        neighbour cell back to its home cell: the roll by ``+o``."""
+        return self._flat(t, 1)[self._k, self._homes].reshape(t.shape)
 
 
 # -- kernel C and its plain twin ----------------------------------------------
@@ -608,9 +693,10 @@ def _we_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs, with_par
     ``∂E/∂pc_i = Σ_j s_ij (pc_i − pj_j)`` and ``∂E/∂pj_j = Σ_i s_ij (pj_j −
     pc_i)``; the ``pj`` side rolls back onto its home cell, and its per-offset
     total is the ``offs`` gradient.  The self cell's j-side charges are
-    ½-weighted so each unordered pair counts once.  float32 takes the fused
-    pair math of :func:`_window_math` (kernel C's) where there is one; float64,
-    and float32 without it, the exact route (:func:`_exact_pair_terms`).
+    ½-weighted so each unordered pair counts once.  For the pair terms of
+    :func:`_window_terms` (kernel C's), float32 takes the fused pair math of
+    :func:`_window_math` and float64 the analytic :func:`_table_pair_terms`;
+    every other potential the exact route (:func:`_exact_pair_terms`).
 
     The image term ``d_image`` (3, 3), in float64, is the window's cell
     gradient at fixed positions: ``−Σ_pairs m_ij ⊗ g_ij`` with ``g_ij`` the
@@ -621,131 +707,206 @@ def _we_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs, with_par
     centers (:func:`_prepare_bucketed` with ``window=True``).
 
     :param with_params: also return the gradients with respect to the
-        potential's trainable parameters (:func:`_trainable`): on the fused
-        route these are the weights of a ``CombinedPotential`` and their
-        gradient each member's energy, summed in float64 as kernel C sums it.
+        potential's trainable parameters (:func:`_trainable`): for kernel C's
+        pair terms these are the weights of a ``CombinedPotential`` and their
+        gradient each term's energy, summed in float64 as kernel C sums it.
     :return: ``(e, (d_pc, d_q, d_offs, d_image))``, and ``d_params`` with
-        ``with_params``; outside autograd (the caller's
+        ``with_params``; outside autograd (the caller's op or
         :class:`_WindowEnergy` carries the gradients).
     """
-    with torch.no_grad():
-        return _we_value_and_grad_impl(potential, cutoff, pc_t, q_g, mf_g, offs, with_params)
-
-
-def _we_value_and_grad_impl(potential, cutoff, pc_t, q_g, mf_g, offs, with_params):
-    dtype = pc_t.dtype
-    cap = pc_t.shape[-1]
-    cutoff_sq = torch.tensor(cutoff, dtype=dtype, device=pc_t.device) ** 2
-    fused = dtype == torch.float32 and _window_terms(potential) is not None
-    eye = torch.eye(cap, dtype=torch.bool, device=pc_t.device)
     params = _trainable(potential) if with_params else ()
+    e, grads, member_e, d_params = _we_plain(potential, cutoff, pc_t, q_g, mf_g, offs, params)
+    if not with_params:
+        return e, grads
+    if _window_terms(potential) is not None:
+        # the only trainable parameters of kernel C's potentials are the
+        # weights of a CombinedPotential (its terms hold plain floats)
+        d_params = [member_e] * len(params)
+    return e, grads, tuple(g.to(device=p.device, dtype=p.dtype) for g, p in zip(d_params, params))
 
+
+@torch.no_grad()
+def _we_plain(potential, cutoff, pc_t, q_g, mf_g, offs, params):
+    """:func:`_we_value_and_grad`'s pass, the offsets stacked in as few
+    passes as :func:`_offset_chunks` allows: ``(e, grads, member_e,
+    d_params)``, ``member_e`` the float64 energies of a
+    ``CombinedPotential``'s terms where they are kernel C's (zeros
+    otherwise), ``d_params`` the exact route's gradients of ``params``."""
+    nx, ny, nz, _, cap = pc_t.shape
+    n_terms = len(_window_terms(potential) or ())
     # the energy is a sum of terms far larger than their total: accumulate it
     # in float64, as kernel C does
     e = torch.zeros((), dtype=torch.float64, device=pc_t.device)
-    d_pc = torch.zeros_like(pc_t)
-    d_q = torch.zeros_like(q_g)
-    d_offs = torch.zeros_like(offs)
-    d_image = torch.zeros((3, 3), dtype=torch.float64, device=pc_t.device)
+    member_e = torch.zeros(n_terms, dtype=torch.float64, device=pc_t.device)
+    d_pc, d_q = torch.zeros_like(pc_t), torch.zeros_like(q_g)
+    d_offs, d_image = [], torch.zeros((3, 3), dtype=torch.float64, device=pc_t.device)
     d_params = [torch.zeros_like(p, dtype=torch.float64) for p in params]
-    for k, (dx, dy, dz) in enumerate(_window_offsets(cap)):
-        w = 0.5 if (dx, dy, dz) == (0, 0, 0) else 1.0
-        pj, d_sq, pair_ok = _offset_pairs(pc_t, mf_g, offs, k, (dx, dy, dz), cutoff_sq, eye)
-        qj = torch.roll(q_g, (-dx, -dy, -dz), dims=(0, 1, 2)) * w
-        d_sq_safe = torch.where(pair_ok, d_sq, 1.0)
-        okf = pair_ok.to(dtype)
-        vq = okf * torch.einsum("...ic,...jc->...ij", q_g, qj)
-        if fused:
-            v_raw, w_raw, members = _window_math(potential, d_sq_safe)
-            e = e + torch.sum(vq * v_raw, dtype=torch.float64)
-            s = vq * w_raw
-            if params:  # the weights of a CombinedPotential, its only parameters
-                d_params[0] += torch.stack(
-                    [torch.sum(vq * v_m, dtype=torch.float64) for v_m in members]
-                ).to(d_params[0])
-        else:
-            d = torch.sqrt(d_sq_safe)
-            v_raw, dd, grads = _exact_pair_terms(potential, d, vq, params)
-            e = e + torch.sum(vq * v_raw, dtype=torch.float64)
-            s = dd / d
-            d_params = [a + g for a, g in zip(d_params, grads)]
-        v = okf * v_raw
-        d_q = d_q + torch.matmul(v, qj)
-        d_qj = torch.einsum("...ij,...ic->...jc", v, q_g)
-        cross_i = torch.einsum("...ij,...dj->...di", s, pj)
-        cross_j = torch.einsum("...ij,...di->...dj", s, pc_t)
-        g_i = pc_t * s.sum(-1)[..., None, :] - cross_i
-        d_pc = d_pc + g_i
-        d_image -= _image_term(g_i.sum(-1, dtype=torch.float64), (dx, dy, dz))
-        d_pj = pj * s.sum(-2)[..., None, :] - cross_j  # (x, y, z, 3, cap)
-        back = (dx, dy, dz)
-        d_pc = d_pc + torch.roll(d_pj, back, dims=(0, 1, 2))
-        d_q = d_q + torch.roll(d_qj, back, dims=(0, 1, 2)) * w
-        d_offs[k] = d_pj.sum(dim=(0, 1, 2, 4))
-    grads = (d_pc, d_q, d_offs, d_image)
-    if not with_params:
-        return e.to(dtype), grads
-    return e.to(dtype), grads, tuple(g.to(p.dtype) for g, p in zip(d_params, params))
+    for ks in _offset_chunks(nx * ny * nz, cap):
+        part = _we_offsets(potential, cutoff, pc_t, q_g, mf_g, offs, params, ks)
+        e, member_e = e + part[0], member_e + part[1]
+        d_pc, d_q, d_image = d_pc + part[2], d_q + part[3], d_image + part[5]
+        d_offs.append(part[4])
+        d_params = [a + g for a, g in zip(d_params, part[6])]
+    return e.to(pc_t.dtype), (d_pc, d_q, torch.cat(d_offs), d_image), member_e, d_params
 
 
-def _image_term(g_cells, offset) -> torch.Tensor:
-    """``Σ_h m(h) ⊗ g_h`` in float64 for one window offset: ``g_cells``
-    ``(nx, ny, nz, 3)`` holds each home cell's i-side gradient sum over the
-    offset's pairs, and ``m`` the integer image of its neighbour cell."""
-    out = torch.zeros((3, 3), dtype=torch.float64, device=g_cells.device)
-    for a, o in enumerate(offset):
-        if o == 0:
-            continue
-        n = g_cells.shape[a]
-        m = torch.div(torch.arange(n, device=g_cells.device) + o, n, rounding_mode="floor")
-        per_plane = g_cells.sum(dim=tuple(b for b in range(3) if b != a), dtype=torch.float64)
-        out[a] = m.to(torch.float64) @ per_plane
-    return out
+def _we_offsets(potential, cutoff, pc_t, q_g, mf_g, offs, params, ks: slice):
+    """The window offsets ``ks`` on one stacked axis: ``(e, member_e, d_pc,
+    d_q, d_offs[ks], d_image, d_params)``, each summed over those offsets."""
+    dtype = pc_t.dtype
+    terms = _window_terms(potential)
+    pairs = _WindowPairs(pc_t, mf_g, offs, cutoff, ks)
+    pj, d_sq_safe = pairs.pj, torch.where(pairs.pair_ok, pairs.d_sq, 1.0)
+    # the self cell's j-side charges are halved: each unordered pair once
+    w = torch.tensor([0.5 if o == (0, 0, 0) else 1.0 for o in pairs.offsets],
+                     dtype=dtype, device=pc_t.device).reshape(-1, 1, 1, 1, 1, 1)
+    qj = pairs.partners(q_g) * w
+    okf = pairs.pair_ok.to(dtype)
+    vq = okf * torch.matmul(q_g, qj.transpose(-1, -2))
+    members, d_params = None, []
+    if dtype == torch.float32 and terms is not None:
+        v_raw, w_raw, members = _window_math(potential, d_sq_safe)
+        s = vq * w_raw
+    elif terms is not None:
+        d = torch.sqrt(d_sq_safe)
+        v_raw, dd, members = _table_pair_terms(potential, terms, d, vq)
+        s = dd / d
+    else:
+        d = torch.sqrt(d_sq_safe)
+        v_raw, dd, d_params = _exact_pair_terms(potential, d, vq, params)
+        s = dd / d
+    e = torch.sum(vq * v_raw, dtype=torch.float64)
+    member_e = torch.zeros(len(terms or ()), dtype=torch.float64, device=pc_t.device)
+    if members is not None:
+        member_e = torch.stack([torch.sum(vq * v_m, dtype=torch.float64) for v_m in members])
+    v = okf * v_raw
+    g_i = pc_t * s.sum(-1)[..., None, :] - torch.matmul(pj, s.transpose(-1, -2))
+    d_pj = pj * s.sum(-2)[..., None, :] - torch.matmul(pc_t, s)  # (k, x, y, z, 3, cap)
+    d_pc = g_i.sum(0) + pairs.home(d_pj).sum(0)
+    d_qj = pairs.home(torch.matmul(v.transpose(-1, -2), q_g)) * w
+    d_q = torch.matmul(v, qj).sum(0) + d_qj.sum(0)
+    d_image = -_image_term(g_i.sum(-1, dtype=torch.float64), pairs.offsets)
+    return e, member_e, d_pc, d_q, d_pj.sum(dim=(1, 2, 3, 5)), d_image, d_params
 
 
-def _window_params(potential, terms, cutoff: float, pc_t, q_g) -> _k.WindowParams:
-    """Kernel C's parameters: the grid, the offsets and the table of pair
-    terms, each constant rounded to float32 from the same Python expression
-    that the plain twin's pair math uses."""
+def _image_term(g_cells, offsets) -> torch.Tensor:
+    """``Σ_o Σ_h m_o(h) ⊗ g_o,h`` in float64: ``g_cells`` ``(k, nx, ny, nz,
+    3)`` holds each home cell's i-side gradient sum over offset ``o``'s
+    pairs, and ``m_o(h) = floor((h + o) / n)`` per axis the integer image of
+    its neighbour cell: 1 on the last plane for ``o = +1``, −1 on the first
+    for ``o = −1``, 0 elsewhere."""
+    o = torch.tensor(offsets, dtype=torch.float64, device=g_cells.device)
+    rows = []
+    for a in range(3):
+        per_plane = g_cells.sum(dim=tuple(b + 1 for b in range(3) if b != a), dtype=torch.float64)
+        rows.append((o[:, a] > 0).to(torch.float64) @ per_plane[:, -1]
+                    - (o[:, a] < 0).to(torch.float64) @ per_plane[:, 0])
+    return torch.stack(rows)
+
+
+def _table(potential, terms) -> tuple:
+    """The pair-term table of ``potential`` and its ``terms``
+    (:func:`_window_terms`) as the ``tpme::window`` op takes it:
+    ``(weights, kinds, exponents, smearings, prefactors, direct)`` — a
+    ``CombinedPotential``'s weights (``None`` for one term), per term its
+    class (0 ``CoulombPotential``, 1 ``InversePowerLawPotential``), ``p``,
+    smearing (0 without) and prefactor, and whether the terms are
+    unsmeared."""
     from ..potentials import CombinedPotential, CoulombPotential
 
+    return (
+        potential.weights if type(potential) is CombinedPotential else None,
+        [0 if type(m) is CoulombPotential else 1 for m, _ in terms],
+        [p for _, p in terms],
+        [0.0 if m.smearing is None else float(m.smearing) for m, _ in terms],
+        [float(m.prefactor) for m, _ in terms],
+        potential.smearing is None,
+    )
+
+
+def window_table(potential):
+    """The pair-term table of ``potential`` (:func:`_table`), or ``None``
+    where kernel C cannot evaluate it (:func:`_window_terms`)."""
+    terms = _window_terms(potential)
+    return None if terms is None else _table(potential, terms)
+
+
+@functools.lru_cache(maxsize=64)
+def _table_members(kinds: tuple, exponents: tuple, smearings: tuple, prefactors: tuple,
+                   direct: bool) -> tuple:
+    """The terms of a :func:`window_table` as potentials, made once per table."""
+    from ..potentials import CoulombPotential, InversePowerLawPotential
+
+    members = []
+    for kind, p, smearing, prefactor in zip(kinds, exponents, smearings, prefactors):
+        smearing = None if direct else smearing
+        members.append(
+            CoulombPotential(smearing=smearing, prefactor=prefactor) if kind == 0
+            else InversePowerLawPotential(exponent=p, smearing=smearing, prefactor=prefactor)
+        )
+    return tuple(members)
+
+
+def _table_potential(table):
+    """The potential a :func:`window_table` describes: its one term, or a
+    frozen ``CombinedPotential`` of its terms with its weights."""
+    from ..potentials import CombinedPotential
+
+    weights, kinds, exponents, smearings, prefactors, direct = table
+    members = _table_members(
+        tuple(kinds), tuple(exponents), tuple(smearings), tuple(prefactors), bool(direct)
+    )
+    if weights is None:
+        return members[0]
+    return CombinedPotential(
+        list(members), initial_weights=weights.detach(), learnable_weights=False,
+        smearing=None if direct else smearings[0],
+    )
+
+
+def _table_params(table, cutoff: float, pc_t, q_g) -> _k.WindowParams:
+    """Kernel C's parameters for a pair-term ``table`` (:func:`window_table`):
+    the grid, the offsets and the terms, each constant rounded to float32
+    from the expression the terms' potentials evaluate (``ops.math``), with
+    no potential built: a loader of a CUDA artifact runs this without the
+    potentials module."""
+    weights, kinds, exponents, smearings, prefactors, direct = table
     nx, ny, nz, _, cap = pc_t.shape
     p = _k.WindowParams()
     p.nx, p.ny, p.nz, p.cap, p.n_ch = nx, ny, nz, cap, q_g.shape[-1]
-    p.direct = int(potential.smearing is None)
-    combined = type(potential) is CombinedPotential
+    p.direct = int(direct)
     # 0: one Coulomb-form term (p = 1), 1: one 1/r^p term, 2: a combination
-    p.kind = 2 if combined else (0 if terms[0][1] == 1 else 1)
-    p.n_members = len(terms)
+    p.kind = 2 if weights is not None else (0 if exponents[0] == 1 else 1)
+    p.n_members = len(kinds)
     offsets = _window_offsets(cap)
     p.self_k = offsets.index((0, 0, 0))
-    p.cutoff_sq = float(torch.tensor(cutoff, dtype=torch.float32) ** 2)
-    for slot, (member, exponent) in enumerate(terms):
+    p.cutoff_sq = float(np.float32(cutoff) ** 2)
+    for slot, (kind, exponent, smearing, prefactor) in enumerate(
+        zip(kinds, exponents, smearings, prefactors)
+    ):
         m = p.members[slot]
-        m.p, m.prefactor = exponent, member.prefactor
-        if member.smearing is None:
+        m.p, m.prefactor = exponent, prefactor
+        if direct:
             continue
-        if type(member) is CoulombPotential:
-            alpha = member._alpha()
+        if kind == 0:  # CoulombPotential
+            alpha = coulomb_alpha(smearing)
             m.alpha, m.alpha_sq = alpha, alpha * alpha
-            m.c_gauss = member.prefactor * (2.0 * alpha / np.pi**0.5)
-        else:
-            alpha_sq = member._alpha_sq()
+            m.c_gauss = coulomb_c_gauss(prefactor, smearing)
+        else:  # InversePowerLawPotential
+            alpha_sq = power_law_alpha_sq(smearing)
             m.alpha, m.alpha_sq = alpha_sq**0.5, alpha_sq
-            m.c_gauss = member._c_gauss()
+            m.c_gauss = power_law_c_gauss(prefactor, exponent, smearing)
     for k, o in enumerate(offsets):
         p.offsets[3 * k : 3 * k + 3] = o
     return p
 
 
-def _window_weights(potential, device):
+def _kernel_weights(weights, device):
     """A ``CombinedPotential``'s weights as kernel C reads them: float32 on
     ``device``, without a copy to the host (``None`` for one term)."""
-    from ..potentials import CombinedPotential
-
-    if type(potential) is not CombinedPotential:
+    if weights is None:
         return None
-    return potential.weights.detach().to(device=device, dtype=torch.float32).contiguous()
+    return weights.detach().to(device=device, dtype=torch.float32).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -764,12 +925,133 @@ def _window_group(cap: int, n_ch: int, device_index: int) -> int:
     return group
 
 
+def _check_window(potential, pc_t, q_g, mf_g, offs):
+    """Validate kernel C's operands, and that it evaluates ``potential``."""
+    if _window_terms(potential) is None:
+        raise TypeError(
+            "the window kernel evaluates CoulombPotential and InversePowerLawPotential "
+            "(p = 1..6) pair terms, and a CombinedPotential of up to "
+            f"{_k.MAX_MEMBERS} of them, without an exclusion window; got "
+            f"{type(potential).__name__}: plain=True runs the plain version"
+        )
+    _check_window_operands(pc_t, q_g, mf_g, offs)
+
+
+def _check_window_operands(pc_t, q_g, mf_g, offs):
+    if pc_t.ndim != 5 or pc_t.shape[3] != 3:
+        raise ValueError(f"pc_t must be (nx, ny, nz, 3, cap), got {tuple(pc_t.shape)}")
+    nx, ny, nz, _, cap = pc_t.shape
+    n_ch = q_g.shape[-1]
+    if n_ch > _k.MAX_CHANNELS:
+        raise ValueError(f"the window kernel takes at most {_k.MAX_CHANNELS} channels")
+    _k.check_cuda_tensor(pc_t, "pc_t", (nx, ny, nz, 3, cap))
+    _k.check_cuda_tensor(q_g, "q_g", (nx, ny, nz, cap, n_ch))
+    _k.check_cuda_tensor(mf_g, "mf_g", (nx, ny, nz, cap))
+    _k.check_cuda_tensor(offs, "offs", (_k.N_OFFSETS, 3))
+
+
+def _launch_window(table, cutoff: float, pc_t, q_g, mf_g, offs):
+    """Kernel C over checked operands for a pair-term ``table``
+    (:func:`window_table`): ``(e, d_pc, d_q, d_offs, d_image, members)``,
+    the last the terms' float64 energies."""
+    weights, kinds = table[:2]
+    cap, n_ch = pc_t.shape[-1], q_g.shape[-1]
+    # the kernel writes every row of its outputs; its double accumulators
+    # (energy, d_offs, a block counter, the members' energies, the image
+    # term) start at zero
+    acc = torch.zeros(_k.WINDOW_IMAGE_ROW + 9, dtype=torch.float64, device=pc_t.device)
+    d_pc = torch.empty_like(pc_t)
+    d_q = torch.empty_like(q_g)
+    d_offs = torch.empty_like(offs)
+    p = _table_params(table, cutoff, pc_t, q_g)
+    p.group = _window_group(cap, n_ch, pc_t.device.index)
+    weights = _kernel_weights(weights, pc_t.device)
+    status = _k.load_library().lib.tpme_window(
+        pc_t.data_ptr(), q_g.data_ptr(), mf_g.data_ptr(), offs.data_ptr(),
+        None if weights is None else weights.data_ptr(),
+        acc.data_ptr(), d_pc.data_ptr(), d_q.data_ptr(), d_offs.data_ptr(),
+        ctypes.byref(p), _k.stream_handle(pc_t.device),
+    )
+    _k.check_status(status, "window")
+    _k.WINDOW.launches += 1
+    # an op's outputs are fresh tensors, not views of the accumulator
+    d_image = acc[_k.WINDOW_IMAGE_ROW :].reshape(3, 3).clone()
+    members = acc[_k.WINDOW_MEMBER_ROW : _k.WINDOW_MEMBER_ROW + len(kinds)].clone()
+    return acc[0].to(torch.float32), d_pc, d_q, d_offs, d_image, members
+
+
+@_k.custom_op("window")
+def window(
+    pc_t: Tensor, q_g: Tensor, mf_g: Tensor, offs: Tensor, cell: Tensor,
+    weights: Optional[Tensor], kinds: Sequence[int], exponents: Sequence[int],
+    smearings: Sequence[float], prefactors: Sequence[float], direct: bool, cutoff: float,
+    plain: bool = False,
+) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Kernel C: ``(e, d_pc, d_q, d_offs, d_image, members)`` of the window
+    for the pair-term table of :func:`window_table`; ``members`` are the
+    terms' float64 energies (a ``CombinedPotential``'s dE/dw).  ``cell``
+    only takes the image term's cotangent.  The plain version
+    (:func:`_we_value_and_grad`) on CPU tensors or with ``plain``."""
+    del cell
+    table = (weights, kinds, exponents, smearings, prefactors, direct)
+    if plain or pc_t.device.type == "cpu":
+        e, grads, members, _ = _we_plain(
+            _table_potential(table), cutoff, pc_t, q_g, mf_g, offs, ()
+        )
+        return e, *grads, members
+    _check_window_operands(pc_t, q_g, mf_g, offs)
+    return _launch_window(table, cutoff, pc_t, q_g, mf_g, offs)
+
+
+@window.register_fake
+def _(pc_t, q_g, mf_g, offs, cell, weights, kinds, exponents, smearings, prefactors, direct,
+      cutoff, plain=False):
+    wide = dict(dtype=torch.float64, device=pc_t.device)
+    return (pc_t.new_empty(()), torch.empty_like(pc_t), torch.empty_like(q_g),
+            torch.empty_like(offs), torch.empty((3, 3), **wide),
+            torch.empty((len(kinds),), **wide))
+
+
+def _window_setup(ctx, inputs, output):
+    # the gradients ride as attributes of non-differentiable outputs:
+    # torch.export refuses outputs saved with save_for_backward
+    ctx.mark_non_differentiable(*output[1:])
+    ctx.grads = output[1:]
+    # only the energy takes a cotangent: no zeros are made for the others
+    ctx.set_materialize_grads(False)
+    cell, weights = inputs[4], inputs[5]
+    ctx.n_inputs = len(inputs)
+    ctx.cell_dtype = cell.dtype
+    ctx.weights_like = None if weights is None else (weights.dtype, weights.device)
+
+
+def _window_vjp(ctx, e_bar, *_):
+    """The energy is a scalar: every cotangent is ``ē ×`` a gradient the
+    forward already holds (the image term for the cell, the terms' energies
+    for a ``CombinedPotential``'s weights)."""
+    d_pc, d_q, _, d_image, members = ctx.grads
+    ct_w = None
+    if ctx.weights_like is not None:
+        dtype, device = ctx.weights_like
+        ct_w = e_bar.to(device=device, dtype=dtype) * members.to(device=device, dtype=dtype)
+    ct_cell = e_bar.to(ctx.cell_dtype) * d_image.to(ctx.cell_dtype)
+    rest = (None,) * (ctx.n_inputs - 6)
+    return (e_bar * d_pc, e_bar * d_q, None, None, ct_cell, ct_w, *rest)
+
+
+window.register_autograd(_window_vjp, setup_context=_window_setup)
+_k.refuse_vmap(window, "tpme::window (kernel C)")
+_Window = _k.op_function("_Window", window, _window_setup, _window_vjp)
+
+
 def window_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs, with_params=False):
     """Kernel C: window energy and ``(d_pc, d_q, d_offs, d_image)`` in one
-    launch (the image term as :func:`_we_value_and_grad` defines it).
+    launch (the image term as :func:`_we_value_and_grad` defines it),
+    through ``torch.ops.tpme.window``.
 
-    CPU tensors take :func:`_we_value_and_grad`; CUDA tensors launch the
-    kernel or raise.  It takes float32, at most ``kernels.MAX_CHANNELS``
+    On CPU tensors the op's body is the plain version (as is
+    :func:`_we_value_and_grad` for a potential outside kernel C's table);
+    CUDA tensors launch the kernel or raise.  It takes float32, at most ``kernels.MAX_CHANNELS``
     charge channels, a capacity whose one offset fits shared memory (~3000
     at one channel, ~1850 at four), and the pair terms of
     :func:`_window_terms`: ``CoulombPotential`` and
@@ -783,68 +1065,41 @@ def window_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs, with_
         The kernel reads the weights on the card: keep the potential there
         (``calc.to``), or each launch copies them from the host.
     """
-    if pc_t.device.type == "cpu":
+    table = window_table(potential)
+    if pc_t.device.type != "cpu":
+        # checked before the op: on a device other than the CPU and the card
+        # (``meta``) the op would answer with its fake
+        _check_window(potential, pc_t, q_g, mf_g, offs)
+    elif table is None:
         return _we_value_and_grad(potential, cutoff, pc_t, q_g, mf_g, offs, with_params)
-    terms = _window_terms(potential)
-    if terms is None:
-        raise TypeError(
-            "the window kernel evaluates CoulombPotential and InversePowerLawPotential "
-            "(p = 1..6) pair terms, and a CombinedPotential of up to "
-            f"{_k.MAX_MEMBERS} of them, without an exclusion window; got "
-            f"{type(potential).__name__}: plain=True runs the plain version"
-        )
-    if pc_t.ndim != 5 or pc_t.shape[3] != 3:
-        raise ValueError(f"pc_t must be (nx, ny, nz, 3, cap), got {tuple(pc_t.shape)}")
-    nx, ny, nz, _, cap = pc_t.shape
-    n_ch = q_g.shape[-1]
-    if n_ch > _k.MAX_CHANNELS:
-        raise ValueError(f"the window kernel takes at most {_k.MAX_CHANNELS} channels")
-    _k.check_cuda_tensor(pc_t, "pc_t", (nx, ny, nz, 3, cap))
-    _k.check_cuda_tensor(q_g, "q_g", (nx, ny, nz, cap, n_ch))
-    _k.check_cuda_tensor(mf_g, "mf_g", (nx, ny, nz, cap))
-    _k.check_cuda_tensor(offs, "offs", (_k.N_OFFSETS, 3))
-    # the kernel writes every row of its outputs; its double accumulators
-    # (energy, d_offs, a block counter, the members' energies, the image
-    # term) start at zero
-    acc = torch.zeros(_k.WINDOW_IMAGE_ROW + 9, dtype=torch.float64, device=pc_t.device)
-    d_pc = torch.empty_like(pc_t)
-    d_q = torch.empty_like(q_g)
-    d_offs = torch.empty_like(offs)
-    p = _window_params(potential, terms, cutoff, pc_t, q_g)
-    p.group = _window_group(cap, n_ch, pc_t.device.index)
-    weights = _window_weights(potential, pc_t.device)
-    status = _k.load_library().lib.tpme_window(
-        pc_t.data_ptr(), q_g.data_ptr(), mf_g.data_ptr(), offs.data_ptr(),
-        None if weights is None else weights.data_ptr(),
-        acc.data_ptr(), d_pc.data_ptr(), d_q.data_ptr(), d_offs.data_ptr(),
-        ctypes.byref(p), _k.stream_handle(pc_t.device),
-    )
-    _k.check_status(status, "window")
-    _k.WINDOW.launches += 1
-    d_image = acc[_k.WINDOW_IMAGE_ROW :].reshape(3, 3)
-    e, grads = acc[0].to(torch.float32), (d_pc, d_q, d_offs, d_image)
+    # a cell of the operands' dtype: the op only routes the image term's
+    # cotangent to it
+    cell = offs.new_zeros((3, 3))
+    with torch.no_grad():
+        e, *grads, members = window(pc_t, q_g, mf_g, offs, cell, *table, cutoff)
     if not with_params:
-        return e, grads
-    params = _trainable(potential)
+        return e, tuple(grads)
     # the only trainable parameters kernel C's potentials have are the
     # weights of a CombinedPotential (its members hold plain floats)
-    members = acc[_k.WINDOW_MEMBER_ROW : _k.WINDOW_MEMBER_ROW + len(terms)]
-    return e, grads, tuple(members.to(device=w.device, dtype=w.dtype) for w in params)
+    return e, tuple(grads), tuple(
+        members.to(device=w.device, dtype=w.dtype) for w in _trainable(potential)
+    )
 
 
 class _WindowEnergy(torch.autograd.Function):
-    """Window energy whose forward already holds the whole gradient: the
-    energy is a scalar, so every cotangent is ``ē ×`` a fixed array and the
-    backward only scales.  ``cell`` takes the image term (its inputs come
-    from :func:`_prepare_bucketed` with ``window=True``, whose centers and
-    offsets carry no gradient).  The potential's trainable parameters ride
-    as the trailing inputs, so their gradients (``dE/dw`` of a Combined
-    potential) flow back too."""
+    """Window energy of a potential outside kernel C's table (a spline, an
+    exclusion window), by the plain version on any device: its forward
+    already holds the whole gradient, so the backward only scales.  ``cell``
+    takes the image term (its inputs come from :func:`_prepare_bucketed`
+    with ``window=True``, whose centers and offsets carry no gradient).  The
+    potential's trainable parameters ride as the trailing inputs, so their
+    gradients flow back too."""
 
     @staticmethod
-    def forward(ctx, pc_t, q_g, mf_g, offs, cell, potential, cutoff, plain, *params):
-        fn = _we_value_and_grad if plain else window_value_and_grad
-        e, grads, d_params = fn(potential, cutoff, pc_t, q_g, mf_g, offs, with_params=True)
+    def forward(ctx, pc_t, q_g, mf_g, offs, cell, potential, cutoff, *params):
+        e, grads, d_params = _we_value_and_grad(
+            potential, cutoff, pc_t, q_g, mf_g, offs, with_params=True
+        )
         d_pc, d_q, _, d_image = grads
         ctx.save_for_backward(d_pc, d_q, d_image.to(cell.dtype), *d_params)
         return e
@@ -854,8 +1109,24 @@ class _WindowEnergy(torch.autograd.Function):
         d_pc, d_q, d_image, *d_params = ctx.saved_tensors
         return (
             e_bar * d_pc, e_bar * d_q, None, None, e_bar.to(d_image.dtype) * d_image,
-            None, None, None, *(e_bar.to(device=g.device, dtype=g.dtype) * g for g in d_params),
+            None, None, *(e_bar.to(device=g.device, dtype=g.dtype) * g for g in d_params),
         )
+
+
+def _window_energy(potential, pc_t, q_g, mf_g, offs, cell, cutoff: float, plain: bool):
+    """The window's energy, differentiable in ``pc_t``, ``q_g``, ``cell``
+    (the image term) and a ``CombinedPotential``'s weights: kernel C's op
+    for a potential of its table, else the plain version (CPU tensors or
+    ``plain``; on a card without it the ``TypeError`` of
+    :func:`window_value_and_grad`)."""
+    table = window_table(potential)
+    if table is not None:
+        return _Window.apply(pc_t, q_g, mf_g, offs, cell, *table, cutoff, plain)[0]
+    if not plain and pc_t.device.type != "cpu":
+        _check_window(potential, pc_t, q_g, mf_g, offs)
+    return _WindowEnergy.apply(
+        pc_t, q_g, mf_g, offs, cell, potential, cutoff, *_trainable(potential)
+    )
 
 
 # -- spill side list -------------------------------------------------------------
@@ -1031,9 +1302,7 @@ def cell_list_rspace_energy_rows(
         q[clist.atom_index.long()], pos_rows[:nb].reshape(n_cells, cap, 3), cell, clist,
         window=True,
     )
-    e0 = _WindowEnergy.apply(
-        pc_t, q_g, mf_g, offs, cell, potential, clist.cutoff, plain, *_trainable(potential)
-    )
+    e0 = _window_energy(potential, pc_t, q_g, mf_g, offs, cell, clist.cutoff, plain)
     if clist.extra_index is not None:
         pe, pe_abs, qe, valid_e = _prepare_extras_bucketed(
             q[clist.extra_index.long()], pos_rows[nb:].reshape(-1, 3), cell, clist,
@@ -1081,21 +1350,18 @@ class _CallablePotential:
 def _window_potentials(potential, pc_t, q_g, mf_g, offs, cutoff: float) -> torch.Tensor:
     r"""Per-slot potentials :math:`\tfrac12\sum_j q_j v(d_{ij})` in bucket
     order, ``(n_cells, cap, C)``: per half-window offset the pair block
-    against the rolled neighbour cell, and its transpose rolled back onto
-    the neighbour's atoms (the self cell's block holds both directions)."""
-    dtype, device = pc_t.dtype, pc_t.device
+    against the neighbour cell, and its transpose brought back onto the
+    neighbour's atoms (the self cell's block holds both directions)."""
     nx, ny, nz, _, cap = pc_t.shape
-    cutoff_sq = torch.tensor(cutoff, dtype=dtype, device=device) ** 2
-    eye = torch.eye(cap, dtype=torch.bool, device=device)
     pot_g = torch.zeros_like(q_g)
-    for k, (dx, dy, dz) in enumerate(_window_offsets(cap)):
-        _, d_sq, pair_ok = _offset_pairs(pc_t, mf_g, offs, k, (dx, dy, dz), cutoff_sq, eye)
-        v = _masked_pair_values(potential, d_sq, pair_ok)
-        pot_g = pot_g + torch.matmul(v, torch.roll(q_g, (-dx, -dy, -dz), dims=(0, 1, 2)))
-        if (dx, dy, dz) != (0, 0, 0):
-            # the mirrored half lands on the neighbour cell's atoms
-            tr = torch.einsum("...ij,...ic->...jc", v, q_g)
-            pot_g = pot_g + torch.roll(tr, (dx, dy, dz), dims=(0, 1, 2))
+    for ks in _offset_chunks(nx * ny * nz, cap):
+        pairs = _WindowPairs(pc_t, mf_g, offs, cutoff, ks)
+        v = _masked_pair_values(potential, pairs.d_sq, pairs.pair_ok)
+        # the mirrored half lands on the neighbour cell's atoms
+        mirrored = torch.tensor([o != (0, 0, 0) for o in pairs.offsets], dtype=pc_t.dtype,
+                                device=pc_t.device).reshape(-1, 1, 1, 1, 1, 1)
+        tr = pairs.home(torch.matmul(v.transpose(-1, -2), q_g)) * mirrored
+        pot_g = pot_g + (torch.matmul(v, pairs.partners(q_g)) + tr).sum(0)
     # each unordered pair was counted once per member: halve, as the
     # full-neighbor-list convention of Calculator._compute_rspace does
     return pot_g.reshape(nx * ny * nz, cap, -1) / 2

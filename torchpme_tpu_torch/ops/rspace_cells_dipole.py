@@ -27,6 +27,11 @@ takes the plain autograd path (:func:`_dw_math`): on CPU tensors by itself,
 on a card only with ``plain=True`` (without it the window raises; there is
 no kernel for it).
 
+Kernel G is the custom op ``torch.ops.tpme.window_dipole`` (the potential
+goes in as its smearing and prefactor), with fake and autograd
+registrations, so :mod:`torch.export` traces through it; it has no vmap
+rule: under ``vmap`` it raises.
+
 Staleness keeps the JAX package's contract: once an atom leaves its cell the
 energy, and every gradient, is NaN.
 """
@@ -36,8 +41,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Optional
 
 import torch
+from torch import Tensor
 
 from .. import kernels as _k
 from .math import inv3
@@ -217,17 +224,23 @@ def _dw_value_and_grad(potential, cutoff: float, pc_t, mu_g, mf_g, offs, mui_g=N
 
 
 def _window_dipole_params(potential, cutoff: float, pc_t) -> _k.WindowDipoleParams:
+    return _dipole_params(*_dipole_table(potential), cutoff, pc_t)
+
+
+def _dipole_params(smearing, prefactor: float, cutoff: float, pc_t) -> _k.WindowDipoleParams:
+    """Kernel G's parameters from the potential's smearing (``None``:
+    direct) and prefactor."""
     nx, ny, nz, _, cap = pc_t.shape
     p = _k.WindowDipoleParams()
     p.nx, p.ny, p.nz, p.cap = nx, ny, nz, cap
     offsets = _window_offsets(cap)
     p.self_k = offsets.index((0, 0, 0))
-    p.direct = int(potential.smearing is None)
+    p.direct = int(smearing is None)
     # float32 constants rounded exactly as the plain version's python scalars
     p.cutoff_sq = float(torch.tensor(cutoff, dtype=torch.float32) ** 2)
-    p.prefactor = float(potential.prefactor)
-    if potential.smearing is not None:
-        alpha = 1.0 / (2.0 * float(potential.smearing) ** 2)
+    p.prefactor = float(prefactor)
+    if smearing is not None:
+        alpha = 1.0 / (2.0 * float(smearing) ** 2)
         p.alpha = alpha
         p.sqrt_alpha = alpha**0.5
         p.c_gauss = 2.0 * (alpha / math.pi) ** 0.5
@@ -253,21 +266,8 @@ def _window_dipole_warps(cap: int, split: bool, device_index: int) -> int:
     return warps
 
 
-def dipole_window_value_and_grad(
-    potential, cutoff: float, pc_t, mu_g, mf_g, offs, mui_g=None
-):
-    """Kernel G: dipolar window energy and ``(d_pc, d_mu, d_offs[, d_mui])``
-    in one launch.
-
-    CPU tensors take :func:`_dw_value_and_grad`; CUDA tensors launch the
-    kernel (float32, :class:`~torchpme_tpu_torch.potentials.PotentialDipole`
-    with concrete parameters and no exclusion window, a capacity whose one
-    offset fits shared memory; ``mu_g`` and ``mui_g`` zero in empty slots, as
-    :func:`~torchpme_tpu_torch.ops.rspace_cells._prepare_bucketed` makes
-    them) or raise.
-    """
-    if pc_t.device.type == "cpu":
-        return _dw_value_and_grad(potential, cutoff, pc_t, mu_g, mf_g, offs, mui_g)
+def _check_window_dipole(potential, pc_t, mu_g, mf_g, offs, mui_g):
+    """Validate kernel G's operands (and that it evaluates ``potential``)."""
     from ..potentials.dipole import PotentialDipole  # potentials import ops
 
     if not isinstance(potential, PotentialDipole):
@@ -280,6 +280,10 @@ def dipole_window_value_and_grad(
             "the dipolar window kernel needs concrete potential parameters and no "
             "exclusion window (it produces no parameter cotangents)"
         )
+    _check_window_dipole_operands(pc_t, mu_g, mf_g, offs, mui_g)
+
+
+def _check_window_dipole_operands(pc_t, mu_g, mf_g, offs, mui_g):
     if pc_t.ndim != 5 or pc_t.shape[3] != 3:
         raise ValueError(f"pc_t must be (nx, ny, nz, 3, cap), got {tuple(pc_t.shape)}")
     nx, ny, nz, _, cap = pc_t.shape
@@ -287,18 +291,24 @@ def dipole_window_value_and_grad(
     _k.check_cuda_tensor(mu_g, "mu_g", (nx, ny, nz, cap, 3))
     _k.check_cuda_tensor(mf_g, "mf_g", (nx, ny, nz, cap))
     _k.check_cuda_tensor(offs, "offs", (_k.N_OFFSETS, 3))
-    split = mui_g is not None
-    if split:
+    if mui_g is not None:
         _k.check_cuda_tensor(mui_g, "mui_g", (nx, ny, nz, cap, 3))
-    p = _window_dipole_params(potential, cutoff, pc_t)
-    p.warps = _window_dipole_warps(cap, split, pc_t.device.index)
+
+
+def _launch_window_dipole(smearing, prefactor: float, cutoff: float, pc_t, mu_g, mf_g, offs,
+                          mui_g):
+    """Kernel G over checked operands: ``(e, d_pc, d_mu, d_offs, d_mui)``
+    (``d_mui`` empty without ``mui_g``)."""
+    split = mui_g is not None
+    p = _dipole_params(smearing, prefactor, cutoff, pc_t)
+    p.warps = _window_dipole_warps(pc_t.shape[-1], split, pc_t.device.index)
     # the kernel writes every row of its outputs; its double accumulators
     # (energy, d_offs, a block counter) start at zero
     acc = torch.zeros(2 + 3 * _k.N_OFFSETS, dtype=torch.float64, device=pc_t.device)
     d_pc = torch.empty_like(pc_t)
     d_mu = torch.empty_like(mu_g)
     d_offs = torch.empty_like(offs)
-    d_mui = torch.empty_like(mu_g) if split else None
+    d_mui = torch.empty_like(mu_g) if split else mu_g.new_empty((0,))
     status = _k.load_library().lib.tpme_window_dipole(
         pc_t.data_ptr(), mu_g.data_ptr(), mf_g.data_ptr(), offs.data_ptr(),
         mui_g.data_ptr() if split else None,
@@ -308,27 +318,97 @@ def dipole_window_value_and_grad(
     )
     _k.check_status(status, "window_dipole")
     _k.WINDOW_DIPOLE.launches += 1
-    grads = (d_pc, d_mu, d_offs, d_mui) if split else (d_pc, d_mu, d_offs)
-    return acc[0].to(torch.float32), grads
+    return acc[0].to(torch.float32), d_pc, d_mu, d_offs, d_mui
 
 
-class _DipoleWindowEnergy(torch.autograd.Function):
-    """Dipolar window energy whose forward already holds the whole gradient:
-    the energy is a scalar, so every cotangent is ``ē ×`` a fixed array and
-    the backward only scales.  ``mui_g`` may be ``None``."""
+@functools.lru_cache(maxsize=64)
+def _table_dipole(smearing, prefactor: float):
+    """The dipolar potential of a ``tpme::window_dipole`` call's scalars."""
+    from ..potentials.dipole import PotentialDipole  # potentials import ops
 
-    @staticmethod
-    def forward(ctx, pc_t, mu_g, mf_g, offs, mui_g, potential, cutoff, plain):
-        fn = _dw_value_and_grad if plain else dipole_window_value_and_grad
-        e, grads = fn(potential, cutoff, pc_t, mu_g, mf_g, offs, mui_g)
-        ctx.save_for_backward(*grads)
-        return e
+    return PotentialDipole(smearing=smearing, prefactor=prefactor)
 
-    @staticmethod
-    def backward(ctx, e_bar):
-        d_pc, d_mu, d_offs, *d_mui = ctx.saved_tensors
-        ct_mui = e_bar * d_mui[0] if d_mui else None
-        return e_bar * d_pc, e_bar * d_mu, None, e_bar * d_offs, ct_mui, None, None, None
+
+def _dipole_table(potential) -> tuple:
+    """``(smearing, prefactor)`` of ``potential`` as the op takes them
+    (concrete values: the window's potentials have no trainable ones)."""
+    smearing = potential.smearing
+    return None if smearing is None else float(smearing), float(potential.prefactor)
+
+
+@_k.custom_op("window_dipole")
+def window_dipole(
+    pc_t: Tensor, mu_g: Tensor, mf_g: Tensor, offs: Tensor, mui_g: Optional[Tensor],
+    smearing: Optional[float], prefactor: float, cutoff: float, plain: bool = False,
+) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Kernel G: ``(e, d_pc, d_mu, d_offs, d_mui)`` of the dipolar window
+    (``d_mui`` empty without separate i-side dipoles ``mui_g``); the plain
+    version (:func:`_dw_value_and_grad`) on CPU tensors or with ``plain``."""
+    if plain or pc_t.device.type == "cpu":
+        e, grads = _dw_value_and_grad(
+            _table_dipole(smearing, prefactor), cutoff, pc_t, mu_g, mf_g, offs, mui_g
+        )
+        d_mui = grads[3] if mui_g is not None else mu_g.new_empty((0,))
+        return e, *grads[:3], d_mui
+    _check_window_dipole_operands(pc_t, mu_g, mf_g, offs, mui_g)
+    return _launch_window_dipole(smearing, prefactor, cutoff, pc_t, mu_g, mf_g, offs, mui_g)
+
+
+@window_dipole.register_fake
+def _(pc_t, mu_g, mf_g, offs, mui_g, smearing, prefactor, cutoff, plain=False):
+    d_mui = torch.empty_like(mu_g) if mui_g is not None else mu_g.new_empty((0,))
+    return (pc_t.new_empty(()), torch.empty_like(pc_t), torch.empty_like(mu_g),
+            torch.empty_like(offs), d_mui)
+
+
+def _window_dipole_setup(ctx, inputs, output):
+    # the gradients ride as attributes of non-differentiable outputs:
+    # torch.export refuses outputs saved with save_for_backward
+    ctx.mark_non_differentiable(*output[1:])
+    ctx.grads = output[1:]
+    # only the energy takes a cotangent: no zeros are made for the others
+    ctx.set_materialize_grads(False)
+    ctx.split = inputs[4] is not None
+    ctx.n_inputs = len(inputs)
+
+
+def _window_dipole_vjp(ctx, e_bar, *_):
+    """The energy is a scalar: every cotangent is ``ē ×`` a gradient the
+    forward already holds."""
+    d_pc, d_mu, d_offs, d_mui = ctx.grads
+    ct_mui = e_bar * d_mui if ctx.split else None
+    return (e_bar * d_pc, e_bar * d_mu, None, e_bar * d_offs, ct_mui,
+            *(None,) * (ctx.n_inputs - 5))
+
+
+window_dipole.register_autograd(_window_dipole_vjp, setup_context=_window_dipole_setup)
+_k.refuse_vmap(window_dipole, "tpme::window_dipole (kernel G)")
+_WindowDipole = _k.op_function(
+    "_WindowDipole", window_dipole, _window_dipole_setup, _window_dipole_vjp
+)
+
+
+def dipole_window_value_and_grad(
+    potential, cutoff: float, pc_t, mu_g, mf_g, offs, mui_g=None
+):
+    """Kernel G: dipolar window energy and ``(d_pc, d_mu, d_offs[, d_mui])``
+    in one launch, through ``torch.ops.tpme.window_dipole``.
+
+    CPU tensors take :func:`_dw_value_and_grad`; CUDA tensors launch the
+    kernel (float32, :class:`~torchpme_tpu_torch.potentials.PotentialDipole`
+    with concrete parameters and no exclusion window, a capacity whose one
+    offset fits shared memory; ``mu_g`` and ``mui_g`` zero in empty slots, as
+    :func:`~torchpme_tpu_torch.ops.rspace_cells._prepare_bucketed` makes
+    them) or raise.
+    """
+    if pc_t.device.type == "cpu":
+        return _dw_value_and_grad(potential, cutoff, pc_t, mu_g, mf_g, offs, mui_g)
+    _check_window_dipole(potential, pc_t, mu_g, mf_g, offs, mui_g)
+    with torch.no_grad():
+        e, d_pc, d_mu, d_offs, d_mui = window_dipole(
+            pc_t, mu_g, mf_g, offs, mui_g, *_dipole_table(potential), cutoff
+        )
+    return e, (d_pc, d_mu, d_offs, d_mui) if mui_g is not None else (d_pc, d_mu, d_offs)
 
 
 def _dipole_window_energy(potential, pc_t, mu_g, mf_g, offs, cutoff, plain, mui_g=None):
@@ -342,9 +422,9 @@ def _dipole_window_energy(potential, pc_t, mu_g, mf_g, offs, cutoff, plain, mui_
     """
     _k.refuse_batched("the dipolar cell-list window (kernel G)", pc_t, mu_g, mui_g)
     if _can_use_analytic_dipole(potential):
-        return _DipoleWindowEnergy.apply(
-            pc_t, mu_g, mf_g, offs, mui_g, potential, cutoff, plain
-        )
+        return _WindowDipole.apply(
+            pc_t, mu_g, mf_g, offs, mui_g, *_dipole_table(potential), cutoff, plain
+        )[0]
     if pc_t.device.type != "cpu" and not plain:
         raise ValueError(
             "the dipolar window kernel needs concrete potential parameters and no "

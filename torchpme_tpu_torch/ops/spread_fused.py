@@ -36,15 +36,24 @@ Beside each kernel sits its plain PyTorch twin (:func:`spread_plain`,
 ``_fwd_math``/``_bwd_math``: the dense per-tile weight factors, one batched
 matmul per tile, and the fold.  A wrapper takes the twin only for a tensor
 that lies on the CPU; for a CUDA tensor it launches the kernel or raises.
+
+The two kernels are the custom ops ``torch.ops.tpme.spread_fwd`` (A, whose
+registered VJP is B) and ``torch.ops.tpme.spread_bwd`` (B), whose bodies are
+the kernels on CUDA tensors and the twins on CPU tensors or with ``plain``;
+the geometry goes in as integers and the weight method's name
+(:meth:`SpreadGeometry.as_args`), so :mod:`torch.export` traces through
+them.  They have no vmap rule: under ``vmap`` they raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections.abc import Sequence
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch import Tensor
 
 from .. import kernels as _k
 from .mesh import (
@@ -136,6 +145,18 @@ class SpreadGeometry:
     @property
     def ty_count(self) -> int:
         return self.ns[1] // TILE
+
+    def as_args(self) -> tuple[list[int], str]:
+        """The ``(geometry, method)`` arguments of the ``tpme::spread_*``
+        ops: ``[nx, ny, nz, nodes, extent, lpad, n_tiles, slots_per_tile,
+        z_cells]`` and the weight method."""
+        return [*self.ns, self.nodes, self.extent, self.lpad, self.n_tiles,
+                self.slots_per_tile, self.z_cells], self.method
+
+    @classmethod
+    def from_args(cls, geometry: Sequence[int], method: str) -> "SpreadGeometry":
+        nx, ny, nz, nodes, extent, lpad, n_tiles, slots, z_cells = (int(g) for g in geometry)
+        return cls((nx, ny, nz), nodes, method, extent, lpad, n_tiles, slots, z_cells)
 
 
 # -- plain twin ---------------------------------------------------------------
@@ -296,16 +317,9 @@ def _check_slots(rel, q, geom: SpreadGeometry) -> int:
     return q.shape[1]
 
 
-def fused_spread(rel: torch.Tensor, q: torch.Tensor, geom: SpreadGeometry):
-    """Kernel A: ``(nb, 3)`` rel, ``(nb, C)`` charges → ``(C, nx, ny, nz)``.
-
-    CPU tensors take :func:`spread_plain`; CUDA tensors launch the kernel
-    (float32 only) or raise.
-    """
-    if rel.device.type == "cpu":
-        return spread_plain(rel, q, geom)
+def _check_fwd(rel, q, geom: SpreadGeometry) -> int:
     n_ch = _check_slots(rel, q, geom)
-    nx, ny, nz = geom.ns
+    nx, ny, _ = geom.ns
     # the blocks own every mesh cell once: the tiles must cover the mesh
     if nx % TILE or ny % TILE or geom.n_tiles != (nx // TILE) * geom.ty_count:
         raise ValueError(f"{geom.n_tiles} tiles do not cover the {geom.ns} mesh")
@@ -313,7 +327,18 @@ def fused_spread(rel: torch.Tensor, q: torch.Tensor, geom: SpreadGeometry):
         raise ValueError(
             f"{geom.slots_per_tile} slots per tile do not split into {geom.z_cells} z cells"
         )
-    rho = torch.empty((n_ch, nx, ny, nz), dtype=torch.float32, device=rel.device)
+    return n_ch
+
+
+def _check_bwd(rel, q, ct_rho, geom: SpreadGeometry) -> int:
+    n_ch = _check_slots(rel, q, geom)
+    _k.check_cuda_tensor(ct_rho, "ct_rho", (n_ch, *geom.ns))
+    return n_ch
+
+
+def _launch_fwd(rel, q, geom: SpreadGeometry) -> torch.Tensor:
+    n_ch = _check_fwd(rel, q, geom)
+    rho = torch.empty((n_ch, *geom.ns), dtype=torch.float32, device=rel.device)
     p = _params(geom, n_ch)
     status = _k.load_library().lib.tpme_spread_fwd(
         rel.data_ptr(), q.data_ptr(), rho.data_ptr(), ctypes.byref(p),
@@ -324,16 +349,8 @@ def fused_spread(rel: torch.Tensor, q: torch.Tensor, geom: SpreadGeometry):
     return rho
 
 
-def fused_spread_bwd(rel, q, ct_rho: torch.Tensor, geom: SpreadGeometry):
-    """Kernel B: ``(rel, q, ∂E/∂ρ)`` → ``(∂E/∂rel, ∂E/∂q)``.
-
-    CPU tensors take :func:`spread_plain_bwd`; CUDA tensors launch the
-    kernel (float32 only) or raise.
-    """
-    if rel.device.type == "cpu":
-        return spread_plain_bwd(rel, q, ct_rho, geom)
-    n_ch = _check_slots(rel, q, geom)
-    _k.check_cuda_tensor(ct_rho, "ct_rho", (n_ch, *geom.ns))
+def _launch_bwd(rel, q, ct_rho, geom: SpreadGeometry):
+    n_ch = _check_bwd(rel, q, ct_rho, geom)
     ct_rel = torch.empty_like(rel)
     ct_q = torch.empty_like(q)
     p = _params(geom, n_ch)
@@ -346,22 +363,82 @@ def fused_spread_bwd(rel, q, ct_rho: torch.Tensor, geom: SpreadGeometry):
     return ct_rel, ct_q
 
 
-class _Spread(torch.autograd.Function):
-    """``(rel, q) → ρ`` with the kernel pair (or, with ``plain``, the twin
-    pair on any device) as forward and backward; both layouts."""
+@_k.custom_op("spread_fwd")
+def spread_fwd(
+    rel: Tensor, q: Tensor, geometry: Sequence[int], method: str, plain: bool = False
+) -> Tensor:
+    """Kernel A: ``(nb, 3)`` rel, ``(nb, C)`` charges → ``(C, nx, ny, nz)``
+    (the twin :func:`spread_plain` on CPU tensors or with ``plain``)."""
+    geom = SpreadGeometry.from_args(geometry, method)
+    if plain or rel.device.type == "cpu":
+        return spread_plain(rel, q, geom)
+    return _launch_fwd(rel, q, geom)
 
-    @staticmethod
-    def forward(ctx, rel, q, geom, plain):
-        ctx.save_for_backward(rel, q)
-        ctx.geom, ctx.plain = geom, plain
-        return (spread_plain if plain else fused_spread)(rel, q, geom)
 
-    @staticmethod
-    def backward(ctx, ct_rho):
-        rel, q = ctx.saved_tensors
-        bwd = spread_plain_bwd if ctx.plain else fused_spread_bwd
-        ct_rel, ct_q = bwd(rel, q, ct_rho.contiguous(), ctx.geom)
-        return ct_rel, ct_q, None, None
+@_k.custom_op("spread_bwd")
+def spread_bwd(
+    rel: Tensor, q: Tensor, ct_rho: Tensor, geometry: Sequence[int], method: str,
+    plain: bool = False,
+) -> tuple[Tensor, Tensor]:
+    """Kernel B: ``(rel, q, ∂E/∂ρ)`` → ``(∂E/∂rel, ∂E/∂q)`` (the twin
+    :func:`spread_plain_bwd` on CPU tensors or with ``plain``)."""
+    geom = SpreadGeometry.from_args(geometry, method)
+    if plain or rel.device.type == "cpu":
+        return spread_plain_bwd(rel, q, ct_rho, geom)
+    return _launch_bwd(rel, q, ct_rho, geom)
+
+
+spread_fwd.register_fake(
+    lambda rel, q, geometry, method, plain=False: rel.new_empty((q.shape[-1], *geometry[:3])))
+spread_bwd.register_fake(
+    lambda rel, q, ct_rho, geometry, method, plain=False:
+    (torch.empty_like(rel), torch.empty_like(q)))
+
+
+def _spread_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:2])
+    ctx.static = tuple(inputs[2:])  # geometry, method (and plain)
+
+
+def _spread_vjp(ctx, ct_rho):
+    """Kernel A's VJP is kernel B."""
+    rel, q = ctx.saved_tensors
+    ct_rel, ct_q = spread_bwd(rel, q, ct_rho.contiguous(), *ctx.static)
+    return ct_rel, ct_q, *(None,) * len(ctx.static)
+
+
+spread_fwd.register_autograd(_spread_vjp, setup_context=_spread_setup)
+_k.refuse_vmap(spread_fwd, "tpme::spread_fwd (kernel A)")
+_k.refuse_vmap(spread_bwd, "tpme::spread_bwd (kernel B)")
+
+#: ``(rel, q) → ρ`` with kernel A and its VJP (kernel B), or with ``plain``
+#: the twin pair on any device: ``_Spread.apply(rel, q, geometry, method,
+#: plain)``
+_Spread = _k.op_function("_Spread", spread_fwd, _spread_setup, _spread_vjp)
+
+
+def fused_spread(rel: torch.Tensor, q: torch.Tensor, geom: SpreadGeometry):
+    """Kernel A: ``(nb, 3)`` rel, ``(nb, C)`` charges → ``(C, nx, ny, nz)``,
+    through ``torch.ops.tpme.spread_fwd``.
+
+    CPU tensors take :func:`spread_plain`; CUDA tensors launch the kernel
+    (float32 only) or raise.
+    """
+    if rel.device.type != "cpu":
+        _check_fwd(rel, q, geom)
+    return spread_fwd(rel, q, *geom.as_args())
+
+
+def fused_spread_bwd(rel, q, ct_rho: torch.Tensor, geom: SpreadGeometry):
+    """Kernel B: ``(rel, q, ∂E/∂ρ)`` → ``(∂E/∂rel, ∂E/∂q)``, through
+    ``torch.ops.tpme.spread_bwd``.
+
+    CPU tensors take :func:`spread_plain_bwd`; CUDA tensors launch the
+    kernel (float32 only) or raise.
+    """
+    if rel.device.type != "cpu":
+        _check_bwd(rel, q, ct_rho, geom)
+    return spread_bwd(rel, q, ct_rho, *geom.as_args())
 
 
 def aligned_tiled_density(
@@ -418,7 +495,7 @@ def aligned_tiled_density(
     # (pos @ cell⁻¹) · ns in this order keeps the floor/round stencil starts
     # in lockstep with the JAX package
     rel = torch.matmul(pos_rows, inverse_cell) * ns_t
-    rho = _Spread.apply(rel[:nb], q_rows[:nb].contiguous(), geom, plain)
+    rho = _Spread.apply(rel[:nb], q_rows[:nb].contiguous(), *geom.as_args(), plain)
     if pos_rows.shape[0] > nb:
         if extras_interp is not None:
             refreshed, valid = refresh_tiled_interpolation(
@@ -501,7 +578,7 @@ def fused_tiled_density(
     """
     _k.refuse_batched("fused_tiled_density (kernels A, B)", positions, inverse_cell, charges)
     rel, q_slots, geom = _fused_slots(interp, positions, inverse_cell, charges, method)
-    rho = _Spread.apply(rel, q_slots, geom, plain)
+    rho = _Spread.apply(rel, q_slots, *geom.as_args(), plain)
     return rho, _slot_validity(rel, interp, positions.shape[0])
 
 

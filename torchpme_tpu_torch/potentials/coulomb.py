@@ -9,7 +9,7 @@ import math
 
 import torch
 
-from ..ops.math import det3
+from ..ops.math import coulomb_alpha, coulomb_c_gauss, det3
 from .potential import Potential
 
 __all__ = ["CoulombPotential", "erfc_f32_from_gauss", "slab_correction_1r"]
@@ -75,7 +75,7 @@ class CoulombPotential(Potential):
     """
 
     def _alpha(self) -> float:
-        return 1.0 / (self.smearing * 2.0**0.5)
+        return coulomb_alpha(self.smearing)
 
     def from_dist(self, dist: torch.Tensor) -> torch.Tensor:
         return self.prefactor * (1.0 / torch.clamp(dist, min=1e-15))
@@ -95,7 +95,8 @@ class CoulombPotential(Potential):
         e^{-\alpha^2r^2}/r` from the already computed ``sr_values``."""
         alpha = self._alpha()
         gauss = torch.exp(-((alpha * dist) ** 2))
-        return -sr_values / dist - self.prefactor * (2.0 * alpha / math.pi**0.5) * gauss / dist
+        c = coulomb_c_gauss(self.prefactor, self.smearing)
+        return -sr_values / dist - c * gauss / dist
 
     def sr_pair_force(
         self, dist: torch.Tensor, vq: torch.Tensor, pair_e: torch.Tensor
@@ -116,7 +117,7 @@ class CoulombPotential(Potential):
         rd = torch.rsqrt(dist_sq)
         gauss = torch.exp(-(alpha * alpha) * dist_sq)
         v = self.prefactor * erfc_f32_from_gauss(alpha * (dist_sq * rd), gauss) * rd
-        c = self.prefactor * (2.0 * alpha / math.pi**0.5)
+        c = coulomb_c_gauss(self.prefactor, self.smearing)
         w = -(v + c * gauss) * (rd * rd)
         return v, w
 

@@ -12,7 +12,12 @@ import math
 
 import torch
 
-from ..ops.math import gammainc_over_powerlaw, gammaincc_over_powerlaw
+from ..ops.math import (
+    gammainc_over_powerlaw,
+    gammaincc_over_powerlaw,
+    power_law_alpha_sq,
+    power_law_c_gauss,
+)
 from .coulomb import erfc_f32_from_gauss, slab_correction_1r
 from .potential import Potential
 
@@ -57,13 +62,12 @@ class InversePowerLawPotential(Potential):
         return f"exponent={self.exponent}, {super().extra_repr()}"
 
     def _alpha_sq(self) -> float:
-        return 0.5 / self.smearing**2
+        return power_law_alpha_sq(self.smearing)
 
     def _c_gauss(self) -> float:
         """:math:`P\\,2\\alpha^p/\\Gamma(p/2)`, the Gaussian term of
         :math:`V'_{SR}`."""
-        p = self.exponent
-        return self.prefactor * 2.0 * self._alpha_sq() ** (p / 2) / math.gamma(p / 2)
+        return power_law_c_gauss(self.prefactor, self.exponent, self.smearing)
 
     def from_dist(self, dist: torch.Tensor) -> torch.Tensor:
         return self.prefactor * torch.clamp(dist, min=1e-15) ** (-float(self.exponent))

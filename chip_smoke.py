@@ -115,9 +115,28 @@ phase fails:
     dipolar MD step (G, D, E + F), the tiled per-atom energy (D, E, F) and
     the fused MD step exported at 3000 and 1536 atoms against their eager
     runs; ``torch.library.opcheck`` of the ops of A, B, C and G;
+22. the slab-sharded MD step (``torchpme_tpu_torch.parallel.
+    sharded_md_energy_rows`` on a tile-aligned state: kernel A, its VJP B,
+    and C's split variant with the i-side charges zero on each rank's halo
+    plane) at the 102k box, full width, at world sizes 1 (NCCL), 2 and 4
+    (gloo; spawned processes that share the one card, gloo staging CUDA
+    tensors through host memory, counted): energy, the ranks' row forces
+    gathered, and the cell gradient against the plain float64 unsharded step
+    of phase 4, the forces also against phase 4's float32 kernel step; per
+    world size ms/step, the launches of A, B and C's split variant per
+    rank-step (each at least one), the collective bytes per kind, and which
+    collectives gloo carries for CUDA tensors itself.  Ranks that share one
+    card give no scaling number;
+23. the sharded dipolar MD step (``sharded_md_dipole_energy_rows``, PME
+    mode: kernel G with separate i-side dipoles, D's dipole form, E and F
+    backward) at the dipolar 102k system of phase 7, world sizes 1 (NCCL)
+    and 2 (gloo), against phase 7's float64 reference, with its cell
+    gradient split into the window and mesh parts; and at 12,000 atoms the
+    sharded per-atom Ewald and PME potentials against the unsharded calls;
+    in phase 3, C's split variant at the sharded 102k window;
 10. the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 Phases 11–18 run between 6 and 7, phase 19 after 9, phase 20 after 19, phase
-21 after 20.
+21 after 20, phases 22 and 23 after 21.
 
 With ``--profile`` it also traces the 102k paths (the MD step in aligned,
 fused and tiled mode) with ``torch.profiler``
@@ -290,6 +309,13 @@ DEPLOY_BANNED = ("calculators", "md", "potentials", "tuning", "atomistic")
 TUNE_CUTOFFS = (4.5, 5.0, 5.5)
 TUNE_GRID = dict(nodes_lo=4, nodes_hi=6, mesh_lo=6, mesh_hi=8)
 EWALD_TUNE_GRID = dict(ns_lo=16, ns_hi=22)
+# phases 22-23: the multi-device tier at 102k on the one card; (backend,
+# world size) a run, ranks spawned as processes on cuda:0
+SHARDED_WORLDS = (("nccl", 1), ("gloo", 2), ("gloo", 4))
+SHARDED_DIPOLE_WORLDS = (("nccl", 1), ("gloo", 2))
+SHARDED_CHAIN = {1: 10, 2: 4, 4: 4}  # chained steps of a timed chain
+SHARDED_TIMEOUT_S = 400  # a run of the ranks, their start included
+SHARDED_MESH_NS = (64, 64, 64)  # the 12k per-atom mesh potentials
 DIPOLE_TUNE_SIDE, DIPOLE_TUNE_CUTOFF = 7, 4.0
 
 
@@ -570,7 +596,7 @@ def gather_design_sweep(mk, shape: str, launches: dict) -> None:
     emit({"phase": "gather_design_sweep", "shape": shape, "ms": times})
 
 
-def dipole_cell_split(fp, rows32, mu32, cell32) -> dict:
+def dipole_cell_split(fp, rows32, mu32, cell32, ref_parts: dict | None = None) -> dict:
     """The dipolar MD step's cell gradient in its two parts, the window's
     (kernel G: through ``d_offs`` and the cell centres of ``d_pc``) and the
     mesh's (the k-space energy through the refresh and kernels D, E, F),
@@ -581,7 +607,9 @@ def dipole_cell_split(fp, rows32, mu32, cell32) -> dict:
     in exact arithmetic, and where the cell gradient's weighted sum of
     forces sees the rounding of action against reaction; and the window's
     float32 floor: its float64 gradients (``d_pc``, ``d_offs``) rounded to
-    float32, and nothing else, pushed through the cell in float64."""
+    float32, and nothing else, pushed through the cell in float64.  With
+    ``ref_parts`` (a dict) the float64 parts are kept there, as
+    ``cell64_window`` and ``cell64_mesh``."""
     from torchpme_tpu_torch.ops.rspace_cells import _prepare_bucketed
     from torchpme_tpu_torch.ops.rspace_cells_dipole import (
         _dw_value_and_grad,
@@ -604,6 +632,9 @@ def dipole_cell_split(fp, rows32, mu32, cell32) -> dict:
         return g_sr.double(), g_k.double(), net
 
     ref = parts(torch.float64, True)
+    if ref_parts is not None:
+        ref_parts["cell64_window"] = ref[0].cpu().numpy()
+        ref_parts["cell64_mesh"] = ref[1].cpu().numpy()
     total = float((ref[0] + ref[1]).abs().max())
     out = {"window_max_abs": float(ref[0].abs().max()), "mesh_max_abs": float(ref[1].abs().max()),
            "total_max_abs": total, "window_net_force_f64": ref[2]}
@@ -881,6 +912,8 @@ def dipole_phases(env) -> None:
     if min(counts[name] for name in md_kernels) < 1:
         raise AssertionError(f"a kernel of the dipolar MD step never launched: {counts}")
     ref = step(torch.float64, plain=True)  # on the same float32-rounded inputs
+    env.dipole_ref = {"e64": float(ref[0]), "f64": -fp.unbucket(ref[1]).cpu().numpy(),
+                      "field64": ref[2].cpu().numpy(), "cell64": ref[3].cpu().numpy()}
     e_md = float(got[0])
     e_rel = abs(e_md - float(ref[0])) / abs(float(ref[0]))
     f_rms = rel_rms(fp.unbucket(got[1]), fp.unbucket(ref[1]))
@@ -897,7 +930,8 @@ def dipole_phases(env) -> None:
     kernel_ms, plain_ms = (t / CHAIN for t in alternate_ms(md_chain, 1))
     if not bool(torch.isfinite(md_chain(False)).all()):
         raise AssertionError("the dipolar MD chain left its bucketing")
-    cell_split = dipole_cell_split(fp, rows32, mu32, cell32)
+    cell_split = dipole_cell_split(fp, rows32, mu32, cell32, ref_parts=env.dipole_ref)
+    env.dipole_ref["ms"] = kernel_ms
     emit({"phase": "dipole_slice", "atoms": N_ATOMS, "energy_f32": e_md,
           "energy_rel": e_rel, "force_rel_rms": f_rms, "field_rel": field_rel,
           "cell_grad_rel": c_rel, "cell_grad_split": cell_split, "max_abs_force": max_force,
@@ -2712,6 +2746,362 @@ def device_ms_per_call(fn, calls: int = 2) -> float:
     return sum(e.self_device_time_total for e in on_device) / 1e3 / calls
 
 
+# -- phases 22-23: the multi-device tier on the one card ------------------------------
+
+
+def rank_device() -> torch.device:
+    """The card that the ranks of phases 22-23 share."""
+    return torch.device("cuda", 0)
+
+
+def sharded_worker(rank: int, world: int, backend: str, port: int, job: str, out) -> None:
+    """One rank of phases 22-23: a spawned process on cuda:0 in a
+    ``torch.distributed`` group of ``world`` ranks; puts ``(rank, ok,
+    result or traceback)`` on ``out``."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        sys.path.insert(0, str(REPO))
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                                world_size=world, rank=rank)
+        run = {"md": rank_md, "dipole": rank_dipole}[job]
+        out.put((rank, True, run(rank, world, backend)))
+    except BaseException:
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(job: str, backend: str, world: int) -> list:
+    """Spawn ``world`` ranks of ``job`` on the card and return their results
+    in rank order; any rank's failure fails the phase (and stops the rest)."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    ctx = mp.get_context("spawn")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = ctx.Queue()
+    procs = [ctx.Process(target=sharded_worker, args=(r, world, backend, port, job, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    try:
+        while len(results) < world:
+            try:
+                rank, ok, value = out.get(timeout=max(1.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(f"{job} at {world} rank(s) ({backend}): no result "
+                                     f"within {SHARDED_TIMEOUT_S} s") from None
+            if not ok:
+                raise AssertionError(f"{job}: rank {rank} of {world} ({backend}) failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=5 if len(results) < world else 60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [results[r] for r in range(world)]
+
+
+def gloo_cuda_probe(dev) -> dict:
+    """Which collectives a gloo group takes with CUDA tensors itself (the
+    port's collectives stage them through host memory under gloo, always):
+    ``{op: "ok" or the error}``, every rank calling each op."""
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    found = {}
+
+    def attempt(name, fn):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            found[name] = "ok"
+        except Exception as err:  # the probe reports what gloo refuses
+            found[name] = f"{type(err).__name__}: {str(err).splitlines()[0][:120]}"
+        dist.barrier()
+
+    t = torch.ones(8, device=dev)
+    attempt("all_reduce", lambda: dist.all_reduce(t))
+    attempt("all_to_all", lambda: dist.all_to_all(
+        [torch.empty(2, device=dev) for _ in range(world)],
+        [torch.full((2,), float(rank), device=dev) for _ in range(world)]))
+    return found
+
+
+def _rank_chain(step, block, n: int):
+    """ms per step (CUDA events) and wall ms per step of ``n`` chained
+    steps from ``block``, and whether the chain stayed finite."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    sync()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    p = block
+    for _ in range(n):
+        _, (g, *_) = step(p)
+        p = (p - 1e-12 * g).detach()
+    end.record()
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    return start.elapsed_time(end) / n, wall, bool(torch.isfinite(p).all())
+
+
+def rank_md(rank: int, world: int, backend: str) -> dict:
+    """Phase 22 on one rank: the 102k tile-aligned sharded rows step."""
+    import torchpme_tpu_torch as tpt
+    from torchpme_tpu_torch import kernels, parallel
+
+    dev = rank_device()
+    f32 = dict(dtype=torch.float32, device=dev)
+    positions, charges, cell = water_box(N_ATOMS)
+    smearing = smearing_for(positions, charges, cell)
+    calc = tpt.PMECalculator(tpt.CoulombPotential(smearing=smearing), interpolation_nodes=NODES)
+    t0 = time.perf_counter()
+    state = parallel.compute_sharded_md_state(
+        calc, positions.astype(np.float32), cell.astype(np.float32), CUTOFF, NS_MESH, world,
+        aligned=True, device=dev)
+    create_s = time.perf_counter() - t0
+    q32, cell32 = torch.tensor(charges, **f32), torch.tensor(cell, **f32)
+    block = state.rank_rows(state.bucket(torch.tensor(positions, **f32)), rank).contiguous()
+
+    def step(p, with_cell=False):
+        p = p.detach().requires_grad_()
+        c = cell32.detach().clone().requires_grad_(with_cell)
+        e = parallel.sharded_md_energy_rows(calc, None, q32, c, p, state)
+        return e, torch.autograd.grad(e, (p, c) if with_cell else (p,))
+
+    step(block)  # the first step loads the library and plans the transforms
+    sync()
+    kernels.reset_launch_counts()
+    parallel.reset_collective_counts()
+    e, (g_rows, g_cell) = step(block, with_cell=True)
+    sync()
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    collectives = parallel.collective_counts()
+    ms, wall_ms, finite = _rank_chain(step, block, SHARDED_CHAIN[world])
+    probe = gloo_cuda_probe(dev) if backend == "gloo" else None
+    return {
+        "e": float(e.detach()), "g_rows": g_rows.cpu().numpy(),
+        "g_cell": g_cell.double().cpu().numpy(),
+        "row_of_atom": state.row_of_atom.cpu().numpy() if rank == 0 else None,
+        "launches": launches, "collectives": collectives, "ms_per_step": ms,
+        "wall_ms_per_step": wall_ms, "chain_finite": finite, "create_seconds": create_s,
+        "n_axis": state.n_axis, "cell_capacity": int(state.cl_slot_mask.shape[-1]),
+        "rows_per_rank": state.rows_per_rank, "gloo_cuda": probe,
+    }
+
+
+def rank_dipole(rank: int, world: int, backend: str) -> dict:
+    """Phase 23 on one rank: the 102k dipolar sharded rows step (its cell
+    gradient split into the window and mesh parts), and the 12k sharded
+    per-atom Ewald and PME potentials against the unsharded calls."""
+    import torchpme_tpu_torch as tpt
+    from torchpme_tpu_torch import kernels, parallel
+    from torchpme_tpu_torch.parallel.sharded_md_dipole import _dipole_energy_parts
+    from torchpme_tpu_torch.utils.neighbors import compute_distances, neighbor_list
+
+    dev = rank_device()
+    f32 = dict(dtype=torch.float32, device=dev)
+    positions, _, cell = water_box(N_ATOMS)
+    smearing, spacing = dipole_parameters()
+    calc = tpt.PMECalculatorDipole(tpt.PotentialDipole(smearing=smearing), mesh_spacing=spacing)
+    t0 = time.perf_counter()
+    state = parallel.compute_sharded_md_dipole_state(
+        calc, positions.astype(np.float32), cell.astype(np.float32), CUTOFF, world,
+        ns_mesh=NS_MESH, device=dev)
+    create_s = time.perf_counter() - t0
+    mu32 = torch.tensor(np.random.default_rng(1).normal(size=(N_ATOMS, 3)), **f32)
+    cell32 = torch.tensor(cell, **f32)
+    block = state.rank_rows(state.bucket(torch.tensor(positions, **f32)), rank).contiguous()
+
+    def parts(p, m, c):
+        return _dipole_energy_parts(calc, None, m, c, p, state, "atoms", False)
+
+    def step(p, full=False):
+        p = p.detach().requires_grad_()
+        m = mu32.detach().clone().requires_grad_(full)
+        c = cell32.detach().clone().requires_grad_(full)
+        e_r, e_k = parts(p, m, c)
+        e = e_r + e_k
+        return e, torch.autograd.grad(e, (p, m, c) if full else (p,))
+
+    step(block)
+    sync()
+    kernels.reset_launch_counts()
+    parallel.reset_collective_counts()
+    e, (g_rows, g_mu, g_cell) = step(block, full=True)
+    sync()
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    collectives = parallel.collective_counts()
+    c = cell32.detach().clone().requires_grad_()
+    e_r, e_k = parts(block, mu32, c)
+    (g_cell_window,) = torch.autograd.grad(e_r, c, retain_graph=True)
+    (g_cell_mesh,) = torch.autograd.grad(e_k, c)
+    ms, wall_ms, finite = _rank_chain(step, block, SHARDED_CHAIN[world])
+
+    # the 12k Ewald box: sharded per-atom Ewald and mesh potentials
+    epos, eq, ecell = water_box(EWALD_N)
+    lr = ewald_lr(epos, eq, ecell)
+    pos_e, q_e, cell_e = (torch.tensor(a, **f32) for a in (epos, eq, ecell))
+    idx, _, shifts = neighbor_list(epos.astype(np.float32), ecell, CUTOFF)
+    idx, shifts = torch.as_tensor(idx, device=dev), torch.as_tensor(shifts, device=dev)
+    dist_e = compute_distances(pos_e, idx, cell_e, shifts)
+    pot = tpt.CoulombPotential(smearing=EWALD_SMEARING)
+    ewald = tpt.EwaldCalculator(pot, lr_wavelength=lr)
+    ns_k = ewald.get_ns_kvectors(ecell)
+    mesh = tpt.PMECalculator(pot, interpolation_nodes=NODES)
+    calls = {
+        "ewald": (lambda: parallel.sharded_ewald_potentials(
+            ewald, None, q_e, cell_e, pos_e, idx, dist_e, ns_k),
+            lambda: ewald(q_e, cell_e, pos_e, idx, dist_e, ns_kvectors=ns_k)),
+        "pme": (lambda: parallel.sharded_mesh_potentials(
+            mesh, None, q_e, cell_e, pos_e, idx, dist_e, SHARDED_MESH_NS),
+            lambda: mesh(q_e, cell_e, pos_e, idx, dist_e, ns_mesh=SHARDED_MESH_NS)),
+    }
+    small = {}
+    for name, (sharded, single) in calls.items():
+        got, ref = sharded(), single()
+        sync()
+        small[name] = {"rel_err_vs_unsharded": rel_err(got, ref)[1],
+                       "finite": bool(torch.isfinite(got).all()),
+                       "ms": timed_ms(sharded, 3), "unsharded_ms": timed_ms(single, 3)}
+    return {
+        "e": float(e.detach()), "g_rows": g_rows.cpu().numpy(),
+        "g_mu": g_mu.double().cpu().numpy(), "g_cell": g_cell.double().cpu().numpy(),
+        "g_cell_window": g_cell_window.double().cpu().numpy(),
+        "g_cell_mesh": g_cell_mesh.double().cpu().numpy(),
+        "row_of_atom": state.row_of_atom.cpu().numpy() if rank == 0 else None,
+        "launches": launches, "collectives": collectives, "ms_per_step": ms,
+        "wall_ms_per_step": wall_ms, "chain_finite": finite, "create_seconds": create_s,
+        "n_axis": state.n_axis, "cell_capacity": int(state.cl_slot_mask.shape[-1]),
+        "small_12k": small, "ns_kvectors_12k": ns_k,
+    }
+
+
+def _gathered(results) -> tuple[np.ndarray, np.ndarray]:
+    """The ranks' row gradients in atom order (and all rows)."""
+    rows = np.concatenate([r["g_rows"] for r in results])
+    return rows[results[0]["row_of_atom"]], rows
+
+
+def sharded_phases(env) -> dict:
+    """Phase 22: the 102k tile-aligned sharded MD step at world sizes 1
+    (NCCL), 2 and 4 (gloo), against phase 4's float64 and float32 steps."""
+    ref = env.md_ref
+    f64 = torch.as_tensor(ref["f64"]).double()
+    launches = {}
+    for backend, world in SHARDED_WORLDS:
+        t0 = time.perf_counter()
+        res = run_ranks("md", backend, world)
+        run_s = time.perf_counter() - t0
+        forces, rows = _gathered(res)
+        forces = torch.as_tensor(forces).double()
+        e = res[0]["e"]
+        e_rel = abs(e - ref["e64"]) / abs(ref["e64"])
+        f_rms = rel_rms(forces, f64)
+        f_rms_f32 = rel_rms(forces, torch.as_tensor(ref["f32"]).double())
+        c_rel = rel_err(torch.as_tensor(res[0]["g_cell"]), torch.as_tensor(ref["cell64"]))[1]
+        same_e = all(r["e"] == e for r in res)
+        same_cell = all(np.array_equal(r["g_cell"], res[0]["g_cell"]) for r in res)
+        kinds = ("spread_fwd", "spread_bwd", "window_split")
+        per_rank = [{k: r["launches"].get(k, 0) for k in kinds} for r in res]
+        line = {"phase": "sharded_md", "world": world, "backend": backend, "atoms": N_ATOMS,
+                "n_axis": res[0]["n_axis"], "cell_capacity": res[0]["cell_capacity"],
+                "energy_f32": e, "energy_rel": e_rel, "force_rel_rms": f_rms,
+                "force_rel_rms_vs_unsharded_f32": f_rms_f32, "cell_grad_rel": c_rel,
+                "same_energy_and_cell_grad_on_every_rank": same_e and same_cell,
+                "padded_rows_max_abs_grad": float(np.abs(np.delete(
+                    rows, res[0]["row_of_atom"], axis=0)).max(initial=0.0)),
+                "launches_per_rank_step": per_rank,
+                "other_launches_rank0": {k: v for k, v in res[0]["launches"].items()
+                                         if k not in kinds},
+                "collectives_rank0": res[0]["collectives"],
+                "ms_per_step_rank0": res[0]["ms_per_step"],
+                "wall_ms_per_step_rank0": res[0]["wall_ms_per_step"],
+                "ms_per_step_by_rank": [r["ms_per_step"] for r in res],
+                "unsharded_ms_per_step": env.md_ms, "chain_steps": SHARDED_CHAIN[world],
+                "create_seconds_rank0": res[0]["create_seconds"], "run_seconds": run_s,
+                "gloo_cuda_collectives": res[0]["gloo_cuda"], "nvidia_smi": env.smi}
+        emit(line)
+        if not (e_rel <= 1e-5 and f_rms <= 1e-5 and c_rel <= 1e-4):
+            raise AssertionError(
+                f"sharded 102k step at {world} rank(s) vs f64 plain: energy {e_rel:.3e}, "
+                f"forces {f_rms:.3e}, cell {c_rel:.3e}")
+        if not (f_rms_f32 <= 1e-5 and same_e and same_cell and line["padded_rows_max_abs_grad"]
+                == 0.0 and all(r["chain_finite"] for r in res)):
+            raise AssertionError(f"sharded 102k step at {world} rank(s): {line}")
+        if min(min(n.values()) for n in per_rank) < 1 or res[0]["launches"].get("window", 0):
+            raise AssertionError(f"a kernel of the sharded step never launched: {per_rank}")
+        launches[f"sharded_md_w{world}"] = per_rank[0]
+    env.counts["window_split"] = launches["sharded_md_w1"]["window_split"]
+    return launches
+
+
+def sharded_dipole_phases(env) -> dict:
+    """Phase 23: the 102k dipolar sharded rows step at world sizes 1 (NCCL)
+    and 2 (gloo) against phase 7's float64 reference, its cell gradient
+    split into window and mesh parts, and the 12k sharded per-atom
+    potentials against the unsharded calls."""
+    ref = env.dipole_ref
+    f64 = torch.as_tensor(ref["f64"]).double()
+    total = float(np.abs(ref["cell64"]).max())
+    launches = {}
+    for backend, world in SHARDED_DIPOLE_WORLDS:
+        t0 = time.perf_counter()
+        res = run_ranks("dipole", backend, world)
+        run_s = time.perf_counter() - t0
+        g_atoms, _ = _gathered(res)
+        forces = -torch.as_tensor(g_atoms).double()
+        r0 = res[0]
+        e_rel = abs(r0["e"] - ref["e64"]) / abs(ref["e64"])
+        f_rms = rel_rms(forces, f64)
+        field_rel = rel_err(torch.as_tensor(r0["g_mu"]), torch.as_tensor(ref["field64"]))[1]
+        c_rel = rel_err(torch.as_tensor(r0["g_cell"]), torch.as_tensor(ref["cell64"]))[1]
+        split = {}
+        for part in ("window", "mesh"):
+            err = float(np.abs(r0[f"g_cell_{part}"] - ref[f"cell64_{part}"]).max())
+            split[f"{part}_kernels_rel"] = err / total
+            split[f"{part}_kernels_rel_own"] = err / float(np.abs(ref[f"cell64_{part}"]).max())
+        kinds = ("window_dipole", "mesh_spread", "mesh_gather", "mesh_wgrad")
+        per_rank = [{k: r["launches"].get(k, 0) for k in kinds} for r in res]
+        line = {"phase": "sharded_md_dipole", "world": world, "backend": backend,
+                "atoms": N_ATOMS, "n_axis": r0["n_axis"], "cell_capacity": r0["cell_capacity"],
+                "energy_f32": r0["e"], "energy_rel": e_rel, "force_rel_rms": f_rms,
+                "field_rel": field_rel, "cell_grad_rel": c_rel, "cell_grad_split": split,
+                "launches_per_rank_step": per_rank, "collectives_rank0": r0["collectives"],
+                "ms_per_step_rank0": r0["ms_per_step"],
+                "wall_ms_per_step_rank0": r0["wall_ms_per_step"],
+                "unsharded_ms_per_step": ref["ms"], "run_seconds": run_s,
+                "per_atom_12k": r0["small_12k"], "ns_kvectors_12k": r0["ns_kvectors_12k"],
+                "nvidia_smi": env.smi}
+        emit(line)
+        if not (e_rel <= 1e-5 and f_rms <= 1e-5 and field_rel <= 1e-5
+                and c_rel <= DIPOLE_CELL_TOL and all(r["chain_finite"] for r in res)):
+            raise AssertionError(f"sharded dipolar 102k step at {world} rank(s): {line}")
+        if min(min(n.values()) for n in per_rank) < 1:
+            raise AssertionError(f"a kernel of the sharded dipolar step never launched: "
+                                 f"{per_rank}")
+        for name, small in r0["small_12k"].items():
+            if not (small["finite"] and small["rel_err_vs_unsharded"] <= 1e-5):
+                raise AssertionError(f"sharded 12k {name} potentials at {world}: {small}")
+        launches[f"sharded_dipole_w{world}"] = per_rank[0]
+    return launches
+
+
 def main() -> int:
     # -- 1. device --------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3025,6 +3415,61 @@ def main() -> int:
                      f"{_window_group(e_cap, n_ch, e_ins[0].device.index)} offsets a pass")
         del e_ins
 
+    # C's split variant at the window of the sharded 102k step at one rank
+    # (phase 22): the rank's cell planes and its halo plane (at one rank, its
+    # own first plane again), the i-side charges zero on the halo
+    from torchpme_tpu_torch.parallel import compute_sharded_md_state
+    from torchpme_tpu_torch.parallel._collectives import Axis
+    from torchpme_tpu_torch.parallel.sharded_md import _slab_grids, _window_offsets_of
+
+    s_state = compute_sharded_md_state(calc, positions.astype(np.float32),
+                                       cell.astype(np.float32), CUTOFF, NS_MESH, 1,
+                                       aligned=True, device=dev)
+    s_idx, s_mask, s_wrap = (t[0] for t in (s_state.cl_atom_index, s_state.cl_slot_mask,
+                                            s_state.cl_atom_wrap))
+    s_rows = s_state.bucket(pos32).reshape(*s_mask.shape, 3)
+    s_q = q32[s_idx.long()] * s_mask[..., None].to(torch.float32)
+    with torch.no_grad():
+        s_pc, s_qg, s_mf, *_ = _slab_grids(s_rows, s_q, s_mask, s_wrap, cell32, s_state.n_axis,
+                                           Axis(None, 1, 0, "nccl"), window=True)
+    ext = [torch.cat([t, t[:1]]).contiguous() for t in (s_pc, s_qg, s_mf)]
+    plane = (torch.arange(ext[0].shape[0], device=dev) < s_pc.shape[0]).to(torch.float32)
+    s_qi = (ext[1] * plane[:, None, None, None, None]).contiguous()
+    s_ins = (*ext, _window_offsets_of(cell32, s_state.n_axis, ext[0].shape[-1], torch.float32))
+    s_occ = s_ins[2].sum(-1).double()
+    s_cand = sum(float((s_occ * torch.roll(s_occ, (-dx, -dy, -dz), dims=(0, 1, 2))).sum())
+                 for dx, dy, dz in _window_offsets(ext[0].shape[-1]))
+    split_shape = (f"sharded window at 1 rank: {tuple(ext[0].shape[:3])} cells (halo plane "
+                   f"included), capacity {ext[0].shape[-1]}")
+    check_kernel(
+        "window_split", "torchpme_tpu_torch/csrc/window.cu",
+        "torchpme_tpu/ops/rspace_cells.py:965",
+        lambda: (lambda e, g: (e, *g))(*window_value_and_grad(pot, CUTOFF, *s_ins, qi_g=s_qi)),
+        lambda: (lambda e, g: (e, *g))(*_we_value_and_grad(pot, CUTOFF, *s_ins, qi_g=s_qi)),
+        # as the unsplit window, with both charge sets read and d_qi written
+        bound(nbytes(*s_ins, s_qi, s_ins[0], s_ins[1], s_ins[3], s_qi) + 8 + 72,
+              11 * s_cand + c_pair_flop(pot) * n_pairs),
+        report, tols=[SUM_TOL, KERNEL_TOL, KERNEL_TOL, D_OFFS_TOL, KERNEL_TOL, KERNEL_TOL],
+        shape=split_shape,
+    )
+    with torch.no_grad():
+        _, g64 = _we_value_and_grad(pot, CUTOFF, *[t.double() for t in s_ins],
+                                    qi_g=s_qi.double())
+        first, again = (window_value_and_grad(pot, CUTOFF, *s_ins, qi_g=s_qi)[1]
+                        for _ in range(2))
+    sync()
+    same = [bool(torch.equal(first[i], again[i])) for i in (0, 1, 4)]
+    split_line = {"phase": "kernel_vs_float64", "name": "window_split", "shape": split_shape,
+                  "d_offs_rel_err": rel_err(first[2], g64[2])[1],
+                  "d_image_rel_err": rel_err(first[3], g64[3])[1],
+                  "d_qi_rel_err": rel_err(first[4], g64[4])[1],
+                  "d_pc_d_q_d_qi_bitwise_equal_over_two_launches": same}
+    emit(split_line)
+    if not (all(same) and split_line["d_offs_rel_err"] <= KERNEL_TOL
+            and split_line["d_image_rel_err"] <= KERNEL_TOL):
+        raise AssertionError(f"kernel C's split variant: {split_line}")
+    del s_state, s_rows, s_q, s_pc, s_qg, s_mf, ext, s_qi, s_ins, first, again, g64
+
     # kernels D, E, F at the 102k tile shapes, one channel and three
     mesh_src = "torchpme_tpu_torch/csrc/mesh.cu"
     mesh_ref = "torchpme_tpu/ops/pallas/mesh_pallas.py"
@@ -3153,6 +3598,10 @@ def main() -> int:
     e_rel = abs(float(e32) - float(e64)) / abs(float(e64))
     f_rms = rel_rms(fp.unbucket(g_rows), fp.unbucket(g_rows64))
     _, c_rel = rel_err(g_cell, g_cell64)
+    # phase 22's references: this step's float64 plain and float32 results
+    md_ref = {"e64": float(e64), "f64": fp.unbucket(g_rows64).cpu().numpy(),
+              "f32": fp.unbucket(g_rows).double().cpu().numpy(),
+              "cell64": g_cell64.cpu().numpy()}
     del rows64, g_rows64
 
     def md_chain(plain: bool):
@@ -3303,7 +3752,7 @@ def main() -> int:
         tpt=tpt, kernels=kernels, dev=dev, f32=f32, smi=smi, positions=positions, cell=cell,
         pos32=pos32, q32=q32, cell32=cell32, idx_t=idx_t, shifts_t=shifts_t, n_pairs=n_pairs,
         ct_rho=ct_rho, report=report, counts=counts, profile=profile, smearing=smearing,
-        calc=calc, interp=interp, fp=fp, charges=charges,
+        calc=calc, interp=interp, fp=fp, charges=charges, md_ref=md_ref, md_ms=kernel_ms,
     )
     # -- 11, 12. P3M: the 102k MD step (A, B, C with the P3M tables) and the
     # per-atom call (D, E, F) -------------------------------------------------------
@@ -3329,6 +3778,11 @@ def main() -> int:
 
     # -- 21. deploy: the 102k step exported, loaded, and run in a fresh process ----
     paths.update(deploy_phases(env))
+
+    # -- 22. the slab-sharded 102k MD step at 1 (NCCL), 2 and 4 ranks (gloo) -------
+    paths.update(sharded_phases(env))
+    # -- 23. the sharded dipolar 102k step at 1 and 2 ranks, the 12k potentials ---
+    paths.update(sharded_dipole_phases(env))
 
     # -- 10. result ---------------------------------------------------------------
     # launches: of the MD step (A, B, C), the per-atom call (D, E, F) and the

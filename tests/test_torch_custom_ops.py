@@ -182,3 +182,25 @@ def test_entry_point_exports_the_op_itself(inputs, name):
     assert targets == [f"tpme.{name}.default"]
     np.testing.assert_array_equal(program.module()(args[0]).detach().numpy(),
                                   call(args[0]).detach().numpy())
+
+
+def test_window_op_with_split_charges(inputs):
+    """The ``tpme::window`` op with separate i-side charges (kernel C's split
+    variant on a card): ``opcheck`` of the new operand, and its registered
+    autograd against the entry point's ``setup_context`` Function."""
+    args = list(inputs["window"])
+    qi = (args[1] * torch.linspace(0.0, 1.5, args[1].shape[0], dtype=args[1].dtype)
+          [:, None, None, None, None]).contiguous()
+    leaves = [args[0], args[1], args[4], qi]
+    full = [a.clone().requires_grad_() if i in (0, 1, 4) else a for i, a in enumerate(args)]
+    torch.library.opcheck(_op("window"), (*full, False, qi.clone().requires_grad_()))
+
+    def run(fn):
+        xs = [t.clone().requires_grad_() for t in leaves]
+        call = list(args)
+        call[0], call[1], call[4] = xs[0], xs[1], xs[2]
+        out = fn(*call, False, xs[3])
+        return torch.autograd.grad(out[0], xs)
+
+    for a, b in zip(run(_op("window")), run(rc._Window.apply)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())

@@ -1685,3 +1685,73 @@ def test_export_step_for_two_platforms(device):
     np.testing.assert_allclose(on_card.cpu().numpy(), ref.numpy(), rtol=0, atol=1e-12)
     with pytest.raises(ValueError, match="shape mismatch"):
         restored(*[a.to(device) for a in (charges[:-2], cell, positions[:-2], dist)])
+
+
+# -- kernel C's split variant (separate i-side charges, the slab window) ---------
+
+
+def _split_inputs(fp, pos, q, cell):
+    """Window operands of the clustered state and i-side charges zero on the
+    last x plane (a slab's halo plane) and scaled by plane elsewhere."""
+    pos, q, cell = pos.detach(), q.detach(), cell.detach()
+    n_cells, cap = fp.clist.slot_mask.shape
+    rows = fp.bucket(pos)[: n_cells * cap].reshape(n_cells, cap, 3)
+    ins = rc._prepare_bucketed(q[fp.clist.atom_index.long()], rows, cell, fp.clist,
+                               window=True)[:4]
+    nx = ins[0].shape[0]
+    scale = torch.linspace(0.5, 1.5, nx, device=pos.device)
+    scale[-1] = 0.0
+    return ins, (ins[1] * scale[:, None, None, None, None]).contiguous()
+
+
+def test_window_split_kernel_matches_plain(step):
+    """C's split variant against its plain version: the energy, d_pc and the
+    i- and j-side charge cotangents; d_pc, d_q and d_qi bitwise equal over
+    two launches; d_offs and the image term against float64."""
+    fp, pos, q, cell = step
+    ins, qi = _split_inputs(fp, pos, q, cell)
+    pot = tpt.CoulombPotential(smearing=1.0)
+    kernels.reset_launch_counts()
+    e_a, g_a = rc.window_value_and_grad(pot, 3.0, *ins, qi_g=qi)
+    e_b, g_b = rc.window_value_and_grad(pot, 3.0, *ins, qi_g=qi)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["window_split"] == 2 and counts["window"] == 0
+    for i in (0, 1, 4):
+        assert torch.equal(g_a[i], g_b[i])
+    e_p, g_p = rc._we_value_and_grad(pot, 3.0, *ins, qi_g=qi)
+    assert abs(float(e_a) - float(e_p)) <= 1e-6 * abs(float(e_p))
+    for i in (0, 1, 4):
+        assert g_a[i].shape == g_p[i].shape and _rel(g_a[i], g_p[i]) <= 1e-5
+    _, g64 = rc._we_value_and_grad(pot, 3.0, *[t.double() for t in ins], qi_g=qi.double())
+    assert _rel(g_a[2], g64[2]) <= 1e-5 and _rel(g_a[3], g64[3]) <= 1e-5
+
+
+def test_window_split_with_equal_charges_is_the_unsplit_kernel(step):
+    """``qi_g = q_g``: the split variant gives the unsplit kernel's energy
+    and d_pc, and d_q + d_qi is its d_q (within float32 rounding: the two
+    sides sum apart); the unsplit variant still equals its plain version."""
+    fp, pos, q, cell = step
+    ins, _ = _split_inputs(fp, pos, q, cell)
+    pot = tpt.CoulombPotential(smearing=1.0)
+    e0, g0 = rc.window_value_and_grad(pot, 3.0, *ins)
+    e1, g1 = rc.window_value_and_grad(pot, 3.0, *ins, qi_g=ins[1].clone())
+    assert abs(float(e0) - float(e1)) <= 1e-6 * abs(float(e0))
+    assert _rel(g1[0], g0[0]) <= 1e-6
+    assert _rel(g1[1] + g1[4], g0[1]) <= 1e-5
+    e_p, g_p = rc._we_value_and_grad(pot, 3.0, *ins)
+    assert abs(float(e0) - float(e_p)) <= 1e-6 * abs(float(e_p))
+    assert _rel(g0[0], g_p[0]) <= 1e-5 and _rel(g0[1], g_p[1]) <= 1e-5
+
+
+def test_window_split_op_passes_opcheck(step):
+    fp, pos, q, cell = step
+    ins, qi = _split_inputs(fp, pos, q, cell)
+
+    def leaf(t):
+        return t.detach().clone().requires_grad_()
+
+    table = rc.window_table(fp.calc.potential)
+    args = (leaf(ins[0]), leaf(ins[1]), ins[2], ins[3], leaf(cell.detach()), *table, 3.0,
+            False, leaf(qi))
+    torch.library.opcheck(torch.ops.tpme.window, args)

@@ -1,6 +1,6 @@
 """The port's namespaces against the JAX package's: ``ops`` exports what
-it has ported, and ``tuning``, ``atomistic``, ``utils.neighbors`` and
-``deploy`` export the same names; the dense-format distances of ``utils.neighbors`` hold to
+it has ported, and ``tuning``, ``atomistic``, ``utils.neighbors``,
+``deploy`` and ``parallel`` export the same names; the dense-format distances of ``utils.neighbors`` hold to
 the JAX package's in float64."""
 
 import importlib
@@ -47,7 +47,7 @@ def test_ops_exports_resolve():
         assert getattr(port_ops, name) is not None, name
 
 
-@pytest.mark.parametrize("module", ["tuning", "atomistic", "utils.neighbors", "deploy"])
+@pytest.mark.parametrize("module", ["tuning", "atomistic", "utils.neighbors", "deploy", "parallel"])
 def test_namespace_equals_the_jax_one(module):
     port = importlib.import_module(f"torchpme_tpu_torch.{module}")
     jax_module = importlib.import_module(f"torchpme_tpu.{module}")

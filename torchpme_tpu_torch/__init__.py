@@ -12,7 +12,8 @@ calculators, ``MDFastPathEwald``), and the point-dipole family:
 ``PotentialDipole``, ``CalculatorDipole`` (direct and Ewald),
 ``PMECalculatorDipole`` and ``MDFastPathDipole``; the parameter tuners of
 :mod:`~torchpme_tpu_torch.tuning`, and the labeled calculators of
-:mod:`~torchpme_tpu_torch.atomistic`.  The TPU-side kernels on those paths are
+:mod:`~torchpme_tpu_torch.atomistic`, and the multi-device tier of
+:mod:`~torchpme_tpu_torch.parallel` on ``torch.distributed``.  The TPU-side kernels on those paths are
 hand-written CUDA C++ for Hopper (``csrc/``), each with a plain PyTorch
 version in the module that wraps it.  Entry points put their state on the
 CUDA device when the caller gave neither a device nor tensors
@@ -30,7 +31,7 @@ import importlib
 
 _SUBMODULES = frozenset({
     "atomistic", "calculators", "convert", "deploy", "device", "kernels", "md", "ops",
-    "potentials", "prefactors", "tuning", "utils",
+    "parallel", "potentials", "prefactors", "tuning", "utils",
 })
 _EXPORTS = {
     "Calculator": "calculators",

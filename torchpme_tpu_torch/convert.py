@@ -20,7 +20,11 @@ do the same for :class:`~torchpme_tpu_torch.md.MDFastPathEwald` (its cell
 list, row map and k-space extents).  The dipolar family has the same four
 functions
 (:func:`dipole_calculator_state` / :func:`dipole_calculator_from_state`,
-:func:`md_dipole_state` / :func:`md_dipole_from_state`).  A labeled wrapper
+:func:`md_dipole_state` / :func:`md_dipole_from_state`).  The host-built
+states of :mod:`~torchpme_tpu_torch.parallel` carry across as their arrays
+and static fields (:func:`sharded_md_state` / :func:`sharded_md_from_state`,
+:func:`sharded_md_dipole_state` / :func:`sharded_md_dipole_from_state`,
+:func:`slab_bucketing_state` / :func:`slab_bucketing_from_state`).  A labeled wrapper
 of :mod:`~torchpme_tpu_torch.atomistic` is its class name and its inner
 calculator's state (:func:`labeled_calculator_state` /
 :func:`labeled_calculator_from_state`).  A dict filled from the JAX package's objects (same
@@ -44,6 +48,7 @@ from .device import resolve_device
 from .md import MDFastPath, MDFastPathDipole, MDFastPathEwald
 from .ops.mesh_tiled import TiledInterpolation
 from .ops.rspace_cells import CellList
+from .parallel import ShardedMDDipoleState, ShardedMDState, SlabBucketing
 from .potentials import (
     CombinedPotential,
     CoulombPotential,
@@ -67,6 +72,12 @@ __all__ = [
     "md_state",
     "potential_from_state",
     "potential_state",
+    "sharded_md_dipole_from_state",
+    "sharded_md_dipole_state",
+    "sharded_md_from_state",
+    "sharded_md_state",
+    "slab_bucketing_from_state",
+    "slab_bucketing_state",
     "tiled_interp_from_state",
     "tiled_interp_state",
 ]
@@ -468,3 +479,90 @@ def md_dipole_from_state(state: dict, device=None) -> MDFastPathDipole:
         int(state["n_atoms"]),
         tiled,
     )
+
+
+# -- the multi-device tier's states ----------------------------------------------
+
+#: integer and boolean dtypes of the parallel states' arrays (the JAX
+#: package's)
+_SHARDED_DTYPES = {
+    "cl_atom_index": np.int32,
+    "cl_slot_mask": np.bool_,
+    "cl_atom_wrap": np.int8,
+    "tm_atom_of_slot": np.int32,
+    "row_of_atom": np.int32,
+    "tm_slot_rows": np.int32,
+    "atom_index": np.int32,
+    "slot_mask": np.bool_,
+}
+
+
+def _fields_state(obj) -> dict:
+    """A dataclass of tensors and static fields as numpy arrays (``None``
+    kept) and Python scalars and tuples."""
+    from dataclasses import fields
+
+    state = {}
+    for f in fields(obj):
+        value = getattr(obj, f.name)
+        state[f.name] = value.cpu().numpy() if isinstance(value, torch.Tensor) else value
+    return state
+
+
+def _fields_from_state(cls, state: dict, device):
+    """``cls`` from :func:`_fields_state`'s keys, its arrays on ``device``."""
+    from dataclasses import fields
+
+    device = resolve_device(device)
+    kwargs = {}
+    for f in fields(cls):
+        if f.name not in state:
+            continue
+        value = state[f.name]
+        if f.name in _SHARDED_DTYPES:
+            value = None if value is None else torch.from_numpy(
+                np.asarray(value, dtype=_SHARDED_DTYPES[f.name]).copy()).to(device)
+        elif isinstance(value, (list, tuple, np.ndarray)):
+            value = tuple(int(n) for n in value)
+        elif isinstance(value, (np.integer, np.floating, np.bool_)):
+            value = value.item()
+        kwargs[f.name] = value
+    return cls(**kwargs)
+
+
+def sharded_md_state(state: ShardedMDState) -> dict:
+    """A :class:`~torchpme_tpu_torch.parallel.ShardedMDState` as numpy
+    arrays and Python scalars (the keys are its fields)."""
+    return _fields_state(state)
+
+
+def sharded_md_from_state(state: dict, device=None) -> ShardedMDState:
+    """The sharded MD state from a dict with the keys of
+    :func:`sharded_md_state` (the JAX package's state, its arrays through
+    ``np.asarray``), on ``device`` (default:
+    :func:`torchpme_tpu_torch.default_device`)."""
+    return _fields_from_state(ShardedMDState, state, device)
+
+
+def sharded_md_dipole_state(state: ShardedMDDipoleState) -> dict:
+    """A :class:`~torchpme_tpu_torch.parallel.ShardedMDDipoleState` as
+    numpy arrays and Python scalars."""
+    return _fields_state(state)
+
+
+def sharded_md_dipole_from_state(state: dict, device=None) -> ShardedMDDipoleState:
+    """The sharded dipolar MD state from a dict with the keys of
+    :func:`sharded_md_dipole_state`, on ``device``."""
+    return _fields_from_state(ShardedMDDipoleState, state, device)
+
+
+def slab_bucketing_state(bucketing: SlabBucketing) -> dict:
+    """A :class:`~torchpme_tpu_torch.parallel.SlabBucketing` as numpy
+    arrays and Python scalars."""
+    return _fields_state(bucketing)
+
+
+def slab_bucketing_from_state(state: dict, device=None) -> SlabBucketing:
+    """The slab bucketing from a dict with the keys of
+    :func:`slab_bucketing_state`, on ``device``."""
+    return _fields_from_state(SlabBucketing, state, device)

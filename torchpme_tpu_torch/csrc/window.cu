@@ -82,6 +82,21 @@
 //   -1/2 sum_o m(home, o) (x) S(o) (each pair is met from both ends, with
 //   m and g both negated) by one double atomic per entry.
 //
+// * Split i-side charges (SPLIT, the x-slab sharded window).  The energy is
+//   sum over pairs of qi_i q_j V with a second charge set qi, which the slab
+//   zeroes on its halo plane so that each unordered pair counts once, on the
+//   rank of its lower-x cell.  A pair is met from both ends, and the role of
+//   the home atom is the offset's sign: on the 13 half-window offsets +k it
+//   is i (it reads its qi, its partner q, and its charge cotangent goes to
+//   d_qi), on their mirrors -k it is j (q against the partner's qi, into
+//   d_q), and on the self cell it is both at 1/2 each.  A slot stages both
+//   charge sets, as 2C channels (the shared memory of 2C).  An empty home
+//   slot keeps the plain version's d_qi (its i-side sums) and a d_q of 0;
+//   the self row of d_offs stays 0 (its offset is the zero vector).  Each
+//   pair at +k is still met with the home-side gradients g and -g, so
+//   d_offs and the image term are those above.  The variants without SPLIT
+//   are the code above, unchanged.
+//
 // Plain CUDA C++, float32 only; the wrapper
 // (ops/rspace_cells.py:window_value_and_grad) checks shapes and dtypes.
 
@@ -182,20 +197,26 @@ __host__ __device__ inline size_t window_smem(int cap, int n_ch, int group) {
 // G neighbour offsets a pass; with all 27 in one pass the row sums go
 // straight to d_pc and d_q.  DIRECT: the unsmeared pair math.  KIND: the
 // pair-term table's form (WindowParams::kind); KIND 2 holds the members'
-// energies in registers, so it is given more of them.
-template <int G, bool DIRECT, int KIND>
-__global__ void __launch_bounds__(THREADS, KIND == 2 ? 4 : 6)
+// energies in registers, so it is given more of them.  SPLIT: separate
+// i-side charges qi_g (cells, cap, C), their cotangent d_qi_g; a slot then
+// holds CQ = 2C charge columns, q first, and the kernel is given the
+// registers of KIND 2.
+template <int G, bool DIRECT, int KIND, bool SPLIT>
+__global__ void __launch_bounds__(THREADS, (KIND == 2 || SPLIT) ? 4 : 6)
 window_kernel(const float* __restrict__ pc, const float* __restrict__ q, const float* __restrict__ mf,
-        const float* __restrict__ offs, const float* __restrict__ weights, double* __restrict__ acc,
-        float* __restrict__ d_pc, float* __restrict__ d_q, float* __restrict__ d_offs, WindowParams p) {
+        const float* __restrict__ offs, const float* __restrict__ weights,
+        const float* __restrict__ qi_g, double* __restrict__ acc, float* __restrict__ d_pc,
+        float* __restrict__ d_q, float* __restrict__ d_offs, float* __restrict__ d_qi_g,
+        WindowParams p) {
   extern __shared__ float4 smem4[];
-  const int cap = p.cap, C = p.n_ch, nv = 3 + C;
+  constexpr int NQ = SPLIT ? 2 * MAX_CH : MAX_CH;  // charge-column registers
+  const int cap = p.cap, C = p.n_ch, CQ = SPLIT ? 2 * C : C, nv = 3 + CQ;
   float4* s_home = smem4;                                      // (cap) home slots
   float4* s_p = s_home + cap;                                  // (G, cap) staged slots
-  float* s_qh = reinterpret_cast<float*>(s_p + G * cap);       // (cap, C) home charges
-  float* s_sum = s_qh + cap * C;                               // (3 + C, cap) row sums
-  float* s_q = s_sum + nv * cap;                               // (G, cap, C)
-  float* s_res = s_q + G * cap * C;                            // (G, 3 + C, cap) item sums
+  float* s_qh = reinterpret_cast<float*>(s_p + G * cap);       // (cap, CQ) home charges
+  float* s_sum = s_qh + cap * CQ;                              // (3 + CQ, cap) row sums
+  float* s_q = s_sum + nv * cap;                               // (G, cap, CQ)
+  float* s_res = s_q + G * cap * CQ;                           // (G, 3 + CQ, cap) item sums
   int* s_list = reinterpret_cast<int*>(s_res + G * nv * cap);  // (G cap) item list
   __shared__ int s_nbr[N_WIN], s_sign[N_WIN], s_jend[N_WIN], s_count;
   __shared__ float s_off[3 * N_WIN], s_box[6 * N_WIN], s_w[MAX_MEMBERS];
@@ -227,7 +248,14 @@ window_kernel(const float* __restrict__ pc, const float* __restrict__ q, const f
     s_home[j] = make_float4(src[0] + s_off[3 * SELF_O], src[cap] + s_off[3 * SELF_O + 1],
                             src[2 * cap] + s_off[3 * SELF_O + 2], mf[(size_t)home * cap + j]);
   }
-  for (int idx = threadIdx.x; idx < cap * C; idx += blockDim.x) s_qh[idx] = q[(size_t)home * cap * C + idx];
+  if (!SPLIT) {
+    for (int idx = threadIdx.x; idx < cap * C; idx += blockDim.x) s_qh[idx] = q[(size_t)home * cap * C + idx];
+  } else {
+    for (int idx = threadIdx.x; idx < cap * CQ; idx += blockDim.x) {
+      const int j = idx / CQ, c = idx - j * CQ;
+      s_qh[idx] = c < C ? q[((size_t)home * cap + j) * C + c] : qi_g[((size_t)home * cap + j) * C + c - C];
+    }
+  }
   if (G < N_WIN)
     for (int idx = threadIdx.x; idx < nv * cap; idx += blockDim.x) s_sum[idx] = 0.0f;
 
@@ -248,9 +276,17 @@ window_kernel(const float* __restrict__ pc, const float* __restrict__ q, const f
       s_p[idx] = m > 0.5f ? make_float4(x, y, z, m) : make_float4(FAR, FAR, FAR, m);
       if (m > 0.5f) atomicMax(&s_jend[o], j + 1);
     }
-    for (int idx = threadIdx.x; idx < G * cap * C; idx += blockDim.x) {
-      const int o = g0 + idx / (cap * C);
-      s_q[idx] = q[(size_t)s_nbr[o] * cap * C + idx % (cap * C)];
+    if (!SPLIT) {
+      for (int idx = threadIdx.x; idx < G * cap * C; idx += blockDim.x) {
+        const int o = g0 + idx / (cap * C);
+        s_q[idx] = q[(size_t)s_nbr[o] * cap * C + idx % (cap * C)];
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < G * cap * CQ; idx += blockDim.x) {
+        const int o = g0 + idx / (cap * CQ), r = idx % (cap * CQ), j = r / CQ, c = r - j * CQ;
+        const size_t src = ((size_t)s_nbr[o] * cap + j) * C;
+        s_q[idx] = c < C ? q[src + c] : qi_g[src + c - C];
+      }
     }
     __syncthreads();
     // the box of each neighbour cell's occupied atoms, one warp per offset
@@ -307,13 +343,16 @@ window_kernel(const float* __restrict__ pc, const float* __restrict__ q, const f
       const int ol = it / cap, i = it - ol * cap, o = g0 + ol;
       const float4 pi = s_home[i];
       const float wq = pi.w > 0.5f ? 1.0f : s_sign[o] < 0 ? 0.0f : o == SELF_O ? 0.5f : 1.0f;
-      float gx = 0.0f, gy = 0.0f, gz = 0.0f, dq[MAX_CH];
-      for (int c = 0; c < MAX_CH; ++c) dq[c] = 0.0f;
-      if (wq > 0.0f) {
-        float qi[MAX_CH];
-        for (int c = 0; c < MAX_CH; ++c) qi[c] = c < C ? s_qh[i * C + c] : 0.0f;
+      // SPLIT: the home atom's weight as i (fa) and as j (fb)
+      const float fa = s_sign[o] > 0 ? (o == SELF_O ? 0.5f : 1.0f) : 0.0f;
+      const float fb = s_sign[o] < 0 ? 1.0f : (o == SELF_O ? 0.5f : 0.0f);
+      float gx = 0.0f, gy = 0.0f, gz = 0.0f, dq[NQ];
+      for (int c = 0; c < NQ; ++c) dq[c] = 0.0f;
+      if (SPLIT || wq > 0.0f) {
+        float qi[NQ];  // the home charges (SPLIT: q, then qi)
+        for (int c = 0; c < NQ; ++c) qi[c] = c < CQ ? s_qh[i * CQ + c] : 0.0f;
         const float4* pj = s_p + ol * cap;
-        const float* qj = s_q + ol * cap * C;
+        const float* qj = s_q + ol * cap * CQ;
         const int jend = s_jend[o];
         for (int jb = 0; jb < jend; jb += 32) {
           const int jlim = min(jb + 32, jend);
@@ -353,7 +392,16 @@ window_kernel(const float* __restrict__ pc, const float* __restrict__ q, const f
               }
             }
             float qpair = 0.0f;
-            for (int c = 0; c < C; ++c) qpair += qi[c] * qj[j * C + c];
+            if (!SPLIT) {
+              for (int c = 0; c < C; ++c) qpair += qi[c] * qj[j * C + c];
+            } else {
+              float qa = 0.0f, qb = 0.0f;  // the pair charge with home as i, as j
+              for (int c = 0; c < C; ++c) {
+                qa += qi[C + c] * qj[j * CQ + c];
+                qb += qi[c] * qj[j * CQ + C + c];
+              }
+              qpair = fa * qa + fb * qb;
+            }
             e_acc += 0.5 * (double)(qpair * v);
             if (KIND == 2) {
 #pragma unroll
@@ -364,7 +412,14 @@ window_kernel(const float* __restrict__ pc, const float* __restrict__ q, const f
             gx += s * dx;
             gy += s * dy;
             gz += s * dz;
-            for (int c = 0; c < C; ++c) dq[c] += v * qj[j * C + c];
+            if (!SPLIT) {
+              for (int c = 0; c < C; ++c) dq[c] += v * qj[j * C + c];
+            } else {
+              for (int c = 0; c < C; ++c) {
+                dq[c] += v * qj[j * CQ + C + c];  // to d_q: the partner's qi
+                dq[C + c] += v * qj[j * CQ + c];  // to d_qi: the partner's q
+              }
+            }
           }
         }
       }
@@ -372,7 +427,12 @@ window_kernel(const float* __restrict__ pc, const float* __restrict__ q, const f
       res[0] = gx;
       res[cap] = gy;
       res[2 * cap] = gz;
-      for (int c = 0; c < C; ++c) res[(3 + c) * cap] = dq[c] * wq;
+      if (!SPLIT) {
+        for (int c = 0; c < C; ++c) res[(3 + c) * cap] = dq[c] * wq;
+      } else {
+        const float wj = pi.w > 0.5f ? fb : 0.0f;
+        for (int c = 0; c < CQ; ++c) res[(3 + c) * cap] = dq[c] * (c < C ? wj : fa);
+      }
     }
     __syncthreads();
     // fold the pass into the row sums in offset order (the same order for every
@@ -383,7 +443,8 @@ window_kernel(const float* __restrict__ pc, const float* __restrict__ q, const f
       for (int ol = 0; ol < G; ++ol) sum += s_res[(ol * nv + c) * cap + i];
       if (G < N_WIN && g0 + G < N_WIN) s_sum[idx] = sum;
       else if (c < 3) d_pc[((size_t)home * 3 + c) * cap + i] = sum;
-      else d_q[((size_t)home * cap + i) * C + (c - 3)] = sum;
+      else if (!SPLIT || c < 3 + C) d_q[((size_t)home * cap + i) * C + (c - 3)] = sum;
+      else d_qi_g[((size_t)home * cap + i) * C + (c - 3 - C)] = sum;
     }
     for (int t = threadIdx.x; t < 3 * G; t += blockDim.x) {
       const int ol = t / 3, c = t % 3;
@@ -468,7 +529,7 @@ int tpme_window_group(int cap, int n_ch, int device) {
   int optin = 0;
   cudaFuncAttributes attr;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, window_kernel<N_WIN, false, 2>) != cudaSuccess)
+      cudaFuncGetAttributes(&attr, window_kernel<N_WIN, false, 2, false>) != cudaSuccess)
     return 0;
   const size_t limit = (size_t)optin - attr.sharedSizeBytes;
   const int groups[4] = {27, 9, 3, 1};
@@ -488,11 +549,15 @@ int tpme_window_max_cap(int n_ch, int device) {
   return lo;
 }
 
-// weights: the KIND 2 terms' weights on the device (float, n_members), else unused
+// weights: the KIND 2 terms' weights on the device (float, n_members), else unused.
+// qi, d_qi: the separate i-side charges and their cotangent (cells, cap, C),
+// both given (the SPLIT variant) or both null.
 int tpme_window(const float* pc, const float* q, const float* mf, const float* offs,
-                const float* weights, double* acc, float* d_pc, float* d_q, float* d_offs,
-                const WindowParams* p, void* stream) {
-  if (p->n_ch < 1 || p->n_ch > MAX_CH || p->n_members < 1 || p->n_members > MAX_MEMBERS ||
+                const float* weights, const float* qi, double* acc, float* d_pc, float* d_q,
+                float* d_offs, float* d_qi, const WindowParams* p, void* stream) {
+  const int split = qi != nullptr;
+  if ((qi == nullptr) != (d_qi == nullptr) ||
+      p->n_ch < 1 || p->n_ch > MAX_CH || p->n_members < 1 || p->n_members > MAX_MEMBERS ||
       p->kind < 0 || p->kind > 2 || (p->kind < 2 && p->n_members != 1) ||
       (p->kind == 2 && weights == nullptr) ||
       (p->kind == 0 && p->members[0].p != 1))
@@ -500,21 +565,23 @@ int tpme_window(const float* pc, const float* q, const float* mf, const float* o
   for (int mi = 0; mi < p->n_members; ++mi)
     if (p->members[mi].p < 1 || p->members[mi].p > 6) return (int)cudaErrorInvalidValue;
   const int n_cells = p->nx * p->ny * p->nz;
-  const size_t smem = window_smem(p->cap, p->n_ch, p->group);
+  const size_t smem = window_smem(p->cap, split ? 2 * p->n_ch : p->n_ch, p->group);
   cudaStream_t st = (cudaStream_t)stream;
-  switch ((p->group * 2 + (p->direct != 0)) * 3 + p->kind) {
-#define WINDOW_CASE(G, D, K)                                                                      \
-  case (G * 2 + D) * 3 + K:                                                                       \
-    if (cudaFuncSetAttribute(window_kernel<G, D, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
-                             (int)smem) != cudaSuccess)                                           \
-      return (int)cudaGetLastError();                                                             \
-    window_kernel<G, D, K><<<n_cells, THREADS, smem, st>>>(pc, q, mf, offs, weights, acc, d_pc,   \
-                                                           d_q, d_offs, *p);                      \
+  switch ((((p->group * 2 + (p->direct != 0)) * 3 + p->kind) * 2) + split) {
+#define WINDOW_CASE(G, D, K, S)                                                                  \
+  case ((G * 2 + D) * 3 + K) * 2 + S:                                                            \
+    if (cudaFuncSetAttribute(window_kernel<G, D, K, S>,                                          \
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) != cudaSuccess) \
+      return (int)cudaGetLastError();                                                            \
+    window_kernel<G, D, K, S><<<n_cells, THREADS, smem, st>>>(pc, q, mf, offs, weights, qi, acc, \
+                                                              d_pc, d_q, d_offs, d_qi, *p);      \
     break;
-#define WINDOW_KINDS(G, D) WINDOW_CASE(G, D, 0) WINDOW_CASE(G, D, 1) WINDOW_CASE(G, D, 2)
+#define WINDOW_SPLITS(G, D, K) WINDOW_CASE(G, D, K, 0) WINDOW_CASE(G, D, K, 1)
+#define WINDOW_KINDS(G, D) WINDOW_SPLITS(G, D, 0) WINDOW_SPLITS(G, D, 1) WINDOW_SPLITS(G, D, 2)
     WINDOW_KINDS(27, 0) WINDOW_KINDS(9, 0) WINDOW_KINDS(3, 0) WINDOW_KINDS(1, 0)
     WINDOW_KINDS(27, 1) WINDOW_KINDS(9, 1) WINDOW_KINDS(3, 1) WINDOW_KINDS(1, 1)
 #undef WINDOW_KINDS
+#undef WINDOW_SPLITS
 #undef WINDOW_CASE
     default: return (int)cudaErrorInvalidValue;
   }

@@ -99,12 +99,15 @@ class LaunchCounter:
 SPREAD_FWD = LaunchCounter("spread_fwd")
 SPREAD_BWD = LaunchCounter("spread_bwd")
 WINDOW = LaunchCounter("window")
+#: kernel C's split variant: separate i-side charges (the x-slab sharded window)
+WINDOW_SPLIT = LaunchCounter("window_split")
 MESH_SPREAD = LaunchCounter("mesh_spread")
 MESH_GATHER = LaunchCounter("mesh_gather")
 MESH_WGRAD = LaunchCounter("mesh_wgrad")
 WINDOW_DIPOLE = LaunchCounter("window_dipole")
 COUNTERS = (
-    SPREAD_FWD, SPREAD_BWD, WINDOW, MESH_SPREAD, MESH_GATHER, MESH_WGRAD, WINDOW_DIPOLE,
+    SPREAD_FWD, SPREAD_BWD, WINDOW, WINDOW_SPLIT, MESH_SPREAD, MESH_GATHER, MESH_WGRAD,
+    WINDOW_DIPOLE,
 )
 
 
@@ -251,7 +254,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tpme_spread_bwd.argtypes = [p, p, p, p, p, ctypes.POINTER(SpreadParams), p]
     lib.tpme_spread_bwd.restype = ctypes.c_int
     lib.tpme_window.argtypes = [
-        p, p, p, p, p, p, p, p, p, ctypes.POINTER(WindowParams), p,
+        p, p, p, p, p, p, p, p, p, p, p, ctypes.POINTER(WindowParams), p,
     ]
     lib.tpme_window.restype = ctypes.c_int
     lib.tpme_window_group.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]

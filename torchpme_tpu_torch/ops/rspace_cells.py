@@ -207,6 +207,7 @@ def compute_cell_list(
     cutoff: float,
     capacity: int | None = None,
     spill: bool | None = None,
+    x_multiple: int | None = None,
     xy_cells: tuple[int, int] | None = None,
     balance: bool | tuple[float, float, float] = False,
     device=None,
@@ -221,6 +222,10 @@ def compute_cell_list(
     :param spill: allow the overflow side list (default: when
         ``capacity`` is ``None``); needs every cell-plane distance ≥
         2·cutoff.
+    :param x_multiple: round the cell count along x down to a multiple of
+        this (cells get larger, never smaller than the cutoff): the x-slab
+        sharded MD state needs the x cell planes evenly divisible over the
+        ranks (:func:`torchpme_tpu_torch.parallel.compute_sharded_md_state`).
     :param xy_cells: force the cell counts along x and y (the tile-aligned
         MD state pins them to the mesh-tile grid).
     :param balance: overflow-balance the bucketing within the per-axis
@@ -245,6 +250,13 @@ def compute_cell_list(
             f"cutoff {cutoff} exceeds a cell plane distance {plane_dist}; "
             "the 27-cell window cannot cover the cutoff sphere"
         )
+    if x_multiple is not None:
+        if n_axis[0] < x_multiple:
+            raise ValueError(
+                f"only {n_axis[0]} cell planes fit along x at cutoff {cutoff}; "
+                f"cannot shard them over {x_multiple} devices"
+            )
+        n_axis[0] -= n_axis[0] % x_multiple
     if xy_cells is not None:
         req = np.asarray(xy_cells, dtype=np.int64)
         if np.any(req > n_axis[:2]):
@@ -686,7 +698,9 @@ class _WindowPairs:
 # -- kernel C and its plain twin ----------------------------------------------
 
 
-def _we_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs, with_params=False):
+def _we_value_and_grad(
+    potential, cutoff: float, pc_t, q_g, mf_g, offs, with_params=False, qi_g=None
+):
     """Plain twin of kernel C: the window energy and its gradient in one pass.
 
     Per offset, with ``s_ij = q_i·q_j·V'(d_ij)/d_ij``:
@@ -710,12 +724,20 @@ def _we_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs, with_par
         potential's trainable parameters (:func:`_trainable`): for kernel C's
         pair terms these are the weights of a ``CombinedPotential`` and their
         gradient each term's energy, summed in float64 as kernel C sums it.
-    :return: ``(e, (d_pc, d_q, d_offs, d_image))``, and ``d_params`` with
-        ``with_params``; outside autograd (the caller's op or
-        :class:`_WindowEnergy` carries the gradients).
+    :param qi_g: separate i-side charges ``(nx, ny, nz, cap, C)`` (the
+        x-slab sharded window zeroes them on its halo plane, so each
+        unordered pair counts once, on the rank of its lower-x cell): the
+        energy is ``Σ qi_i q_j V``, and the i- and j-side charge
+        cotangents come apart, ``d_qi`` and ``d_q``.  The self row of
+        ``d_offs`` is then 0 (its offset is the zero vector).
+    :return: ``(e, (d_pc, d_q, d_offs, d_image))`` (``d_qi`` last with
+        ``qi_g``), and ``d_params`` with ``with_params``; outside autograd
+        (the caller's op or :class:`_WindowEnergy` carries the gradients).
     """
     params = _trainable(potential) if with_params else ()
-    e, grads, member_e, d_params = _we_plain(potential, cutoff, pc_t, q_g, mf_g, offs, params)
+    e, grads, member_e, d_params = _we_plain(
+        potential, cutoff, pc_t, q_g, mf_g, offs, params, qi_g
+    )
     if not with_params:
         return e, grads
     if _window_terms(potential) is not None:
@@ -726,12 +748,13 @@ def _we_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs, with_par
 
 
 @torch.no_grad()
-def _we_plain(potential, cutoff, pc_t, q_g, mf_g, offs, params):
+def _we_plain(potential, cutoff, pc_t, q_g, mf_g, offs, params, qi_g=None):
     """:func:`_we_value_and_grad`'s pass, the offsets stacked in as few
     passes as :func:`_offset_chunks` allows: ``(e, grads, member_e,
     d_params)``, ``member_e`` the float64 energies of a
     ``CombinedPotential``'s terms where they are kernel C's (zeros
-    otherwise), ``d_params`` the exact route's gradients of ``params``."""
+    otherwise), ``d_params`` the exact route's gradients of ``params``;
+    ``grads`` ends with ``d_qi`` where ``qi_g`` is given."""
     nx, ny, nz, _, cap = pc_t.shape
     n_terms = len(_window_terms(potential) or ())
     # the energy is a sum of terms far larger than their total: accumulate it
@@ -739,20 +762,31 @@ def _we_plain(potential, cutoff, pc_t, q_g, mf_g, offs, params):
     e = torch.zeros((), dtype=torch.float64, device=pc_t.device)
     member_e = torch.zeros(n_terms, dtype=torch.float64, device=pc_t.device)
     d_pc, d_q = torch.zeros_like(pc_t), torch.zeros_like(q_g)
+    d_qi = None if qi_g is None else torch.zeros_like(qi_g)
     d_offs, d_image = [], torch.zeros((3, 3), dtype=torch.float64, device=pc_t.device)
     d_params = [torch.zeros_like(p, dtype=torch.float64) for p in params]
     for ks in _offset_chunks(nx * ny * nz, cap):
-        part = _we_offsets(potential, cutoff, pc_t, q_g, mf_g, offs, params, ks)
+        part = _we_offsets(potential, cutoff, pc_t, q_g, mf_g, offs, params, ks, qi_g)
         e, member_e = e + part[0], member_e + part[1]
         d_pc, d_q, d_image = d_pc + part[2], d_q + part[3], d_image + part[5]
         d_offs.append(part[4])
         d_params = [a + g for a, g in zip(d_params, part[6])]
-    return e.to(pc_t.dtype), (d_pc, d_q, torch.cat(d_offs), d_image), member_e, d_params
+        if qi_g is not None:
+            d_qi = d_qi + part[7]
+    grads = (d_pc, d_q, torch.cat(d_offs), d_image)
+    if qi_g is not None:
+        # the self offset is the zero vector: its row carries no gradient
+        # (with split charges its pairs no longer cancel there)
+        grads[2][_window_offsets(cap).index((0, 0, 0))] = 0.0
+        grads = (*grads, d_qi)
+    return e.to(pc_t.dtype), grads, member_e, d_params
 
 
-def _we_offsets(potential, cutoff, pc_t, q_g, mf_g, offs, params, ks: slice):
+def _we_offsets(potential, cutoff, pc_t, q_g, mf_g, offs, params, ks: slice, qi_g=None):
     """The window offsets ``ks`` on one stacked axis: ``(e, member_e, d_pc,
-    d_q, d_offs[ks], d_image, d_params)``, each summed over those offsets."""
+    d_q, d_offs[ks], d_image, d_params)``, each summed over those offsets,
+    and ``d_qi`` last where ``qi_g`` is given (then ``d_q`` is the j side
+    only)."""
     dtype = pc_t.dtype
     terms = _window_terms(potential)
     pairs = _WindowPairs(pc_t, mf_g, offs, cutoff, ks)
@@ -761,8 +795,9 @@ def _we_offsets(potential, cutoff, pc_t, q_g, mf_g, offs, params, ks: slice):
     w = torch.tensor([0.5 if o == (0, 0, 0) else 1.0 for o in pairs.offsets],
                      dtype=dtype, device=pc_t.device).reshape(-1, 1, 1, 1, 1, 1)
     qj = pairs.partners(q_g) * w
+    qi = q_g if qi_g is None else qi_g
     okf = pairs.pair_ok.to(dtype)
-    vq = okf * torch.matmul(q_g, qj.transpose(-1, -2))
+    vq = okf * torch.matmul(qi, qj.transpose(-1, -2))
     members, d_params = None, []
     if dtype == torch.float32 and terms is not None:
         v_raw, w_raw, members = _window_math(potential, d_sq_safe)
@@ -783,10 +818,14 @@ def _we_offsets(potential, cutoff, pc_t, q_g, mf_g, offs, params, ks: slice):
     g_i = pc_t * s.sum(-1)[..., None, :] - torch.matmul(pj, s.transpose(-1, -2))
     d_pj = pj * s.sum(-2)[..., None, :] - torch.matmul(pc_t, s)  # (k, x, y, z, 3, cap)
     d_pc = g_i.sum(0) + pairs.home(d_pj).sum(0)
-    d_qj = pairs.home(torch.matmul(v.transpose(-1, -2), q_g)) * w
-    d_q = torch.matmul(v, qj).sum(0) + d_qj.sum(0)
+    d_qj = pairs.home(torch.matmul(v.transpose(-1, -2), qi)) * w
     d_image = -_image_term(g_i.sum(-1, dtype=torch.float64), pairs.offsets)
-    return e, member_e, d_pc, d_q, d_pj.sum(dim=(1, 2, 3, 5)), d_image, d_params
+    d_offs = d_pj.sum(dim=(1, 2, 3, 5))
+    if qi_g is not None:
+        return (e, member_e, d_pc, d_qj.sum(0), d_offs, d_image, d_params,
+                torch.matmul(v, qj).sum(0))
+    d_q = torch.matmul(v, qj).sum(0) + d_qj.sum(0)
+    return e, member_e, d_pc, d_q, d_offs, d_image, d_params
 
 
 def _image_term(g_cells, offsets) -> torch.Tensor:
@@ -910,22 +949,26 @@ def _kernel_weights(weights, device):
 
 
 @functools.lru_cache(maxsize=None)
-def _window_group(cap: int, n_ch: int, device_index: int) -> int:
+def _window_group(cap: int, n_ch: int, device_index: int, split: bool = False) -> int:
     """Neighbour offsets that kernel C stages per pass at this capacity:
     27, 9, 3 or 1, the most that fit the card's shared memory.  Raises
-    where even one offset a pass does not fit."""
+    where even one offset a pass does not fit.  With separate i-side
+    charges (``split``) a slot stages both charge sets, so it takes the
+    shared memory of ``2·n_ch`` channels."""
     lib = _k.load_library().lib
-    group = lib.tpme_window_group(cap, n_ch, device_index)
+    cols = 2 * n_ch if split else n_ch
+    group = lib.tpme_window_group(cap, cols, device_index)
     if group == 0:
         raise ValueError(
             f"the window kernel takes a cell capacity of at most "
-            f"{lib.tpme_window_max_cap(n_ch, device_index)} at {n_ch} channel(s), "
+            f"{lib.tpme_window_max_cap(cols, device_index)} at {n_ch} channel(s)"
+            f"{' with separate i-side charges' if split else ''}, "
             f"got {cap}; plain=True runs the plain version"
         )
     return group
 
 
-def _check_window(potential, pc_t, q_g, mf_g, offs):
+def _check_window(potential, pc_t, q_g, mf_g, offs, qi_g=None):
     """Validate kernel C's operands, and that it evaluates ``potential``."""
     if _window_terms(potential) is None:
         raise TypeError(
@@ -934,10 +977,10 @@ def _check_window(potential, pc_t, q_g, mf_g, offs):
             f"{_k.MAX_MEMBERS} of them, without an exclusion window; got "
             f"{type(potential).__name__}: plain=True runs the plain version"
         )
-    _check_window_operands(pc_t, q_g, mf_g, offs)
+    _check_window_operands(pc_t, q_g, mf_g, offs, qi_g)
 
 
-def _check_window_operands(pc_t, q_g, mf_g, offs):
+def _check_window_operands(pc_t, q_g, mf_g, offs, qi_g=None):
     if pc_t.ndim != 5 or pc_t.shape[3] != 3:
         raise ValueError(f"pc_t must be (nx, ny, nz, 3, cap), got {tuple(pc_t.shape)}")
     nx, ny, nz, _, cap = pc_t.shape
@@ -948,14 +991,19 @@ def _check_window_operands(pc_t, q_g, mf_g, offs):
     _k.check_cuda_tensor(q_g, "q_g", (nx, ny, nz, cap, n_ch))
     _k.check_cuda_tensor(mf_g, "mf_g", (nx, ny, nz, cap))
     _k.check_cuda_tensor(offs, "offs", (_k.N_OFFSETS, 3))
+    if qi_g is not None:
+        _k.check_cuda_tensor(qi_g, "qi_g", (nx, ny, nz, cap, n_ch))
 
 
-def _launch_window(table, cutoff: float, pc_t, q_g, mf_g, offs):
+def _launch_window(table, cutoff: float, pc_t, q_g, mf_g, offs, qi_g=None):
     """Kernel C over checked operands for a pair-term ``table``
-    (:func:`window_table`): ``(e, d_pc, d_q, d_offs, d_image, members)``,
-    the last the terms' float64 energies."""
+    (:func:`window_table`): ``(e, d_pc, d_q, d_offs, d_image, d_qi,
+    members)``, the last the terms' float64 energies; ``d_qi`` is empty
+    without separate i-side charges ``qi_g`` (the kernel's split variant
+    otherwise)."""
     weights, kinds = table[:2]
     cap, n_ch = pc_t.shape[-1], q_g.shape[-1]
+    split = qi_g is not None
     # the kernel writes every row of its outputs; its double accumulators
     # (energy, d_offs, a block counter, the members' energies, the image
     # term) start at zero
@@ -963,21 +1011,24 @@ def _launch_window(table, cutoff: float, pc_t, q_g, mf_g, offs):
     d_pc = torch.empty_like(pc_t)
     d_q = torch.empty_like(q_g)
     d_offs = torch.empty_like(offs)
+    d_qi = torch.empty_like(q_g) if split else q_g.new_empty((0,))
     p = _table_params(table, cutoff, pc_t, q_g)
-    p.group = _window_group(cap, n_ch, pc_t.device.index)
+    p.group = _window_group(cap, n_ch, pc_t.device.index, split)
     weights = _kernel_weights(weights, pc_t.device)
     status = _k.load_library().lib.tpme_window(
         pc_t.data_ptr(), q_g.data_ptr(), mf_g.data_ptr(), offs.data_ptr(),
         None if weights is None else weights.data_ptr(),
+        qi_g.data_ptr() if split else None,
         acc.data_ptr(), d_pc.data_ptr(), d_q.data_ptr(), d_offs.data_ptr(),
+        d_qi.data_ptr() if split else None,
         ctypes.byref(p), _k.stream_handle(pc_t.device),
     )
     _k.check_status(status, "window")
-    _k.WINDOW.launches += 1
+    (_k.WINDOW_SPLIT if split else _k.WINDOW).launches += 1
     # an op's outputs are fresh tensors, not views of the accumulator
     d_image = acc[_k.WINDOW_IMAGE_ROW :].reshape(3, 3).clone()
     members = acc[_k.WINDOW_MEMBER_ROW : _k.WINDOW_MEMBER_ROW + len(kinds)].clone()
-    return acc[0].to(torch.float32), d_pc, d_q, d_offs, d_image, members
+    return acc[0].to(torch.float32), d_pc, d_q, d_offs, d_image, d_qi, members
 
 
 @_k.custom_op("window")
@@ -985,30 +1036,35 @@ def window(
     pc_t: Tensor, q_g: Tensor, mf_g: Tensor, offs: Tensor, cell: Tensor,
     weights: Optional[Tensor], kinds: Sequence[int], exponents: Sequence[int],
     smearings: Sequence[float], prefactors: Sequence[float], direct: bool, cutoff: float,
-    plain: bool = False,
-) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
-    """Kernel C: ``(e, d_pc, d_q, d_offs, d_image, members)`` of the window
-    for the pair-term table of :func:`window_table`; ``members`` are the
-    terms' float64 energies (a ``CombinedPotential``'s dE/dw).  ``cell``
-    only takes the image term's cotangent.  The plain version
-    (:func:`_we_value_and_grad`) on CPU tensors or with ``plain``."""
+    plain: bool = False, qi_g: Optional[Tensor] = None,
+) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Kernel C: ``(e, d_pc, d_q, d_offs, d_image, d_qi, members)`` of the
+    window for the pair-term table of :func:`window_table`; ``members`` are
+    the terms' float64 energies (a ``CombinedPotential``'s dE/dw).  With
+    separate i-side charges ``qi_g`` the energy is ``Σ qi_i q_j V``
+    and ``d_qi`` their cotangent (kernel C's split variant; ``d_q`` is then
+    the j side's), else ``d_qi`` is empty.  ``cell`` only takes the image
+    term's cotangent.  The plain version (:func:`_we_value_and_grad`) on
+    CPU tensors or with ``plain``."""
     del cell
     table = (weights, kinds, exponents, smearings, prefactors, direct)
     if plain or pc_t.device.type == "cpu":
         e, grads, members, _ = _we_plain(
-            _table_potential(table), cutoff, pc_t, q_g, mf_g, offs, ()
+            _table_potential(table), cutoff, pc_t, q_g, mf_g, offs, (), qi_g
         )
-        return e, *grads, members
-    _check_window_operands(pc_t, q_g, mf_g, offs)
-    return _launch_window(table, cutoff, pc_t, q_g, mf_g, offs)
+        d_qi = grads[4] if qi_g is not None else q_g.new_empty((0,))
+        return e, *grads[:4], d_qi, members
+    _check_window_operands(pc_t, q_g, mf_g, offs, qi_g)
+    return _launch_window(table, cutoff, pc_t, q_g, mf_g, offs, qi_g)
 
 
 @window.register_fake
 def _(pc_t, q_g, mf_g, offs, cell, weights, kinds, exponents, smearings, prefactors, direct,
-      cutoff, plain=False):
+      cutoff, plain=False, qi_g=None):
     wide = dict(dtype=torch.float64, device=pc_t.device)
+    d_qi = torch.empty_like(q_g) if qi_g is not None else q_g.new_empty((0,))
     return (pc_t.new_empty(()), torch.empty_like(pc_t), torch.empty_like(q_g),
-            torch.empty_like(offs), torch.empty((3, 3), **wide),
+            torch.empty_like(offs), torch.empty((3, 3), **wide), d_qi,
             torch.empty((len(kinds),), **wide))
 
 
@@ -1021,6 +1077,8 @@ def _window_setup(ctx, inputs, output):
     ctx.set_materialize_grads(False)
     cell, weights = inputs[4], inputs[5]
     ctx.n_inputs = len(inputs)
+    # qi_g, the op's last input, when given
+    ctx.split = len(inputs) > 13 and inputs[13] is not None
     ctx.cell_dtype = cell.dtype
     ctx.weights_like = None if weights is None else (weights.dtype, weights.device)
 
@@ -1029,13 +1087,15 @@ def _window_vjp(ctx, e_bar, *_):
     """The energy is a scalar: every cotangent is ``ē ×`` a gradient the
     forward already holds (the image term for the cell, the terms' energies
     for a ``CombinedPotential``'s weights)."""
-    d_pc, d_q, _, d_image, members = ctx.grads
+    d_pc, d_q, _, d_image, d_qi, members = ctx.grads
     ct_w = None
     if ctx.weights_like is not None:
         dtype, device = ctx.weights_like
         ct_w = e_bar.to(device=device, dtype=dtype) * members.to(device=device, dtype=dtype)
     ct_cell = e_bar.to(ctx.cell_dtype) * d_image.to(ctx.cell_dtype)
     rest = (None,) * (ctx.n_inputs - 6)
+    if ctx.split:
+        rest = (*rest[:-1], e_bar * d_qi)
     return (e_bar * d_pc, e_bar * d_q, None, None, ct_cell, ct_w, *rest)
 
 
@@ -1044,10 +1104,13 @@ _k.refuse_vmap(window, "tpme::window (kernel C)")
 _Window = _k.op_function("_Window", window, _window_setup, _window_vjp)
 
 
-def window_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs, with_params=False):
+def window_value_and_grad(
+    potential, cutoff: float, pc_t, q_g, mf_g, offs, with_params=False, qi_g=None
+):
     """Kernel C: window energy and ``(d_pc, d_q, d_offs, d_image)`` in one
     launch (the image term as :func:`_we_value_and_grad` defines it),
-    through ``torch.ops.tpme.window``.
+    through ``torch.ops.tpme.window``; with separate i-side charges
+    ``qi_g``, kernel C's split variant and ``d_qi`` last.
 
     On CPU tensors the op's body is the plain version (as is
     :func:`_we_value_and_grad` for a potential outside kernel C's table);
@@ -1069,14 +1132,20 @@ def window_value_and_grad(potential, cutoff: float, pc_t, q_g, mf_g, offs, with_
     if pc_t.device.type != "cpu":
         # checked before the op: on a device other than the CPU and the card
         # (``meta``) the op would answer with its fake
-        _check_window(potential, pc_t, q_g, mf_g, offs)
+        _check_window(potential, pc_t, q_g, mf_g, offs, qi_g)
     elif table is None:
-        return _we_value_and_grad(potential, cutoff, pc_t, q_g, mf_g, offs, with_params)
+        return _we_value_and_grad(
+            potential, cutoff, pc_t, q_g, mf_g, offs, with_params, qi_g
+        )
     # a cell of the operands' dtype: the op only routes the image term's
     # cotangent to it
     cell = offs.new_zeros((3, 3))
     with torch.no_grad():
-        e, *grads, members = window(pc_t, q_g, mf_g, offs, cell, *table, cutoff)
+        e, *grads, d_qi, members = window(
+            pc_t, q_g, mf_g, offs, cell, *table, cutoff, qi_g=qi_g
+        )
+    if qi_g is not None:
+        grads = [*grads, d_qi]
     if not with_params:
         return e, tuple(grads)
     # the only trainable parameters kernel C's potentials have are the
@@ -1096,36 +1165,40 @@ class _WindowEnergy(torch.autograd.Function):
     gradients flow back too."""
 
     @staticmethod
-    def forward(ctx, pc_t, q_g, mf_g, offs, cell, potential, cutoff, *params):
+    def forward(ctx, pc_t, q_g, mf_g, offs, cell, qi_g, potential, cutoff, *params):
         e, grads, d_params = _we_value_and_grad(
-            potential, cutoff, pc_t, q_g, mf_g, offs, with_params=True
+            potential, cutoff, pc_t, q_g, mf_g, offs, with_params=True, qi_g=qi_g
         )
-        d_pc, d_q, _, d_image = grads
-        ctx.save_for_backward(d_pc, d_q, d_image.to(cell.dtype), *d_params)
+        d_pc, d_q, _, d_image, *d_qi = grads
+        ctx.split = qi_g is not None
+        ctx.save_for_backward(d_pc, d_q, d_image.to(cell.dtype), *d_qi, *d_params)
         return e
 
     @staticmethod
     def backward(ctx, e_bar):
-        d_pc, d_q, d_image, *d_params = ctx.saved_tensors
+        d_pc, d_q, d_image, *rest = ctx.saved_tensors
+        ct_qi = e_bar * rest.pop(0) if ctx.split else None
         return (
             e_bar * d_pc, e_bar * d_q, None, None, e_bar.to(d_image.dtype) * d_image,
-            None, None, *(e_bar.to(device=g.device, dtype=g.dtype) * g for g in d_params),
+            ct_qi, None, None, *(e_bar.to(device=g.device, dtype=g.dtype) * g for g in rest),
         )
 
 
-def _window_energy(potential, pc_t, q_g, mf_g, offs, cell, cutoff: float, plain: bool):
+def _window_energy(potential, pc_t, q_g, mf_g, offs, cell, cutoff: float, plain: bool,
+                   qi_g=None):
     """The window's energy, differentiable in ``pc_t``, ``q_g``, ``cell``
-    (the image term) and a ``CombinedPotential``'s weights: kernel C's op
-    for a potential of its table, else the plain version (CPU tensors or
-    ``plain``; on a card without it the ``TypeError`` of
-    :func:`window_value_and_grad`)."""
+    (the image term), a ``CombinedPotential``'s weights and the separate
+    i-side charges ``qi_g`` where given: kernel C's op for a potential of
+    its table, else the plain version (CPU tensors or ``plain``; on a card
+    without it the ``TypeError`` of :func:`window_value_and_grad`)."""
     table = window_table(potential)
     if table is not None:
-        return _Window.apply(pc_t, q_g, mf_g, offs, cell, *table, cutoff, plain)[0]
+        args = (pc_t, q_g, mf_g, offs, cell, *table, cutoff, plain)
+        return _Window.apply(*args, *(() if qi_g is None else (qi_g,)))[0]
     if not plain and pc_t.device.type != "cpu":
-        _check_window(potential, pc_t, q_g, mf_g, offs)
+        _check_window(potential, pc_t, q_g, mf_g, offs, qi_g)
     return _WindowEnergy.apply(
-        pc_t, q_g, mf_g, offs, cell, potential, cutoff, *_trainable(potential)
+        pc_t, q_g, mf_g, offs, cell, qi_g, potential, cutoff, *_trainable(potential)
     )
 
 

@@ -8,7 +8,10 @@ hand-written CUDA kernels, and fails (non-zero exit, no result line) if any
 phase fails:
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles ``torchpme_tpu_torch/csrc/*.cu`` with nvcc (sm_90a);
+2. build: compiles ``torchpme_tpu_torch/csrc/*.cu`` with nvcc (sm_90a) and
+   their ``tpme::`` op library, ``csrc/tpme_ops.cpp``, with the host compiler
+   against torch's headers, into one library loaded with
+   ``torch.ops.load_library`` (it happens at the package's first use);
 3. kernels: each of the seven kernels against its plain PyTorch version,
    float32, at the 102k shapes (the window C also on a 3×3×3 cell grid with
    a capacity above 32, and at capacity 250 with four channels, and two of
@@ -111,7 +114,15 @@ phase fails:
     bytes, the export's seconds and the exported ms/step beside the eager
     one; a fresh process that cannot import the calculator, MD, potential,
     tuning or atomistic modules runs DEPLOY_STEPS MD steps from the bytes
-    (examples/19_deployment_md_loop.py's loop) against the parent's; the
+    (examples/19_deployment_md_loop.py's loop) against the parent's; a
+    process with ``torch`` alone (``python -I`` in a scratch directory, the
+    whole package banned) runs DEPLOY_STEPS steps of that loop from the
+    artifacts of the 102k MD step (A, B, C) and of the 102k dipolar MD step
+    (G, D, E + F) by the torch-only recipe (the op library out of the
+    artifact, ``torch.ops.load_library``, ``torch.export.load``), its
+    launches read from ``tpme::launch_counts``, against the same steps here;
+    the host microseconds per call of the ``tpme::window`` and
+    ``tpme::spread_fwd`` ops at the 102k shapes; the
     dipolar MD step (G, D, E + F), the tiled per-atom energy (D, E, F) and
     the fused MD step exported at 3000 and 1536 atoms against their eager
     runs; ``torch.library.opcheck`` of the ops of A, B, C and G;
@@ -142,15 +153,19 @@ With ``--profile`` it also traces the 102k paths (the MD step in aligned,
 fused and tiled mode) with ``torch.profiler``
 and prints, for each, the device time and the number of device events per
 call and the kernels that take most of it, times kernel A's z chunk
-(``ops/spread_fused.py:z_chunk``), kernel B's (``bwd_z_chunk``) and kernels E
-and F's (``ops/mesh_kernels.py:gather_z_chunk``) beside the neighbouring
+(``csrc/tpme_ops.cpp:spread_z_chunk``), kernel B's (``spread_bwd_z_chunk``)
+and kernels E and F's (``gather_z_chunk``; ``kernels.override_z_chunk``
+holds each) beside the neighbouring
 choices, B, E and F also as one thread a slot reading the mesh, and counts
 the atomic instructions of each kernel in the built library's SASS
 (``cuobjdump -sass``).
 
 ``--cell-split TREE`` prints only the dipolar cell-gradient split of phase 7
 for the package of another checkout (the parent commit, say), so that two
-commits compare on one card.
+commits compare on one card.  ``--op-host-us TREE`` prints only the host
+microseconds per call of the ``tpme::window`` and ``tpme::spread_fwd`` ops
+at the 102k main path's shapes (phase 21's ``op_host_us``) for the package of
+``TREE``.
 
 Imports torch, numpy, scipy (through the port's neighbor list) and the
 port; nothing of JAX.
@@ -304,8 +319,11 @@ BATCH_LOOP_CELL_TOL = 1e-5
 # kernels on the same inputs; only the order of float atomics may differ)
 DEPLOY_STEPS = 5
 DEPLOY_DT = 1e-4
+DEPLOY_DIPOLE_DT = 1e-6  # the dipolar forces reach ~1e7 (pairs 0.04 Å apart)
 DEPLOY_TRAJ_ULPS = 4
 DEPLOY_BANNED = ("calculators", "md", "potentials", "tuning", "atomistic")
+# phase 21: host microseconds per op call, each call timed alone on a drained card
+OP_CALLS = 200
 TUNE_CUTOFFS = (4.5, 5.0, 5.5)
 TUNE_GRID = dict(nodes_lo=4, nodes_hi=6, mesh_lo=6, mesh_hi=8)
 EWALD_TUNE_GRID = dict(ns_lo=16, ns_hi=22)
@@ -580,19 +598,18 @@ def sass_atomics(kernels, path) -> None:
     emit({"phase": "sass_atomics", "kernels": counts})
 
 
-def gather_design_sweep(mk, shape: str, launches: dict) -> None:
+def gather_design_sweep(kernels, shape: str, launches: dict) -> None:
     """Queued ms of each of ``launches`` (kernels E and F) at the z chunk of
-    ``ops/mesh_kernels.py:gather_z_chunk`` ("rule") and at 16, 32 and 64
-    z cells, and at z chunk 0: one thread a slot reading its window from the
-    mesh in device memory."""
-    rule = mk.gather_z_chunk
+    their rule (``csrc/tpme_ops.cpp:gather_z_chunk``, "rule") and at 16, 32
+    and 64 z cells, and at z chunk 0: one thread a slot reading its window
+    from the mesh in device memory."""
     times = {}
     try:
         for zc in ("rule", 0, 16, 32, 64):
-            mk.gather_z_chunk = rule if zc == "rule" else (lambda nodes, n_ch, zc=zc: zc)
+            kernels.override_z_chunk("mesh_gather", None if zc == "rule" else zc)
             times[zc] = {name: cuda_ms(fn) for name, fn in launches.items()}
     finally:
-        mk.gather_z_chunk = rule
+        kernels.override_z_chunk("mesh_gather", None)
     emit({"phase": "gather_design_sweep", "shape": shape, "ms": times})
 
 
@@ -725,6 +742,7 @@ def dipole_phases(env) -> None:
           "tile_capacity": tile_cap, "tiled_interpolation_seconds": interp_s,
           "dropped": int(interp.dropped)})
     rows32 = fp.bucket(pos32)
+    env.dipole_fp, env.dipole_mu32 = fp, mu32  # phase 21 exports its step
 
     # -- 3. kernel G at the 102k dipolar window, and D, E, F at the dipolar tiles --
     with torch.no_grad():
@@ -812,10 +830,9 @@ def dipole_phases(env) -> None:
     del mui_split
     # the 3x3x3 cell grid at its own capacity and at EDGE_CAPACITY, with and
     # without separate i-side dipoles
-    lib = kernels.load_library().lib
     emit({"phase": "window_dipole_capacity", "largest_capacity": {
-        "mu": lib.tpme_window_dipole_max_cap(0, torch.cuda.current_device()),
-        "mu_and_mui": lib.tpme_window_dipole_max_cap(1, torch.cuda.current_device())}})
+        "mu": torch.ops.tpme.window_dipole_plan(1, False, torch.cuda.current_device())[1],
+        "mu_and_mui": torch.ops.tpme.window_dipole_plan(1, True, torch.cuda.current_device())[1]}})
     epos, _, ecell = dense_grid_box()
     emu = torch.tensor(np.random.default_rng(3).normal(size=(EDGE_GRID_ATOMS, 3)), **f32)
     for capacity in (None, EDGE_CAPACITY):
@@ -888,7 +905,7 @@ def dipole_phases(env) -> None:
           "bitwise_equal_over_two_launches_and_to_e_and_f": True})
     del first, again, split
     if env.profile:
-        gather_design_sweep(mk, f"dipole form, {DIPOLE_NODES} nodes", {
+        gather_design_sweep(kernels, f"dipole form, {DIPOLE_NODES} nodes", {
             "mesh_gather": lambda: mk.mesh_gather_dipole(*dip_args, field, NS_MESH, DIPOLE_NODES),
             "mesh_wgrad": lambda: mk.mesh_wgrad_dipole(*dip_args, nu_slots, field, NS_MESH,
                                                        DIPOLE_NODES),
@@ -2494,6 +2511,164 @@ print(json.dumps({"launches": kernels.launch_counts(), "port_modules": sorted(
 """
 
 
+#: phase 21's engine with ``torch`` alone (``python -I`` in a scratch
+#: directory, no path to the repository, the whole package banned): the
+#: torch-only recipe of ``torchpme_tpu_torch/deploy.py`` on each artifact
+#: ``<name>.zip`` of argv[1], then DEPLOY_LOOP from ``<name>_a.npy`` and
+#: ``<name>_b.npy`` for argv[2] steps at the dt of ``<name>_dt.npy``
+TORCH_ONLY_ENGINE = """
+import importlib.abc, io, json, sys, tempfile, time, zipfile
+t0 = time.perf_counter()
+class Ban(importlib.abc.MetaPathFinder):
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.split(".")[0] == "torchpme_tpu_torch":
+            raise ImportError(fullname + " is banned: this engine has torch alone")
+        return None
+sys.meta_path.insert(0, Ban())
+import numpy as np, torch
+out = {"import_seconds": time.perf_counter() - t0}
+""" + DEPLOY_LOOP + """
+for name in sys.argv[1].split(","):
+    t1 = time.perf_counter()
+    with zipfile.ZipFile(name + ".zip") as archive:
+        library, program = archive.read("tpme_ops.so"), archive.read("cuda.pt2")
+    if not hasattr(torch.ops.tpme, "launch_counts"):  # one library a process
+        with tempfile.NamedTemporaryFile(suffix=".so") as f:
+            f.write(library)
+            f.flush()
+            torch.ops.load_library(f.name)
+    step = torch.export.load(io.BytesIO(program)).module()
+    load_s = time.perf_counter() - t1
+    a, b = (torch.tensor(np.load(f"{name}_{x}.npy"), device="cuda") for x in "ab")
+    torch.ops.tpme.reset_launch_counts()
+    t2 = time.perf_counter()
+    rows, energies = md_loop(step, a, b, int(sys.argv[2]), float(np.load(name + "_dt.npy")))
+    torch.cuda.synchronize()
+    out[name] = {"launches": list(torch.ops.tpme.launch_counts()), "load_seconds": load_s,
+                 "steps_seconds": time.perf_counter() - t2}
+    np.save(name + "_rows_final.npy", rows.cpu().numpy())
+    np.save(name + "_energies.npy", energies.cpu().numpy())
+out["port_modules"] = sorted(m for m in sys.modules if m.startswith("torchpme"))
+out["sys_path"] = sys.path
+print(json.dumps(out))
+"""
+
+
+def torch_only_engine(kernels, runs: dict, loop) -> dict:
+    """Phase 21's engine with ``torch`` alone (:data:`TORCH_ONLY_ENGINE`) on
+    ``runs`` = ``{name: (artifact bytes, a, b, dt, step in this process,
+    kernels it launches)}``: each artifact's DEPLOY_STEPS steps of the loop
+    against the same steps of this process, and each kernel launched once a
+    step.  Returns the record."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as work:
+        for name, (blob, a, b, dt, _, _) in runs.items():
+            Path(work, f"{name}.zip").write_bytes(blob)
+            np.save(Path(work, f"{name}_a.npy"), a.cpu().numpy())
+            np.save(Path(work, f"{name}_b.npy"), b.cpu().numpy())
+            np.save(Path(work, f"{name}_dt.npy"), np.float64(dt))
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-I", "-c", TORCH_ONLY_ENGINE, ",".join(runs),
+                              str(DEPLOY_STEPS)], cwd=work, capture_output=True, text=True,
+                             timeout=600)
+        engine_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"the torch-only engine failed:\n{run.stderr[-3000:]}")
+        engine = json.loads(run.stdout.strip().splitlines()[-1])
+        finals = {name: (np.load(Path(work, f"{name}_rows_final.npy")),
+                         np.load(Path(work, f"{name}_energies.npy"))) for name in runs}
+    if engine["port_modules"] or any(str(REPO) in str(x) for x in engine["sys_path"]):
+        raise AssertionError(f"the torch-only engine reached the port: {engine}")
+    out = {"seconds": engine_s, "import_seconds": engine["import_seconds"]}
+    for name, (blob, a, b, dt, step, want) in runs.items():
+        rows_engine, e_engine = finals[name]
+        rows_here, e_here = loop(step, a, b, DEPLOY_STEPS, dt)
+        rows_here, e_here = rows_here.cpu().numpy(), e_here.cpu().numpy()
+        traj_err = float(np.max(np.abs(rows_engine - rows_here)))
+        traj_bar = DEPLOY_TRAJ_ULPS * float(np.finfo(np.float32).eps) * float(
+            np.abs(rows_here).max())
+        e_err = float(np.max(np.abs(e_engine - e_here) / np.abs(e_here)))
+        launches = {k: v for k, v in zip(kernels.COUNTER_NAMES, engine[name]["launches"]) if v}
+        rec = {"artifact_bytes": len(blob), "steps": DEPLOY_STEPS, "dt": dt,
+               "load_seconds": engine[name]["load_seconds"],
+               "steps_seconds": engine[name]["steps_seconds"], "max_abs_rows_diff": traj_err,
+               "rows_bar": traj_bar, "energy_max_rel_diff": e_err, "launches": launches,
+               "energies": [float(x) for x in e_engine]}
+        out[name] = rec
+        if launches != {k: DEPLOY_STEPS for k in want}:
+            raise AssertionError(f"the torch-only engine's {name} launched {launches}")
+        if not (traj_err <= traj_bar and e_err <= 1e-6 and np.all(np.isfinite(e_engine))):
+            raise AssertionError(f"the torch-only engine's {name} differs from this process: {rec}")
+    return out
+
+
+def op_host_us(fp, pos32, q32, cell32) -> dict:
+    """Host microseconds per call of the ``tpme::window`` (kernel C) and
+    ``tpme::spread_fwd`` (kernel A) ops at the 102k main path's shapes:
+    OP_CALLS calls of each, the card drained before each call (so that no
+    call waits for the launch queue), the host's clock around the call
+    alone; the median and the mean.  The calls are the ops' own, so the same
+    code times the package of another checkout (``--op-host-us``)."""
+    from torchpme_tpu_torch.ops.math import inv3
+    from torchpme_tpu_torch.ops.rspace_cells import _prepare_bucketed, window_table
+    from torchpme_tpu_torch.ops.spread_fused import SpreadGeometry, aligned_geometry
+
+    with torch.no_grad():
+        nx_c, ny_c, nz_c, cap = fp.cell_grid
+        extent, lpad = aligned_geometry(NODES, fp.aligned_pad)
+        geom = SpreadGeometry(NS_MESH, NODES, "Lagrange", extent, lpad, nx_c * ny_c,
+                              nz_c * cap, nz_c)
+        nb = geom.n_tiles * geom.slots_per_tile
+        rows = fp.bucket(pos32)
+        ns_t = torch.tensor(NS_MESH, dtype=torch.float32, device=pos32.device)
+        rel = (rows @ inv3(cell32) * ns_t)[:nb].contiguous()
+        q_rows = torch.zeros((fp.n_rows, 1), dtype=torch.float32, device=pos32.device)
+        q_rows = q_rows.index_copy(0, fp.row_of_atom.long(), q32)[:nb].contiguous()
+        n_cells = fp.clist.slot_mask.shape[0]
+        win = _prepare_bucketed(q32[fp.clist.atom_index.long()],
+                                rows[:nb].reshape(n_cells, cap, 3), cell32, fp.clist,
+                                window=True)[:4]
+    geometry, method = geom.as_args()
+    table = window_table(fp.calc.potential)
+    calls = {"window": lambda: torch.ops.tpme.window(*win, cell32, *table, CUTOFF),
+             "spread_fwd": lambda: torch.ops.tpme.spread_fwd(rel, q_rows, geometry, method)}
+    out = {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            fn()
+            times = []
+            for _ in range(OP_CALLS):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t0)
+            sync()
+            out[name] = {"median_us": 1e6 * float(np.median(times)),
+                         "mean_us": 1e6 * float(np.mean(times)), "calls": OP_CALLS}
+    return out
+
+
+def op_host_us_of(tree: Path) -> int:
+    """``--op-host-us TREE``: :func:`op_host_us` for the package of another
+    checkout ``TREE`` (or this one), so that two commits compare on one
+    card; one JSON line."""
+    sys.path.insert(0, str(tree.resolve()))
+    import torchpme_tpu_torch as tpt
+
+    dev = tpt.default_device()
+    f32 = dict(dtype=torch.float32, device=dev)
+    positions, charges, cell = water_box(N_ATOMS)
+    calc = tpt.PMECalculator(tpt.CoulombPotential(smearing=smearing_for(positions, charges, cell)),
+                             interpolation_nodes=NODES)
+    fp = tpt.MDFastPath.create(calc, positions.astype(np.float32), cell.astype(np.float32),
+                               CUTOFF, NS_MESH)
+    emit({"phase": "op_host_us", "package": tpt.__file__, "nvidia_smi": card_line(),
+          **op_host_us(fp, torch.tensor(positions, **f32), torch.tensor(charges, **f32),
+                       torch.tensor(cell, **f32))})
+    return 0
+
+
 def exported_check(label, deploy, kernels, fn, args, with_grad, tol=1e-5, cell_tol=1e-4):
     """Export ``fn`` at ``args`` with its gradient, load it, and hold one
     exported call against the eager call: value and gradients (the last
@@ -2545,6 +2720,9 @@ def deploy_phases(env) -> dict:
     cannot import the calculators, MD, potentials, tuning or atomistic
     modules loads the bytes and runs DEPLOY_STEPS steps of the loop of
     examples/19_deployment_md_loop.py, against the same steps of the parent;
+    (b') a process with ``torch`` alone does the same from the bytes of the
+    102k step and of the 102k dipolar step (:func:`torch_only_engine`), and
+    the ops' host microseconds per call (:func:`op_host_us`);
     (c) every other kernel in an exported program: the dipolar MD step (G, D,
     E + F) on the 3000-atom oracle, the tiled per-atom call's energy with
     its position gradient (D, E, F) on the 1536-atom system and the fused
@@ -2653,7 +2831,22 @@ def deploy_phases(env) -> dict:
           "vs_f64_plain": vs64, "exported_ms_per_step": ms["exported"],
           "eager_ms_per_step": ms["eager"], "fresh_process": fresh,
           "torch": torch.__version__, "nvidia_smi": env.smi})
-    del blob, step
+
+    # -- (b') with torch alone: the 102k charge and dipolar steps from their bytes -
+    dfp, dmu = env.dipole_fp, env.dipole_mu32
+    drows = dfp.bucket(env.pos32)
+    dblob, dstep, drec = exported_check(
+        "dipole_md_step_102k", deploy, kernels, lambda r, mu: dfp.energy(mu, cell32, r),
+        (drows, dmu), (0, 1), cell_tol=None)
+    torch_only = torch_only_engine(kernels, {
+        "md_step_aligned_102k": (blob, rows, cell32, DEPLOY_DT, step, md_kernels),
+        "dipole_md_step_102k": (dblob, drows, dmu, DEPLOY_DIPOLE_DT, dstep,
+                                ("window_dipole", "mesh_spread", "mesh_gather", "mesh_wgrad")),
+    }, loop_ns["md_loop"])
+    emit({"phase": "deploy_torch_only", **torch_only, "dipole_export": drec,
+          "op_host_us": op_host_us(fp, env.pos32, q32, cell32), "torch": torch.__version__,
+          "nvidia_smi": env.smi})
+    del blob, step, dblob, dstep, drows
 
     # -- (c) the other kernels in exported programs ---------------------------------
     smearing, spacing = dipole_parameters()
@@ -3109,6 +3302,8 @@ def main() -> int:
         return 1
     if "--cell-split" in sys.argv[1:]:
         return cell_split_of(Path(sys.argv[sys.argv.index("--cell-split") + 1]))
+    if "--op-host-us" in sys.argv[1:]:
+        return op_host_us_of(Path(sys.argv[sys.argv.index("--op-host-us") + 1]))
     sys.path.insert(0, str(REPO))
     import torchpme_tpu_torch as tpt
     from torchpme_tpu_torch import kernels
@@ -3155,8 +3350,9 @@ def main() -> int:
             entry = ln.split("'")[1]
         elif entry and ("registers" in ln or "spill" in ln):
             ptxas[entry] = (ptxas.get(entry, "") + " " + ln.split(":", 1)[-1].strip()).strip()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": built.build_seconds, "ptxas": ptxas})
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": built.path.name,
+          "library_bytes": built.path.stat().st_size,
+          "compile_and_link_seconds": built.build_seconds, "ptxas": ptxas})
     if profile:
         sass_atomics(kernels, built.path)
 
@@ -3238,18 +3434,20 @@ def main() -> int:
         report, tols=[SUM_TOL], shape=f"mesh {ns_tall}",
     )
     if profile:
-        # kernel A's z chunk (ops/spread_fused.py:z_chunk) beside its neighbours
-        rule = sf.z_chunk
+        # kernel A's z chunk (csrc/tpme_ops.cpp:spread_z_chunk) beside its
+        # neighbours
         try:
             for g, r in ((geom, rel), (geom_tall, rel_tall)):
                 nz, times = g.ns[2], {}
-                for zc in sorted({zc for zc in (32, 64, 96, 128) if zc <= nz} | {rule(nz)}):
-                    sf.z_chunk = lambda _nz, zc=zc: zc
+                n_chunks = max(2, -(-nz // 128))
+                rule = -(-nz // n_chunks)
+                for zc in sorted({zc for zc in (32, 64, 96, 128) if zc <= nz} | {rule}):
+                    kernels.override_z_chunk("spread_fwd", zc)
                     times[zc] = cuda_ms(lambda g=g, r=r: fused_spread(r, q_main, g))
                 emit({"phase": "z_chunk_sweep", "name": "spread_fwd", "nz": nz,
-                      "rule": rule(nz), "ms": times})
+                      "rule": rule, "ms": times})
         finally:
-            sf.z_chunk = rule
+            kernels.override_z_chunk("spread_fwd", None)
     # kernel B: 8 operations a node (the weight and derivative contractions of
     # the z line, three products a column), two stencil sets an atom; each
     # input read once, ct_rel and ct_q written once
@@ -3307,19 +3505,18 @@ def main() -> int:
         bwd_bound(rel_f, q_f, ct_rho, 1, N_ATOMS), report, shape=fused_shape,
     )
     if profile:
-        # kernel B's z chunk (ops/spread_fused.py:bwd_z_chunk) beside its
-        # neighbours, and 0: one thread a slot reading device memory
-        rule = sf.bwd_z_chunk
+        # kernel B's z chunk (csrc/tpme_ops.cpp:spread_bwd_z_chunk) beside
+        # its neighbours, and 0: one thread a slot reading device memory
         try:
             for label, g, r, qq in (("aligned", geom, rel, q_main), ("fused", geom_f, rel_f, q_f)):
                 times = {}
                 for zc in ("rule", 0, 16, 32, 64, 128):
-                    sf.bwd_z_chunk = rule if zc == "rule" else (lambda *_, zc=zc: zc)
+                    kernels.override_z_chunk("spread_bwd", None if zc == "rule" else zc)
                     times[zc] = cuda_ms(lambda g=g, r=r, qq=qq: fused_spread_bwd(r, qq, ct_rho, g))
                 emit({"phase": "z_chunk_sweep", "name": "spread_bwd", "layout": label,
-                      "rule": rule(g.nodes, g.extent, 1), "ms": times})
+                      "ms": times})
         finally:
-            sf.bwd_z_chunk = rule
+            kernels.override_z_chunk("spread_bwd", None)
     del rel_f, q_f
     def window_check(ins, n_inside, shape=None, wpot=pot):
         """Kernel C against its plain version on ``ins``; the bound counts
@@ -3394,9 +3591,8 @@ def main() -> int:
                  wpot=tpt.InversePowerLawPotential(exponent=6))
     epos, eq, ecell = dense_grid_box()
     e_pairs = int(neighbor_list(epos, ecell, CUTOFF)[0].shape[0])
-    lib = built.lib
     emit({"phase": "window_capacity", "largest_capacity_by_channels": {
-        n: lib.tpme_window_max_cap(n, torch.cuda.current_device())
+        n: torch.ops.tpme.window_plan(1, n, False, torch.cuda.current_device())[1]
         for n in range(1, kernels.MAX_CHANNELS + 1)}})
     # the grid at its own capacity (all 27 offsets a pass), and at
     # EDGE_CAPACITY with MAX_CHANNELS channels (one x plane of 9 a pass)
@@ -3512,7 +3708,7 @@ def main() -> int:
         emit({"phase": "kernel", "name": "mesh_gather_wgrad", "channels": n_ch, "ms": cuda_ms(both),
               "bitwise_equal_over_two_launches_and_to_e_and_f": True})
         if profile:
-            gather_design_sweep(mk, f"charges, {NODES} nodes, {n_ch} channel(s)", {
+            gather_design_sweep(kernels, f"charges, {NODES} nodes, {n_ch} channel(s)", {
                 "mesh_gather": lambda: mk.mesh_gather(*arrays, field, NS_MESH, NODES),
                 "mesh_wgrad": lambda: mk.mesh_wgrad(*arrays, q_slots, field, NS_MESH, NODES),
                 "mesh_gather_wgrad": both})

@@ -6,6 +6,7 @@ on the CPU in float64."""
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -76,12 +77,17 @@ def test_labeled_equals_plain_bitwise_and_jax(box, name):
     assert out.block() is out
 
     system_j, neighbors_j = _jax(box)
-    out_j = getattr(jat, name)(tpme.CoulombPotential(smearing=0.8), **kw)(
-        system_j, neighbors_j, system_index=3)
-    values_j = np.asarray(out_j.values)
+    calc_j = getattr(jat, name)(tpme.CoulombPotential(smearing=0.8), **kw)
+
+    def call_j():
+        out_j = calc_j(system_j, neighbors_j, system_index=3)
+        return out_j.values, out_j.samples
+
+    # one trace and compile of the JAX call, not one per operation
+    values_j, samples_j = (np.asarray(a) for a in jax.jit(call_j)())
     np.testing.assert_allclose(out.values.numpy(), values_j, rtol=0,
                                atol=1e-10 * np.abs(values_j).max())
-    np.testing.assert_array_equal(out.samples.numpy(), np.asarray(out_j.samples))
+    np.testing.assert_array_equal(out.samples.numpy(), samples_j)
 
 
 @pytest.mark.parametrize("name", CALCULATORS)
@@ -108,7 +114,8 @@ def test_labeled_state_carries_a_jax_wrapper(box, name):
     assert type(calc) is getattr(tat, name)
     assert labeled_calculator_state(calc) == state
     out = calc(*_port(box))
-    values_j = np.asarray(calc_j(*_jax(box)).values)
+    system_j, neighbors_j = _jax(box)
+    values_j = np.asarray(jax.jit(lambda: calc_j(system_j, neighbors_j).values)())
     np.testing.assert_allclose(out.values.numpy(), values_j, rtol=0,
                                atol=1e-10 * np.abs(values_j).max())
     with pytest.raises(ValueError, match="does not wrap"):
@@ -230,8 +237,8 @@ def test_convert_structural_roundtrip(box, arrays):
 
     jax_system = jat.system_from_metatensor(_fake_mts_pair(box, np.asarray)[0])
     jax_nb = jat.neighborlist_from_metatensor(_fake_mts_pair(box, np.asarray)[1])
-    values_j = np.asarray(jat.EwaldCalculator(tpme.CoulombPotential(smearing=0.8),
-                                              lr_wavelength=1.0)(jax_system, jax_nb).values)
+    calc_j = jat.EwaldCalculator(tpme.CoulombPotential(smearing=0.8), lr_wavelength=1.0)
+    values_j = np.asarray(jax.jit(lambda: calc_j(jax_system, jax_nb).values)())
     np.testing.assert_allclose(out.values.numpy(), values_j, rtol=0,
                                atol=1e-10 * np.abs(values_j).max())
 

@@ -257,9 +257,10 @@ def test_energy_equals_sum_of_forward_and_matches_jax(box, backend):
     assert abs(float(e.detach()) - float(e_sum.detach())) <= 1e-11 * abs(float(e_sum.detach()))
     for a, b in zip(torch.autograd.grad(e, (p, c)), torch.autograd.grad(e_sum, (p, c))):
         assert rel(a.numpy(), b.numpy()) <= 1e-10
-    pj, cj = jnp.asarray(positions), jnp.asarray(cell)
-    e_j = calc_j.energy(jnp.asarray(q), cj, pj, jnp.asarray(lst["indices"]),
-                        _jax_distances(pj, cj, lst), ns_mesh=NS)
+    # one trace and compile of the JAX energy, not one per operation
+    e_j = jax.jit(lambda pj, cj: calc_j.energy(jnp.asarray(q), cj, pj, jnp.asarray(lst["indices"]),
+                                               _jax_distances(pj, cj, lst), ns_mesh=NS))(
+        jnp.asarray(positions), jnp.asarray(cell))
     assert abs(float(e.detach()) - float(e_j)) <= 1e-10 * abs(float(e_j))
     # node_mask falls back to the per-atom path; the slab term rides the quadratic form
     node_mask = torch.arange(300) % 5 != 0

@@ -1,6 +1,7 @@
-"""Kernels A, B, C and G as ``tpme::`` custom ops, on the CPU (their bodies
-run the plain versions here): ``torch.library.opcheck`` of each op's
-registrations, the refusal of their vmap registrations, the op's registered
+"""Kernels A, B, C and G as ``tpme::`` ops, on the CPU (defined here from
+the schemas of ``csrc/tpme_ops.h``, their CPU kernels the plain versions):
+``torch.library.opcheck`` of each op's registrations, the refusal of their
+vmap registrations, the op's registered
 autograd against the entry point's ``setup_context`` Function, the
 window ops' schema tables against the potentials they stand for, and the
 ops in a traced program."""
@@ -193,13 +194,13 @@ def test_window_op_with_split_charges(inputs):
           [:, None, None, None, None]).contiguous()
     leaves = [args[0], args[1], args[4], qi]
     full = [a.clone().requires_grad_() if i in (0, 1, 4) else a for i, a in enumerate(args)]
-    torch.library.opcheck(_op("window"), (*full, False, qi.clone().requires_grad_()))
+    torch.library.opcheck(_op("window"), (*full, qi.clone().requires_grad_()))
 
     def run(fn):
         xs = [t.clone().requires_grad_() for t in leaves]
         call = list(args)
         call[0], call[1], call[4] = xs[0], xs[1], xs[2]
-        out = fn(*call, False, xs[3])
+        out = fn(*call, xs[3])
         return torch.autograd.grad(out[0], xs)
 
     for a, b in zip(run(_op("window")), run(rc._Window.apply)):

@@ -288,3 +288,83 @@ def test_export_cross_process(md_engine):
     assert e_engine == pytest.approx(float(e_ref), rel=1e-13)
     np.testing.assert_allclose(np.load(md_engine["workdir"] / "g0.npy"), g_ref.numpy(),
                                rtol=0, atol=1e-12)
+
+
+def _cuda_artifact(torch_version: str) -> bytes:
+    """The members of a CUDA artifact (empty program and library) with what
+    its library was built for."""
+    import io
+    import json
+    import zipfile
+
+    buffer = io.BytesIO()
+    with zipfile.ZipFile(buffer, "w") as archive:
+        archive.writestr(deploy._INDEX, json.dumps(["cuda"]))
+        archive.writestr("cuda.pt2", b"")
+        archive.writestr(deploy.LIBRARY, b"")
+        archive.writestr(deploy.LIBRARY_INFO, json.dumps(
+            {"torch": torch_version, "arch": "sm_90a"}))
+    return buffer.getvalue()
+
+
+def test_cuda_artifact_checks_what_its_library_was_built_for():
+    """A CUDA artifact carries its op library: ``load_step`` refuses it under
+    another torch version, and without a card, each with an error that says
+    so, before it loads anything."""
+    with pytest.raises(RuntimeError, match="built for torch 0.0.0"):
+        load_step(_cuda_artifact("0.0.0"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            load_step(_cuda_artifact(torch.__version__))
+
+
+#: a process with ``torch`` alone: the torch-only recipe of ``deploy``'s
+#: docstring on ``step.zip``, the step at ``rows.npy`` / ``cell.npy``
+TORCH_ONLY = BAN.split("step = ")[0] + (
+    "import tempfile, zipfile\n"
+    "with zipfile.ZipFile(sys.argv[1] + '/step.zip') as archive:\n"
+    "    library, program = archive.read('tpme_ops.so'), archive.read('cuda.pt2')\n"
+    "with tempfile.NamedTemporaryFile(suffix='.so') as f:\n"
+    "    f.write(library)\n"
+    "    f.flush()\n"
+    "    torch.ops.load_library(f.name)\n"
+    "step = torch.export.load(io.BytesIO(program)).module()\n"
+    "rows, cell = (torch.tensor(np.load(sys.argv[1] + f'/{x}.npy')).cuda() for x in ('rows', 'cell'))\n"
+    "torch.ops.tpme.reset_launch_counts()\n"
+    "e, (g, _) = step(rows, cell)\n"
+    "torch.cuda.synchronize()\n"
+    "print(float(e), list(torch.ops.tpme.launch_counts()))\n"
+)
+
+
+@pytest.mark.cuda
+def test_cuda_step_runs_in_a_torch_only_engine(tmp_path):
+    """On a card: the float32 aligned MD step exported for CUDA runs in a
+    process that has ``torch`` alone (the artifact's op library, no module
+    of the port): kernels A, B and C once each, the energy of this
+    process's run of the same program."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the artifact's kernels run on the card")
+    from torchpme_tpu_torch import kernels
+
+    rng = np.random.default_rng(11)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    positions = torch.tensor(rng.uniform(0, 12.8, (200, 3)), **f32)
+    q = rng.normal(size=(200, 1))
+    charges, cell = torch.tensor(q - q.mean(), **f32), torch.eye(3, **f32) * 12.8
+    calc = tpt.PMECalculator(tpt.CoulombPotential(smearing=1.0), mesh_spacing=0.4)
+    fp = tpt.MDFastPath.create(calc, positions, cell, 3.0, (32, 32, 32), mesh_impl="aligned")
+    rows = fp.bucket(positions)
+    blob = export_step(lambda r, c: fp.energy(charges, c, r), rows, cell, with_grad=(0, 1))
+    (tmp_path / "step.zip").write_bytes(blob)
+    np.save(tmp_path / "rows.npy", rows.cpu().numpy())
+    np.save(tmp_path / "cell.npy", cell.cpu().numpy())
+    run = subprocess.run([sys.executable, "-I", "-c", TORCH_ONLY, str(tmp_path)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300, check=False)
+    assert run.returncode == 0, run.stderr[-2000:]
+    e_engine, counts = run.stdout.strip().splitlines()[-1].split(" ", 1)
+    counts = dict(zip(kernels.COUNTER_NAMES, eval(counts)))
+    assert {k: v for k, v in counts.items() if v} == {"spread_fwd": 1, "spread_bwd": 1,
+                                                      "window": 1}
+    e, _ = load_step(blob)(rows, cell)
+    assert float(e_engine) == pytest.approx(float(e), rel=1e-6)

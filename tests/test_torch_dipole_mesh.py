@@ -52,7 +52,9 @@ def test_weight_derivatives_match_jax_and_autograd(nodes):
 @pytest.mark.parametrize("nodes", [4, 5, 6])
 def test_dipole_interpolation_spread_and_gather_match_jax(nodes):
     positions, dipoles = make_system()
-    interp_j = jm.compute_dipole_interpolation(
+    # the JAX package's calls under jax.jit: one compile each, not one per
+    # operation
+    interp_j = jax.jit(jm.compute_dipole_interpolation, static_argnums=(2, 3, 4))(
         jnp.asarray(positions), jnp.asarray(INV), NS, nodes, "Lagrange"
     )
     interp_t = tm.compute_dipole_interpolation(
@@ -64,12 +66,12 @@ def test_dipole_interpolation_spread_and_gather_match_jax(nodes):
     np.testing.assert_allclose(
         interp_t.grad_weights.numpy(), np.asarray(interp_j.grad_weights), rtol=0, atol=ATOL
     )
-    q_j = np.asarray(jm.dipoles_to_mesh(interp_j, jnp.asarray(dipoles)))
+    q_j = np.asarray(jax.jit(jm.dipoles_to_mesh)(interp_j, jnp.asarray(dipoles)))
     q_t = tm.dipoles_to_mesh(interp_t, torch.tensor(dipoles))
     assert q_t.shape == (1, *NS)
     np.testing.assert_allclose(q_t.numpy(), q_j, rtol=0, atol=ATOL)
     field = np.random.default_rng(1).normal(size=q_j.shape)
-    g_j = np.asarray(jm.mesh_to_dipole_field(interp_j, jnp.asarray(field)))
+    g_j = np.asarray(jax.jit(jm.mesh_to_dipole_field)(interp_j, jnp.asarray(field)))
     g_t = tm.mesh_to_dipole_field(interp_t, torch.tensor(field))
     np.testing.assert_allclose(g_t.numpy(), g_j, rtol=0, atol=ATOL)
     # spread and gather are transposes: Σ_i μ_i·g_i == Σ_m Q·mesh
@@ -121,7 +123,7 @@ def test_refresh_keeps_derivatives_and_matches_jax(nodes):
     positions, _ = make_system(seed=2)
     interp_j, interp_t = _both_tiled(positions, nodes)
     moved = positions + 0.01 * np.random.default_rng(3).normal(size=positions.shape)
-    new_j, ok_j = jmt.refresh_tiled_interpolation(
+    new_j, ok_j = jax.jit(jmt.refresh_tiled_interpolation, static_argnums=(3,))(
         interp_j, jnp.asarray(moved), jnp.asarray(INV), "Lagrange"
     )
     new_t, ok_t = mt.refresh_tiled_interpolation(
@@ -142,7 +144,7 @@ def test_tiled_dipole_spread_and_gather_match_jax_and_scatter(nodes):
     interp_j, _ = _both_tiled(positions, nodes)
     interp_t = tiled_interp_from_state(jax_tiled_state(interp_j), device="cpu")
     nu = (dipoles @ INV) * np.asarray(NS)
-    q_j = np.asarray(jmt.tiled_dipoles_to_mesh(interp_j, jnp.asarray(nu)))
+    q_j = np.asarray(jax.jit(jmt.tiled_dipoles_to_mesh)(interp_j, jnp.asarray(nu)))
     q_t = mt.tiled_dipoles_to_mesh(interp_t, torch.tensor(nu))
     assert q_t.shape == (1, *NS)
     np.testing.assert_allclose(q_t.numpy(), q_j, rtol=0, atol=ATOL)
@@ -150,7 +152,7 @@ def test_tiled_dipole_spread_and_gather_match_jax_and_scatter(nodes):
         mt.tiled_dipoles_to_mesh(interp_t, torch.tensor(nu), plain=True).numpy(), q_t.numpy()
     )
     field = np.random.default_rng(5).normal(size=q_j.shape)
-    e_j = np.asarray(jmt.tiled_mesh_to_dipole_field(interp_j, jnp.asarray(field)))
+    e_j = np.asarray(jax.jit(jmt.tiled_mesh_to_dipole_field)(interp_j, jnp.asarray(field)))
     e_t = mt.tiled_mesh_to_dipole_field(interp_t, torch.tensor(field))
     np.testing.assert_allclose(e_t.numpy(), e_j, rtol=0, atol=ATOL)
 
@@ -265,7 +267,7 @@ def test_one_pass_dipole_spread_matches_plain_and_jax(nodes):
     mirror = _one_pass_mirror(interp_t, nu_slots)
     np.testing.assert_allclose(mirror.numpy(), plain.numpy(), rtol=0, atol=ATOL)
     np.testing.assert_array_equal(mk.mesh_spread_dipole(*args).numpy(), plain.numpy())
-    q_j = np.asarray(jmt.tiled_dipoles_to_mesh(interp_j, jnp.asarray(nu)))
+    q_j = np.asarray(jax.jit(jmt.tiled_dipoles_to_mesh)(interp_j, jnp.asarray(nu)))
     np.testing.assert_allclose(mirror.numpy(), q_j, rtol=0, atol=1e-10)
     np.testing.assert_allclose(
         mt.tiled_dipoles_to_mesh(interp_t, torch.tensor(nu)).numpy(), q_j, rtol=0, atol=1e-10

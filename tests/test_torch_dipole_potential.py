@@ -7,6 +7,7 @@ closed forms; erfc/exp differ by an ulp between the libraries); float32 to a
 few ulp (3e-6 of max).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -242,7 +243,8 @@ def test_ewald_kvectors_match_jax(lr_wavelength):
     ns = port_kv.get_ns_ewald(cell, lr_wavelength)
     assert ns == jax_kv.get_ns_ewald(cell, lr_wavelength)
     assert ns == port_kv.get_ns_ewald(torch.tensor(cell), lr_wavelength)
-    ref = np.asarray(jax_kv.generate_kvectors_for_ewald(jnp.asarray(cell), ns))
+    ref = np.asarray(jax.jit(jax_kv.generate_kvectors_for_ewald, static_argnums=(1,))(
+        jnp.asarray(cell), ns))
     got = port_kv.generate_kvectors_for_ewald(torch.tensor(cell), ns).numpy()
     assert got.shape == ref.shape == (ns[0] * ns[1] * ns[2], 3)
     assert np.all(got[0] == 0.0) and rel(got, ref) <= 1e-13

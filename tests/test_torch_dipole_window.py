@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_kernel_params as kernel_params
 from torch_port_common import clustered_box, dipole_box, port_clist, rel, rows_of
 
 import torchpme_tpu as tpme
@@ -318,7 +319,8 @@ def test_window_dipole_params_mirror_the_potential():
     from torchpme_tpu_torch import kernels
 
     _, pot_t, _, arrays_t, _ = _window_inputs(dt="float32", **F64_CASES["sr"])
-    p = port_rcd._window_dipole_params(pot_t, CUTOFF, arrays_t[0])
+    grid = tuple(arrays_t[0].shape[i] for i in (0, 1, 2, 4))
+    p = kernel_params.window_dipole_params(*port_rcd._dipole_table(pot_t), CUTOFF, grid)
     alpha = 1.0 / (2 * 0.75**2)
     assert (p.nx, p.ny, p.nz, p.cap) == tuple(arrays_t[0].shape[i] for i in (0, 1, 2, 4))
     assert p.direct == 0 and p.self_k == kernels.N_OFFSETS - 1
@@ -327,7 +329,8 @@ def test_window_dipole_params_mirror_the_potential():
     assert p.c_gauss == pytest.approx(2 * (alpha / np.pi) ** 0.5, rel=1e-6)
     assert p.cutoff_sq == pytest.approx(9.0) and p.prefactor == pytest.approx(1.3)
     assert list(p.offsets[-3:]) == [0, 0, 0]
-    direct = port_rcd._window_dipole_params(PotentialDipole(), CUTOFF, arrays_t[0])
+    direct = kernel_params.window_dipole_params(
+        *port_rcd._dipole_table(PotentialDipole()), CUTOFF, grid)
     assert direct.direct == 1 and "window_dipole" in kernels.launch_counts()
 
 

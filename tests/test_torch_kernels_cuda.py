@@ -54,6 +54,13 @@ def _rel(a, b):
     return float((a.double() - b.double()).abs().max() / b.double().abs().max())
 
 
+def _hold_z_chunk(request, kernel, z_chunk):
+    """Hold a kernel's z chunk (``kernels.override_z_chunk``) until the test
+    ends."""
+    kernels.override_z_chunk(kernel, z_chunk)
+    request.addfinalizer(lambda: kernels.override_z_chunk(kernel, None))
+
+
 def _slots(fp, pos, q, cell):
     nx_c, ny_c, nz_c, cap = fp.cell_grid
     extent, lpad = sf.aligned_geometry(5, fp.aligned_pad)
@@ -188,8 +195,7 @@ def test_window_kernel_refuses_what_it_does_not_take(step):
         rc.window_value_and_grad(tpt.Potential(smearing=1.0), 3.0, *ins)
     # a capacity whose one offset a pass exceeds shared memory: a clear error
     # that names the largest capacity it takes
-    lib = kernels.load_library().lib
-    largest = lib.tpme_window_max_cap(4, pos.device.index)
+    largest = torch.ops.tpme.window_plan(1, 4, False, pos.device.index)[1]
     assert 1500 < largest < 4000
     assert rc._window_group(largest, 4, pos.device.index) == 1
     big = _dense_window_inputs(pos.device, capacity=largest + 1, n_ch=4)
@@ -526,9 +532,8 @@ def test_dipole_window_kernel_refuses_what_it_does_not_take(device):
     assert e.dtype == torch.float64 and e.device.type == "cuda"
     # a capacity whose one offset a pass exceeds shared memory: a clear error
     # that names the largest capacity it takes, with and without mui
-    lib = kernels.load_library().lib
     for split in (False, True):
-        largest = lib.tpme_window_dipole_max_cap(int(split), device.index)
+        largest = torch.ops.tpme.window_dipole_plan(1, split, device.index)[1]
         assert 1024 < largest < 4000
         assert rcd._window_dipole_warps(largest, split, device.index) == 1
         big, mui = _dense_dipole_inputs(device, capacity=largest + 1, split=split)
@@ -828,13 +833,13 @@ def test_dipolar_autograd_on_the_card_never_builds_tripled_slots(device, monkeyp
     "form,n_ch,nodes", [("charges", 1, 5), ("charges", 40, 7), ("dipoles", 1, 6)],
     ids=["charges", "charges40_7", "dipoles"],
 )
-def test_gather_wgrad_thread_per_slot_kernel_matches_plain(device, monkeypatch, form, n_ch, nodes):
+def test_gather_wgrad_thread_per_slot_kernel_matches_plain(device, request, form, n_ch, nodes):
     """The kernel that reads each slot's window from the mesh in device
     memory, one thread a slot (z chunk 0, and where the staged block does not
     fit shared memory: 40 channels at 7 nodes), ≡ the plain versions."""
     interp, nu, _ = _dipole_tiled_case(device, nodes, 40)
     if n_ch == 1:
-        monkeypatch.setattr(mk, "gather_z_chunk", lambda nodes, n_ch: 0)
+        _hold_z_chunk(request, "mesh_gather", 0)
     rng = np.random.default_rng(6)
     f32 = dict(dtype=torch.float32, device=device)
     ns = interp.ns
@@ -953,13 +958,13 @@ def test_spread_bwd_kernel_matches_plain_and_reproduces(device, layout, nodes, n
 
 @pytest.mark.parametrize("n_ch,nodes", [(1, 5), (40, 7)], ids=["z_chunk_0", "channels40_7"])
 @pytest.mark.parametrize("layout", ["aligned", "fused"])
-def test_spread_bwd_thread_per_slot_kernel_matches_plain(device, monkeypatch, layout, n_ch, nodes):
+def test_spread_bwd_thread_per_slot_kernel_matches_plain(device, request, layout, n_ch, nodes):
     """Kernel B as one thread a slot reading the mesh in device memory: at
     z chunk 0, and where the staged block does not fit shared memory (40
     channels at 7 nodes) ≡ the plain version."""
     rel, q, geom = _spread_slots(device, layout, nodes, n_ch, 40)
     if n_ch == 1:
-        monkeypatch.setattr(sf, "bwd_z_chunk", lambda nodes, extent, n_ch: 0)
+        _hold_z_chunk(request, "spread_bwd", 0)
     ct = torch.randn((n_ch, *geom.ns), device=device)
     got = sf.fused_spread_bwd(rel, q, ct, geom)
     ref = sf.spread_plain_bwd(rel, q, ct, geom)
@@ -1083,11 +1088,11 @@ def test_p3m_mesh_kernels_match_plain_and_reproduce(device, nodes, n_ch):
 
 
 @pytest.mark.parametrize("nodes", [1, 2])
-def test_p3m_gather_wgrad_thread_per_slot_kernel_matches_plain(device, monkeypatch, nodes):
+def test_p3m_gather_wgrad_thread_per_slot_kernel_matches_plain(device, request, nodes):
     """E and F as one thread a slot reading the mesh (z chunk 0) at 1 and 2
     nodes ≡ the plain versions."""
     a, q, field, ns = _p3m_tiled_case(device, nodes, 2)
-    monkeypatch.setattr(mk, "gather_z_chunk", lambda nodes, n_ch: 0)
+    _hold_z_chunk(request, "mesh_gather", 0)
     got = mk.mesh_gather_wgrad(*a, q, field, ns, nodes)
     ref = (mk.mesh_gather_plain(*a, field, ns, nodes), mk.mesh_wgrad_plain(*a, q, field, ns, nodes))
     torch.cuda.synchronize()
@@ -1593,24 +1598,32 @@ def test_ops_pass_opcheck(step):
 
 
 def test_op_launch_equals_the_direct_launch(step):
-    """Each op's CUDA body against the ctypes launch it wraps: C's d_pc, d_q
-    and G's d_pc, d_mu, d_mui bit for bit, A and B within the kernel bar."""
+    """Each op called directly against the entry point that launches it
+    (both through the op's C++ CUDA kernel): C's d_pc, d_q and G's d_pc,
+    d_mu, d_mui bit for bit, A and B within the kernel bar, one launch each."""
     fp, pos, q, cell = step
     cell = cell.detach()
     rel, q_rows, geom, ct_rho, win, dwin, mui = _op_operands(fp, pos, q, cell)
-    assert _rel(sf.fused_spread(rel, q_rows, geom), sf._launch_fwd(rel, q_rows, geom)) <= 1e-5
+    geometry, method = geom.as_args()
+    kernels.reset_launch_counts()
+    assert _rel(sf.fused_spread(rel, q_rows, geom),
+                torch.ops.tpme.spread_fwd(rel, q_rows, geometry, method)) <= 1e-5
     for a, b in zip(sf.fused_spread_bwd(rel, q_rows, ct_rho, geom),
-                    sf._launch_bwd(rel, q_rows, ct_rho, geom)):
+                    torch.ops.tpme.spread_bwd(rel, q_rows, ct_rho, geometry, method)):
         assert _rel(a, b) <= 1e-5
     table = rc.window_table(fp.calc.potential)
     got = torch.ops.tpme.window(*win, cell, *table, 3.0)
-    direct = rc._launch_window(table, 3.0, *win)
-    assert torch.equal(got[1], direct[1]) and torch.equal(got[2], direct[2])
-    assert abs(float(got[0]) - float(direct[0])) <= 1e-6 * abs(float(direct[0]))
+    e, direct = rc.window_value_and_grad(fp.calc.potential, 3.0, *win)
+    assert torch.equal(got[1], direct[0]) and torch.equal(got[2], direct[1])
+    assert abs(float(got[0]) - float(e)) <= 1e-6 * abs(float(e))
+    pot = tpt.PotentialDipole(smearing=1.0, prefactor=1.0)
     got = torch.ops.tpme.window_dipole(*dwin, mui, 1.0, 1.0, 3.0)
-    direct = rcd._launch_window_dipole(1.0, 1.0, 3.0, *dwin, mui)
-    for i in (1, 2, 4):
-        assert torch.equal(got[i], direct[i])
+    _, direct = rcd.dipole_window_value_and_grad(pot, 3.0, *dwin, mui)
+    for i, j in ((1, 0), (2, 1), (4, 3)):
+        assert torch.equal(got[i], direct[j])
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {
+        "spread_fwd": 2, "spread_bwd": 2, "window": 2, "window_dipole": 2}
 
 
 def test_ops_refuse_vmap_on_the_card(step):
@@ -1657,6 +1670,64 @@ def test_exported_aligned_step_launches_a_b_c_once(step):
     g_ref = torch.autograd.grad(e_ref, (r, c))
     assert abs(float(e) - float(e_ref.detach())) <= 1e-5 * abs(float(e_ref.detach()))
     assert _rel(g_rows, g_ref[0]) <= 1e-5 and _rel(g_cell, g_ref[1]) <= 1e-4
+
+
+#: an engine with ``torch`` alone: ``python -I`` in a scratch directory, the
+#: port banned from import, the artifact run by the torch-only recipe of
+#: ``deploy``'s docstring
+TORCH_ONLY_ENGINE = """
+import sys, importlib.abc
+class Ban(importlib.abc.MetaPathFinder):
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.split(".")[0] in ("torchpme_tpu_torch", "torchpme_tpu"):
+            raise ImportError("banned in the engine")
+sys.meta_path.insert(0, Ban())
+import io, tempfile, zipfile, torch
+with zipfile.ZipFile("step.zip") as archive:
+    library, program = archive.read("tpme_ops.so"), archive.read("cuda.pt2")
+with tempfile.NamedTemporaryFile(suffix=".so") as f:
+    f.write(library)
+    f.flush()
+    torch.ops.load_library(f.name)
+step = torch.export.load(io.BytesIO(program)).module()
+rows, cell = torch.load("args.pt")
+torch.ops.tpme.reset_launch_counts()
+e, (g_rows, g_cell) = step(rows, cell)
+torch.cuda.synchronize()
+assert not [m for m in sys.modules if m.startswith("torchpme_tpu")]
+torch.save({"e": e.cpu(), "g_rows": g_rows.cpu(), "g_cell": g_cell.cpu(),
+            "counts": list(torch.ops.tpme.launch_counts())}, "out.pt")
+"""
+
+
+def test_exported_step_runs_in_a_torch_only_engine(step, tmp_path):
+    """The exported aligned MD step run by a process with ``torch`` alone
+    (the artifact's op library, no module of the port): A, B and C once
+    each, and the values of ``load_step``'s step in this process within the
+    kernel bar (A's and B's float sums are not ordered)."""
+    import subprocess
+    import sys
+
+    from torchpme_tpu_torch.deploy import export_step, load_step
+
+    fp, pos, q, cell = (x if i == 0 else x.detach() for i, x in enumerate(step))
+    rows = fp.bucket(pos)
+    blob = export_step(lambda r, c: fp.energy(q, c, r), rows, cell, with_grad=(0, 1))
+    (tmp_path / "step.zip").write_bytes(blob)
+    torch.save((rows.cpu(), cell.cpu()), tmp_path / "args.pt")
+    # the engine takes CPU copies to the card itself
+    script = TORCH_ONLY_ENGINE.replace('torch.load("args.pt")',
+                                       '(t.cuda() for t in torch.load("args.pt"))')
+    run = subprocess.run([sys.executable, "-I", "-c", script], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=600, check=False)
+    assert run.returncode == 0, run.stderr[-3000:]
+    out = torch.load(tmp_path / "out.pt")
+    counts = dict(zip(kernels.COUNTER_NAMES, out["counts"]))
+    assert {k: v for k, v in counts.items() if v} == {"spread_fwd": 1, "spread_bwd": 1,
+                                                      "window": 1}
+    e, (g_rows, g_cell) = load_step(blob)(rows, cell)
+    assert abs(float(out["e"]) - float(e)) <= 1e-6 * abs(float(e))
+    assert _rel(out["g_rows"], g_rows.cpu()) <= 1e-5 and _rel(out["g_cell"], g_cell.cpu()) <= 1e-5
 
 
 def test_export_step_for_two_platforms(device):
@@ -1753,5 +1824,5 @@ def test_window_split_op_passes_opcheck(step):
 
     table = rc.window_table(fp.calc.potential)
     args = (leaf(ins[0]), leaf(ins[1]), ins[2], ins[3], leaf(cell.detach()), *table, 3.0,
-            False, leaf(qi))
+            leaf(qi))
     torch.library.opcheck(torch.ops.tpme.window, args)

@@ -4,6 +4,8 @@ validity flag, spread / gather against ``impl="xla"`` (float64) and against
 the Pallas kernels in interpret mode (float32), the backward pass against
 ``jax.grad``, and tiled ≡ scatter inside the port."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -113,6 +115,19 @@ def test_refresh_needs_bucket_indices_and_reports_overflow():
         )
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_spread(impl):
+    """The JAX package's tile spread under ``jax.jit``: one compile of the
+    whole call instead of one per operation."""
+    return jax.jit(functools.partial(jmt.tiled_points_to_mesh, impl=impl))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_gather(impl):
+    """The JAX package's tile gather under ``jax.jit``."""
+    return jax.jit(functools.partial(jmt.tiled_mesh_to_points, impl=impl))
+
+
 @pytest.mark.parametrize("nodes", [3, 4, 5])
 @pytest.mark.parametrize("n_channels,nz", SHAPES)
 def test_plain_spread_and_gather_match_jax_xla_f64(nodes, n_channels, nz):
@@ -120,7 +135,7 @@ def test_plain_spread_and_gather_match_jax_xla_f64(nodes, n_channels, nz):
     positions, charges = make_system(60, n_channels)
     interp_j, _ = both_interps(positions, ns, nodes, "f64")
     interp_t = tiled_interp_from_state(jax_tiled_state(interp_j), device="cpu")
-    rho_j = np.asarray(jmt.tiled_points_to_mesh(interp_j, jnp.asarray(charges), impl="xla"))
+    rho_j = np.asarray(_jax_spread("xla")(interp_j, jnp.asarray(charges)))
     rho_t = mt.tiled_points_to_mesh(interp_t, torch.tensor(charges))
     np.testing.assert_allclose(rho_t.numpy(), rho_j, rtol=0, atol=1e-12)
     np.testing.assert_allclose(
@@ -128,7 +143,7 @@ def test_plain_spread_and_gather_match_jax_xla_f64(nodes, n_channels, nz):
         rho_j, rtol=0, atol=1e-12,
     )
     field = np.random.default_rng(1).normal(size=rho_j.shape)
-    back_j = np.asarray(jmt.tiled_mesh_to_points(interp_j, jnp.asarray(field), impl="xla"))
+    back_j = np.asarray(_jax_gather("xla")(interp_j, jnp.asarray(field)))
     back_t = mt.tiled_mesh_to_points(interp_t, torch.tensor(field))
     np.testing.assert_allclose(back_t.numpy(), back_j, rtol=0, atol=1e-12)
 
@@ -143,12 +158,12 @@ def test_plain_spread_and_gather_match_jax_pallas_f32(nodes, n_channels, nz):
     interp_j, interp_t = both_interps(positions, ns, nodes, "f32")
     assert_same_bucketing(interp_t, interp_j, weight_tol=1e-6)
     q32 = charges.astype(np.float32)
-    rho_j = np.asarray(jmt.tiled_points_to_mesh(interp_j, jnp.asarray(q32), impl="pallas"))
+    rho_j = np.asarray(_jax_spread("pallas")(interp_j, jnp.asarray(q32)))
     rho_t = mt.tiled_points_to_mesh(interp_t, torch.tensor(q32))
     assert rho_t.dtype == torch.float32
     np.testing.assert_allclose(rho_t.numpy(), rho_j, rtol=0, atol=1e-6)
     field = np.random.default_rng(1).normal(size=rho_j.shape).astype(np.float32)
-    back_j = np.asarray(jmt.tiled_mesh_to_points(interp_j, jnp.asarray(field), impl="pallas"))
+    back_j = np.asarray(_jax_gather("pallas")(interp_j, jnp.asarray(field)))
     back_t = mt.tiled_mesh_to_points(interp_t, torch.tensor(field))
     np.testing.assert_allclose(back_t.numpy(), back_j, rtol=0, atol=1e-6)
 
@@ -259,11 +274,14 @@ def test_mesh_to_points_matches_jax(nodes):
     positions, _ = make_system(40, seed=9)
     inv = np.linalg.inv(CELL)
     field = np.random.default_rng(2).normal(size=(2, *ns))
-    interp_j = jm.compute_interpolation(jnp.asarray(positions), jnp.asarray(inv), ns, nodes, "Lagrange")
+    # the JAX package's interpolation and gather under one jax.jit
+    back_j = jax.jit(lambda p, i, f: jm.mesh_to_points(
+        jm.compute_interpolation(p, i, ns, nodes, "Lagrange"), f))(
+        jnp.asarray(positions), jnp.asarray(inv), jnp.asarray(field))
     interp_t = tm.compute_interpolation(torch.tensor(positions), torch.tensor(inv), ns, nodes, "Lagrange")
     np.testing.assert_allclose(
         tm.mesh_to_points(interp_t, torch.tensor(field)).numpy(),
-        np.asarray(jm.mesh_to_points(interp_j, jnp.asarray(field))), rtol=0, atol=1e-12,
+        np.asarray(back_j), rtol=0, atol=1e-12,
     )
     with pytest.raises(ValueError, match="dimension 4"):
         tm.mesh_to_points(interp_t, torch.tensor(field[0]))

@@ -42,6 +42,16 @@ def test_ops_exports_every_ported_name_of_the_jax_namespace():
     assert not missing, f"defined by the port but not exported from its ops: {missing}"
 
 
+def test_version_equals_the_jax_one():
+    """The port carries the JAX package's version string."""
+    import torchpme_tpu
+    import torchpme_tpu_torch
+
+    assert torchpme_tpu_torch.__version__ == torchpme_tpu.__version__
+    assert torchpme_tpu_torch.__version_tuple__ == tuple(int(x) for x in
+                                                        torchpme_tpu.__version__.split("."))
+
+
 def test_ops_exports_resolve():
     for name in port_ops.__all__:
         assert getattr(port_ops, name) is not None, name
@@ -90,7 +100,7 @@ def test_dense_distances_match_jax(name, with_cell):
         return jnp.sum(jnp.asarray(weights) * d**2), d
 
     j_cell = None if cell is None else jnp.asarray(cell)
-    (_, d_j), grads_j = jax.value_and_grad(jax_loss, argnums=(0, 1), has_aux=True)(
+    (_, d_j), grads_j = jax.jit(jax.value_and_grad(jax_loss, argnums=(0, 1), has_aux=True))(
         jnp.asarray(positions), j_cell)
 
     p_t = torch.tensor(positions, requires_grad=True)

@@ -9,6 +9,8 @@ with P3M in aligned, fused and tiled mode, the numpy state, and the CsCl
 Madelung constant.  Float64 at ≤ 1e-10 where the algorithm is the JAX
 package's; float32 paths at the JAX suite's float32 bars."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -94,29 +96,41 @@ class _NaNKernel:
         return k_sq * float("nan")
 
 
+@functools.partial(jax.jit, static_argnums=(4, 5, 6))
+def _jax_filters(cell, field, cell2, field2, ns, ns2, norms):
+    """The JAX package's ``KSpaceFilter`` and ``P3MKSpaceFilter`` on
+    ``field``, and after an update to ``cell2`` and ``ns2`` on ``field2``,
+    under one ``jax.jit``."""
+    kf_j = jks.KSpaceFilter(cell, ns, _Gaussian(0.4), *norms)
+    p3_j = jks.P3MKSpaceFilter(cell, ns, 4, tpme.CoulombPotential(smearing=0.7), *norms, mode=1,
+                               differential_order=3)
+    first = kf_j(field), p3_j(field)
+    for f in (kf_j, p3_j):
+        f.update(cell2, ns2)
+    return (*first, kf_j(field2), p3_j(field2))
+
+
 @pytest.mark.parametrize("norms", [("ortho", "ortho"), ("backward", "forward"), ("forward", "backward")])
 def test_kspace_filters_match_jax(norms):
     ns = (8, 16, 12)
     field = np.random.default_rng(3).normal(size=(2, *ns))
     cell = TRICLINIC
+    ns2, cell2 = (16, 8, 8), cell * 1.1
+    field2 = np.random.default_rng(4).normal(size=(1, *ns2))
+    kf_j, p3_j, kf2_j, p32_j = _jax_filters(jnp.asarray(cell), jnp.asarray(field),
+                                            jnp.asarray(cell2), jnp.asarray(field2), ns, ns2,
+                                            norms)
     kf = tks.KSpaceFilter(torch.tensor(cell), ns, _Gaussian(0.4), *norms)
-    kf_j = jks.KSpaceFilter(jnp.asarray(cell), ns, _Gaussian(0.4), *norms)
-    assert rel(kf(torch.tensor(field)).numpy(), kf_j(jnp.asarray(field))) <= 1e-12
+    assert rel(kf(torch.tensor(field)).numpy(), kf_j) <= 1e-12
     # update: a new cell and mesh, the kernel of a potential
-    pot, pot_j = tpt.CoulombPotential(smearing=0.7), tpme.CoulombPotential(smearing=0.7)
+    pot = tpt.CoulombPotential(smearing=0.7)
     p3 = tks.P3MKSpaceFilter(torch.tensor(cell), ns, 4, pot, *norms, mode=1,
                              differential_order=3)
-    p3_j = jks.P3MKSpaceFilter(jnp.asarray(cell), ns, 4, pot_j, *norms, mode=1,
-                               differential_order=3)
-    assert rel(p3(torch.tensor(field)).numpy(), p3_j(jnp.asarray(field))) <= 1e-12
-    ns2, cell2 = (16, 8, 8), cell * 1.1
+    assert rel(p3(torch.tensor(field)).numpy(), p3_j) <= 1e-12
     for f in (kf, p3):
         f.update(torch.tensor(cell2), ns2)
-    for f in (kf_j, p3_j):
-        f.update(jnp.asarray(cell2), ns2)
-    field2 = np.random.default_rng(4).normal(size=(1, *ns2))
-    assert rel(kf(torch.tensor(field2)).numpy(), kf_j(jnp.asarray(field2))) <= 1e-12
-    assert rel(p3(torch.tensor(field2)).numpy(), p3_j(jnp.asarray(field2))) <= 1e-12
+    assert rel(kf(torch.tensor(field2)).numpy(), kf2_j) <= 1e-12
+    assert rel(p3(torch.tensor(field2)).numpy(), p32_j) <= 1e-12
 
 
 def test_kspace_filter_validation_and_nan_guard():
@@ -137,6 +151,17 @@ def test_kspace_filter_validation_and_nan_guard():
         tks.KSpaceKernel().kernel_from_k_sq(torch.zeros(1))
 
 
+@functools.partial(jax.jit, static_argnums=(4, 5, 6))
+def _jax_interpolator(cell, positions, weights, field, ns, nodes, method):
+    """The JAX package's ``MeshInterpolator`` and ``mesh_xyz`` under one
+    ``jax.jit`` (eager JAX compiles every operation on its own): the mesh
+    points, the spread of ``weights`` and the gather of ``field``."""
+    mi = jmesh.MeshInterpolator(cell, ns, nodes, method)
+    xyz = mi.get_mesh_xyz()
+    mi.compute_weights(positions)
+    return xyz, jmesh.mesh_xyz(cell, ns), mi.points_to_mesh(weights), mi.mesh_to_points(field)
+
+
 @pytest.mark.parametrize(
     "method,nodes", [("P3M", 1), ("P3M", 2), ("P3M", 3), ("P3M", 5), ("Lagrange", 4)]
 )
@@ -145,21 +170,20 @@ def test_mesh_interpolator_and_mesh_xyz_match_jax(method, nodes):
     positions = rng.uniform(0, 1, (30, 3)) @ TRICLINIC
     weights = rng.normal(size=(30, 2))
     ns = (8, 12, 10)
+    field = rng.normal(size=(2, *ns))
+    xyz_j, mesh_xyz_j, rho_j, back_j = _jax_interpolator(
+        jnp.asarray(TRICLINIC), jnp.asarray(positions), jnp.asarray(weights), jnp.asarray(field),
+        ns, nodes, method)
     mi = tmesh.MeshInterpolator(torch.tensor(TRICLINIC), ns, nodes, method)
-    mi_j = jmesh.MeshInterpolator(jnp.asarray(TRICLINIC), ns, nodes, method)
-    assert rel(mi.get_mesh_xyz().numpy(), mi_j.get_mesh_xyz()) <= 1e-15
-    assert rel(tmesh.mesh_xyz(torch.tensor(TRICLINIC), ns).numpy(),
-               jmesh.mesh_xyz(jnp.asarray(TRICLINIC), ns)) <= 1e-15
+    assert rel(mi.get_mesh_xyz().numpy(), xyz_j) <= 1e-15
+    assert rel(tmesh.mesh_xyz(torch.tensor(TRICLINIC), ns).numpy(), mesh_xyz_j) <= 1e-15
     with pytest.raises(ValueError, match="compute_weights"):
         mi.points_to_mesh(torch.tensor(weights))
     mi.compute_weights(torch.tensor(positions))
-    mi_j.compute_weights(jnp.asarray(positions))
     rho = mi.points_to_mesh(torch.tensor(weights))
-    assert rel(rho.numpy(), mi_j.points_to_mesh(jnp.asarray(weights))) <= 1e-12
+    assert rel(rho.numpy(), rho_j) <= 1e-12
     assert abs(float(rho.sum()) - weights.sum()) <= 1e-12  # charge conserved
-    field = rng.normal(size=(2, *ns))
-    assert rel(mi.mesh_to_points(torch.tensor(field)).numpy(),
-               mi_j.mesh_to_points(jnp.asarray(field))) <= 1e-12
+    assert rel(mi.mesh_to_points(torch.tensor(field)).numpy(), back_j) <= 1e-12
     mi.update(ns_mesh=(16, 8, 8))
     assert mi.ns_mesh == (16, 8, 8)
     with pytest.raises(ValueError, match="P3M"):
@@ -231,11 +255,11 @@ def test_jax_tiled_mesh_at_1_and_2_nodes_matches_the_port_plain_path(nodes):
     from_j = tiled_interp_from_state(jax_tiled_state(interp_j), device="cpu")
     for name in ("local_x", "local_y", "start_z", "atom_of_slot"):
         np.testing.assert_array_equal(getattr(interp_t, name).numpy(), getattr(from_j, name).numpy())
-    rho_j = np.asarray(jmt.tiled_points_to_mesh(interp_j, jnp.asarray(charges)))
+    rho_j = np.asarray(jax.jit(jmt.tiled_points_to_mesh)(interp_j, jnp.asarray(charges)))
     rho_t = tmt.tiled_points_to_mesh(from_j, torch.tensor(charges), plain=True)
     assert rel(rho_t.numpy(), rho_j) <= 1e-12
     field = rng.normal(size=rho_j.shape)
-    back_j = np.asarray(jmt.tiled_mesh_to_points(interp_j, jnp.asarray(field)))
+    back_j = np.asarray(jax.jit(jmt.tiled_mesh_to_points)(interp_j, jnp.asarray(field)))
     back_t = tmt.tiled_mesh_to_points(from_j, torch.tensor(field), plain=True)
     assert rel(back_t.numpy(), back_j) <= 1e-12
     # the backward (D ↔ E, F for the weights) against the scatter's autograd

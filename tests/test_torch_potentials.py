@@ -127,7 +127,7 @@ def test_slab_correction(periodic):
     pos, q, cell = random_box(30, 6.0, seed=4)
     cell = cell + np.diag([0.0, 0.5, 1.0])
     ref = np.asarray(
-        jax_slab(
+        jax.jit(jax_slab)(
             None if periodic is None else jnp.asarray(periodic),
             jnp.asarray(pos), jnp.asarray(cell), jnp.asarray(q),
         )
@@ -151,7 +151,7 @@ def test_kvectors_and_filter():
     ns = (8, 16, 12)
     np.testing.assert_allclose(
         generate_kvectors_for_mesh(torch.tensor(cell), ns).numpy(),
-        np.asarray(jax_kvectors(jnp.asarray(cell), ns)),
+        np.asarray(jax.jit(jax_kvectors, static_argnums=(1,))(jnp.asarray(cell), ns)),
         rtol=1e-14, atol=1e-14,
     )
     assert get_ns_mesh(cell, 0.7) == tpme.ops.get_ns_mesh(jnp.asarray(cell), 0.7)

@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_kernel_params as kernel_params
 from torch_port_common import port_from_jax, random_box, rel
 
 import torchpme_tpu as tpme
@@ -290,7 +291,7 @@ def test_kernel_decomposition_matches_plain(name, z_chunk):
         assert geom.slots_per_tile // geom.z_cells > 32
     assert geom.z_cells > 1
     if z_chunk == "rule":
-        z_chunk = sf.z_chunk(geom.ns[2])
+        z_chunk = kernel_params.z_chunk(geom.ns[2])
         assert 2 * z_chunk >= geom.ns[2] > z_chunk
     got, n_restricted = _owner_block_mirror(rel_t, q, geom, z_chunk)
     if z_chunk in (8, 12):  # chunks this small read only the z cells near them
@@ -424,7 +425,7 @@ def test_kernel_b_partition_matches_plain(name, z_chunk):
         rel_t, q, geom = _fused_bwd_slots(**case)
         assert geom.lpad == 0 and geom.z_cells == 1
     if z_chunk == "rule":
-        z_chunk = sf.bwd_z_chunk(geom.nodes, geom.extent, q.shape[1])
+        z_chunk = kernel_params.bwd_z_chunk(geom.nodes, geom.extent, q.shape[1])
     ct = torch.tensor(
         np.random.default_rng(5).normal(size=(q.shape[1], *geom.ns)), dtype=torch.float64
     )

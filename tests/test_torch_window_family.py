@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_kernel_params as kernel_params
 from torch_port_common import lattice_box, port_clist, rel, rows_of
 
 import torchpme_tpu as tpme
@@ -217,23 +218,27 @@ def test_window_terms_and_card_refusal(system, name):
 
 def test_kernel_table_constants():
     """The member table carries each term's exponent and constants as the
-    plain pair math forms them (float32-rounded); the weights reach the
-    kernel as a float32 tensor on its device."""
+    plain pair math forms them (float32-rounded; the C++ builder is held to
+    these bytes by tests/test_torch_ops_cpp.py); the weights reach the op as
+    the potential's own tensor."""
     pot = _pots(tpt, "combined4")
-    pc_t = torch.zeros((3, 3, 3, 3, 8))
-    q_g = torch.zeros((3, 3, 3, 8, 1))
-    p = port_rc._table_params(port_rc.window_table(pot), CUTOFF, pc_t, q_g)
+    grid = (3, 3, 3, 8)
+    p = kernel_params.window_params(port_rc.window_table(pot), CUTOFF, grid, 1)
     assert (p.kind, p.n_members, p.direct) == (2, 4, 0)
     coul, ipl = p.members[0], p.members[3]
     assert [p.members[i].p for i in range(4)] == [1, 3, 5, 6]
-    weights = port_rc._kernel_weights(port_rc.window_table(pot)[0], "cpu")
-    assert weights.dtype == torch.float32
-    np.testing.assert_array_equal(weights.numpy(), W4.astype(np.float32))
-    assert port_rc._kernel_weights(port_rc.window_table(_pots(tpt, "ipl3"))[0], "cpu") is None
+    weights = port_rc.window_table(pot)[0]
+    assert weights is pot.weights
+    np.testing.assert_array_equal(weights.detach().to(torch.float32).numpy(),
+                                  W4.astype(np.float32))
+    assert port_rc.window_table(_pots(tpt, "ipl3"))[0] is None
     assert ipl.alpha_sq == np.float32(0.5 / 0.9**2)
     assert coul.c_gauss == np.float32(1.0 * 2.0 / (1.0 * 2**0.5) / np.pi**0.5)
     single = _pots(tpt, "ipl3")
-    p1 = port_rc._table_params(port_rc.window_table(single), CUTOFF, pc_t, q_g)
+    p1 = kernel_params.window_params(port_rc.window_table(single), CUTOFF, grid, 1)
     assert (p1.kind, p1.n_members, p1.members[0].p) == (1, 1, 3)
     coul1 = tpt.CoulombPotential(smearing=1.0)
-    assert port_rc._table_params(port_rc._table(coul1, [(coul1, 1)]), CUTOFF, pc_t, q_g).kind == 0
+    table = port_rc._table(coul1, [(coul1, 1)])
+    assert kernel_params.window_params(table, CUTOFF, grid, 1).kind == 0
+
+

@@ -21,13 +21,19 @@ CUDA device when the caller gave neither a device nor tensors
 for the CPU).  This package imports ``torch``,
 ``numpy`` and ``scipy``, never ``jax``.
 
-The package imports its modules at first use (PEP 562), so a process that
-only loads an exported CUDA program (:mod:`~torchpme_tpu_torch.deploy`)
-imports the kernel library and the modules registering the ``tpme::`` ops,
-and no calculator, potential or MD module.
+The package imports its modules at first use (PEP 562).  The kernels are
+``tpme::`` operators registered in C++ in their own library
+(:mod:`~torchpme_tpu_torch.kernels`), so a process that only runs an exported
+CUDA program (:mod:`~torchpme_tpu_torch.deploy`) needs ``torch`` and that
+library, which the artifact carries, and no module of this package.
 """
 
 import importlib
+
+#: the JAX package's version (``torchpme_tpu/_version.py``), which the port
+#: follows
+__version__ = "0.5.0"
+__version_tuple__ = (0, 5, 0)
 
 _SUBMODULES = frozenset({
     "atomistic", "calculators", "convert", "deploy", "device", "kernels", "md", "ops",

@@ -145,15 +145,14 @@ class CalculatorDipole(nn.Module):
             return generate_kvectors_for_ewald(cell, tuple(int(n) for n in ns_kvectors))
         return self.compute_kvectors(cell)
 
-    def _structure_chunks(self, dipoles, positions, kvectors):
-        """Per chunk of k-vectors: ``(k, v̂(k), cos(k·r), sin(k·r), μ·k)`` with
-        the last three ``(n_k, N)``."""
+    def _structure_chunks(self, positions, kvectors):
+        """Per chunk of k-vectors: ``(k, v̂(k), cos(k·r), sin(k·r))`` with
+        the last two ``(n_k, N)``."""
         for start in range(0, kvectors.shape[0], _K_CHUNK):
             kv = kvectors[start : start + _K_CHUNK]
             g_kernel = self.potential.lr_from_k_sq(torch.sum(kv**2, dim=-1))
             trig_args = torch.matmul(kv, positions.T)
-            mu_k = torch.matmul(kv, dipoles.T)
-            yield kv, g_kernel, torch.cos(trig_args), torch.sin(trig_args), mu_k
+            yield kv, g_kernel, torch.cos(trig_args), torch.sin(trig_args)
 
     def _compute_kspace(
         self, dipoles, cell, positions, kvectors=None, ns_kvectors=None, plain=False
@@ -161,9 +160,8 @@ class CalculatorDipole(nn.Module):
         del plain  # the explicit sums run no kernel
         kvectors = self._kvectors(cell, kvectors, ns_kvectors)
         energy = torch.zeros_like(dipoles)
-        for kv, g_kernel, cos, sin, mu_k in self._structure_chunks(
-            dipoles, positions, kvectors
-        ):
+        for kv, g_kernel, cos, sin in self._structure_chunks(positions, kvectors):
+            mu_k = torch.matmul(kv, dipoles.T)
             # S(k) = Σ_j (μ_j·k) e^{ik·r_j}, weighted by the kernel
             w_cos = torch.sum(cos * mu_k, dim=1) * g_kernel
             w_sin = torch.sum(sin * mu_k, dim=1) * g_kernel
@@ -196,11 +194,11 @@ class CalculatorDipole(nn.Module):
         f64 = torch.float64
         kvectors = self._kvectors(cell, kvectors, ns_kvectors)
         quad = torch.zeros((), dtype=f64, device=positions.device)
-        for _, g_kernel, cos, sin, mu_k in self._structure_chunks(
-            dipoles, positions, kvectors
-        ):
-            s_cos = torch.sum(cos * mu_k, dim=1)
-            s_sin = torch.sum(sin * mu_k, dim=1)
+        for kv, g_kernel, cos, sin in self._structure_chunks(positions, kvectors):
+            # Σ_j (μ_j·k) cos(k·r_j) = k · Σ_j cos(k·r_j) μ_j: one (n_k, N) × (N, 3)
+            # product, no (n_k, N) array of μ·k
+            s_cos = torch.sum(kv * torch.matmul(cos, dipoles), dim=1)
+            s_sin = torch.sum(kv * torch.matmul(sin, dipoles), dim=1)
             quad = quad + torch.sum(g_kernel * (s_cos**2 + s_sin**2), dtype=f64)
         volume = torch.abs(det3(cell))
         e = quad / volume.to(f64)

@@ -53,7 +53,7 @@
 // per slot, each lane at its own address), and owns the slots whose z start
 // lies in its chunk.  The slots' weight rows come in, and F's cotangent rows
 // go out, through shared memory in contiguous segments.  The z chunk
-// (ops/mesh_kernels.py:gather_z_chunk) keeps the windows under 36 KB: 32
+// (csrc/tpme_ops.cpp:gather_z_chunk) keeps the windows under 36 KB: 32
 // cells at one channel, 1024 blocks at the 102k shapes.  Where the staged
 // block does not fit shared memory (tens of channels, a capacity of
 // thousands) one thread a slot reads its window from device memory.  The
@@ -71,8 +71,8 @@
 // offsets its pointers by its system's strides in MeshParams.  A single
 // system is a batch of 1, the same blocks and the same arithmetic.
 //
-// Plain CUDA C++, no TMA / wgmma.  float32 only; the wrapper
-// (ops/mesh_kernels.py) checks shapes, dtypes and the shared-memory size.
+// Plain CUDA C++, no TMA / wgmma.  float32 only; the op (csrc/tpme_ops.cpp)
+// checks shapes and dtypes.
 
 #include <cuda_runtime.h>
 

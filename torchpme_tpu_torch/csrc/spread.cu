@@ -73,7 +73,7 @@
 //   x columns by warp and (y column, vector) by lane, with one conditional
 //   wrap per index: the first version indexed columns with integer
 //   divisions, and its staging took most of the kernel.
-//   The z chunk (ops/spread_fused.py:bwd_z_chunk) is 64 cells where the
+//   The z chunk (csrc/tpme_ops.cpp:spread_bwd_z_chunk) is 64 cells where the
 //   windows take at most 64 KB, 32 otherwise (the best of 32 / 64 / 128
 //   cells and 128 / 256 threads at the main path's shapes); where a block
 //   does not fit shared memory at all (tens of channels), one thread a slot
@@ -87,8 +87,8 @@
 //   first in each warp's list, empty ones (ct_rel = 0; ct_q is their gather,
 //   which the output contract keeps) after them.
 //
-// Plain CUDA C++, no TMA / wgmma; float32 only; the wrapper
-// (ops/spread_fused.py) checks shapes and dtypes.
+// Plain CUDA C++, no TMA / wgmma; float32 only; the op (csrc/tpme_ops.cpp)
+// checks shapes and dtypes.
 
 #include <cuda_runtime.h>
 

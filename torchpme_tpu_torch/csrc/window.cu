@@ -97,8 +97,8 @@
 //   d_offs and the image term are those above.  The variants without SPLIT
 //   are the code above, unchanged.
 //
-// Plain CUDA C++, float32 only; the wrapper
-// (ops/rspace_cells.py:window_value_and_grad) checks shapes and dtypes.
+// Plain CUDA C++, float32 only; the op (csrc/tpme_ops.cpp:window_cuda) checks
+// shapes and dtypes.
 
 #include <cuda_runtime.h>
 
@@ -113,8 +113,8 @@
 #define FULL_MASK 0xffffffffu
 #define FAR 1.0e18f  // where empty slots are parked: (FAR)^2 still fits a float
 
-// One 1/r^p pair term; the constants are rounded to float from the Python
-// expressions of the plain version's pair math (ops/rspace_cells.py:_table_params).
+// One 1/r^p pair term; the constants are rounded to float from the double
+// expressions of the plain version's pair math (csrc/tpme_ops.cpp:window_params).
 struct WindowMember {
   int p;  // exponent, 1..6
   float alpha, alpha_sq, prefactor, c_gauss;  // c_gauss: the Gaussian term of V'

@@ -88,9 +88,8 @@
 //   mui it is 1/2 (S_j - S_i) of the self cell's two roles.  The last block
 //   to finish writes the float d_offs.
 //
-// Plain CUDA C++, float32 only; the wrapper
-// (ops/rspace_cells_dipole.py:dipole_window_value_and_grad) checks shapes,
-// dtypes and the capacity.
+// Plain CUDA C++, float32 only; the op (csrc/tpme_ops.cpp:window_dipole_cuda)
+// checks shapes, dtypes and the capacity.
 
 #include <cuda_runtime.h>
 

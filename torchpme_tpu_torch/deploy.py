@@ -15,16 +15,36 @@ step's cell list, tile geometry and ``ns_mesh``, a potential's parameters)
 becomes constants of the artifact, as the JAX package bakes its pytrees in.
 Shapes are static: a call at other shapes raises.
 
-The hand-written kernels are ``tpme::`` custom ops, which ``torch.export``
+The hand-written kernels are the ``tpme::`` ops, which ``torch.export``
 traces as single nodes.  A **CPU** program has each of them replaced by its
 plain version at export (:data:`~torchpme_tpu_torch.kernels.PLAIN_VERSIONS`,
 through ``run_decompositions``): its graph holds ATen operators only and
 runs with ``torch`` alone, ``torch.export.load(io.BytesIO(data)).module()``.
-A **CUDA** program keeps the ops, so it runs the hand kernels; loading it
-needs ``torch`` and the modules that register the ops (the kernel library
-and ``ops.spread_fused``, ``ops.rspace_cells``, ``ops.rspace_cells_dipole``,
-``ops.mesh_kernels``: :data:`OP_MODULES`), which :func:`load_step` imports,
-and no calculator, potential, MD, tuning or atomistic module.
+A **CUDA** program keeps the ops, so it runs the hand kernels, and the
+artifact carries the op library they are registered in (C++,
+:mod:`~torchpme_tpu_torch.kernels`): a zip of the program (``cuda.pt2``),
+the library (``tpme_ops.so``) and what it was built for
+(``tpme_library.json``: the torch version, the card's architecture
+``sm_90a``).  So it too runs with ``torch`` alone, in a process that never
+imports this package, or in a C++ engine that embeds libtorch:
+
+.. code-block:: python
+
+    import io, tempfile, zipfile
+    import torch
+
+    with zipfile.ZipFile(io.BytesIO(blob)) as archive:
+        library, program = archive.read("tpme_ops.so"), archive.read("cuda.pt2")
+    with tempfile.NamedTemporaryFile(suffix=".so") as f:
+        f.write(library)
+        f.flush()
+        torch.ops.load_library(f.name)   # the tpme:: ops and kernels A-G
+    step = torch.export.load(io.BytesIO(program)).module()
+    energy, grads = step(*args)          # CUDA tensors of the exported shapes
+
+:func:`load_step` does that, and checks the torch version and the device
+first.  The library must match the process's torch: it is built against
+torch's headers and links its libraries.
 
 Example
 -------
@@ -55,6 +75,7 @@ from __future__ import annotations
 import importlib
 import io
 import json
+import tempfile
 import warnings
 import zipfile
 from collections.abc import Callable, Sequence
@@ -64,8 +85,9 @@ from torch import nn
 
 __all__ = ["export_step", "load_step"]
 
-#: The modules whose import registers the ``tpme::`` ops (and loads nothing
-#: else of the package but the kernel library and the ops' helpers).
+#: The modules whose import registers the ``tpme::`` ops' plain versions,
+#: which a CPU export puts in place of the ops (an artifact's loader imports
+#: none of them).
 OP_MODULES = (
     "torchpme_tpu_torch.ops.spread_fused",
     "torchpme_tpu_torch.ops.rspace_cells",
@@ -73,8 +95,12 @@ OP_MODULES = (
     "torchpme_tpu_torch.ops.mesh_kernels",
 )
 PLATFORMS = ("cpu", "cuda")
-#: member of a multi-platform artifact (a zip of one program per platform)
+#: members of a zip artifact: the platforms, one program per platform
+#: (``<platform>.pt2``), and with a CUDA program the op library and what it
+#: was built for
 _INDEX = "tpme_platforms.json"
+LIBRARY = "tpme_ops.so"
+LIBRARY_INFO = "tpme_library.json"
 
 
 class _Step(nn.Module):
@@ -186,9 +212,10 @@ def export_step(
         ``example_args``.  With two, the artifact holds one program for each
         (the arguments are moved to each device, so ``fn`` must run on
         both).  ``"cuda"`` without a card raises.
-    :return: the serialised bytes: for one platform what
-        :func:`torch.export.save` writes (a CPU artifact loads with
-        ``torch.export.load`` alone), for two a zip of one such archive each.
+    :return: the serialised bytes: for the CPU alone what
+        :func:`torch.export.save` writes (it loads with ``torch.export.load``
+        alone); otherwise a zip of one such archive a platform and, for
+        ``"cuda"``, the op library (the module's torch-only recipe).
     """
     if platforms is None:
         platforms = (_platform_of(example_args),)
@@ -200,28 +227,73 @@ def export_step(
         raise RuntimeError("exporting for 'cuda' needs a CUDA device, and none is available")
     argnums = tuple(with_grad) if isinstance(with_grad, (tuple, list)) else with_grad
     step = _Step(fn, argnums)
-    if len(platforms) == 1:
-        return _export_one(step, example_args, platforms[0])
+    if platforms == ("cpu",):
+        return _export_one(step, example_args, "cpu")
     buffer = io.BytesIO()
     with zipfile.ZipFile(buffer, "w") as archive:
         archive.writestr(_INDEX, json.dumps(list(platforms)))
         for platform in platforms:
             archive.writestr(f"{platform}.pt2", _export_one(step, example_args, platform))
+        if "cuda" in platforms:
+            from . import kernels
+
+            archive.writestr(LIBRARY, kernels.load_library().path.read_bytes())
+            archive.writestr(LIBRARY_INFO, json.dumps(
+                {"torch": torch.__version__, "arch": kernels.ARCH}))
     return buffer.getvalue()
 
 
-def _calls_tpme(data: bytes) -> bool:
-    """Whether the serialised program calls a ``tpme::`` op (its graph, a
-    JSON member of the archive, names it)."""
+def _programs(data: bytes) -> dict:
+    """``{platform or None: program bytes}`` of an artifact (``None``: a
+    single program, which names its platform in its inputs)."""
     with zipfile.ZipFile(io.BytesIO(data)) as archive:
-        return any(b"torch.ops.tpme." in archive.read(name)
-                   for name in archive.namelist() if name.endswith(".json"))
+        if _INDEX not in archive.namelist():
+            return {None: data}
+        return {p: archive.read(f"{p}.pt2") for p in json.loads(archive.read(_INDEX))}
+
+
+def _calls_tpme(data: bytes) -> bool:
+    """Whether a program of the artifact calls a ``tpme::`` op (its graph, a
+    JSON member of the program's archive, names it)."""
+    for program in _programs(data).values():
+        with zipfile.ZipFile(io.BytesIO(program)) as archive:
+            if any(b"torch.ops.tpme." in archive.read(name)
+                   for name in archive.namelist() if name.endswith(".json")):
+                return True
+    return False
+
+
+def _load_library(data: bytes) -> None:
+    """Load the op library a CUDA artifact carries, once per process: where
+    ``tpme::`` ops are already defined (this package's library, another
+    artifact's) it is not loaded again, since a second ``TORCH_LIBRARY(tpme)``
+    aborts the process.  Raises on a torch version or a device the library
+    was not built for."""
+    with zipfile.ZipFile(io.BytesIO(data)) as archive:
+        library, info = archive.read(LIBRARY), json.loads(archive.read(LIBRARY_INFO))
+    if info["torch"] != torch.__version__:
+        raise RuntimeError(
+            f"the artifact's kernel library was built for torch {info['torch']}, and this "
+            f"process has torch {torch.__version__}: export the step again with this torch"
+        )
+    if not torch.cuda.is_available():
+        raise RuntimeError("the artifact's CUDA program needs a CUDA device, and none is available")
+    capability = torch.cuda.get_device_capability()
+    if info["arch"] != f"sm_{capability[0]}{capability[1]}a":
+        raise RuntimeError(
+            f"the artifact's kernel library was built for {info['arch']}, and this device "
+            f"({torch.cuda.get_device_name()}) has compute capability "
+            f"{capability[0]}.{capability[1]}"
+        )
+    if hasattr(torch.ops.tpme, "launch_counts"):
+        return
+    with tempfile.NamedTemporaryFile(suffix=".so") as f:
+        f.write(library)
+        f.flush()
+        torch.ops.load_library(f.name)
 
 
 def _load_program(data: bytes):
-    if _calls_tpme(data):
-        for module in OP_MODULES:
-            importlib.import_module(module)
     with warnings.catch_warnings():
         # torch's reader warns of its own read-only byte buffers (copied to
         # the device at once) and of constants that share one storage
@@ -246,16 +318,14 @@ def load_step(data: bytes) -> Callable:
     The callable runs the program of its arguments' device at the exact
     shapes and dtypes it was traced at: other shapes or dtypes, or a device
     the artifact holds no program for, raise.  A CUDA program's ``tpme::``
-    ops are registered by importing :data:`OP_MODULES` first.
+    ops come from the op library the artifact carries (:func:`_load_library`),
+    so nothing of this package is imported.
     """
-    with zipfile.ZipFile(io.BytesIO(data)) as archive:
-        names = archive.namelist()
-        if _INDEX in names:
-            blobs = [archive.read(f"{p}.pt2") for p in json.loads(archive.read(_INDEX))]
-        else:
-            blobs = [data]
+    programs = _programs(data)
+    if "cuda" in programs:
+        _load_library(data)
     runners = {}
-    for blob in blobs:
+    for blob in programs.values():
         program = _load_program(blob)
         specs = _input_specs(program)
         platform = specs[0][2] if specs else "cpu"

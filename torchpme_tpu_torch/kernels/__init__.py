@@ -1,36 +1,44 @@
-"""Build, load and count the port's hand-written CUDA kernels.
+"""Build, load and count the port's hand-written CUDA kernels, the
+``tpme::`` operators.
 
 The kernels live in ``torchpme_tpu_torch/csrc/*.cu`` with a plain C
-interface.  :func:`load_library` compiles them with ``nvcc`` for ``sm_90a``
-(one ``nvcc`` per source, all started together) and links one shared library
-at first use (cached under ``_build/`` by a hash of the sources and flags),
-then binds it with ``ctypes``.  Nothing here touches
-CUDA at import time: the CPU tests import every module.
+interface.  Their host layer is C++ too: ``csrc/tpme_ops.cpp`` defines the
+``tpme::`` ops (``torch.ops.tpme.*``) with ``TORCH_LIBRARY`` from the schemas
+of ``csrc/tpme_ops.h``, and gives each a Meta kernel (its output shapes) and a
+CUDA kernel, which checks the operands, builds the kernel's parameters,
+allocates the outputs, launches on PyTorch's current stream and counts the
+launch.  :func:`load_library` compiles the ``.cu`` files with ``nvcc`` for
+``sm_90a`` and ``tpme_ops.cpp`` with the host compiler against torch's
+headers (one compiler per source, all started together), links one shared
+library at first use (cached under ``_build/`` by a hash of the sources, the
+flags and the torch version) and loads it with ``torch.ops.load_library``.
+A process that loads that library has the ops and their kernels with
+``torch`` alone, which is how an exported CUDA program runs
+(:mod:`torchpme_tpu_torch.deploy` puts the library into the artifact).
 
-Each kernel has a :class:`LaunchCounter` that its wrapper (beside the
-kernel's plain PyTorch twin, in ``ops/``) bumps by one per launch and
-nowhere else, so a run can show that the main path went through it.
+:func:`define_ops` gives the ops their schemas once per process: the library
+where a card is present, and where none is (the CPU tests) the same schemas
+defined from ``tpme_ops.h`` in Python, with their fake kernels, and nothing
+built.  The ``ops/`` modules then register on the ops by name what is
+Python: each op's plain version as its CPU kernel (:data:`PLAIN_VERSIONS`),
+the autograd of the differentiable ones, and the vmap rules (kernels D, E and
+F take a batch of systems in one launch; A, B, C and G have none yet, and
+their ops refuse a batch, :func:`refuse_vmap`, as their entry points do,
+:func:`refuse_batched`).  Nothing here touches CUDA at import time: the CPU
+tests import every module.
 
-Every kernel is a ``tpme::`` custom op (``torch.ops.tpme.*``) with fake and
-vmap registrations, and autograd where its output is differentiated, so
-:mod:`torch.export` traces the paths through them
-(:mod:`torchpme_tpu_torch.deploy`).  Kernels D, E and F take a
-batch of systems in one launch (the vmap rules of their ops in
-``ops/mesh_kernels.py``); A, B, C and G have no vmap rule yet: their entry
-points refuse batched tensors (:func:`refuse_batched`), and so do their ops'
-vmap registrations (:func:`refuse_vmap`).
-
-The launch counters are bumped inside the ops' CUDA bodies, so a launch made
-from an exported program counts too.
+The launch counters are C++ atomics bumped in the ops' CUDA kernels, one per
+kernel and kernel C's split variant apart, so a launch from an exported
+program counts too; :func:`launch_counts` reads them through
+``tpme::launch_counts``.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import hashlib
-import inspect
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -40,33 +48,35 @@ from pathlib import Path
 import torch
 
 __all__ = [
-    "COUNTERS",
+    "COUNTER_NAMES",
     "PLAIN_VERSIONS",
-    "LaunchCounter",
-    "MeshParams",
-    "SpreadParams",
-    "WindowDipoleParams",
-    "WindowMember",
-    "WindowParams",
+    "call",
     "check_cuda_tensor",
-    "check_status",
-    "custom_op",
+    "define_ops",
     "host_values",
     "is_batched",
     "is_tracing",
     "launch_counts",
     "load_library",
     "op_function",
+    "op_schemas",
+    "override_z_chunk",
+    "plain_version",
+    "register_autograd",
     "refuse_batched",
     "refuse_vmap",
+    "register_fake",
     "reset_launch_counts",
-    "stream_handle",
+    "tpme_op",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: the header both definitions of the ops read their schemas from
+SCHEMA_HEADER = CSRC_DIR / "tpme_ops.h"
+ARCH = "sm_90a"  # Hopper with its architecture-specific features (H100)
+ARCH_FLAGS = ("-gencode", f"arch=compute_{ARCH[3:]},code={ARCH}")
 NVCC_FLAGS = (
     *ARCH_FLAGS,
     "-std=c++17",
@@ -77,150 +87,38 @@ NVCC_FLAGS = (
     "-v",
 )
 
-MAX_NODES = 8  # csrc/spread.cu: coefficient table rows/cols
 N_OFFSETS = 14  # csrc/window.cu, csrc/window_dipole.cu: half-window offsets + the self cell
 MAX_CHANNELS = 4  # csrc/window.cu: per-thread charge-channel registers
 MAX_MEMBERS = 4  # csrc/window.cu: pair terms of a combined potential
-#: csrc/window.cu: first row of the members' energies in the accumulator
-#: (after the energy, the 14 × 3 d_offs sums and the block counter)
-WINDOW_MEMBER_ROW = 2 + 3 * N_OFFSETS
-#: csrc/window.cu: first of the 3 × 3 rows of the image term of the cell gradient
-WINDOW_IMAGE_ROW = WINDOW_MEMBER_ROW + MAX_MEMBERS
 
 
-@dataclass
-class LaunchCounter:
-    """Number of launches of one kernel since the last reset."""
-
-    name: str
-    launches: int = 0
+# -- the schemas ----------------------------------------------------------------
 
 
-SPREAD_FWD = LaunchCounter("spread_fwd")
-SPREAD_BWD = LaunchCounter("spread_bwd")
-WINDOW = LaunchCounter("window")
-#: kernel C's split variant: separate i-side charges (the x-slab sharded window)
-WINDOW_SPLIT = LaunchCounter("window_split")
-MESH_SPREAD = LaunchCounter("mesh_spread")
-MESH_GATHER = LaunchCounter("mesh_gather")
-MESH_WGRAD = LaunchCounter("mesh_wgrad")
-WINDOW_DIPOLE = LaunchCounter("window_dipole")
-COUNTERS = (
-    SPREAD_FWD, SPREAD_BWD, WINDOW, WINDOW_SPLIT, MESH_SPREAD, MESH_GATHER, MESH_WGRAD,
-    WINDOW_DIPOLE,
-)
+@functools.lru_cache(maxsize=None)
+def _header() -> tuple[dict, tuple]:
+    text = SCHEMA_HEADER.read_text()
+    ops = dict(re.findall(r'^TPME_OP\((\w+), "([^"]*)"\)', text, flags=re.M))
+    counters = tuple(re.findall(r"^TPME_COUNTER\((\w+)\)", text, flags=re.M))
+    return ops, counters
 
 
-def reset_launch_counts() -> None:
-    for counter in COUNTERS:
-        counter.launches = 0
+def op_schemas() -> dict[str, str]:
+    """Every ``tpme::`` op's schema by name, as ``csrc/tpme_ops.h`` gives it."""
+    return dict(_header()[0])
 
 
-def launch_counts() -> dict[str, int]:
-    return {counter.name: counter.launches for counter in COUNTERS}
+#: the launch counters, in the order ``tpme::launch_counts`` returns them
+COUNTER_NAMES: tuple[str, ...] = _header()[1]
 
 
-class SpreadParams(ctypes.Structure):
-    """Mirror of ``struct SpreadParams`` in ``csrc/spread.cu``."""
-
-    _fields_ = [
-        ("nx", ctypes.c_int),
-        ("ny", ctypes.c_int),
-        ("nz", ctypes.c_int),
-        ("nodes", ctypes.c_int),
-        ("extent", ctypes.c_int),
-        ("lpad", ctypes.c_int),
-        ("ty_count", ctypes.c_int),
-        ("n_tiles", ctypes.c_int),
-        ("kp", ctypes.c_int),
-        ("n_ch", ctypes.c_int),
-        ("z_cells", ctypes.c_int),
-        ("z_chunk", ctypes.c_int),
-        ("bwd_z_chunk", ctypes.c_int),
-        ("coeff", ctypes.c_float * (MAX_NODES * MAX_NODES)),
-        ("deriv", ctypes.c_float * (MAX_NODES * MAX_NODES)),
-    ]
-
-
-class WindowMember(ctypes.Structure):
-    """Mirror of ``struct WindowMember`` in ``csrc/window.cu``: one ``1/r^p``
-    pair term."""
-
-    _fields_ = [
-        ("p", ctypes.c_int),
-        ("alpha", ctypes.c_float),
-        ("alpha_sq", ctypes.c_float),
-        ("prefactor", ctypes.c_float),
-        ("c_gauss", ctypes.c_float),
-    ]
-
-
-class WindowParams(ctypes.Structure):
-    """Mirror of ``struct WindowParams`` in ``csrc/window.cu``."""
-
-    _fields_ = [
-        ("nx", ctypes.c_int),
-        ("ny", ctypes.c_int),
-        ("nz", ctypes.c_int),
-        ("cap", ctypes.c_int),
-        ("n_ch", ctypes.c_int),
-        ("self_k", ctypes.c_int),
-        ("group", ctypes.c_int),
-        ("direct", ctypes.c_int),
-        ("kind", ctypes.c_int),
-        ("n_members", ctypes.c_int),
-        ("cutoff_sq", ctypes.c_float),
-        ("members", WindowMember * MAX_MEMBERS),
-        ("offsets", ctypes.c_int * (3 * N_OFFSETS)),
-    ]
-
-
-class WindowDipoleParams(ctypes.Structure):
-    """Mirror of ``struct WindowDipoleParams`` in ``csrc/window_dipole.cu``."""
-
-    _fields_ = [
-        ("nx", ctypes.c_int),
-        ("ny", ctypes.c_int),
-        ("nz", ctypes.c_int),
-        ("cap", ctypes.c_int),
-        ("self_k", ctypes.c_int),
-        ("direct", ctypes.c_int),
-        ("warps", ctypes.c_int),
-        ("cutoff_sq", ctypes.c_float),
-        ("alpha", ctypes.c_float),
-        ("sqrt_alpha", ctypes.c_float),
-        ("prefactor", ctypes.c_float),
-        ("c_gauss", ctypes.c_float),
-        ("offsets", ctypes.c_int * (3 * N_OFFSETS)),
-    ]
-
-
-class MeshParams(ctypes.Structure):
-    """Mirror of ``struct MeshParams`` in ``csrc/mesh.cu``."""
-
-    _fields_ = [
-        ("nx", ctypes.c_int),
-        ("ny", ctypes.c_int),
-        ("nz", ctypes.c_int),
-        ("nodes", ctypes.c_int),
-        ("extent", ctypes.c_int),
-        ("ty_count", ctypes.c_int),
-        ("n_tiles", ctypes.c_int),
-        ("cap", ctypes.c_int),
-        ("n_ch", ctypes.c_int),
-        ("z_chunk", ctypes.c_int),
-        ("n_sys", ctypes.c_int),
-        ("slot_stride", ctypes.c_longlong),
-        ("val_stride", ctypes.c_longlong),
-        ("mesh_stride", ctypes.c_longlong),
-    ]
+# -- the build ----------------------------------------------------------------------
 
 
 @dataclass(frozen=True)
 class KernelLibrary:
-    """The loaded kernel library and how it was obtained."""
+    """The op library and how it was obtained."""
 
-    lib: ctypes.CDLL
     path: Path
     build_seconds: float  # 0.0 when the cached library was reused
     build_log: str
@@ -243,70 +141,86 @@ def _nvcc() -> str:
     )
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    p = ctypes.c_void_p
-    lib.tpme_error_string.argtypes = [ctypes.c_int]
-    lib.tpme_error_string.restype = ctypes.c_char_p
-    lib.tpme_max_smem_optin.argtypes = [ctypes.c_int]
-    lib.tpme_max_smem_optin.restype = ctypes.c_int
-    lib.tpme_spread_fwd.argtypes = [p, p, p, ctypes.POINTER(SpreadParams), p]
-    lib.tpme_spread_fwd.restype = ctypes.c_int
-    lib.tpme_spread_bwd.argtypes = [p, p, p, p, p, ctypes.POINTER(SpreadParams), p]
-    lib.tpme_spread_bwd.restype = ctypes.c_int
-    lib.tpme_window.argtypes = [
-        p, p, p, p, p, p, p, p, p, p, p, ctypes.POINTER(WindowParams), p,
-    ]
-    lib.tpme_window.restype = ctypes.c_int
-    lib.tpme_window_group.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.tpme_window_group.restype = ctypes.c_int
-    lib.tpme_window_max_cap.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.tpme_window_max_cap.restype = ctypes.c_int
-    lib.tpme_window_dipole.argtypes = [
-        p, p, p, p, p, p, p, p, p, p, ctypes.POINTER(WindowDipoleParams), p,
-    ]
-    lib.tpme_window_dipole.restype = ctypes.c_int
-    lib.tpme_window_dipole_warps.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.tpme_window_dipole_warps.restype = ctypes.c_int
-    lib.tpme_window_dipole_max_cap.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.tpme_window_dipole_max_cap.restype = ctypes.c_int
-    lib.tpme_mesh_spread.argtypes = [p, p, p, p, p, p, p, ctypes.POINTER(MeshParams), p]
-    lib.tpme_mesh_spread.restype = ctypes.c_int
-    lib.tpme_mesh_gather_wgrad.argtypes = [
-        p, p, p, p, p, p, p, p, p, p, ctypes.POINTER(MeshParams), p,
-    ]
-    lib.tpme_mesh_gather_wgrad.restype = ctypes.c_int
+def host_compiler() -> str | None:
+    """The C++ compiler for ``tpme_ops.cpp``: ``$CXX``, else ``c++`` or
+    ``g++`` on the path (``None`` where there is none)."""
+    for name in (os.environ.get("CXX"), "c++", "g++"):
+        found = name and shutil.which(name)
+        if found:
+            return found
+    return None
 
 
-def _build(sources: list[Path], path: Path) -> tuple[float, str]:
+def _cxx_standard() -> str:
+    """The C++ standard of the installed torch's own extension builds (its
+    headers need it)."""
+    import torch.utils.cpp_extension as ext
+
+    return "c++20" if "-std=c++20" in Path(ext.__file__).read_text() else "c++17"
+
+
+def torch_flags(cuda: bool) -> tuple[list[str], list[str]]:
+    """``(compile, link)`` flags of ``tpme_ops.cpp`` against the installed
+    torch: its headers, its C++ ABI and standard, its libraries; with
+    ``cuda`` the CUDA section and the toolkit's headers (beside ``nvcc``)."""
+    import torch.utils.cpp_extension as ext
+
+    compile_flags = [
+        f"-std={_cxx_standard()}", "-O2", "-fPIC", "-ffp-contract=off",
+        f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+        *(f"-I{p}" for p in ext.include_paths()),
+    ]
+    libs = ["torch", "torch_cpu", "c10"]
+    if cuda:
+        compile_flags += ["-DTPME_WITH_CUDA", f"-I{Path(_nvcc()).parent.parent / 'include'}"]
+        libs += ["torch_cuda", "c10_cuda"]
+    link_flags = [*(f"-L{p}" for p in ext.library_paths()), *(f"-l{lib}" for lib in libs)]
+    return compile_flags, link_flags
+
+
+def _run_all(commands: list[list[str]]) -> str:
+    """Run the compilers at once; raise with their output when one fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in commands]
+    outputs = [proc.communicate()[0] for proc in procs]
+    log = "".join(outputs)
+    for proc, cmd in zip(procs, commands):
+        if proc.returncode != 0:
+            raise RuntimeError(f"{Path(cmd[0]).name} failed ({proc.returncode}) on "
+                               f"{cmd[-1]}:\n{log}")
+    return log
+
+
+def _build(path: Path, cuda: bool) -> tuple[float, str]:
     """Compile every source to an object file, all at once, and link them
-    into ``path``; returns (seconds, compiler output)."""
-    nvcc = _nvcc()
+    into ``path``; returns (seconds, compiler output).  Without ``cuda`` only
+    the host part of ``tpme_ops.cpp`` (schemas, Meta kernels, parameter
+    builders)."""
+    cxx = host_compiler()
+    if cxx is None:
+        raise RuntimeError("no C++ compiler found ($CXX, c++, g++) for csrc/tpme_ops.cpp")
+    compile_flags, link_flags = torch_flags(cuda)
     tag = f"{path.stem}.{os.getpid()}"
-    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    host_src = CSRC_DIR / "tpme_ops.cpp"
+    host_obj = BUILD_DIR / f"{tag}.tpme_ops.o"
+    commands = [[cxx, *compile_flags, "-c", "-o", str(host_obj), str(host_src)]]
+    objects = [host_obj]
+    if cuda:
+        nvcc = _nvcc()
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            objects.append(obj)
+            commands.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     start = time.perf_counter()
     try:
-        procs = [
-            subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            )
-            for src, obj in zip(sources, objects)
-        ]
-        outputs = [proc.communicate()[0] for proc in procs]
-        log = "".join(outputs)
-        for proc, src in zip(procs, sources):
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) on {src.name}:\n{log}"
-                )
-        link = subprocess.run(
-            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)],
-            capture_output=True, text=True, check=False,
-        )
+        log = _run_all(commands)
+        linker = [_nvcc(), *ARCH_FLAGS, "-shared"] if cuda else [cxx, "-shared"]
+        link = subprocess.run([*linker, "-o", str(tmp), *map(str, objects), *link_flags],
+                              capture_output=True, text=True, check=False)
         log += link.stdout + link.stderr
         if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+            raise RuntimeError(f"link failed ({link.returncode}):\n{log}")
         os.replace(tmp, path)
     finally:
         for leftover in (*objects, tmp):
@@ -314,36 +228,160 @@ def _build(sources: list[Path], path: Path) -> tuple[float, str]:
     return time.perf_counter() - start, log
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> KernelLibrary:
-    """Compile ``csrc/*.cu`` (once per source hash) and load the library."""
-    sources = sorted(CSRC_DIR.glob("*.cu"))
-    if not sources:
-        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def build_library(cuda: bool = True) -> KernelLibrary:
+    """Build the op library (once per hash of the sources, the flags and the
+    torch version) without loading it: with ``cuda`` the kernels and their
+    CUDA ops, else the host part alone (which a CPU test builds)."""
+    sources = sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cpp"), *CSRC_DIR.glob("*.h")])
+    digest = hashlib.sha256(f"{torch.__version__} {cuda} {' '.join(NVCC_FLAGS)}".encode())
+    digest.update(" ".join(torch_flags(False)[0]).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    path = BUILD_DIR / f"libtpme_kernels_{digest.hexdigest()[:16]}.so"
+    name = "libtpme_ops" if cuda else "libtpme_ops_host"
+    path = BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
     build_seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        build_seconds, log = _build(sources, path)
-    lib = ctypes.CDLL(str(path))
-    _declare(lib)
-    return KernelLibrary(lib, path, build_seconds, log)
+        build_seconds, log = _build(path, cuda)
+    return KernelLibrary(path, build_seconds, log)
 
 
-def check_status(status: int, name: str) -> None:
-    """Raise when a C entry returned a CUDA error code."""
-    if status != 0:
-        msg = load_library().lib.tpme_error_string(status).decode()
-        raise RuntimeError(f"CUDA kernel {name} failed: error {status} ({msg})")
+def _defined_in_cpp() -> bool:
+    """Whether a ``tpme`` op library is loaded in this process (this
+    package's, or the copy an exported artifact carries)."""
+    return not _PY_LIBRARIES and hasattr(torch.ops.tpme, "launch_counts")
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> KernelLibrary:
+    """Build the op library with its kernels (once per source hash) and load
+    it: the ``tpme::`` ops with their CUDA and Meta kernels.  Where a copy is
+    already loaded (an artifact's) the build is not loaded again: a second
+    ``TORCH_LIBRARY(tpme)`` would abort the process."""
+    if _PY_LIBRARIES:
+        raise RuntimeError("the tpme ops are defined in Python in this process (no card "
+                           "was found when they were first used): the library cannot load")
+    built = build_library(cuda=True)
+    if not _defined_in_cpp():
+        torch.ops.load_library(str(built.path))
+    return built
+
+
+#: the Python definitions where no library is loaded (kept alive: a
+#: ``Library`` unregisters what it holds when collected)
+_PY_LIBRARIES: list = []
+
+
+def _define_in_python() -> None:
+    """The ops of ``tpme_ops.h`` defined in Python, for a process without
+    the library: their CPU kernels are the plain versions the ``ops/``
+    modules register, the counters read zero, and the kernel queries
+    raise."""
+    lib = torch.library.Library("tpme", "DEF")
+    _PY_LIBRARIES.append(lib)
+    for schema in op_schemas().values():
+        lib.define(schema)
+
+    def no_card(*_):
+        raise RuntimeError("the tpme kernels need the op library, which is built on a CUDA card")
+
+    no_tensor = {
+        "launch_counts": lambda: [0] * len(COUNTER_NAMES),
+        "reset_launch_counts": lambda: None,
+        "window_plan": no_card,
+        "window_dipole_plan": no_card,
+        "override_z_chunk": no_card,
+    }
+    for name, fn in no_tensor.items():
+        lib.impl(name, fn, "CompositeExplicitAutograd")
+
+
+@functools.lru_cache(maxsize=None)
+def define_ops() -> bool:
+    """Give the ``tpme::`` ops their schemas, once per process; returns
+    whether they come from the C++ library.  A loaded library (this
+    package's or an artifact's) is kept; on a machine with a card the library
+    is built (at first use) and loaded; elsewhere the schemas of
+    ``tpme_ops.h`` are defined in Python."""
+    if _defined_in_cpp():
+        return True
+    if torch.cuda.is_available():
+        load_library()
+        return True
+    _define_in_python()
+    return False
+
+
+def tpme_op(name: str):
+    """The ``torch.ops.tpme.<name>.default`` overload (the ops defined)."""
+    define_ops()
+    return getattr(torch.ops.tpme, name).default
+
+
+def override_z_chunk(kernel: str, z_chunk: int | None) -> int:
+    """Hold the z chunk of kernel A (``"spread_fwd"``), B (``"spread_bwd"``)
+    or E and F (``"mesh_gather"``) at ``z_chunk`` for the launches that
+    follow (0: the one-thread-a-slot form of B, E and F), ``None`` for the
+    rule again; returns the override it replaces (-1: the rule)."""
+    return tpme_op("override_z_chunk")(kernel, -1 if z_chunk is None else int(z_chunk))
+
+
+# -- the launch counters -----------------------------------------------------------
+
+
+def reset_launch_counts() -> None:
+    tpme_op("reset_launch_counts")()
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each kernel since the last reset, by counter name."""
+    return dict(zip(COUNTER_NAMES, tpme_op("launch_counts")()))
+
+
+# -- the Python registrations on the ops ------------------------------------------
+
+
+#: Every ``tpme::`` kernel op's plain version, by op name, with the op's
+#: signature: the op's CPU kernel, the body of an entry point's ``plain=True``
+#: on any device, and what :func:`torchpme_tpu_torch.deploy.export_step` puts
+#: in place of the op in a CPU program.
+PLAIN_VERSIONS: dict = {}
+
+_IMPLS: list = []
+
+
+def plain_version(name: str):
+    """Record ``fn`` as op ``name``'s plain version and register it as the
+    op's CPU kernel."""
+
+    def wrap(fn):
+        define_ops()
+        if not _IMPLS:
+            _IMPLS.append(torch.library.Library("tpme", "IMPL"))
+        _IMPLS[0].impl(name, fn, "CPU")
+        PLAIN_VERSIONS[name] = fn
+        return fn
+
+    return wrap
+
+
+def register_fake(name: str):
+    """Register ``fn`` as op ``name``'s fake kernel where the ops are defined
+    in Python; the library's Meta kernels serve where it is loaded."""
+
+    def wrap(fn):
+        if not define_ops():
+            torch.library.register_fake(f"tpme::{name}", fn)
+        return fn
+
+    return wrap
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, shape, dtype=torch.float32):
     """Validate a kernel operand: on a CUDA device, of ``dtype``, of
-    ``shape``, contiguous.  Raises on anything the kernel does not take."""
+    ``shape``, contiguous.  Raises on anything the kernel does not take (the
+    ops' CUDA kernels check the same in C++, with the same messages)."""
     if t.dtype != dtype:
         raise TypeError(
             f"{name} is {t.dtype}; the CUDA kernels take {dtype} only"
@@ -413,65 +451,75 @@ def refuse_batched(what: str, *tensors) -> None:
         raise NotImplementedError(_refusal(what))
 
 
-def refuse_vmap(op, what: str) -> None:
-    """Register ``op``'s vmap rule as the refusal of :func:`refuse_batched`,
-    so a batch reaching the op by any entry point raises the same error."""
+def refuse_vmap(name: str, what: str) -> None:
+    """Register op ``name``'s vmap rule as the refusal of
+    :func:`refuse_batched`, so a batch reaching the op by any entry point
+    raises the same error."""
 
     def rule(info, in_dims, *args):
         raise NotImplementedError(_refusal(what))
 
-    op.register_vmap(rule)
+    torch.library.register_vmap(f"tpme::{name}", rule)
 
 
-#: The plain version of every ``tpme::`` op, by op name: its body with
-#: ``plain=True``, which :func:`torchpme_tpu_torch.deploy.export_step` puts
-#: in place of the op in a CPU program.
-PLAIN_VERSIONS: dict = {}
+def call(name: str, *args, plain: bool = False):
+    """Op ``name`` on ``args``, or with ``plain`` its plain version on any
+    device (the reference path of the comparisons; float64 on a card)."""
+    return PLAIN_VERSIONS[name](*args) if plain else tpme_op(name)(*args)
 
 
-def custom_op(name: str):
-    """``torch.library.custom_op("tpme::<name>")`` for a function whose last
-    argument is ``plain: bool`` (its plain version on any device), which is
-    also recorded in :data:`PLAIN_VERSIONS`."""
-
-    def wrap(fn):
-        op = torch.library.custom_op(f"tpme::{name}", mutates_args=())(fn)
-        signature = inspect.signature(fn)
-
-        def plain_version(*args, **kwargs):
-            bound = signature.bind(*args, **kwargs)
-            bound.arguments["plain"] = True
-            return fn(*bound.args, **bound.kwargs)
-
-        PLAIN_VERSIONS[name] = plain_version
-        return op
-
-    return wrap
+def _split_plain(inputs) -> tuple[tuple, bool, bool]:
+    """``(op arguments, plain, whether plain was given)`` of an
+    :func:`op_function`'s inputs: a trailing ``bool`` is ``plain`` (no op
+    ends with a ``bool`` argument)."""
+    if inputs and type(inputs[-1]) is bool:
+        return tuple(inputs[:-1]), inputs[-1], True
+    return tuple(inputs), False, False
 
 
-def op_function(name: str, op, setup_context, backward) -> type:
-    """The differentiable entry to a custom op: an ``autograd.Function`` of
-    the ``setup_context`` form that runs the op under ``no_grad`` and the
-    same VJP (``setup_context``, ``backward``: the functions given to the
-    op's ``register_autograd``).  ``torch.func.grad`` refuses the autograd
-    that custom ops register (torch builds it as an ``autograd.Function``
-    without ``setup_context``) and takes this one; ``make_fx`` traces it into
-    the op and its VJP's ops (:mod:`torchpme_tpu_torch.deploy`).  Its vmap
-    rule is generated, so under ``vmap`` the op's own rule applies."""
+def op_function(name: str, op_name: str, setup_context, backward) -> type:
+    """The differentiable entry to op ``op_name``: an ``autograd.Function``
+    of the ``setup_context`` form, ``apply(*op_args[, plain])``, that runs
+    the op (with ``plain`` its plain version, :func:`call`) under
+    ``no_grad`` and the same VJP (``setup_context``, ``backward``: the
+    functions given to the op's :func:`register_autograd`, which find
+    ``ctx.plain``).  ``torch.func.grad`` refuses the autograd registered on
+    an op (torch builds it as an ``autograd.Function`` without
+    ``setup_context``) and takes this one; ``make_fx`` traces it into the op
+    and its VJP's ops (:mod:`torchpme_tpu_torch.deploy`).  Its vmap rule is
+    generated, so under ``vmap`` the op's own rule applies."""
 
     def forward(*inputs):
+        args, plain, _ = _split_plain(inputs)
         # the Function records the graph; the op must not record its own
         with torch.no_grad():
-            return op(*inputs)
+            return call(op_name, *args, plain=plain)
+
+    def setup(ctx, inputs, output):
+        args, plain, given = _split_plain(inputs)
+        setup_context(ctx, args, output)
+        ctx.plain, ctx.plain_given = plain, given
+
+    def vjp(ctx, *cts):
+        grads = tuple(backward(ctx, *cts))
+        return (*grads, None) if ctx.plain_given else grads
 
     return type(name, (torch.autograd.Function,), {
         "generate_vmap_rule": True,
         "forward": staticmethod(forward),
-        "setup_context": staticmethod(setup_context),
-        "backward": staticmethod(torch.autograd.function.once_differentiable(backward)),
+        "setup_context": staticmethod(setup),
+        "backward": staticmethod(torch.autograd.function.once_differentiable(vjp)),
     })
 
 
-def stream_handle(device: torch.device) -> int:
-    """Raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+def register_autograd(name: str, backward, setup_context) -> None:
+    """Register op ``name``'s autograd; a direct call of the op is never the
+    plain version (``ctx.plain`` False)."""
+
+    def setup(ctx, inputs, output):
+        setup_context(ctx, inputs, output)
+        ctx.plain = False
+
+    torch.library.register_autograd(f"tpme::{name}", backward, setup_context=setup)
+
+

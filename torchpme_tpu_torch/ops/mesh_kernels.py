@@ -37,9 +37,11 @@ derivative, the JAX package's three stencils).  A wrapper takes the plain
 version only for a tensor that lies on the CPU; for a CUDA tensor it
 launches the kernel or raises (float32 only).
 
-The wrappers are ``torch.library`` custom ops in the ``tpme`` namespace
-(``torch.ops.tpme.mesh_spread``, ...) with fake, autograd and vmap
-registrations.  Each takes one system or a batch with leading axes: under
+The wrappers are the ops ``torch.ops.tpme.mesh_spread``, ..., registered in
+C++ (``csrc/tpme_ops.cpp``: their CUDA kernels check the operands, build the
+parameters, the z chunk of E and F among them, and launch), with the plain
+versions as their CPU kernels and the autograd and vmap rules registered
+here.  Each takes one system or a batch with leading axes: under
 ``torch.func.vmap`` (the JAX package's kernels get it from ``pallas_call``'s
 batching rule) the whole batch goes through one launch of each kernel, and
 the plain versions take the same leading axes on the CPU.
@@ -47,8 +49,6 @@ the plain versions take the same leading axes on the CPU.
 
 from __future__ import annotations
 
-import ctypes
-import math
 from collections.abc import Sequence
 
 import torch
@@ -85,19 +85,6 @@ __all__ = [
     "spread_dipoles",
     "spread_tiles",
 ]
-
-
-def gather_z_chunk(nodes: int, n_ch: int) -> int:
-    """Z cells a block of kernels E and F stages: 32, halved while the
-    staged windows of all channels take more than 36 KB of shared memory
-    (on an H100 the best of 16, 32 and 64 z cells at one and at three
-    channels, ``chip_smoke.py --profile``: ``gather_design_sweep``).  0
-    selects one thread a slot reading the mesh in device memory, which the
-    kernel also takes where the staged block does not fit shared memory."""
-    extent, zc = TILE + nodes - 1, 32
-    while zc > 4 and n_ch * extent * extent * ((zc + nodes + 2) // 4) * 16 > 36 * 1024:
-        zc //= 2
-    return zc
 
 
 # -- plain versions -------------------------------------------------------------
@@ -250,125 +237,93 @@ def mesh_gather_wgrad_dipole_plain(lx, ly, sz, weights, dweights, nu_slots, mesh
     )
 
 
-# -- kernels D, E, F --------------------------------------------------------------
-
-
-def _check(lx, ly, sz, weights, ns, nodes: int, dipole: bool = False):
-    """Validate the bucketing arrays for the kernels; returns ``(lead, T,
-    K)``, ``lead`` the batch axes (``()`` for one system; a batch of systems
-    runs in one launch).  The charge forms take 1 to 7 nodes (the P3M and
-    Lagrange tables), the dipole forms 3 to 7 (the dipolar mesh is
-    Lagrange-only)."""
-    lo = 3 if dipole else 1
-    if not lo <= nodes <= 7:
-        form = "dipole forms of the mesh kernels are" if dipole else "mesh kernels are"
-        raise ValueError(f"the {form} built for {lo} to 7 nodes, got {nodes}")
-    nx, ny, _ = ns
-    if nx % TILE or ny % TILE:
-        raise ValueError(f"mesh {tuple(ns)} is not a whole number of {TILE}x{TILE} tiles")
-    if lx.dim() < 2:
-        raise ValueError(f"local_x has shape {tuple(lx.shape)}, expected (..., T, K)")
-    lead, (t, k) = tuple(lx.shape[:-2]), lx.shape[-2:]
-    if t != (nx // TILE) * (ny // TILE):
-        raise ValueError(f"{t} tiles do not cover the {tuple(ns)} mesh")
-    if not 1 <= math.prod(lead) <= _MAX_SYSTEMS:
-        raise ValueError(f"a launch takes 1 to {_MAX_SYSTEMS} systems, got batch axes {lead}")
-    for name, arr in (("local_x", lx), ("local_y", ly), ("start_z", sz)):
-        _k.check_cuda_tensor(arr, name, (*lead, t, k), torch.int32)
-    _k.check_cuda_tensor(weights, "weights", (*lead, t, k, 3, nodes))
-    return lead, t, k
-
-
-_MAX_SYSTEMS = 65535  # the grid's z extent: one system a z index
-
-
-def _params(ns, nodes: int, lead, t: int, k: int, n_ch: int, n_vals: int) -> _k.MeshParams:
-    p = _k.MeshParams()
-    p.nx, p.ny, p.nz = ns
-    p.nodes, p.extent, p.ty_count = nodes, TILE + nodes - 1, ns[1] // TILE
-    p.n_tiles, p.cap, p.n_ch = t, k, n_ch
-    p.z_chunk = gather_z_chunk(nodes, n_ch)
-    p.n_sys = math.prod(lead)
-    p.slot_stride, p.val_stride = t * k, t * n_vals * k
-    p.mesh_stride = n_ch * ns[0] * ns[1] * ns[2]
-    return p
-
-
-def _launch_spread(lx, ly, sz, weights, dweights, values, ns, nodes: int) -> torch.Tensor:
-    """Kernel D over checked operands: ``values (..., T, C, K)`` charges, or
-    with ``dweights`` the dipole form's ``ν (..., T, 3, K)`` (one output
-    channel); all systems of the batch in one launch."""
-    lead, (t, k) = lx.shape[:-2], lx.shape[-2:]
-    dipole = dweights is not None
-    n_ch = 1 if dipole else values.shape[-2]
-    dev = weights.device
-    # the kernel adds into the mesh
-    mesh = torch.zeros((*lead, n_ch, *ns), dtype=torch.float32, device=dev)
-    p = _params(ns, nodes, lead, t, k, n_ch, values.shape[-2])
-    status = _k.load_library().lib.tpme_mesh_spread(
-        lx.data_ptr(), ly.data_ptr(), sz.data_ptr(), weights.data_ptr(),
-        None if dweights is None else dweights.data_ptr(), values.data_ptr(),
-        mesh.data_ptr(), ctypes.byref(p), _k.stream_handle(dev),
-    )
-    _k.check_status(status, "mesh_spread")
-    _k.MESH_SPREAD.launches += 1
-    return mesh
-
-
-def _launch_gather_wgrad(lx, ly, sz, weights, dweights, q_slots, mesh, ns, nodes, gather, wgrad):
-    """Kernels E and/or F in one launch: the charge form, or with
-    ``dweights`` the dipole form (``q_slots`` is then ``ν (..., T, 3, K)``);
-    all systems of the batch in one launch.  Returns ``(values, ct_w,
-    ct_dw)``, ``None`` where not asked for."""
-    dipole = dweights is not None
-    lead, t, k = _check(lx, ly, sz, weights, ns, nodes, dipole=dipole)
-    n_ch = 1 if dipole else mesh.shape[-4]
-    _k.check_cuda_tensor(mesh, "mesh", (*lead, n_ch, *ns))
-    if dipole:
-        _k.check_cuda_tensor(dweights, "dweights", (*lead, t, k, 3, nodes))
-    n_vals = 3 if dipole else n_ch
-    dev = weights.device
-    vals = wg = dwg = None
-    if wgrad:
-        _k.check_cuda_tensor(q_slots, "nu_slots" if dipole else "q_slots", (*lead, t, n_vals, k))
-        wg = torch.empty((*lead, t, k, 3, nodes), dtype=torch.float32, device=dev)
-        if dipole:
-            dwg = torch.empty_like(wg)
-    if gather:
-        vals = torch.empty((*lead, t, n_vals, k), dtype=torch.float32, device=dev)
-    p = _params(ns, nodes, lead, t, k, n_ch, n_vals)
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
-    status = _k.load_library().lib.tpme_mesh_gather_wgrad(
-        lx.data_ptr(), ly.data_ptr(), sz.data_ptr(), weights.data_ptr(), ptr(dweights),
-        q_slots.data_ptr() if wgrad else None, mesh.data_ptr(), ptr(vals), ptr(wg), ptr(dwg),
-        ctypes.byref(p), _k.stream_handle(dev),
-    )
-    _k.check_status(status, "mesh_gather_wgrad")
-    if gather:
-        _k.MESH_GATHER.launches += 1
-    if wgrad:
-        _k.MESH_WGRAD.launches += 1
-    return vals, wg, dwg
-
-
-# -- the kernels as custom ops ------------------------------------------------------
-# Each of D, E, F, E + F (charge and dipole forms) is a ``tpme::`` custom op
-# whose implementation is the kernel on CUDA tensors (float32 only; it
-# launches or raises) and the plain version on CPU tensors or with
-# ``plain=True``.  Every op takes the ``(T, K)`` arrays of one system or the
+# -- kernels D, E, F: the ops ------------------------------------------------------
+# Each of D, E, F, E + F (charge and dipole forms) is a ``tpme::`` op whose
+# CUDA kernel launches the kernel (float32 only; it launches or raises) and
+# whose CPU kernel is the plain version (``kernels.call(..., plain=True)`` on
+# any device).  Every op takes the ``(T, K)`` arrays of one system or the
 # ``(..., T, K)`` arrays of a batch, which its vmap rule builds: the batch
 # dimension moves to the front (an unbatched operand is expanded to it) and
 # the op runs once, so a ``torch.func.vmap`` over systems launches each
-# kernel once.  ``register_fake`` gives the shapes (``torch.export``),
-# ``register_autograd`` the VJPs of the differentiable ones: the spread's is
-# the gather and the weight gradient, the gather's the spread and the weight
-# gradient, as in the JAX package.
+# kernel once.  The fakes give the shapes (``torch.export``, where no library
+# gives its Meta kernels), the autograd the VJPs of the differentiable ones:
+# the spread's is the gather and the weight gradient, the gather's the
+# spread and the weight gradient, as in the JAX package.
 
-def _vmap_rule(op, n_out: int):
-    """Register ``op``'s vmap rule: one call on the batch-leading operands."""
+
+@_k.plain_version("mesh_spread")
+def _mesh_spread_cpu(lx, ly, sz, weights, q_slots, ns, nodes):
+    return mesh_spread_plain(lx, ly, sz, weights, q_slots, tuple(ns), nodes)
+
+
+@_k.plain_version("mesh_spread_dipole")
+def _mesh_spread_dipole_cpu(lx, ly, sz, weights, dweights, nu_slots, ns, nodes):
+    return mesh_spread_dipole_plain(lx, ly, sz, weights, dweights, nu_slots, tuple(ns), nodes)
+
+
+@_k.plain_version("mesh_gather")
+def _mesh_gather_cpu(lx, ly, sz, weights, mesh, ns, nodes):
+    return mesh_gather_plain(lx, ly, sz, weights, mesh, tuple(ns), nodes)
+
+
+@_k.plain_version("mesh_wgrad")
+def _mesh_wgrad_cpu(lx, ly, sz, weights, q_slots, mesh, ns, nodes):
+    return mesh_wgrad_plain(lx, ly, sz, weights, q_slots, mesh, tuple(ns), nodes)
+
+
+@_k.plain_version("mesh_gather_wgrad")
+def _mesh_gather_wgrad_cpu(lx, ly, sz, weights, q_slots, mesh, ns, nodes):
+    ns = tuple(ns)
+    return (mesh_gather_plain(lx, ly, sz, weights, mesh, ns, nodes),
+            mesh_wgrad_plain(lx, ly, sz, weights, q_slots, mesh, ns, nodes))
+
+
+@_k.plain_version("mesh_gather_dipole")
+def _mesh_gather_dipole_cpu(lx, ly, sz, weights, dweights, mesh, ns, nodes):
+    return mesh_gather_dipole_plain(lx, ly, sz, weights, dweights, mesh, tuple(ns), nodes)
+
+
+@_k.plain_version("mesh_wgrad_dipole")
+def _mesh_wgrad_dipole_cpu(lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes):
+    return mesh_wgrad_dipole_plain(lx, ly, sz, weights, dweights, nu_slots, mesh, tuple(ns),
+                                   nodes)
+
+
+@_k.plain_version("mesh_gather_wgrad_dipole")
+def _mesh_gather_wgrad_dipole_cpu(lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes):
+    return mesh_gather_wgrad_dipole_plain(lx, ly, sz, weights, dweights, nu_slots, mesh,
+                                          tuple(ns), nodes)
+
+
+#: kernel D: ``(T, C, K)`` per-slot charges → ``(C, nx, ny, nz)`` mesh
+mesh_spread = _k.tpme_op("mesh_spread")
+#: kernel D's dipole form: ``(T, 3, K)`` per-slot effective dipoles → ``(1,
+#: nx, ny, nz)`` gradient density, each slot read once
+mesh_spread_dipole = _k.tpme_op("mesh_spread_dipole")
+#: kernel E: ``(C, nx, ny, nz)`` mesh → ``(T, C, K)`` per-slot values
+mesh_gather = _k.tpme_op("mesh_gather")
+#: kernel F: the weight cotangent ``(T, K, 3, n)`` of the trilinear form for
+#: ``q (T, C, K)`` and the ``(C, nx, ny, nz)`` field
+mesh_wgrad = _k.tpme_op("mesh_wgrad")
+#: kernels E and F from one pass over the mesh windows: ``(values (T, C, K),
+#: weight cotangent (T, K, 3, n))``; one launch, counted once for each
+mesh_gather_wgrad = _k.tpme_op("mesh_gather_wgrad")
+#: kernel E's dipole form: ``(1, nx, ny, nz)`` mesh → ``(T, 3, K)`` per-slot
+#: values ``Σ ∂_a[W_x W_y W_z] F``, each slot read once
+mesh_gather_dipole = _k.tpme_op("mesh_gather_dipole")
+#: kernel F's dipole form: the cotangents ``(ct_w, ct_dw)``, each ``(T, K, 3,
+#: n)``, of the weights and their derivatives for ``ν (T, 3, K)`` and the
+#: ``(1, nx, ny, nz)`` field, each slot read once
+mesh_wgrad_dipole = _k.tpme_op("mesh_wgrad_dipole")
+#: the dipole forms of kernels E and F from one launch: ``(values (T, 3, K),
+#: ct_w, ct_dw)``
+mesh_gather_wgrad_dipole = _k.tpme_op("mesh_gather_wgrad_dipole")
+
+
+def _vmap_rule(name: str, n_out: int):
+    """Register op ``name``'s vmap rule: one call on the batch-leading
+    operands."""
+    op = _k.tpme_op(name)
 
     def rule(info, in_dims, *args):
         moved = []
@@ -379,133 +334,10 @@ def _vmap_rule(op, n_out: int):
             moved.append(arg)
         return op(*moved), (0,) * n_out if n_out > 1 else 0
 
-    op.register_vmap(rule)
+    torch.library.register_vmap(f"tpme::{name}", rule)
 
 
-@_k.custom_op("mesh_spread")
-def mesh_spread(
-    lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, q_slots: Tensor, ns: Sequence[int],
-    nodes: int, plain: bool = False,
-) -> Tensor:
-    """Kernel D: ``(T, C, K)`` per-slot charges → ``(C, nx, ny, nz)`` mesh."""
-    ns = tuple(ns)
-    if plain or weights.device.type == "cpu":
-        return mesh_spread_plain(lx, ly, sz, weights, q_slots, ns, nodes)
-    lead, t, k = _check(lx, ly, sz, weights, ns, nodes)
-    _k.check_cuda_tensor(q_slots, "q_slots", (*lead, t, q_slots.shape[-2], k))
-    return _launch_spread(lx, ly, sz, weights, None, q_slots, ns, nodes)
-
-
-@_k.custom_op("mesh_spread_dipole")
-def mesh_spread_dipole(
-    lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, dweights: Tensor, nu_slots: Tensor,
-    ns: Sequence[int], nodes: int, plain: bool = False,
-) -> Tensor:
-    """Kernel D's dipole form: ``(T, 3, K)`` per-slot effective dipoles →
-    ``(1, nx, ny, nz)`` gradient density, each slot read once."""
-    ns = tuple(ns)
-    if plain or weights.device.type == "cpu":
-        return mesh_spread_dipole_plain(lx, ly, sz, weights, dweights, nu_slots, ns, nodes)
-    lead, t, k = _check(lx, ly, sz, weights, ns, nodes, dipole=True)
-    _k.check_cuda_tensor(dweights, "dweights", (*lead, t, k, 3, nodes))
-    _k.check_cuda_tensor(nu_slots, "nu_slots", (*lead, t, 3, k))
-    return _launch_spread(lx, ly, sz, weights, dweights, nu_slots, ns, nodes)
-
-
-@_k.custom_op("mesh_gather")
-def mesh_gather(
-    lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, mesh: Tensor, ns: Sequence[int],
-    nodes: int, plain: bool = False,
-) -> Tensor:
-    """Kernel E: ``(C, nx, ny, nz)`` mesh → ``(T, C, K)`` per-slot values."""
-    ns = tuple(ns)
-    if plain or weights.device.type == "cpu":
-        return mesh_gather_plain(lx, ly, sz, weights, mesh, ns, nodes)
-    return _launch_gather_wgrad(lx, ly, sz, weights, None, None, mesh, ns, nodes, True, False)[0]
-
-
-@_k.custom_op("mesh_wgrad")
-def mesh_wgrad(
-    lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, q_slots: Tensor, mesh: Tensor,
-    ns: Sequence[int], nodes: int, plain: bool = False,
-) -> Tensor:
-    """Kernel F: the weight cotangent ``(T, K, 3, n)`` of the trilinear form
-    for ``q (T, C, K)`` and the ``(C, nx, ny, nz)`` field."""
-    ns = tuple(ns)
-    if plain or weights.device.type == "cpu":
-        return mesh_wgrad_plain(lx, ly, sz, weights, q_slots, mesh, ns, nodes)
-    return _launch_gather_wgrad(
-        lx, ly, sz, weights, None, q_slots, mesh, ns, nodes, False, True
-    )[1]
-
-
-@_k.custom_op("mesh_gather_wgrad")
-def mesh_gather_wgrad(
-    lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, q_slots: Tensor, mesh: Tensor,
-    ns: Sequence[int], nodes: int, plain: bool = False,
-) -> tuple[Tensor, Tensor]:
-    """Kernels E and F from one pass over the mesh windows: ``(values
-    (T, C, K), weight cotangent (T, K, 3, n))``; one launch, counted once
-    for each of the two kernels."""
-    ns = tuple(ns)
-    if plain or weights.device.type == "cpu":
-        return (mesh_gather_plain(lx, ly, sz, weights, mesh, ns, nodes),
-                mesh_wgrad_plain(lx, ly, sz, weights, q_slots, mesh, ns, nodes))
-    return _launch_gather_wgrad(
-        lx, ly, sz, weights, None, q_slots, mesh, ns, nodes, True, True
-    )[:2]
-
-
-@_k.custom_op("mesh_gather_dipole")
-def mesh_gather_dipole(
-    lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, dweights: Tensor, mesh: Tensor,
-    ns: Sequence[int], nodes: int, plain: bool = False,
-) -> Tensor:
-    """Kernel E's dipole form: ``(1, nx, ny, nz)`` mesh → ``(T, 3, K)``
-    per-slot values ``Σ ∂_a[W_x W_y W_z] F``, each slot read once."""
-    ns = tuple(ns)
-    if plain or weights.device.type == "cpu":
-        return mesh_gather_dipole_plain(lx, ly, sz, weights, dweights, mesh, ns, nodes)
-    return _launch_gather_wgrad(
-        lx, ly, sz, weights, dweights, None, mesh, ns, nodes, True, False
-    )[0]
-
-
-@_k.custom_op("mesh_wgrad_dipole")
-def mesh_wgrad_dipole(
-    lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, dweights: Tensor, nu_slots: Tensor,
-    mesh: Tensor, ns: Sequence[int], nodes: int, plain: bool = False,
-) -> tuple[Tensor, Tensor]:
-    """Kernel F's dipole form: the cotangents ``(ct_w, ct_dw)``, each ``(T,
-    K, 3, n)``, of the weights and their derivatives for ``ν (T, 3, K)`` and
-    the ``(1, nx, ny, nz)`` field, each slot read once."""
-    ns = tuple(ns)
-    if plain or weights.device.type == "cpu":
-        return mesh_wgrad_dipole_plain(lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes)
-    return _launch_gather_wgrad(
-        lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes, False, True
-    )[1:]
-
-
-@_k.custom_op("mesh_gather_wgrad_dipole")
-def mesh_gather_wgrad_dipole(
-    lx: Tensor, ly: Tensor, sz: Tensor, weights: Tensor, dweights: Tensor, nu_slots: Tensor,
-    mesh: Tensor, ns: Sequence[int], nodes: int, plain: bool = False,
-) -> tuple[Tensor, Tensor, Tensor]:
-    """The dipole forms of kernels E and F from one pass over the mesh
-    windows: ``(values (T, 3, K), ct_w, ct_dw)``; one launch, counted once
-    for each of the two kernels."""
-    ns = tuple(ns)
-    if plain or weights.device.type == "cpu":
-        return mesh_gather_wgrad_dipole_plain(
-            lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes
-        )
-    return _launch_gather_wgrad(
-        lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes, True, True
-    )
-
-
-# fake implementations: shapes and dtypes only; a batch keeps its leading axes
+# fake kernels: shapes and dtypes only; a batch keeps its leading axes
 
 
 def _mesh_like(weights, lx, n_ch, ns):
@@ -517,140 +349,139 @@ def _slots_like(weights, lx, n_vals):
     return weights.new_empty((*lead, t, n_vals, k))
 
 
-mesh_spread.register_fake(
-    lambda lx, ly, sz, weights, q_slots, ns, nodes, plain=False:
-    _mesh_like(weights, lx, q_slots.shape[-2], ns))
-mesh_spread_dipole.register_fake(
-    lambda lx, ly, sz, weights, dweights, nu_slots, ns, nodes, plain=False:
-    _mesh_like(weights, lx, 1, ns))
-mesh_gather.register_fake(
-    lambda lx, ly, sz, weights, mesh, ns, nodes, plain=False:
-    _slots_like(weights, lx, mesh.shape[-4]))
-mesh_wgrad.register_fake(
-    lambda lx, ly, sz, weights, q_slots, mesh, ns, nodes, plain=False:
-    torch.empty_like(weights))
-mesh_gather_wgrad.register_fake(
-    lambda lx, ly, sz, weights, q_slots, mesh, ns, nodes, plain=False:
-    (_slots_like(weights, lx, mesh.shape[-4]), torch.empty_like(weights)))
-mesh_gather_dipole.register_fake(
-    lambda lx, ly, sz, weights, dweights, mesh, ns, nodes, plain=False:
-    _slots_like(weights, lx, 3))
-mesh_wgrad_dipole.register_fake(
-    lambda lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes, plain=False:
-    (torch.empty_like(weights), torch.empty_like(weights)))
-mesh_gather_wgrad_dipole.register_fake(
-    lambda lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes, plain=False:
-    (_slots_like(weights, lx, 3), torch.empty_like(weights), torch.empty_like(weights)))
+_FAKES = {
+    "mesh_spread": lambda lx, ly, sz, weights, q_slots, ns, nodes:
+        _mesh_like(weights, lx, q_slots.shape[-2], ns),
+    "mesh_spread_dipole": lambda lx, ly, sz, weights, dweights, nu_slots, ns, nodes:
+        _mesh_like(weights, lx, 1, ns),
+    "mesh_gather": lambda lx, ly, sz, weights, mesh, ns, nodes:
+        _slots_like(weights, lx, mesh.shape[-4]),
+    "mesh_wgrad": lambda lx, ly, sz, weights, q_slots, mesh, ns, nodes:
+        torch.empty_like(weights),
+    "mesh_gather_wgrad": lambda lx, ly, sz, weights, q_slots, mesh, ns, nodes:
+        (_slots_like(weights, lx, mesh.shape[-4]), torch.empty_like(weights)),
+    "mesh_gather_dipole": lambda lx, ly, sz, weights, dweights, mesh, ns, nodes:
+        _slots_like(weights, lx, 3),
+    "mesh_wgrad_dipole": lambda lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes:
+        (torch.empty_like(weights), torch.empty_like(weights)),
+    "mesh_gather_wgrad_dipole": lambda lx, ly, sz, weights, dweights, nu_slots, mesh, ns, nodes:
+        (_slots_like(weights, lx, 3), torch.empty_like(weights), torch.empty_like(weights)),
+}
+for _name, _fake in _FAKES.items():
+    _k.register_fake(_name)(_fake)
 
-for _op, _n_out in ((mesh_spread, 1), (mesh_spread_dipole, 1), (mesh_gather, 1),
-                    (mesh_wgrad, 1), (mesh_gather_wgrad, 2), (mesh_gather_dipole, 1),
-                    (mesh_wgrad_dipole, 2), (mesh_gather_wgrad_dipole, 3)):
-    _vmap_rule(_op, _n_out)
+for _name, _n_out in (("mesh_spread", 1), ("mesh_spread_dipole", 1), ("mesh_gather", 1),
+                      ("mesh_wgrad", 1), ("mesh_gather_wgrad", 2), ("mesh_gather_dipole", 1),
+                      ("mesh_wgrad_dipole", 2), ("mesh_gather_wgrad_dipole", 3)):
+    _vmap_rule(_name, _n_out)
 
 
 # -- VJPs ---------------------------------------------------------------------------
 # The integer arrays get no cotangent; the VJP structure is that of the JAX
 # package: spread's backward is gather + wgrad, gather's is spread + wgrad.
-# Each backward takes its op's saved tensors and static arguments, and the
-# flags of the inputs that want a cotangent (in the op's argument order).
+# Each backward takes its op's saved tensors and static arguments, the flags
+# of the inputs that want a cotangent (in the op's argument order), and
+# whether the plain versions run (an entry point's ``plain``).
 
 
-def _spread_bwd(saved, static, needs, ct_mesh):
+def _spread_bwd(saved, static, needs, ct_mesh, plain):
     """``(ct_w, ct_q)`` of the charge-form spread: kernels E and F (one
     launch when both are wanted)."""
     lx, ly, sz, weights, q_slots = saved
-    ns, nodes, plain = static
+    ns, nodes = static
     args = (lx, ly, sz, weights)
     want_w, want_q = needs
     ct_mesh = ct_mesh.contiguous()
     ct_w = ct_q = None
     if want_w and want_q:
-        ct_q, ct_w = mesh_gather_wgrad(*args, q_slots, ct_mesh, ns, nodes, plain)
+        ct_q, ct_w = _k.call("mesh_gather_wgrad", *args, q_slots, ct_mesh, ns, nodes, plain=plain)
     elif want_q:
-        ct_q = mesh_gather(*args, ct_mesh, ns, nodes, plain)
+        ct_q = _k.call("mesh_gather", *args, ct_mesh, ns, nodes, plain=plain)
     elif want_w:
-        ct_w = mesh_wgrad(*args, q_slots, ct_mesh, ns, nodes, plain)
+        ct_w = _k.call("mesh_wgrad", *args, q_slots, ct_mesh, ns, nodes, plain=plain)
     return ct_w, ct_q
 
 
-def _spread_dipole_bwd(saved, static, needs, ct_mesh):
+def _spread_dipole_bwd(saved, static, needs, ct_mesh, plain):
     """``(ct_w, ct_dw, ct_nu)`` of the dipole-form spread: the dipole forms
     of kernels E and F (one launch when both are wanted), each slot read
     once."""
     lx, ly, sz, weights, dweights, nu_slots = saved
-    ns, nodes, plain = static
+    ns, nodes = static
     args = (lx, ly, sz, weights, dweights)
     want_w, want_dw, want_nu = needs
     ct_mesh = ct_mesh.contiguous()
     ct_nu = ct_w = ct_dw = None
     if (want_w or want_dw) and want_nu:
-        ct_nu, ct_w, ct_dw = mesh_gather_wgrad_dipole(*args, nu_slots, ct_mesh, ns, nodes, plain)
+        ct_nu, ct_w, ct_dw = _k.call("mesh_gather_wgrad_dipole", *args, nu_slots, ct_mesh,
+                                     ns, nodes, plain=plain)
     elif want_nu:
-        ct_nu = mesh_gather_dipole(*args, ct_mesh, ns, nodes, plain)
+        ct_nu = _k.call("mesh_gather_dipole", *args, ct_mesh, ns, nodes, plain=plain)
     elif want_w or want_dw:
-        ct_w, ct_dw = mesh_wgrad_dipole(*args, nu_slots, ct_mesh, ns, nodes, plain)
+        ct_w, ct_dw = _k.call("mesh_wgrad_dipole", *args, nu_slots, ct_mesh, ns, nodes,
+                              plain=plain)
     return (ct_w if want_w else None), (ct_dw if want_dw else None), ct_nu
 
 
-def _gather_bwd(saved, static, needs, ct_out):
+def _gather_bwd(saved, static, needs, ct_out, plain):
     """``(ct_w, ct_mesh)`` of the charge-form gather: kernel D spreads the
     cotangent, kernel F gives the weights'."""
     lx, ly, sz, weights, mesh = saved
-    ns, nodes, plain = static
+    ns, nodes = static
     args = (lx, ly, sz, weights)
     want_w, want_mesh = needs
     ct_out = ct_out.contiguous()
     ct_w = ct_mesh = None
     if want_mesh:
-        ct_mesh = mesh_spread(*args, ct_out, ns, nodes, plain)
+        ct_mesh = _k.call("mesh_spread", *args, ct_out, ns, nodes, plain=plain)
     if want_w:
-        ct_w = mesh_wgrad(*args, ct_out, mesh, ns, nodes, plain)
+        ct_w = _k.call("mesh_wgrad", *args, ct_out, mesh, ns, nodes, plain=plain)
     return ct_w, ct_mesh
 
 
-def _gather_dipole_bwd(saved, static, needs, ct_out):
+def _gather_dipole_bwd(saved, static, needs, ct_out, plain):
     """``(ct_w, ct_dw, ct_mesh)`` of the dipole-form gather: kernel D's
     dipole form spreads the cotangent, kernel F's gives the weights' and the
     derivatives'."""
     lx, ly, sz, weights, dweights, mesh = saved
-    ns, nodes, plain = static
+    ns, nodes = static
     args = (lx, ly, sz, weights, dweights)
     want_w, want_dw, want_mesh = needs
     ct_out = ct_out.contiguous()
     ct_w = ct_dw = ct_mesh = None
     if want_mesh:
-        ct_mesh = mesh_spread_dipole(*args, ct_out, ns, nodes, plain)
+        ct_mesh = _k.call("mesh_spread_dipole", *args, ct_out, ns, nodes, plain=plain)
     if want_w or want_dw:
-        ct_w, ct_dw = mesh_wgrad_dipole(*args, ct_out, mesh, ns, nodes, plain)
+        ct_w, ct_dw = _k.call("mesh_wgrad_dipole", *args, ct_out, mesh, ns, nodes, plain=plain)
     return (ct_w if want_w else None), (ct_dw if want_dw else None), ct_mesh
 
 
-def _autograd(op, backward, n_saved: int, diff: tuple[int, ...]):
-    """Register ``op``'s autograd: the first ``n_saved`` inputs are saved,
-    the three after them are ``(ns, nodes, plain)``; ``diff`` are the
-    positions of the inputs that take a cotangent."""
+def _autograd(name: str, backward, n_saved: int, diff: tuple[int, ...]):
+    """Register op ``name``'s autograd: the first ``n_saved`` inputs are
+    saved, the two after them are ``(ns, nodes)``; ``diff`` are the positions
+    of the inputs that take a cotangent."""
 
     def setup_context(ctx, inputs, output):
         ctx.save_for_backward(*inputs[:n_saved])
-        ns, nodes, plain = inputs[n_saved:]
-        ctx.static = (tuple(ns), nodes, plain)
+        ns, nodes = inputs[n_saved:]
+        ctx.static = (tuple(ns), nodes)
 
     def bwd(ctx, ct):
         grads = backward(ctx.saved_tensors, ctx.static,
-                         [ctx.needs_input_grad[i] for i in diff], ct)
-        out = [None] * (n_saved + 3)
+                         [ctx.needs_input_grad[i] for i in diff], ct, ctx.plain)
+        out = [None] * (n_saved + 2)
         for i, g in zip(diff, grads):
             out[i] = g
         return tuple(out)
 
-    op.register_autograd(bwd, setup_context=setup_context)
+    _k.register_autograd(name, bwd, setup_context)
     return setup_context, bwd
 
 
-_SPREAD = _autograd(mesh_spread, _spread_bwd, 5, (3, 4))
-_SPREAD_DIPOLE = _autograd(mesh_spread_dipole, _spread_dipole_bwd, 6, (3, 4, 5))
-_GATHER = _autograd(mesh_gather, _gather_bwd, 5, (3, 4))
-_GATHER_DIPOLE = _autograd(mesh_gather_dipole, _gather_dipole_bwd, 6, (3, 4, 5))
+_SPREAD = _autograd("mesh_spread", _spread_bwd, 5, (3, 4))
+_SPREAD_DIPOLE = _autograd("mesh_spread_dipole", _spread_dipole_bwd, 6, (3, 4, 5))
+_GATHER = _autograd("mesh_gather", _gather_bwd, 5, (3, 4))
+_GATHER_DIPOLE = _autograd("mesh_gather_dipole", _gather_dipole_bwd, 6, (3, 4, 5))
 
 
 # -- differentiable entry points ----------------------------------------------------
@@ -661,10 +492,10 @@ _GATHER_DIPOLE = _autograd(mesh_gather_dipole, _gather_dipole_bwd, 6, (3, 4, 5))
 # under vmap the op's own vmap rule makes the one batched launch, forward and
 # backward.
 
-_TileSpread = _k.op_function("_TileSpread", mesh_spread, *_SPREAD)
-_TileDipoleSpread = _k.op_function("_TileDipoleSpread", mesh_spread_dipole, *_SPREAD_DIPOLE)
-_TileGather = _k.op_function("_TileGather", mesh_gather, *_GATHER)
-_TileDipoleGather = _k.op_function("_TileDipoleGather", mesh_gather_dipole, *_GATHER_DIPOLE)
+_TileSpread = _k.op_function("_TileSpread", "mesh_spread", *_SPREAD)
+_TileDipoleSpread = _k.op_function("_TileDipoleSpread", "mesh_spread_dipole", *_SPREAD_DIPOLE)
+_TileGather = _k.op_function("_TileGather", "mesh_gather", *_GATHER)
+_TileDipoleGather = _k.op_function("_TileDipoleGather", "mesh_gather_dipole", *_GATHER_DIPOLE)
 
 
 def _arrays(interp: TiledInterpolation):

@@ -22,7 +22,6 @@ the energy, and every gradient, is NaN.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from collections.abc import Sequence
 from dataclasses import dataclass
@@ -34,7 +33,7 @@ from torch import Tensor
 
 from .. import kernels as _k
 from ..device import resolve_device
-from .math import coulomb_alpha, coulomb_c_gauss, inv3, power_law_alpha_sq, power_law_c_gauss
+from .math import inv3
 
 __all__ = [
     "STALE_TOL",
@@ -903,67 +902,19 @@ def _table_potential(table):
     )
 
 
-def _table_params(table, cutoff: float, pc_t, q_g) -> _k.WindowParams:
-    """Kernel C's parameters for a pair-term ``table`` (:func:`window_table`):
-    the grid, the offsets and the terms, each constant rounded to float32
-    from the expression the terms' potentials evaluate (``ops.math``), with
-    no potential built: a loader of a CUDA artifact runs this without the
-    potentials module."""
-    weights, kinds, exponents, smearings, prefactors, direct = table
-    nx, ny, nz, _, cap = pc_t.shape
-    p = _k.WindowParams()
-    p.nx, p.ny, p.nz, p.cap, p.n_ch = nx, ny, nz, cap, q_g.shape[-1]
-    p.direct = int(direct)
-    # 0: one Coulomb-form term (p = 1), 1: one 1/r^p term, 2: a combination
-    p.kind = 2 if weights is not None else (0 if exponents[0] == 1 else 1)
-    p.n_members = len(kinds)
-    offsets = _window_offsets(cap)
-    p.self_k = offsets.index((0, 0, 0))
-    p.cutoff_sq = float(np.float32(cutoff) ** 2)
-    for slot, (kind, exponent, smearing, prefactor) in enumerate(
-        zip(kinds, exponents, smearings, prefactors)
-    ):
-        m = p.members[slot]
-        m.p, m.prefactor = exponent, prefactor
-        if direct:
-            continue
-        if kind == 0:  # CoulombPotential
-            alpha = coulomb_alpha(smearing)
-            m.alpha, m.alpha_sq = alpha, alpha * alpha
-            m.c_gauss = coulomb_c_gauss(prefactor, smearing)
-        else:  # InversePowerLawPotential
-            alpha_sq = power_law_alpha_sq(smearing)
-            m.alpha, m.alpha_sq = alpha_sq**0.5, alpha_sq
-            m.c_gauss = power_law_c_gauss(prefactor, exponent, smearing)
-    for k, o in enumerate(offsets):
-        p.offsets[3 * k : 3 * k + 3] = o
-    return p
-
-
-def _kernel_weights(weights, device):
-    """A ``CombinedPotential``'s weights as kernel C reads them: float32 on
-    ``device``, without a copy to the host (``None`` for one term)."""
-    if weights is None:
-        return None
-    return weights.detach().to(device=device, dtype=torch.float32).contiguous()
-
-
-@functools.lru_cache(maxsize=None)
 def _window_group(cap: int, n_ch: int, device_index: int, split: bool = False) -> int:
-    """Neighbour offsets that kernel C stages per pass at this capacity:
-    27, 9, 3 or 1, the most that fit the card's shared memory.  Raises
-    where even one offset a pass does not fit.  With separate i-side
-    charges (``split``) a slot stages both charge sets, so it takes the
-    shared memory of ``2·n_ch`` channels."""
-    lib = _k.load_library().lib
-    cols = 2 * n_ch if split else n_ch
-    group = lib.tpme_window_group(cap, cols, device_index)
+    """Neighbour offsets that kernel C stages per pass at this capacity on
+    the card: 27, 9, 3 or 1, the most that fit its shared memory, as the
+    ``tpme::window`` op chooses them (``tpme::window_plan``).  Raises where
+    even one offset a pass does not fit.  With separate i-side charges
+    (``split``) a slot stages both charge sets, so it takes the shared memory
+    of ``2·n_ch`` channels."""
+    group, largest = _k.tpme_op("window_plan")(cap, n_ch, split, device_index)
     if group == 0:
         raise ValueError(
-            f"the window kernel takes a cell capacity of at most "
-            f"{lib.tpme_window_max_cap(cols, device_index)} at {n_ch} channel(s)"
-            f"{' with separate i-side charges' if split else ''}, "
-            f"got {cap}; plain=True runs the plain version"
+            f"the window kernel takes a cell capacity of at most {largest} at {n_ch} "
+            f"channel(s){' with separate i-side charges' if split else ''}, got {cap}; "
+            f"plain=True runs the plain version"
         )
     return group
 
@@ -995,77 +946,44 @@ def _check_window_operands(pc_t, q_g, mf_g, offs, qi_g=None):
         _k.check_cuda_tensor(qi_g, "qi_g", (nx, ny, nz, cap, n_ch))
 
 
-def _launch_window(table, cutoff: float, pc_t, q_g, mf_g, offs, qi_g=None):
-    """Kernel C over checked operands for a pair-term ``table``
-    (:func:`window_table`): ``(e, d_pc, d_q, d_offs, d_image, d_qi,
-    members)``, the last the terms' float64 energies; ``d_qi`` is empty
-    without separate i-side charges ``qi_g`` (the kernel's split variant
-    otherwise)."""
-    weights, kinds = table[:2]
-    cap, n_ch = pc_t.shape[-1], q_g.shape[-1]
-    split = qi_g is not None
-    # the kernel writes every row of its outputs; its double accumulators
-    # (energy, d_offs, a block counter, the members' energies, the image
-    # term) start at zero
-    acc = torch.zeros(_k.WINDOW_IMAGE_ROW + 9, dtype=torch.float64, device=pc_t.device)
-    d_pc = torch.empty_like(pc_t)
-    d_q = torch.empty_like(q_g)
-    d_offs = torch.empty_like(offs)
-    d_qi = torch.empty_like(q_g) if split else q_g.new_empty((0,))
-    p = _table_params(table, cutoff, pc_t, q_g)
-    p.group = _window_group(cap, n_ch, pc_t.device.index, split)
-    weights = _kernel_weights(weights, pc_t.device)
-    status = _k.load_library().lib.tpme_window(
-        pc_t.data_ptr(), q_g.data_ptr(), mf_g.data_ptr(), offs.data_ptr(),
-        None if weights is None else weights.data_ptr(),
-        qi_g.data_ptr() if split else None,
-        acc.data_ptr(), d_pc.data_ptr(), d_q.data_ptr(), d_offs.data_ptr(),
-        d_qi.data_ptr() if split else None,
-        ctypes.byref(p), _k.stream_handle(pc_t.device),
-    )
-    _k.check_status(status, "window")
-    (_k.WINDOW_SPLIT if split else _k.WINDOW).launches += 1
-    # an op's outputs are fresh tensors, not views of the accumulator
-    d_image = acc[_k.WINDOW_IMAGE_ROW :].reshape(3, 3).clone()
-    members = acc[_k.WINDOW_MEMBER_ROW : _k.WINDOW_MEMBER_ROW + len(kinds)].clone()
-    return acc[0].to(torch.float32), d_pc, d_q, d_offs, d_image, d_qi, members
-
-
-@_k.custom_op("window")
-def window(
+@_k.plain_version("window")
+def _window_plain(
     pc_t: Tensor, q_g: Tensor, mf_g: Tensor, offs: Tensor, cell: Tensor,
     weights: Optional[Tensor], kinds: Sequence[int], exponents: Sequence[int],
     smearings: Sequence[float], prefactors: Sequence[float], direct: bool, cutoff: float,
-    plain: bool = False, qi_g: Optional[Tensor] = None,
+    qi_g: Optional[Tensor] = None,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
-    """Kernel C: ``(e, d_pc, d_q, d_offs, d_image, d_qi, members)`` of the
-    window for the pair-term table of :func:`window_table`; ``members`` are
-    the terms' float64 energies (a ``CombinedPotential``'s dE/dw).  With
-    separate i-side charges ``qi_g`` the energy is ``Σ qi_i q_j V``
-    and ``d_qi`` their cotangent (kernel C's split variant; ``d_q`` is then
-    the j side's), else ``d_qi`` is empty.  ``cell`` only takes the image
-    term's cotangent.  The plain version (:func:`_we_value_and_grad`) on
-    CPU tensors or with ``plain``."""
+    """Kernel C's plain version with the op's signature (the op's CPU
+    kernel, :func:`_we_value_and_grad`'s pass): ``(e, d_pc, d_q, d_offs,
+    d_image, d_qi, members)`` of the window for the pair-term table of
+    :func:`window_table`; ``members`` are the terms' float64 energies (a
+    ``CombinedPotential``'s dE/dw).  With separate i-side charges ``qi_g``
+    the energy is ``Σ qi_i q_j V`` and ``d_qi`` their cotangent (``d_q`` is
+    then the j side's), else ``d_qi`` is empty.  ``cell`` only takes the
+    image term's cotangent."""
     del cell
     table = (weights, kinds, exponents, smearings, prefactors, direct)
-    if plain or pc_t.device.type == "cpu":
-        e, grads, members, _ = _we_plain(
-            _table_potential(table), cutoff, pc_t, q_g, mf_g, offs, (), qi_g
-        )
-        d_qi = grads[4] if qi_g is not None else q_g.new_empty((0,))
-        return e, *grads[:4], d_qi, members
-    _check_window_operands(pc_t, q_g, mf_g, offs, qi_g)
-    return _launch_window(table, cutoff, pc_t, q_g, mf_g, offs, qi_g)
+    e, grads, members, _ = _we_plain(
+        _table_potential(table), cutoff, pc_t, q_g, mf_g, offs, (), qi_g
+    )
+    d_qi = grads[4] if qi_g is not None else q_g.new_empty((0,))
+    return e, *grads[:4], d_qi, members
 
 
-@window.register_fake
+@_k.register_fake("window")
 def _(pc_t, q_g, mf_g, offs, cell, weights, kinds, exponents, smearings, prefactors, direct,
-      cutoff, plain=False, qi_g=None):
+      cutoff, qi_g=None):
     wide = dict(dtype=torch.float64, device=pc_t.device)
     d_qi = torch.empty_like(q_g) if qi_g is not None else q_g.new_empty((0,))
     return (pc_t.new_empty(()), torch.empty_like(pc_t), torch.empty_like(q_g),
             torch.empty_like(offs), torch.empty((3, 3), **wide), d_qi,
             torch.empty((len(kinds),), **wide))
+
+
+#: kernel C (``csrc/tpme_ops.cpp`` builds its parameters from the pair-term
+#: table, each constant rounded to float32 from the expressions of
+#: ``ops/math.py``, and launches it): the outputs of :func:`_window_plain`
+window = _k.tpme_op("window")
 
 
 def _window_setup(ctx, inputs, output):
@@ -1078,7 +996,7 @@ def _window_setup(ctx, inputs, output):
     cell, weights = inputs[4], inputs[5]
     ctx.n_inputs = len(inputs)
     # qi_g, the op's last input, when given
-    ctx.split = len(inputs) > 13 and inputs[13] is not None
+    ctx.split = len(inputs) > 12 and inputs[12] is not None
     ctx.cell_dtype = cell.dtype
     ctx.weights_like = None if weights is None else (weights.dtype, weights.device)
 
@@ -1099,9 +1017,11 @@ def _window_vjp(ctx, e_bar, *_):
     return (e_bar * d_pc, e_bar * d_q, None, None, ct_cell, ct_w, *rest)
 
 
-window.register_autograd(_window_vjp, setup_context=_window_setup)
-_k.refuse_vmap(window, "tpme::window (kernel C)")
-_Window = _k.op_function("_Window", window, _window_setup, _window_vjp)
+_k.register_autograd("window", _window_vjp, _window_setup)
+_k.refuse_vmap("window", "tpme::window (kernel C)")
+#: the window's energy with kernel C's VJP, or with ``plain`` its plain
+#: version on any device: ``_Window.apply(*op_args, qi_g, plain)``
+_Window = _k.op_function("_Window", "window", _window_setup, _window_vjp)
 
 
 def window_value_and_grad(
@@ -1193,8 +1113,7 @@ def _window_energy(potential, pc_t, q_g, mf_g, offs, cell, cutoff: float, plain:
     without it the ``TypeError`` of :func:`window_value_and_grad`)."""
     table = window_table(potential)
     if table is not None:
-        args = (pc_t, q_g, mf_g, offs, cell, *table, cutoff, plain)
-        return _Window.apply(*args, *(() if qi_g is None else (qi_g,)))[0]
+        return _Window.apply(pc_t, q_g, mf_g, offs, cell, *table, cutoff, qi_g, plain)[0]
     if not plain and pc_t.device.type != "cpu":
         _check_window(potential, pc_t, q_g, mf_g, offs, qi_g)
     return _WindowEnergy.apply(

@@ -27,10 +27,11 @@ takes the plain autograd path (:func:`_dw_math`): on CPU tensors by itself,
 on a card only with ``plain=True`` (without it the window raises; there is
 no kernel for it).
 
-Kernel G is the custom op ``torch.ops.tpme.window_dipole`` (the potential
-goes in as its smearing and prefactor), with fake and autograd
-registrations, so :mod:`torch.export` traces through it; it has no vmap
-rule: under ``vmap`` it raises.
+Kernel G is the op ``torch.ops.tpme.window_dipole`` (the potential goes in
+as its smearing and prefactor), registered in C++ (``csrc/tpme_ops.cpp``:
+its CUDA kernel builds the parameters and launches), with the plain version
+as its CPU kernel and autograd registered here, so :mod:`torch.export` traces
+through it; it has no vmap rule: under ``vmap`` it raises.
 
 Staleness keeps the JAX package's contract: once an atom leaves its cell the
 energy, and every gradient, is NaN.
@@ -38,9 +39,7 @@ energy, and every gradient, is NaN.
 
 from __future__ import annotations
 
-import ctypes
 import functools
-import math
 from typing import Optional
 
 import torch
@@ -223,43 +222,15 @@ def _dw_value_and_grad(potential, cutoff: float, pc_t, mu_g, mf_g, offs, mui_g=N
 # -- kernel G ----------------------------------------------------------------------
 
 
-def _window_dipole_params(potential, cutoff: float, pc_t) -> _k.WindowDipoleParams:
-    return _dipole_params(*_dipole_table(potential), cutoff, pc_t)
-
-
-def _dipole_params(smearing, prefactor: float, cutoff: float, pc_t) -> _k.WindowDipoleParams:
-    """Kernel G's parameters from the potential's smearing (``None``:
-    direct) and prefactor."""
-    nx, ny, nz, _, cap = pc_t.shape
-    p = _k.WindowDipoleParams()
-    p.nx, p.ny, p.nz, p.cap = nx, ny, nz, cap
-    offsets = _window_offsets(cap)
-    p.self_k = offsets.index((0, 0, 0))
-    p.direct = int(smearing is None)
-    # float32 constants rounded exactly as the plain version's python scalars
-    p.cutoff_sq = float(torch.tensor(cutoff, dtype=torch.float32) ** 2)
-    p.prefactor = float(prefactor)
-    if smearing is not None:
-        alpha = 1.0 / (2.0 * float(smearing) ** 2)
-        p.alpha = alpha
-        p.sqrt_alpha = alpha**0.5
-        p.c_gauss = 2.0 * (alpha / math.pi) ** 0.5
-    for k, o in enumerate(offsets):
-        p.offsets[3 * k : 3 * k + 3] = o
-    return p
-
-
-@functools.lru_cache(maxsize=None)
 def _window_dipole_warps(cap: int, split: bool, device_index: int) -> int:
     """Home cells (one warp each) that a block of kernel G takes at this
-    capacity: 4, 2 or 1, the most whose shared memory fits the card.  Raises
-    where even one does not fit."""
-    lib = _k.load_library().lib
-    warps = lib.tpme_window_dipole_warps(cap, int(split), device_index)
+    capacity on the card: 4, 2 or 1, the most whose shared memory fits it,
+    as the ``tpme::window_dipole`` op chooses them
+    (``tpme::window_dipole_plan``).  Raises where even one does not fit."""
+    warps, largest = _k.tpme_op("window_dipole_plan")(cap, split, device_index)
     if warps == 0:
         raise ValueError(
-            f"the dipolar window kernel takes a cell capacity of at most "
-            f"{lib.tpme_window_dipole_max_cap(int(split), device_index)} "
+            f"the dipolar window kernel takes a cell capacity of at most {largest} "
             f"{'with' if split else 'without'} separate i-side dipoles, got {cap}; "
             f"plain=True runs the plain version"
         )
@@ -295,32 +266,6 @@ def _check_window_dipole_operands(pc_t, mu_g, mf_g, offs, mui_g):
         _k.check_cuda_tensor(mui_g, "mui_g", (nx, ny, nz, cap, 3))
 
 
-def _launch_window_dipole(smearing, prefactor: float, cutoff: float, pc_t, mu_g, mf_g, offs,
-                          mui_g):
-    """Kernel G over checked operands: ``(e, d_pc, d_mu, d_offs, d_mui)``
-    (``d_mui`` empty without ``mui_g``)."""
-    split = mui_g is not None
-    p = _dipole_params(smearing, prefactor, cutoff, pc_t)
-    p.warps = _window_dipole_warps(pc_t.shape[-1], split, pc_t.device.index)
-    # the kernel writes every row of its outputs; its double accumulators
-    # (energy, d_offs, a block counter) start at zero
-    acc = torch.zeros(2 + 3 * _k.N_OFFSETS, dtype=torch.float64, device=pc_t.device)
-    d_pc = torch.empty_like(pc_t)
-    d_mu = torch.empty_like(mu_g)
-    d_offs = torch.empty_like(offs)
-    d_mui = torch.empty_like(mu_g) if split else mu_g.new_empty((0,))
-    status = _k.load_library().lib.tpme_window_dipole(
-        pc_t.data_ptr(), mu_g.data_ptr(), mf_g.data_ptr(), offs.data_ptr(),
-        mui_g.data_ptr() if split else None,
-        acc.data_ptr(), d_pc.data_ptr(), d_mu.data_ptr(), d_offs.data_ptr(),
-        d_mui.data_ptr() if split else None,
-        ctypes.byref(p), _k.stream_handle(pc_t.device),
-    )
-    _k.check_status(status, "window_dipole")
-    _k.WINDOW_DIPOLE.launches += 1
-    return acc[0].to(torch.float32), d_pc, d_mu, d_offs, d_mui
-
-
 @functools.lru_cache(maxsize=64)
 def _table_dipole(smearing, prefactor: float):
     """The dipolar potential of a ``tpme::window_dipole`` call's scalars."""
@@ -336,29 +281,31 @@ def _dipole_table(potential) -> tuple:
     return None if smearing is None else float(smearing), float(potential.prefactor)
 
 
-@_k.custom_op("window_dipole")
-def window_dipole(
+@_k.plain_version("window_dipole")
+def _window_dipole_plain(
     pc_t: Tensor, mu_g: Tensor, mf_g: Tensor, offs: Tensor, mui_g: Optional[Tensor],
-    smearing: Optional[float], prefactor: float, cutoff: float, plain: bool = False,
+    smearing: Optional[float], prefactor: float, cutoff: float,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
-    """Kernel G: ``(e, d_pc, d_mu, d_offs, d_mui)`` of the dipolar window
-    (``d_mui`` empty without separate i-side dipoles ``mui_g``); the plain
-    version (:func:`_dw_value_and_grad`) on CPU tensors or with ``plain``."""
-    if plain or pc_t.device.type == "cpu":
-        e, grads = _dw_value_and_grad(
-            _table_dipole(smearing, prefactor), cutoff, pc_t, mu_g, mf_g, offs, mui_g
-        )
-        d_mui = grads[3] if mui_g is not None else mu_g.new_empty((0,))
-        return e, *grads[:3], d_mui
-    _check_window_dipole_operands(pc_t, mu_g, mf_g, offs, mui_g)
-    return _launch_window_dipole(smearing, prefactor, cutoff, pc_t, mu_g, mf_g, offs, mui_g)
+    """Kernel G's plain version with the op's signature (the op's CPU
+    kernel, :func:`_dw_value_and_grad`): ``(e, d_pc, d_mu, d_offs, d_mui)``
+    of the dipolar window (``d_mui`` empty without separate i-side dipoles
+    ``mui_g``)."""
+    e, grads = _dw_value_and_grad(
+        _table_dipole(smearing, prefactor), cutoff, pc_t, mu_g, mf_g, offs, mui_g
+    )
+    d_mui = grads[3] if mui_g is not None else mu_g.new_empty((0,))
+    return e, *grads[:3], d_mui
 
 
-@window_dipole.register_fake
-def _(pc_t, mu_g, mf_g, offs, mui_g, smearing, prefactor, cutoff, plain=False):
+@_k.register_fake("window_dipole")
+def _(pc_t, mu_g, mf_g, offs, mui_g, smearing, prefactor, cutoff):
     d_mui = torch.empty_like(mu_g) if mui_g is not None else mu_g.new_empty((0,))
     return (pc_t.new_empty(()), torch.empty_like(pc_t), torch.empty_like(mu_g),
             torch.empty_like(offs), d_mui)
+
+
+#: kernel G: the outputs of :func:`_window_dipole_plain`
+window_dipole = _k.tpme_op("window_dipole")
 
 
 def _window_dipole_setup(ctx, inputs, output):
@@ -381,10 +328,12 @@ def _window_dipole_vjp(ctx, e_bar, *_):
             *(None,) * (ctx.n_inputs - 5))
 
 
-window_dipole.register_autograd(_window_dipole_vjp, setup_context=_window_dipole_setup)
-_k.refuse_vmap(window_dipole, "tpme::window_dipole (kernel G)")
+_k.register_autograd("window_dipole", _window_dipole_vjp, _window_dipole_setup)
+_k.refuse_vmap("window_dipole", "tpme::window_dipole (kernel G)")
+#: the dipolar window's energy with kernel G's VJP, or with ``plain`` its
+#: plain version on any device: ``_WindowDipole.apply(*op_args, plain)``
 _WindowDipole = _k.op_function(
-    "_WindowDipole", window_dipole, _window_dipole_setup, _window_dipole_vjp
+    "_WindowDipole", "window_dipole", _window_dipole_setup, _window_dipole_vjp
 )
 
 

@@ -19,17 +19,18 @@ Two kernels carry both (``csrc/spread.cu``):
 
 * **A** (:func:`fused_spread`): scaled fractional coordinates
   ``rel = (pos @ cell⁻¹)·ns`` and charges in, the ``(C, nx, ny, nz)``
-  density out.  Each block owns the mesh cells of one tile and z chunk
-  (:func:`z_chunk`), reads the slots of the tiles whose windows reach it, in
-  the z cells that can reach the chunk, evaluates each slot's stencil
-  weights once and stores its cells: no global atomics, no fold (the TPU's
-  tile output + parity-class fold exists because TPU scatters serialize).
+  density out.  Each block owns the mesh cells of one tile and z chunk (the
+  rule is in ``csrc/tpme_ops.cpp``), reads the slots of the tiles whose
+  windows reach it, in the z cells that can reach the chunk, evaluates each
+  slot's stencil weights once and stores its cells: no global atomics, no
+  fold (the TPU's tile output + parity-class fold exists because TPU
+  scatters serialize).
 * **B** (:func:`fused_spread_bwd`): ``(rel, q, ∂E/∂ρ)`` in,
   ``(∂E/∂rel, ∂E/∂q)`` out.  Each block stages one tile's window of the
-  mesh cotangent for a z chunk (:func:`bwd_z_chunk`) and contracts it, one
-  thread a slot, against the derivative stencils (``d w / d rel``);
-  ``d base / d rel = 0``, as autodiff through ``round``/``floor`` gives.
-  The cell cotangent flows through ``rel``, which is plain PyTorch.
+  mesh cotangent for a z chunk and contracts it, one thread a slot, against
+  the derivative stencils (``d w / d rel``); ``d base / d rel = 0``, as
+  autodiff through ``round``/``floor`` gives.  The cell cotangent flows
+  through ``rel``, which is plain PyTorch.
 
 Beside each kernel sits its plain PyTorch twin (:func:`spread_plain`,
 :func:`spread_plain_bwd`), the batched form of the JAX package's
@@ -37,17 +38,17 @@ Beside each kernel sits its plain PyTorch twin (:func:`spread_plain`,
 matmul per tile, and the fold.  A wrapper takes the twin only for a tensor
 that lies on the CPU; for a CUDA tensor it launches the kernel or raises.
 
-The two kernels are the custom ops ``torch.ops.tpme.spread_fwd`` (A, whose
-registered VJP is B) and ``torch.ops.tpme.spread_bwd`` (B), whose bodies are
-the kernels on CUDA tensors and the twins on CPU tensors or with ``plain``;
-the geometry goes in as integers and the weight method's name
+The two kernels are the ops ``torch.ops.tpme.spread_fwd`` (A, whose
+registered VJP is B) and ``torch.ops.tpme.spread_bwd`` (B), registered in
+C++ (``csrc/tpme_ops.cpp``: their CUDA kernels build the parameters, the
+weight tables and the z chunks, and launch); the twins are their CPU kernels
+here.  The geometry goes in as integers and the weight method's name
 (:meth:`SpreadGeometry.as_args`), so :mod:`torch.export` traces through
 them.  They have no vmap rule: under ``vmap`` they raise.
 """
 
 from __future__ import annotations
 
-import ctypes
 from collections.abc import Sequence
 from dataclasses import dataclass
 
@@ -81,28 +82,6 @@ __all__ = [
     "spread_plain_bwd",
     "supports_fused",
 ]
-
-
-def z_chunk(nz: int) -> int:
-    """Mesh z cells that one block of kernel A owns: ``nz`` split into
-    ``max(2, ceil(nz / 128))`` chunks (the last may be short).  More chunks
-    read each slot more often, fewer leave SMs idle: ``chip_smoke.py`` times
-    the neighbouring choices (its ``--profile`` ``z_chunk_sweep`` line)."""
-    n_chunks = max(2, -(-nz // 128))
-    return -(-nz // n_chunks)
-
-
-def bwd_z_chunk(nodes: int, extent: int, n_ch: int) -> int:
-    """Mesh z cells that one block of kernel B stages: 64 where the windows
-    of all channels, ``(extent, extent, zc + nodes − 1)`` rounded to whole
-    16-byte vectors, take at most 64 KB of shared memory, 32 otherwise (on
-    an H100 the best of 32, 64 and 128 at the main path's aligned and fused
-    shapes and at three channels: ``chip_smoke.py --profile``,
-    ``z_chunk_sweep``).  The launcher halves it where a block does not fit
-    the card, and runs one thread a slot reading device memory where none
-    fits; 0 selects that form."""
-    row = (64 + nodes - 1 + 3) // 4 * 4
-    return 64 if n_ch * extent * extent * row * 4 <= 64 * 1024 else 32
 
 
 def aligned_geometry(nodes: int, pad_cells: int = 0) -> tuple[int, int]:
@@ -283,27 +262,7 @@ def spread_plain_bwd(rel, q, ct_rho, geom: SpreadGeometry):
     return ct_rel.reshape(-1, 3), ct_q.reshape(-1, n_ch)
 
 
-# -- kernels A and B ---------------------------------------------------------
-
-
-def _params(geom: SpreadGeometry, n_ch: int) -> _k.SpreadParams:
-    if geom.nodes > _k.MAX_NODES:
-        raise ValueError(f"the spread kernels take at most {_k.MAX_NODES} nodes")
-    coeffs, deriv = _tables(geom.method, geom.nodes)
-    p = _k.SpreadParams()
-    p.nx, p.ny, p.nz = geom.ns
-    p.nodes, p.extent, p.lpad = geom.nodes, geom.extent, geom.lpad
-    p.ty_count, p.n_tiles, p.kp, p.n_ch = (
-        geom.ty_count, geom.n_tiles, geom.slots_per_tile, n_ch,
-    )
-    p.z_cells, p.z_chunk = geom.z_cells, z_chunk(geom.ns[2])
-    p.bwd_z_chunk = bwd_z_chunk(geom.nodes, geom.extent, n_ch)
-    for o in range(geom.nodes):
-        for m in range(coeffs.shape[1]):
-            p.coeff[o * _k.MAX_NODES + m] = float(coeffs[o, m])
-        for m in range(deriv.shape[1]):
-            p.deriv[o * _k.MAX_NODES + m] = float(deriv[o, m])
-    return p
+# -- kernels A and B: the ops ------------------------------------------------
 
 
 def _check_slots(rel, q, geom: SpreadGeometry) -> int:
@@ -336,85 +295,56 @@ def _check_bwd(rel, q, ct_rho, geom: SpreadGeometry) -> int:
     return n_ch
 
 
-def _launch_fwd(rel, q, geom: SpreadGeometry) -> torch.Tensor:
-    n_ch = _check_fwd(rel, q, geom)
-    rho = torch.empty((n_ch, *geom.ns), dtype=torch.float32, device=rel.device)
-    p = _params(geom, n_ch)
-    status = _k.load_library().lib.tpme_spread_fwd(
-        rel.data_ptr(), q.data_ptr(), rho.data_ptr(), ctypes.byref(p),
-        _k.stream_handle(rel.device),
-    )
-    _k.check_status(status, "spread_fwd")
-    _k.SPREAD_FWD.launches += 1
-    return rho
+@_k.plain_version("spread_fwd")
+def _spread_fwd_plain(rel: Tensor, q: Tensor, geometry: Sequence[int], method: str) -> Tensor:
+    """Kernel A's plain version with the op's signature: :func:`spread_plain`."""
+    return spread_plain(rel, q, SpreadGeometry.from_args(geometry, method))
 
 
-def _launch_bwd(rel, q, ct_rho, geom: SpreadGeometry):
-    n_ch = _check_bwd(rel, q, ct_rho, geom)
-    ct_rel = torch.empty_like(rel)
-    ct_q = torch.empty_like(q)
-    p = _params(geom, n_ch)
-    status = _k.load_library().lib.tpme_spread_bwd(
-        rel.data_ptr(), q.data_ptr(), ct_rho.data_ptr(), ct_rel.data_ptr(),
-        ct_q.data_ptr(), ctypes.byref(p), _k.stream_handle(rel.device),
-    )
-    _k.check_status(status, "spread_bwd")
-    _k.SPREAD_BWD.launches += 1
-    return ct_rel, ct_q
+@_k.plain_version("spread_bwd")
+def _spread_bwd_plain(rel: Tensor, q: Tensor, ct_rho: Tensor, geometry: Sequence[int],
+                      method: str) -> tuple[Tensor, Tensor]:
+    """Kernel B's plain version with the op's signature: :func:`spread_plain_bwd`."""
+    return spread_plain_bwd(rel, q, ct_rho, SpreadGeometry.from_args(geometry, method))
 
 
-@_k.custom_op("spread_fwd")
-def spread_fwd(
-    rel: Tensor, q: Tensor, geometry: Sequence[int], method: str, plain: bool = False
-) -> Tensor:
-    """Kernel A: ``(nb, 3)`` rel, ``(nb, C)`` charges → ``(C, nx, ny, nz)``
-    (the twin :func:`spread_plain` on CPU tensors or with ``plain``)."""
-    geom = SpreadGeometry.from_args(geometry, method)
-    if plain or rel.device.type == "cpu":
-        return spread_plain(rel, q, geom)
-    return _launch_fwd(rel, q, geom)
+@_k.register_fake("spread_fwd")
+def _(rel, q, geometry, method):
+    return rel.new_empty((q.shape[-1], *geometry[:3]))
 
 
-@_k.custom_op("spread_bwd")
-def spread_bwd(
-    rel: Tensor, q: Tensor, ct_rho: Tensor, geometry: Sequence[int], method: str,
-    plain: bool = False,
-) -> tuple[Tensor, Tensor]:
-    """Kernel B: ``(rel, q, ∂E/∂ρ)`` → ``(∂E/∂rel, ∂E/∂q)`` (the twin
-    :func:`spread_plain_bwd` on CPU tensors or with ``plain``)."""
-    geom = SpreadGeometry.from_args(geometry, method)
-    if plain or rel.device.type == "cpu":
-        return spread_plain_bwd(rel, q, ct_rho, geom)
-    return _launch_bwd(rel, q, ct_rho, geom)
+@_k.register_fake("spread_bwd")
+def _(rel, q, ct_rho, geometry, method):
+    return torch.empty_like(rel), torch.empty_like(q)
 
 
-spread_fwd.register_fake(
-    lambda rel, q, geometry, method, plain=False: rel.new_empty((q.shape[-1], *geometry[:3])))
-spread_bwd.register_fake(
-    lambda rel, q, ct_rho, geometry, method, plain=False:
-    (torch.empty_like(rel), torch.empty_like(q)))
+#: kernel A: ``(nb, 3)`` rel, ``(nb, C)`` charges → ``(C, nx, ny, nz)``
+spread_fwd = _k.tpme_op("spread_fwd")
+#: kernel B: ``(rel, q, ∂E/∂ρ)`` → ``(∂E/∂rel, ∂E/∂q)``
+spread_bwd = _k.tpme_op("spread_bwd")
 
 
 def _spread_setup(ctx, inputs, output):
     ctx.save_for_backward(*inputs[:2])
-    ctx.static = tuple(inputs[2:])  # geometry, method (and plain)
+    ctx.static = tuple(inputs[2:])  # geometry, method
 
 
 def _spread_vjp(ctx, ct_rho):
     """Kernel A's VJP is kernel B."""
     rel, q = ctx.saved_tensors
-    ct_rel, ct_q = spread_bwd(rel, q, ct_rho.contiguous(), *ctx.static)
+    ct_rel, ct_q = _k.call("spread_bwd", rel, q, ct_rho.contiguous(), *ctx.static,
+                           plain=ctx.plain)
     return ct_rel, ct_q, *(None,) * len(ctx.static)
 
 
-spread_fwd.register_autograd(_spread_vjp, setup_context=_spread_setup)
-_k.refuse_vmap(spread_fwd, "tpme::spread_fwd (kernel A)")
-_k.refuse_vmap(spread_bwd, "tpme::spread_bwd (kernel B)")
+_k.register_autograd("spread_fwd", _spread_vjp, _spread_setup)
+_k.refuse_vmap("spread_fwd", "tpme::spread_fwd (kernel A)")
+_k.refuse_vmap("spread_bwd", "tpme::spread_bwd (kernel B)")
 
 #: ``(rel, q) → ρ`` with kernel A and its VJP (kernel B), or with ``plain``
 #: the twin pair on any device: ``_Spread.apply(rel, q, geometry, method,
 #: plain)``
-_Spread = _k.op_function("_Spread", spread_fwd, _spread_setup, _spread_vjp)
+_Spread = _k.op_function("_Spread", "spread_fwd", _spread_setup, _spread_vjp)
 
 
 def fused_spread(rel: torch.Tensor, q: torch.Tensor, geom: SpreadGeometry):
